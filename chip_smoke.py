@@ -5,9 +5,10 @@
 
 Phases, each of which ends the run with a non-zero exit on any failure:
 
-1. Build: compile the sweep-grid kernels from ``src/repro_torch/kernels/
-   sweep_grid/csrc`` with nvcc (sm_90a) and print the card and its
-   power limit.
+1. Build: compile the sweep-grid kernels (``src/repro_torch/kernels/
+   sweep_grid/csrc``) and the RBE int8 kernel (``src/repro_torch/kernels/
+   rbe_matmul/csrc``) with nvcc (sm_90a), one nvcc each, started
+   together, and print the card and its power limit.
 2. Kernel vs plain on the card: kernel A (the fused chunk step) against
    its plain PyTorch version for chunks of 997, 4096 and 131072 lanes,
    d = 1, 2, 3, constraints and a maximized objective; kernel B (dense
@@ -24,16 +25,33 @@ Phases, each of which ends the run with a non-zero exit on any failure:
    run), then again with ``backend="torch"`` on the card: the same
    argmin, top-k, counts and front.  Then the 10,009,600-config grid
    against the anchors frozen from the JAX reference.
-5. Report: a ``kernels`` JSON line (launches, error, kernel and plain
-   time per launch at the main path's shapes, the card's bound for the
-   same work), a ``stream`` JSON line, the card's name and power limit,
-   and last the ``ok`` line.
+5. Kernel C vs plain on the card: ``rbe_matmul_raw`` against its plain
+   version at KeyNet's three int8 shapes (1 and 4 ROIs), the reference
+   test's shapes, a ragged shape and saturated (+-127) inputs: bitwise
+   equal.  ``quantize_rowwise`` on the card equals its CPU run bitwise.
+6. Hand-tracking pipeline (the second path): DetNet -> ROI -> KeyNet
+   float and int8 on 4 frames (one per camera) through
+   ``repro_torch.handtracking_pipeline``, with the launch count read
+   around exactly that run (kernel C: 3 a forward), against the port's
+   CPU run on the same frames and weights: the same ROI origins, DetNet
+   and KeyNet float within rtol 1e-4 / atol 1e-5 (float32 sums in
+   another order, TF32 off), the three int8 products bitwise equal to
+   the CPU's on the same inputs, the int8 keypoints within relative L2
+   5e-3 (an ulp of an activation can flip an int8 rounding at a tie,
+   and one flip moves them by 1.45e-3); the pricing equals the anchors
+   frozen from the JAX reference.
+7. Report: a ``kernels`` JSON line (launches, error, kernel and plain
+   time at the main path's shapes, the card's bound for the same work,
+   the library call's time where there is one), ``stream``,
+   ``rbe_shapes`` and ``handtracking`` JSON lines, the card's name and
+   power limit, and last the ``ok`` line.
 
 Imports nothing of JAX or of the JAX reference package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 import re
@@ -102,9 +120,9 @@ def sass_fp64(lib: pathlib.Path) -> dict:
     for operands near the range's ends) do not run on this model's
     values.  The body of ``eval_kernel`` has no loop around its float64
     work, so its count is what one configuration of Eq. 1-11 issues."""
-    from repro_torch.kernels.sweep_grid import kernel as K
+    from repro_torch.kernels._build import nvcc
 
-    tool = pathlib.Path(K._nvcc()).parent / "cuobjdump"
+    tool = pathlib.Path(nvcc()).parent / "cuobjdump"
     check(tool.exists(), f"{tool} not found: cannot count the kernels' "
           "float64 instructions")
     text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
@@ -355,14 +373,11 @@ def phase_dense(grid_ref, dev) -> None:
 def phase_stream(grid_big, grid_10m, anchor, dev) -> tuple:
     from repro_torch.core import stream as ST
     from repro_torch.core.grids import index_hash
-    from repro_torch.kernels import sweep_grid as K
 
     sync(dev)
-    K.sweep_grid_chunk.launches = 0
-    K.sweep_grid_eval.launches = 0
+    reset_counts()
     res = ST.stream_grid(**grid_big, device=dev)
-    launches = {"A": K.sweep_grid_chunk.launches,
-                "B": K.sweep_grid_eval.launches}
+    launches = read_counts()
     check(launches["A"] > 0 and launches["B"] > 0,
           f"main path skipped a kernel: launches {launches}")
     print(f"stream {res.n_configs} configs via kernels: "
@@ -405,7 +420,7 @@ def kernel_report(res, launches, err, grid_big, dev) -> list:
     from repro_torch.core import stream as ST
     from repro_torch.core import sweep as SW
     from repro_torch.kernels import sweep_grid as K
-    from repro_torch.kernels.sweep_grid.kernel import library_path
+    from repro_torch.kernels.sweep_grid.kernel import LIBRARY
 
     plan = ST.plan_stream(**grid_big, device=dev)
     spec = plan.spec
@@ -428,7 +443,7 @@ def kernel_report(res, launches, err, grid_big, dev) -> list:
     # and objective, the edge searches and the table compare, and the
     # block reductions (about one combine a lane: two compares and a max
     # per tracked field, a min per objective).
-    sass = sass_fp64(library_path())
+    sass = sass_fp64(LIBRARY.path())
     eq_ops = sass["eval_kernel"]["fp64"]
     bins = spec.filter_bins + 1
     ops_a = spec.chunk * (eq_ops + d + spec.filter_rows * d * 2
@@ -475,8 +490,295 @@ def kernel_report(res, launches, err, grid_big, dev) -> list:
     return rows, host
 
 
+# ---------------------------------------------------------------------------
+# Kernel C and the hand-tracking pipeline
+# ---------------------------------------------------------------------------
+
+#: Int8 operations an H100 SXM's tensor cores do a second (data sheet,
+#: dense, at the 700 W limit).
+PEAK_INT8_OPS_PER_S = 1979e12
+
+#: ROIs (one a camera) of the pipeline's batch, and the batch of the
+#: reading at which kernel C fills the card.
+PIPELINE_BATCH = 4
+BIG_ROIS = 256
+
+#: Relative L2 within which the card's int8 keypoints match the CPU's:
+#: a few int8 rounding flips at ties (see phase_pipeline).
+INT8_REL_L2 = 5e-3
+
+# Kernel C's cases against its plain version: (m, k, n, seed, saturate).
+RBE_FIXED_CASES = (
+    (128, 128, 128, 1, False), (256, 512, 384, 2, False),
+    (512, 256, 128, 3, False),                     # reference test shapes
+    (997, 130, 200, 4, False), (1, 7, 3, 5, False),    # ragged M, K, N
+    (576, 128, 128, 6, True), (333, 4096, 65, 7, True))  # saturated
+
+
+def reset_counts() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    from repro_torch.kernels import rbe_matmul as R
+    from repro_torch.kernels import sweep_grid as K
+
+    K.sweep_grid_chunk.launches = 0
+    K.sweep_grid_eval.launches = 0
+    R.rbe_matmul_raw.launches = 0
+
+
+def read_counts() -> dict:
+    from repro_torch.kernels import rbe_matmul as R
+    from repro_torch.kernels import sweep_grid as K
+
+    return {"A": K.sweep_grid_chunk.launches,
+            "B": K.sweep_grid_eval.launches,
+            "C": R.rbe_matmul_raw.launches}
+
+
+def keynet_int8_shapes(batch: int) -> list:
+    """(name, M, K, N) of each KeyNet layer the int8 path runs on kernel
+    C, for ``batch`` ROIs."""
+    from repro_torch.core.handtracking import build_keynet
+    from repro_torch.models.cnn import rbe_routed
+
+    return [(s.name, batch * s.in_act_bytes // s.cin, s.cin, s.cout)
+            for s in build_keynet().layers if rbe_routed(s)]
+
+
+def rbe_operands(m, k, n, seed, saturate, dev) -> tuple:
+    """int8 operands and positive float32 scales, from a numpy seed."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    if saturate:
+        xq = rng.choice(np.asarray([-127, 127], np.int8), (m, k))
+        wq = rng.choice(np.asarray([-127, 127], np.int8), (k, n))
+    else:
+        xq = rng.integers(-127, 128, (m, k)).astype(np.int8)
+        wq = rng.integers(-127, 128, (k, n)).astype(np.int8)
+    sx = (np.abs(rng.standard_normal(m)) + 0.1).astype(np.float32)
+    sw = (np.abs(rng.standard_normal(n)) + 0.1).astype(np.float32)
+    return tuple(torch.as_tensor(a, device=dev) for a in (xq, wq, sx, sw))
+
+
+def int8_work(m: int, k: int, n: int) -> tuple:
+    """Bytes and int8 operations one (m, k, n) product with its dequant
+    needs: each operand, scale and output byte moved once; 2mnk."""
+    return m * k + k * n + 4 * m + 4 * n + 4 * m * n, 2 * m * n * k
+
+
+def int8_bound(nbytes: int, ops: int) -> tuple:
+    """Least time (ms) the card needs for that work, and which of bytes
+    and operations bounds it."""
+    tb = nbytes / PEAK_BYTES_PER_S * 1e3
+    to = ops / PEAK_INT8_OPS_PER_S * 1e3
+    return max(tb, to), "bytes" if tb >= to else "operations"
+
+
+def phase_rbe(dev) -> float:
+    """Kernel C against its plain version, bitwise, and quantize_rowwise
+    on ``dev`` against the CPU; returns the largest absolute difference
+    seen (0.0 when every case is bitwise equal)."""
+    import torch
+
+    from repro_torch.kernels import rbe_matmul as R
+
+    cases = [(m, k, n, 10 + b, False) for b in (1, PIPELINE_BATCH)
+             for _, m, k, n in keynet_int8_shapes(b)]
+    worst = 0.0
+    for m, k, n, seed, sat in cases + list(RBE_FIXED_CASES):
+        args = rbe_operands(m, k, n, seed, sat, dev)
+        got = R.rbe_matmul_raw(*args)
+        want = R.rbe_matmul_ref(*args)
+        sync(dev)
+        e = (got - want).abs().max().item()
+        worst = max(worst, e)
+        check(torch.equal(got, want),
+              f"kernel C {m}x{k}x{n}{' saturated' if sat else ''}: "
+              f"differs from its plain version (max_abs_err {e!r})")
+        print(f"kernel C {m}x{k}x{n}{' saturated' if sat else ''}: "
+              f"max_abs_err={e!r}")
+    rng = np.random.default_rng(20)
+    for shape, axis in (((576, 128), -1), ((128, 256), 0),
+                        ((36864, 128), -1)):
+        x = rng.standard_normal(shape) * np.exp(
+            rng.uniform(-3, 3, (shape[0], 1)))
+        x = torch.as_tensor(x.astype(np.float32))
+        qc, sc = R.quantize_rowwise(x, axis=axis)
+        qd, sd = R.quantize_rowwise(x.to(dev), axis=axis)
+        check(torch.equal(qd.cpu(), qc) and torch.equal(sd.cpu(), sc),
+              f"quantize_rowwise {shape} axis={axis}: the card differs "
+              f"from the CPU")
+    print("quantize_rowwise: card == cpu, bitwise (int8 values and scales)")
+    return worst
+
+
+@contextlib.contextmanager
+def recorded_int8_layers():
+    """Record ``(input, weight, output)`` of every ``rbe_matmul`` call a
+    ``HandCNN`` forward makes inside the ``with``."""
+    from repro_torch.models import cnn
+
+    calls, real = [], cnn.rbe_matmul
+
+    def recording(x, w):
+        out = real(x, w)
+        calls.append((x, w, out))
+        return out
+
+    cnn.rbe_matmul = recording
+    try:
+        yield calls
+    finally:
+        cnn.rbe_matmul = real
+
+
+def pipeline_models(dev) -> tuple:
+    """DetNet and KeyNet with the weights of fixed generator seeds, made
+    on the CPU and moved to ``dev``, so every device gets the same."""
+    import torch
+
+    from repro_torch.models.cnn import HandCNN
+
+    det = HandCNN.detnet(torch.Generator().manual_seed(0), "cpu")
+    key = HandCNN.keynet(torch.Generator().manual_seed(1), "cpu")
+    return det.to(dev), key.to(dev)
+
+
+def rel_l2(got, want) -> float:
+    return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+
+
+def phase_pipeline(dev, smi: str) -> tuple:
+    """The hand-tracking pipeline on ``dev`` against the port's CPU run;
+    returns its launch counts and the ``handtracking`` report."""
+    import torch
+
+    from repro_torch import handtracking_pipeline as HP
+    from repro_torch.core.grids import PRICING_ANCHOR
+    from repro_torch.kernels.rbe_matmul import rbe_matmul
+
+    frames_np = np.random.default_rng(7).random(
+        (PIPELINE_BATCH, *HP.FRAME_HW, 1), dtype=np.float32)
+    det_c, key_c = pipeline_models("cpu")
+    want = HP.pipeline_forward(torch.as_tensor(frames_np), det_c, key_c)
+    det, key = pipeline_models(dev)
+    frames = torch.as_tensor(frames_np, device=dev)
+    HP.pipeline_forward(frames, det, key)        # warm-up (cuDNN plans)
+
+    sync(dev)
+    reset_counts()
+    got = HP.pipeline_forward(frames, det, key)
+    sync(dev)
+    launches = read_counts()
+    check(launches == {"A": 0, "B": 0, "C": 3},
+          f"pipeline: expected 3 launches of kernel C (one int8 KeyNet "
+          f"forward) and none of A or B, got {launches}")
+    price = HP.pricing()
+    check(price == PRICING_ANCHOR,
+          f"pricing differs from the JAX anchors: {price}")
+
+    check(got["origins"] == want["origins"],
+          f"ROI origins differ: {got['origins']} vs {want['origins']}")
+    for k in ("det_out", "kp_f32"):
+        g = got[k].cpu()
+        check(torch.allclose(g, want[k], rtol=1e-4, atol=1e-5),
+              f"pipeline {k}: card vs cpu max abs diff "
+              f"{(g - want[k]).abs().max().item()!r}")
+    # The int8 layers, exactly: each of the three int8 products of the
+    # card's forward equals the port's CPU rbe_matmul on the same float
+    # input and weight, bit for bit.
+    with recorded_int8_layers() as calls:
+        key(got["rois"], use_rbe_int8=True)
+    sync(dev)
+    check(len(calls) == 3, f"int8 KeyNet made {len(calls)} int8 products")
+    for pix, w, out in calls:
+        check(torch.equal(rbe_matmul(pix.cpu(), w.cpu()), out.cpu()),
+              f"int8 layer {tuple(pix.shape)}x{tuple(w.shape)}: the card "
+              f"differs from the CPU on the same input")
+    # End to end: the float layers before each int8 one differ by ulps
+    # between the card and the CPU, and an ulp at a rounding tie flips an
+    # int8 value.  One such flip moves these keypoints by 1.45e-3
+    # relative L2 (reproduced on the CPU alone by scaling the ROIs by
+    # 1 + 1e-7 noise: tests/test_torch_cnn.py); a fault in quantization,
+    # routing or the epilogue moves them by the int8 path's own error,
+    # ~2e-2.
+    int8_l2 = rel_l2(got["kp_int8"].cpu(), want["kp_int8"])
+    check(int8_l2 <= INT8_REL_L2, f"pipeline kp_int8: card vs cpu "
+          f"relative L2 {int8_l2!r} > {INT8_REL_L2}")
+    print(f"pipeline {PIPELINE_BATCH} frames: card == cpu (ROIs "
+          f"{got['origins']}, int8 layers bitwise, int8 keypoints rel L2 "
+          f"{int8_l2!r}), launches {launches}, pricing == JAX anchors")
+
+    rois = got["rois"]
+    stages = {"detnet": lambda: det(frames),
+              "keynet_f32": lambda: key(rois),
+              "keynet_int8": lambda: key(rois, use_rbe_int8=True)}
+    report = {"batch": PIPELINE_BATCH,
+              "origins": got["origins"],
+              "int8_rel_err": got["rel_err"],
+              "card_vs_cpu": {
+                  "det_max_abs": (got["det_out"].cpu()
+                                  - want["det_out"]).abs().max().item(),
+                  "kp_f32_max_abs": (got["kp_f32"].cpu()
+                                     - want["kp_f32"]).abs().max().item(),
+                  "kp_int8_rel_l2": int8_l2}}
+    for name, fn in stages.items():
+        report[name] = {"device_ms": device_ms(fn, 20),
+                        "wall_ms": host_ms(fn, 20)}
+    report["card"] = smi
+    return launches, report
+
+
+def rbe_report(launches: dict, err: float, dev, smi: str) -> tuple:
+    """Kernel C's row of the ``kernels`` line at the pipeline's shapes
+    (the three launches of one int8 KeyNet forward at 4 ROIs, summed),
+    and the per-shape readings, at 256 ROIs too."""
+    import torch
+
+    from repro_torch.kernels import rbe_matmul as R
+
+    def library(args):
+        # torch._int_mm: the int8 product alone (no dequant epilogue).
+        try:
+            fn = lambda: torch._int_mm(args[0], args[1])  # noqa: E731
+            fn()
+        except RuntimeError:
+            return None
+        return device_ms(fn, 50)
+
+    shapes = []
+    for rois, reps in ((PIPELINE_BATCH, 50), (BIG_ROIS, 20)):
+        for name, m, k, n in keynet_int8_shapes(rois):
+            if rois == BIG_ROIS and name != "b4.pw":
+                continue
+            args = rbe_operands(m, k, n, 30, False, dev)
+            nbytes, ops = int8_work(m, k, n)
+            b_ms, b_by = int8_bound(nbytes, ops)
+            shapes.append({
+                "layer": name, "rois": rois, "m": m, "k": k, "n": n,
+                "bytes": nbytes, "ops": ops,
+                "ms": device_ms(lambda: R.rbe_matmul_raw(*args), reps),
+                "wall_ms": host_ms(lambda: R.rbe_matmul_raw(*args), reps),
+                "plain_ms": device_ms(lambda: R.rbe_matmul_ref(*args), reps),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": library(args)})
+    main = [r for r in shapes if r["rois"] == PIPELINE_BATCH]
+    lib = [r["library_ms"] for r in main]
+    b_ms, b_by = int8_bound(sum(r["bytes"] for r in main),
+                            sum(r["ops"] for r in main))
+    row = {"name": "rbe_matmul_raw", "route": "cuda",
+           "source": "src/repro_torch/kernels/rbe_matmul/csrc/rbe_matmul.cu",
+           "replaces": "src/repro/kernels/rbe_matmul/kernel.py:27",
+           "launches": launches["C"], "max_abs_err": err,
+           "ms": sum(r["ms"] for r in main),
+           "plain_ms": sum(r["plain_ms"] for r in main),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": None if None in lib else sum(lib)}
+    return row, {"rbe_shapes": shapes, "card": smi}
+
+
 def run(dev, grid_big, smi: str) -> None:
-    """Phases 2-5 on ``dev`` with ``grid_big`` as the main path's grid."""
+    """Phases 2-7 on ``dev`` with ``grid_big`` as the stream's grid."""
     from repro_torch.core import stream as ST
     from repro_torch.core.grids import (ANCHOR_10M, REFERENCE_GRID,
                                         stream_grid_axes)
@@ -485,7 +787,11 @@ def run(dev, grid_big, smi: str) -> None:
     phase_dense(REFERENCE_GRID, dev)
     res, launches = phase_stream(grid_big, stream_grid_axes(10_000_000),
                                  ANCHOR_10M, dev)
+    err["C"] = phase_rbe(dev)
+    ht_launches, ht = phase_pipeline(dev, smi)
     rows, host = kernel_report(res, launches, err, grid_big, dev)
+    row_c, shapes = rbe_report(ht_launches, err["C"], dev, smi)
+    rows.append(row_c)
     print(json.dumps({"host_ms_per_call": host, "card": smi}))
     stats = {k: res.stats[k] for k in ("n_configs", "n_chunks", "total_s",
                                        "configs_per_s", "first_chunk_s",
@@ -505,7 +811,26 @@ def run(dev, grid_big, smi: str) -> None:
     stats["device_s_by_kernel"] = dict(sorted(
         busy.items(), key=lambda kv: -kv[1])[:8])
     print(json.dumps({"stream": stats, "card": smi}))
+    print(json.dumps(shapes))
+    print(json.dumps({"handtracking": ht}))
     print(json.dumps({"kernels": rows}))
+
+
+def build(libs) -> None:
+    """Build every kernel library (one nvcc each, all started together)
+    and print the time and the compiler's register/spill report."""
+    from repro_torch.kernels._build import build_all
+
+    t0 = time.perf_counter()
+    build_all(libs)
+    print(f"build: {time.perf_counter() - t0:.1f} s for "
+          f"{len(libs)} libraries in parallel")
+    for lib in libs:
+        lib.load()
+        print(f"build {lib.name}: {lib.info.get('seconds', 0.0):.1f} s nvcc")
+        for line in lib.info.get("ptxas", "").splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas {lib.name}: {line.strip()}")
 
 
 def main() -> int:
@@ -515,17 +840,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     from repro_torch.core.grids import stream_grid_axes
+    from repro_torch.kernels.rbe_matmul import kernel as R
     from repro_torch.kernels.sweep_grid import kernel as K
 
     smi = card()
     print(f"card: {smi}")
-    t0 = time.perf_counter()
-    K._lib()
-    print(f"build: {K.BUILD_INFO.get('seconds', 0.0):.1f} s nvcc, "
-          f"{time.perf_counter() - t0:.1f} s to load")
-    for line in K.BUILD_INFO.get("ptxas", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"ptxas: {line.strip()}")
+    build((K.LIBRARY, R.LIBRARY))
     run(torch.device("cuda"), stream_grid_axes(100_000_000), smi)
     print(smi)
     print(json.dumps({"ok": True, "device": {

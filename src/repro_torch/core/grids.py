@@ -12,6 +12,11 @@ it along the rate axes to the sizes the streaming benchmark sweeps
 ``avg_power``, ``latency``, ``mipi_bytes_per_s``; top-4): data, copied
 from a run of the JAX package on the CPU, and re-derived from it by
 ``tests/test_torch_anchors.py``.
+
+``PRICING_ANCHOR`` holds the reference's pricing of the hand-tracking
+pipeline (``examples/handtracking_pipeline.py``): the average power of
+``build_centralized("7nm")`` and ``build_distributed("7nm", "7nm")`` in
+watts and ``latency_comparison()``, copied and re-derived the same way.
 """
 
 from __future__ import annotations
@@ -64,4 +69,14 @@ ANCHOR_10M = dict(
     front_size=784,
     front_hash="8c441ebb46c2f302a055a8109e5c43bd"
                "8090bbaa37885da28ff560650b5f4af9",
+)
+
+PRICING_ANCHOR = dict(
+    centralized_avg_power=0.027553258618113446,
+    distributed_avg_power=0.02094809012529072,
+    latency={"centralized_ms": 15.508995154854953,
+             "distributed_ms": 14.763267154854951,
+             "_saving": 0.048083579403695786,
+             "_readout_saving_ms": 0.7641600000000001,
+             "_queue_saving_ms": 4.830328729786069},
 )

@@ -628,3 +628,48 @@ def evaluate_grid(cuts: Optional[Iterable[int]] = None,
                  torch.arange(n, dtype=torch.int64, device=dev))
     data = {k: v.cpu().numpy().reshape(shape) for k, v in out.items()}
     return SweepResult(axes=axes, data=data)
+
+
+def scalar_axes(kw: Mapping) -> dict:
+    """Map ``partition.evaluate_cut``-style kwargs onto grid axes — the
+    one place the kwarg↔axis correspondence is written down (shared by
+    :func:`evaluate_one` and ``partition.optimal_partition``).  Scalar
+    values become singleton axes; a list/tuple/array value passes through
+    as a whole axis, which is how ``optimal_partition`` grows single-knob
+    calls into grid (and, past the size threshold, streaming) searches."""
+    def ax(name, default):
+        v = kw.get(name, default)
+        if v is None:
+            v = default
+        return (tuple(v) if isinstance(v, (list, tuple, np.ndarray))
+                else (v,))
+
+    return dict(
+        agg_nodes=ax("agg_node", "7nm"),
+        sensor_nodes=ax("sensor_node", "7nm"),
+        weight_mems=ax("sensor_weight_mem", "sram"),
+        detnet_fps=ax("detnet_fps", DETNET_FPS),
+        keynet_fps=ax("keynet_fps", KEYNET_FPS),
+        num_cameras=ax("num_cameras", NUM_CAMERAS),
+        mipi_energy_scale=ax("mipi_energy_scale", 1.0),
+        camera_fps=ax("camera_fps", CAMERA_FPS),
+        detnet=kw.get("detnet"), keynet=kw.get("keynet"))
+
+
+def evaluate_one(cut: int, backend: Optional[str] = None, device="cuda",
+                 **kw) -> dict[str, float]:
+    """Single-configuration convenience wrapper over :func:`evaluate_grid`.
+
+    Scalar keyword arguments match ``partition.evaluate_cut`` (``agg_node``,
+    ``sensor_node``, ``sensor_weight_mem``, fps knobs, ...); returns the
+    model's field dict for that one point.  Sequence-valued kwargs are
+    rejected — grid axes belong to :func:`evaluate_grid` (or
+    ``partition.optimal_partition``, which accepts them directly).
+    """
+    seq = sorted(k for k, v in kw.items()
+                 if isinstance(v, (list, tuple, np.ndarray)))
+    if seq:
+        raise ValueError(f"evaluate_one takes scalar knobs only; {seq} "
+                         f"are sequences — use evaluate_grid for axes")
+    return evaluate_grid(cuts=(cut,), backend=backend, device=device,
+                         **scalar_axes(kw)).breakdown_at(0)

@@ -29,12 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
 import pathlib
-import shutil
-import subprocess
-import time
 
 import numpy as np
 import torch
@@ -42,15 +37,15 @@ import torch
 from repro_torch.core import arrays as A
 from repro_torch.core import sweep as SW
 
+from .._build import BASE_FLAGS, Library
 from . import ref
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = ("sweep_grid.cu", "sweep_grid.cuh")
-#: Build output directory (listed in ``.gitignore``).
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[4] / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+#: The kernels' library.  ``--fmad=false`` keeps every float64 add and
+#: multiply a separate IEEE operation, as in the plain version.
+LIBRARY = Library("sweep_grid", CSRC, "sweep_grid.cu",
+                  ("sweep_grid.cu", "sweep_grid.cuh"),
+                  BASE_FLAGS + ("--fmad=false",))
 
 #: Tables the kernels read, in the order of ``enum Table`` in
 #: ``csrc/sweep_grid.cuh``.
@@ -74,53 +69,9 @@ _OPS = {"<=": 0, ">=": 1, "<": 2, ">": 3}
 MAX_CONS = 8
 MAX_ROWS = 64
 
-#: Seconds and compiler report of the build this process loaded.
-BUILD_INFO: dict = {}
-
-
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the sweep-grid kernels are built "
-                       "from csrc/ at first use and need the CUDA toolkit")
-
-
-def library_path() -> pathlib.Path:
-    """Where the library for the current sources and flags lives (the
-    name carries a hash of both, so a stale build is never loaded)."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update((CSRC / name).read_bytes())
-    return BUILD_DIR / f"libsweep_grid-{h.hexdigest()[:16]}.so"
-
-
-def build() -> pathlib.Path:
-    """Compile ``csrc/sweep_grid.cu`` unless this exact build exists."""
-    out = library_path()
-    if out.exists():
-        BUILD_INFO.setdefault("seconds", 0.0)
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / "sweep_grid.cu")],
-        capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    BUILD_INFO.update(seconds=time.perf_counter() - t0,
-                      ptxas=proc.stdout + proc.stderr)
-    return out
-
-
 @functools.lru_cache(maxsize=1)
 def _lib():
-    lib = ctypes.CDLL(str(build()))
+    lib = LIBRARY.load()
     for fn in (lib.sweep_grid_chunk_launch, lib.sweep_grid_eval_launch):
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]

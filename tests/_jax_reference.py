@@ -301,6 +301,207 @@ def task_anchor(p):
             "front_idx": np.asarray(res.front_indices)}
 
 
+# ---------------------------------------------------------------------------
+# Hand-tracking slice: inputs made with numpy from a seed, on both sides
+# ---------------------------------------------------------------------------
+
+
+def rbe_inputs(m: int, k: int, n: int, seed: int, saturate: bool = False):
+    """int8 operands and positive float32 scales of one raw-kernel case
+    (``saturate``: every entry +-127)."""
+    rng = np.random.default_rng(seed)
+    if saturate:
+        x_q = rng.choice(np.asarray([-127, 127], np.int8), (m, k))
+        w_q = rng.choice(np.asarray([-127, 127], np.int8), (k, n))
+    else:
+        x_q = rng.integers(-127, 128, (m, k)).astype(np.int8)
+        w_q = rng.integers(-127, 128, (k, n)).astype(np.int8)
+    sx = (np.abs(rng.standard_normal(m)) + 0.1).astype(np.float32)
+    sw = (np.abs(rng.standard_normal(n)) + 0.1).astype(np.float32)
+    return x_q, w_q, sx, sw
+
+
+def float_inputs(shape, seed: int, scale: float = 1.0) -> np.ndarray:
+    """float32 standard-normal values, rows scaled over several decades
+    (so per-row quantization scales differ widely)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape) * scale
+    x *= np.exp(rng.uniform(-3, 3, (shape[0],) + (1,) * (len(shape) - 1)))
+    return x.astype(np.float32)
+
+
+def frames(batch: int, seed: int) -> np.ndarray:
+    """Synthetic camera frames in [0, 1): (batch, 240, 320, 1) float32."""
+    rng = np.random.default_rng(seed)
+    return rng.random((batch, 240, 320, 1), dtype=np.float32)
+
+
+def task_rbe(p):
+    """The Pallas kernel (interpret mode) and its oracle on the raw
+    cases; ``quantize_rowwise`` and ``rbe_matmul`` as the reference's
+    jitted ``rbe_matmul`` runs them, on the float cases."""
+    jax = _import_reference()
+    import jax.numpy as jnp
+
+    from repro.kernels.rbe_matmul import (quantize_rowwise, rbe_matmul,
+                                          rbe_matmul_raw, rbe_matmul_ref)
+    out = {"raw": [], "quant": [], "float": []}
+    for case in p["raw"]:
+        args = tuple(map(jnp.asarray, rbe_inputs(*case)))
+        out["raw"].append({"kernel": np.asarray(rbe_matmul_raw(*args)),
+                           "ref": np.asarray(rbe_matmul_ref(*args))})
+    quant = jax.jit(quantize_rowwise, static_argnames="axis")
+    for shape, seed, axis in p["quant"]:
+        q, s = quant(jnp.asarray(float_inputs(tuple(shape), seed)),
+                     axis=axis)
+        out["quant"].append({"q": np.asarray(q), "s": np.asarray(s)})
+    for m, k, n, seed in p["float"]:
+        x = float_inputs((m, k), seed)
+        w = float_inputs((k, n), seed + 1)
+        out["float"].append(np.asarray(rbe_matmul(jnp.asarray(x),
+                                                  jnp.asarray(w))))
+    return out
+
+
+def _hand_cnn(net: str):
+    from repro.models.cnn import HandCNN
+    return HandCNN.detnet() if net == "detnet" else HandCNN.keynet()
+
+
+def task_cnn(p):
+    """One net's reference parameters (``HandCNN.init`` from a seed), an
+    input batch, and its float (and, for ``int8``, RBE int8) outputs."""
+    jax = _import_reference()
+    import jax.numpy as jnp
+
+    cnn = _hand_cnn(p["net"])
+    params = cnn.init(jax.random.key(p["seed"]))
+    h, w = cnn.input_hw
+    x = float_inputs((p["batch"], h, w, 1), p["seed"], 0.5)
+    out = {"params": [{k: np.asarray(v) for k, v in lp.items()}
+                      for lp in params],
+           "x": x,
+           "float": np.asarray(cnn.apply(params, jnp.asarray(x))),
+           "macs": cnn.traced_macs(), "n_weights": sum(
+               int(lp["w"].size) for lp in params)}
+    if p.get("int8"):
+        out["int8"] = np.asarray(cnn.apply(params, jnp.asarray(x),
+                                           use_rbe_int8=True))
+    return out
+
+
+def task_pipeline(p):
+    """``examples/handtracking_pipeline.py``'s logic, frame by frame, on
+    numpy frames: the ROI origin, KeyNet's float and int8 keypoints,
+    their relative error, and the pricing lines."""
+    jax = _import_reference()
+    import jax.numpy as jnp
+
+    from repro.core import latency, system
+    from repro.models.cnn import HandCNN
+    det, keynet = HandCNN.detnet(), HandCNN.keynet()
+    det_params = det.init(jax.random.key(p["seed"]))
+    key_params = keynet.init(jax.random.key(p["seed"] + 1))
+    fr = frames(p["batch"], p["seed"])
+    out = {"frames": fr, "origins": [], "kp_f32": [], "kp_int8": [],
+           "rel_err": [],
+           "det_params": [{k: np.asarray(v) for k, v in lp.items()}
+                          for lp in det_params],
+           "key_params": [{k: np.asarray(v) for k, v in lp.items()}
+                          for lp in key_params]}
+    for i in range(p["batch"]):
+        frame = jnp.asarray(fr[i:i + 1])
+        det_out = det.apply(det_params, frame)
+        grid = det_out[0, :20 * 15 * 6].reshape(20, 15, 6)
+        idx = jnp.unravel_index(jnp.argmax(grid[..., 0]), (20, 15))
+        cy = int(idx[1]) * 16
+        cx = int(idx[0]) * 16
+        y0 = max(0, min(240 - 96, cy - 48))
+        x0 = max(0, min(320 - 96, cx - 48))
+        roi = jax.lax.dynamic_slice(frame, (0, y0, x0, 0), (1, 96, 96, 1))
+        kp_f32 = keynet.apply(key_params, roi)
+        kp_int8 = keynet.apply(key_params, roi, use_rbe_int8=True)
+        err = float(jnp.linalg.norm(kp_f32 - kp_int8)
+                    / jnp.maximum(jnp.linalg.norm(kp_f32), 1e-9))
+        out["origins"].append((y0, x0))
+        out["kp_f32"].append(np.asarray(kp_f32[0]))
+        out["kp_int8"].append(np.asarray(kp_int8[0]))
+        out["rel_err"].append(err)
+    out["pricing"] = _pricing(system, latency)
+    return out
+
+
+def _pricing(system, latency) -> dict:
+    return {"centralized_avg_power":
+            system.build_centralized("7nm").avg_power,
+            "distributed_avg_power":
+            system.build_distributed("7nm", "7nm").avg_power,
+            "latency": latency.latency_comparison()}
+
+
+def _report(rep) -> dict:
+    return {"name": rep.name, "avg_power": rep.avg_power,
+            "breakdown": rep.breakdown(),
+            "modules": [(m.name, m.group, m.energy_per_frame, m.fps)
+                        for m in rep.modules]}
+
+
+def point_summary(pt) -> dict:
+    """Every field of a ``PartitionPoint`` as plain values."""
+    return {"cut": pt.cut, "label": pt.label, "avg_power": pt.avg_power,
+            "mipi_bytes_per_s": pt.mipi_bytes_per_s,
+            "sensor_macs_per_s": pt.sensor_macs_per_s,
+            "latency": pt.latency, "report": _report(pt.report),
+            "trace": pt.trace, "session": pt.session}
+
+
+def task_scalar(p):
+    """The scalar model: system builders, breakdowns, the Fig. 5
+    comparisons and the latency models."""
+    from repro.core import latency, system
+    out = {"pricing": _pricing(system, latency),
+           "fig5a": system.fig5a_comparison(),
+           "fig5b": system.fig5b_comparison(),
+           "fig5b_16nm_30": system.fig5b_comparison("16nm", 30.0),
+           "latency_16": latency.latency_comparison(agg_node="16nm",
+                                                    detnet_every=1),
+           "cut_latency": [dataclasses_dict(latency.cut_latency(c))
+                           for c in range(0, 34, 3)]}
+    for name, kw in p["systems"].items():
+        builder = (system.build_centralized if name.startswith("cen")
+                   else system.build_distributed)
+        out[name] = _report(builder(**kw))
+    return out
+
+
+def dataclasses_dict(obj) -> dict:
+    import dataclasses
+    d = dataclasses.asdict(obj)
+    d["total"] = obj.total
+    return d
+
+
+def task_partition(p):
+    """``evaluate_cut``, ``sweep_partitions``, ``optimal_partition`` and
+    ``sweep.evaluate_one`` on the given calls (``STREAM_THRESHOLD`` set
+    to ``threshold``)."""
+    from repro.core import partition, sweep
+    partition.STREAM_THRESHOLD = p.get("threshold", partition.STREAM_THRESHOLD)
+    out = {"one": {name: sweep.evaluate_one(cut, **kw)
+                   for name, (cut, kw) in p.get("one", {}).items()},
+           "cuts": {name: [point_summary(partition.evaluate_cut(c, **kw))
+                           for c in p.get("cuts", ())]
+                    for name, kw in p.get("evaluate", {}).items()},
+           "sweeps": {name: [point_summary(pt)
+                             for pt in partition.sweep_partitions(**kw)]
+                      for name, kw in p.get("sweeps", {}).items()},
+           "optimal": {}}
+    for name, kw in p["optimal"].items():
+        out["optimal"][name] = point_summary(
+            partition.optimal_partition(**kw))
+    return out
+
+
 TASKS = {name[5:]: fn for name, fn in globals().items()
          if name.startswith("task_")}
 

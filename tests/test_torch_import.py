@@ -11,9 +11,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import handtracking_pipeline
 from repro_torch.core import backend as B
-from repro_torch.core import stream, sweep
+from repro_torch.core import partition, stream, sweep
 from repro_torch.kernels import sweep_grid
+from repro_torch.models.cnn import HandCNN
 
 PKG = pathlib.Path(__file__).resolve().parent.parent / "src" / "repro_torch"
 
@@ -35,7 +37,7 @@ print(len(mods))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
-    assert int(out.stdout.split()[-1]) >= 12
+    assert int(out.stdout.split()[-1]) >= 28
 
 
 def _imports(path):
@@ -49,8 +51,8 @@ def _imports(path):
 
 
 def test_source_never_imports_jax_or_reference():
-    files = sorted(PKG.rglob("*.py"))
-    assert len(files) >= 12
+    files = sorted(PKG.rglob("*.py")) + [PKG.parents[1] / "chip_smoke.py"]
+    assert len(files) >= 30
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
@@ -61,7 +63,13 @@ def test_source_never_imports_jax_or_reference():
     lambda: sweep.evaluate_grid(cuts=(0, 1)),
     lambda: stream.stream_grid(cuts=(0, 1)),
     lambda: stream.plan_stream(cuts=(0, 1)),
-], ids=["evaluate_grid", "stream_grid", "plan_stream"])
+    lambda: sweep.evaluate_one(3),
+    lambda: partition.optimal_partition(),
+    lambda: HandCNN.keynet(),
+    lambda: handtracking_pipeline.run_pipeline(
+        np.zeros((1, 240, 320, 1), np.float32), [], []),
+], ids=["evaluate_grid", "stream_grid", "plan_stream", "evaluate_one",
+        "optimal_partition", "HandCNN", "run_pipeline"])
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
