@@ -5,10 +5,11 @@
 
 Phases, each of which ends the run with a non-zero exit on any failure:
 
-1. Build: compile the sweep-grid kernels (``src/repro_torch/kernels/
-   sweep_grid/csrc``) and the RBE int8 kernel (``src/repro_torch/kernels/
-   rbe_matmul/csrc``) with nvcc (sm_90a), one nvcc each, started
-   together, and print the card and its power limit.
+1. Build: compile every kernel library of the port
+   (``repro_torch.kernels._build.all_libraries``: the sweep grid, the RBE
+   int8 matmul, RMSNorm and flash attention, each from its ``csrc/``)
+   with nvcc (sm_90a), one nvcc each, started together, and print the
+   card and its power limit.
 2. Kernel vs plain on the card: kernel A (the fused chunk step) against
    its plain PyTorch version for chunks of 997, 4096 and 131072 lanes,
    d = 1, 2, 3, constraints and a maximized objective; kernel B (dense
@@ -20,7 +21,7 @@ Phases, each of which ends the run with a non-zero exit on any failure:
 3. Dense: ``evaluate_grid`` of the reference grid on the card equals the
    port's CPU run, field for field, with the same argmin, top-k and
    Pareto front.
-4. Stream (the main path): ``stream_grid`` over the 100,096,000-config
+4. Stream (the first path): ``stream_grid`` over the 100,096,000-config
    grid through the kernels (launch counts read around exactly this
    run), then again with ``backend="torch"`` on the card: the same
    argmin, top-k, counts and front.  Then the 10,009,600-config grid
@@ -40,11 +41,40 @@ Phases, each of which ends the run with a non-zero exit on any failure:
    5e-3 (an ulp of an activation can flip an int8 rounding at a tie,
    and one flip moves them by 1.45e-3); the pricing equals the anchors
    frozen from the JAX reference.
-7. Report: a ``kernels`` JSON line (launches, error, kernel and plain
-   time at the main path's shapes, the card's bound for the same work,
+7. Kernel D vs plain on the card: ``rmsnorm_fused`` against
+   ``rmsnorm_ref`` at gemma2-2b's forward (8192 x 2304 bf16) and decode
+   (4 x 2304) norms, the kernel_bench shape (4096 x 1024 f32) and a
+   ragged 997 x 130 in both dtypes: float32 within 16 ulp, bf16 within
+   one bf16 ulp.
+8. Kernel E vs plain on the card: ``flash_attention_fwd`` against the
+   full softmax ``flash_attention_ref`` at gemma2-2b's local and global
+   layers (B 1, S 8192, 8/4 heads, d 256, softcap 50, window 4096 / 0,
+   bf16), the kernel_bench shape (512 tokens, 4/2 heads, d 128, f32),
+   qwen2's head dim 64 at 14/2 heads, non-causal, Sq 512 against Skv
+   2048 with a window, and the reduced configs' d 32: bf16 within one
+   bf16 ulp, float32 within 1e-5 absolute + 1e-5 relative.
+9. LM (the third path): gemma2-2b at full width (26 layers, d 2304,
+   256,000 vocab, bf16, weights from a seeded generator on the card).
+   (a) ``transformer.forward`` on an 8192-token prompt, counts read
+   around exactly that run (105 launches of D, 26 of E), held against
+   the same forward on the plain versions of D and E on the card:
+   logits within 1.0 absolute (softcapped at 30; bf16 flips of one ulp in
+   norms and attention propagate through 26 layers) and at least 90 % of
+   the argmaxes equal.  (b) ``token_serve.main`` at the reference's CLI
+   defaults (batch 4, prompt 32, gen 16, greedy), counts read around it
+   (105 launches of D a step, none of E), then teacher-forced on its own
+   tokens through both paths: the kernel path reproduces the served
+   tokens, and the plain path's logits stay within the same bounds.
+   (c) The reduced float32 gemma2-2b and qwen2-0.5b (weights from the
+   numpy seed of ``repro_torch.models.anchors``) against the logits and
+   greedy tokens frozen from the JAX reference: within 2e-5 absolute +
+   1e-5 relative, tokens equal.
+10. Report: a ``kernels`` JSON line (launches, error, kernel and plain
+   time at the main paths' shapes, the card's bound for the same work,
    the library call's time where there is one), ``stream``,
-   ``rbe_shapes`` and ``handtracking`` JSON lines, the card's name and
-   power limit, and last the ``ok`` line.
+   ``rbe_shapes``, ``handtracking``, ``rmsnorm_shapes``/``flash_shapes``
+   and ``lm`` JSON lines, the card's name and power limit, and last the
+   ``ok`` line.
 
 Imports nothing of JAX or of the JAX reference package.
 """
@@ -52,7 +82,9 @@ Imports nothing of JAX or of the JAX reference package.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
+import os
 import pathlib
 import re
 import subprocess
@@ -202,33 +234,170 @@ def host_ms(fn, reps: int) -> float:
     return (time.perf_counter() - t) / reps * 1e3
 
 
-def device_ms(fn, reps: int) -> float:
+@functools.lru_cache(maxsize=1)
+def sleep_cycles_per_ms() -> float:
+    """Cycles of ``torch.cuda._sleep`` a millisecond on this card."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    torch.cuda._sleep(10**8)
+    end.record()
+    end.synchronize()
+    return 1e8 / start.elapsed_time(end)
+
+
+def device_ms(fn, reps: int, what: str, expect: dict | None = None
+              ) -> tuple:
+    """Device time per call and how it was taken.  ``"events"``: CUDA
+    events around ``reps`` calls that wait on the stream behind a sleep
+    kernel, held until the host has issued them all, so that they run
+    back to back on the card and the host's launch overhead is not in the
+    reading.  A reading whose calls were not all issued before the sleep
+    ended is taken again with a longer sleep.  A call that waits on the
+    stream itself (cuDNN's convolutions do), or that queues more kernels
+    than the launch queue holds, never gets ahead of the sleep: after
+    three tries it is timed from a torch.profiler trace (``"trace"``,
+    :func:`trace_ms`, which checks the trace against ``expect`` and says
+    how it timed the calls if no trace held every record)."""
+    import torch
+
+    t0 = time.perf_counter()
+    fn()                                  # warm-up; its issue time sizes the hold
+    hold_ms = 2.0 + 2e3 * (time.perf_counter() - t0) * reps
+    torch.cuda.synchronize()
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(int(hold_ms * sleep_cycles_per_ms()))
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        ev[2].record()
+        issued_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].synchronize()
+        if issued_ms < ev[0].elapsed_time(ev[1]):
+            return ev[1].elapsed_time(ev[2]) / reps, "events"
+        hold_ms = 2.0 + 2.0 * issued_ms
+    print(f"device_ms {what}: a call waits on the stream; timed from a "
+          f"profiler trace")
+    return trace_ms(fn, reps, what, expect)
+
+
+def methods(rows: list, keys: tuple) -> dict:
+    """``key + "_method"`` for a sum of ``rows``' ``key`` readings: the
+    methods they were taken by, joined by "+" where they differ."""
+    return {k + "_method": "+".join(sorted({r[k + "_method"] for r in rows
+                                            if k + "_method" in r}))
+            for k in keys}
+
+
+def timed(out: dict, key: str, fn, reps: int, what: str,
+          expect: dict | None = None) -> float:
+    """``out[key]``: :func:`device_ms` of ``fn``; ``out[key + "_method"]``:
+    how it was taken."""
+    out[key], out[key + "_method"] = device_ms(fn, reps, what, expect)
+    return out[key]
+
+
+def trace_ms(fn, reps: int, what: str, expect: dict | None = None
+             ) -> tuple:
     """Device time per call: the summed duration of the device-side
-    activities of ``reps`` calls in a torch.profiler trace (the work on
-    the card, without the host's launch overhead)."""
-    busy = device_busy(lambda: [fn() for _ in range(reps)])
-    return sum(busy.values()) * 1e3 / reps
+    activities of ``reps`` calls in a torch.profiler trace.  Such traces
+    lost kernels' records on some machines (one of 3 or of 20 launches,
+    the first few of one gemma2 forward, once all of them), so a trace
+    counts only if it holds every record: a multiple of ``reps`` of each
+    name, and ``expect[s] * reps`` records whose name holds ``s``, for
+    each ``s`` of ``expect``.  After three traces that do not, the calls
+    are timed by CUDA events around them as they run (``"events_unheld"``:
+    the device's idle gaps between kernels are in it, so it can read high
+    but never drops work)."""
+    check(reps >= 2, f"{what}: a trace of one call cannot be checked")
+
+    def run():
+        for _ in range(reps):
+            fn()
+
+    for _ in range(3):
+        events = trace_events(run)
+        missing = [f"{n} records of {name[:150]}"
+                   for name, (_, n) in events.items() if n % reps]
+        for sub, per_call in (expect or {}).items():
+            n = sum(c for name, (_, c) in events.items() if sub in name)
+            if n != per_call * reps:
+                missing.append(f"{n} records of {sub}, {per_call} a call "
+                               f"expected")
+        if not missing:
+            return sum(t for t, _ in events.values()) * 1e3 / reps, "trace"
+        print(f"trace_ms {what}: the trace of {reps} calls holds "
+              f"{len(missing)} names short, e.g. {'; '.join(missing[:3])}")
+    print(f"trace_ms {what}: three traces missed records; timed by CUDA "
+          f"events around the calls as they run")
+    return unheld_ms(fn, reps), "events_unheld"
+
+
+def unheld_ms(fn, reps: int) -> float:
+    """Milliseconds per call between CUDA events recorded before and
+    after ``reps`` calls, the stream not held."""
+    import torch
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    for _ in range(reps):
+        fn()
+    ev[1].record()
+    ev[1].synchronize()
+    return ev[0].elapsed_time(ev[1]) / reps
+
+
+#: Idle milliseconds between the start of a trace's recorded step and
+#: ``run()``'s first kernel.
+TRACE_SPACER_MS = 5.0
+
+
+def trace_events(run) -> dict:
+    """Device time (seconds) and number of records of ``run()`` by kernel
+    name, from the device-side events of a torch.profiler trace (CUPTI).
+    The kernel records nearest the start of a trace were lost on some
+    chip machines (the first of ``run()``'s, or the first few of a long
+    forward), so the trace opens with a warm-up step whose records are
+    dropped, and its recorded step with a sleep kernel (left out of the
+    result) that the host waits out before ``run()``.  Fails when the
+    trace holds no device events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    traced: list = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: traced.extend(p.events())) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        prof.step()
+        torch.cuda._sleep(int(TRACE_SPACER_MS * sleep_cycles_per_ms()))
+        torch.cuda.synchronize()
+        run()
+        torch.cuda.synchronize()
+        prof.step()
+    out: dict = {}
+    for ev in traced:
+        # the step's own range is mirrored on the device's timeline
+        if ev.device_type == DeviceType.CUDA and "spin_kernel" not in ev.name \
+                and not ev.name.startswith("ProfilerStep"):
+            t, n = out.get(ev.name, (0.0, 0))
+            out[ev.name] = (t + ev.time_range.elapsed_us() / 1e6, n + 1)
+    check(out, "profiler trace holds no device events")
+    return out
 
 
 def device_busy(run) -> dict:
-    """Device time of ``run()`` by kernel name (seconds), from the
-    device-side events of a torch.profiler trace (CUPTI).  Fails when the
-    trace holds none."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    out: dict = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            out[ev.name] = out.get(ev.name, 0.0) + \
-                ev.time_range.elapsed_us() / 1e6
-    check(out, "profiler trace holds no device events")
-    return out
+    """Device time of ``run()`` by kernel name (seconds)."""
+    return {k: t for k, (t, _) in trace_events(run).items()}
 
 
 def make_aux(spec, cons, front_sg, dev) -> dict:
@@ -431,7 +600,9 @@ def kernel_report(res, launches, err, grid_big, dev) -> list:
     nf, d, CP, Bn = len(spec.fields), spec.d, spec.padded, spec.n_blocks
     run_a = lambda: K.sweep_grid_chunk(spec, T, axvals, aux, 0)  # noqa
     plain_a = lambda: K.chunk_partials_ref(spec, T, axvals, aux, 0)  # noqa
-    ka, pa = device_ms(run_a, 50), device_ms(plain_a, 5)
+    times: dict = {}
+    timed(times, "A", run_a, 50, "kernel A")
+    timed(times, "A_plain", plain_a, 5, "kernel A, plain")
     host = {"A": host_ms(run_a, 50), "A_plain": host_ms(plain_a, 5)}
     filt_bytes = sum(v.numel() * 8 for v in aux["filter"].values())
     bytes_a = (T.buf.numel() * 8 + sum(v.numel() * 8 for v in axvals)
@@ -459,7 +630,8 @@ def kernel_report(res, launches, err, grid_big, dev) -> list:
                                       axvals, flat)
     plain_b = lambda: K.sweep_grid_eval_ref(T, plan.shape,  # noqa
                                             SW.FIELDS, axvals, flat)
-    kb, pb = device_ms(run_b, 50), device_ms(plain_b, 5)
+    timed(times, "B", run_b, 50, "kernel B")
+    timed(times, "B_plain", plain_b, 5, "kernel B, plain")
     host.update(B=host_ms(run_b, 50), B_plain=host_ms(plain_b, 5))
     bytes_b = (T.buf.numel() * 8 + sum(v.numel() * 8 for v in axvals)
                + nb * 8 + nb * len(SW.FIELDS) * 8)
@@ -472,21 +644,24 @@ def kernel_report(res, launches, err, grid_big, dev) -> list:
         return (max(tb, to), "bytes" if tb >= to else "operations")
 
     rows = []
-    for name, fn, src, rep, key, ms, plain, nbytes, ops in (
+    for name, fn, src, rep, key, nbytes, ops in (
             ("sweep_grid_chunk", "chunk_kernel",
              "src/repro_torch/kernels/sweep_grid/csrc/sweep_grid.cu",
-             "src/repro/kernels/sweep_grid/kernel.py:98", "A", ka, pa,
-             bytes_a, ops_a),
+             "src/repro/kernels/sweep_grid/kernel.py:98", "A", bytes_a,
+             ops_a),
             ("sweep_grid_eval", "eval_kernel",
              "src/repro_torch/kernels/sweep_grid/csrc/sweep_grid.cu",
-             "src/repro/kernels/sweep_grid/kernel.py:226", "B", kb, pb,
-             bytes_b, ops_b)):
+             "src/repro/kernels/sweep_grid/kernel.py:226", "B", bytes_b,
+             ops_b)):
         b_ms, b_by = bound(nbytes, ops)
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep, "launches": launches[key],
-                     "max_abs_err": err[key], "ms": ms, "plain_ms": plain,
+                     "max_abs_err": err[key], "ms": times[key],
+                     "plain_ms": times[key + "_plain"],
                      "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": None})
+                     "library_ms": None,
+                     "ms_method": times[key + "_method"],
+                     "plain_ms_method": times[key + "_plain_method"]})
     return rows, host
 
 
@@ -517,21 +692,29 @@ RBE_FIXED_CASES = (
 
 def reset_counts() -> None:
     """Every kernel wrapper's launch count to 0."""
+    from repro_torch.kernels import flash_attention as E
     from repro_torch.kernels import rbe_matmul as R
+    from repro_torch.kernels import rmsnorm as D
     from repro_torch.kernels import sweep_grid as K
 
     K.sweep_grid_chunk.launches = 0
     K.sweep_grid_eval.launches = 0
     R.rbe_matmul_raw.launches = 0
+    D.rmsnorm_fused.launches = 0
+    E.flash_attention_fwd.launches = 0
 
 
 def read_counts() -> dict:
+    from repro_torch.kernels import flash_attention as E
     from repro_torch.kernels import rbe_matmul as R
+    from repro_torch.kernels import rmsnorm as D
     from repro_torch.kernels import sweep_grid as K
 
     return {"A": K.sweep_grid_chunk.launches,
             "B": K.sweep_grid_eval.launches,
-            "C": R.rbe_matmul_raw.launches}
+            "C": R.rbe_matmul_raw.launches,
+            "D": D.rmsnorm_fused.launches,
+            "E": E.flash_attention_fwd.launches}
 
 
 def keynet_int8_shapes(batch: int) -> list:
@@ -670,9 +853,9 @@ def phase_pipeline(dev, smi: str) -> tuple:
     got = HP.pipeline_forward(frames, det, key)
     sync(dev)
     launches = read_counts()
-    check(launches == {"A": 0, "B": 0, "C": 3},
+    check(launches == {"A": 0, "B": 0, "C": 3, "D": 0, "E": 0},
           f"pipeline: expected 3 launches of kernel C (one int8 KeyNet "
-          f"forward) and none of A or B, got {launches}")
+          f"forward) and none of the others, got {launches}")
     price = HP.pricing()
     check(price == PRICING_ANCHOR,
           f"pricing differs from the JAX anchors: {price}")
@@ -722,9 +905,10 @@ def phase_pipeline(dev, smi: str) -> tuple:
                   "kp_f32_max_abs": (got["kp_f32"].cpu()
                                      - want["kp_f32"]).abs().max().item(),
                   "kp_int8_rel_l2": int8_l2}}
+    expect = {"keynet_int8": {"::rbe_matmul_kernel": 3}}
     for name, fn in stages.items():
-        report[name] = {"device_ms": device_ms(fn, 20),
-                        "wall_ms": host_ms(fn, 20)}
+        report[name] = {"wall_ms": host_ms(fn, 20)}
+        timed(report[name], "device_ms", fn, 20, name, expect.get(name))
     report["card"] = smi
     return launches, report
 
@@ -737,14 +921,15 @@ def rbe_report(launches: dict, err: float, dev, smi: str) -> tuple:
 
     from repro_torch.kernels import rbe_matmul as R
 
-    def library(args):
+    def library(row, args):
         # torch._int_mm: the int8 product alone (no dequant epilogue).
+        row["library_ms"] = None
         try:
             fn = lambda: torch._int_mm(args[0], args[1])  # noqa: E731
             fn()
         except RuntimeError:
-            return None
-        return device_ms(fn, 50)
+            return
+        timed(row, "library_ms", fn, 50, "torch._int_mm")
 
     shapes = []
     for rois, reps in ((PIPELINE_BATCH, 50), (BIG_ROIS, 20)):
@@ -754,14 +939,16 @@ def rbe_report(launches: dict, err: float, dev, smi: str) -> tuple:
             args = rbe_operands(m, k, n, 30, False, dev)
             nbytes, ops = int8_work(m, k, n)
             b_ms, b_by = int8_bound(nbytes, ops)
-            shapes.append({
-                "layer": name, "rois": rois, "m": m, "k": k, "n": n,
-                "bytes": nbytes, "ops": ops,
-                "ms": device_ms(lambda: R.rbe_matmul_raw(*args), reps),
-                "wall_ms": host_ms(lambda: R.rbe_matmul_raw(*args), reps),
-                "plain_ms": device_ms(lambda: R.rbe_matmul_ref(*args), reps),
-                "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": library(args)})
+            row = {"layer": name, "rois": rois, "m": m, "k": k, "n": n,
+                   "bytes": nbytes, "ops": ops,
+                   "wall_ms": host_ms(lambda: R.rbe_matmul_raw(*args), reps),
+                   "bound_ms": b_ms, "bound_by": b_by}
+            timed(row, "ms", lambda: R.rbe_matmul_raw(*args), reps,
+                  f"kernel C {name}")
+            timed(row, "plain_ms", lambda: R.rbe_matmul_ref(*args), reps,
+                  f"kernel C {name}, plain")
+            library(row, args)
+            shapes.append(row)
     main = [r for r in shapes if r["rois"] == PIPELINE_BATCH]
     lib = [r["library_ms"] for r in main]
     b_ms, b_by = int8_bound(sum(r["bytes"] for r in main),
@@ -774,11 +961,587 @@ def rbe_report(launches: dict, err: float, dev, smi: str) -> tuple:
            "plain_ms": sum(r["plain_ms"] for r in main),
            "bound_ms": b_ms, "bound_by": b_by,
            "library_ms": None if None in lib else sum(lib)}
+    row.update(methods(main, ("ms", "plain_ms", "library_ms")))
     return row, {"rbe_shapes": shapes, "card": smi}
 
 
-def run(dev, grid_big, smi: str) -> None:
-    """Phases 2-7 on ``dev`` with ``grid_big`` as the stream's grid."""
+# ---------------------------------------------------------------------------
+# Kernels D and E and the LM serving path
+# ---------------------------------------------------------------------------
+
+#: Float32 operations an H100 SXM's CUDA cores do a second outside the
+#: tensor cores (data sheet, 67 TFLOP/s at the 700 W limit, an FMA as
+#: two).
+PEAK_F32_OPS_PER_S = 67e12
+#: bf16 operations an H100 SXM's tensor cores do a second, accumulating
+#: in float32 (data sheet, dense, 989 TFLOP/s at the 700 W limit).
+PEAK_BF16_OPS_PER_S = 989e12
+
+#: Kernel D's tolerances against its plain version: float32 within 16
+#: ulp (the sum of x^2 runs in another order and rsqrtf is within 2 ulp
+#: of 1/sqrt; a few ulp are expected), bf16 within one bf16 ulp (both
+#: round the same float32 function once).
+RMSNORM_F32_ULPS, BF16_ULPS = 16, 1
+#: Kernel E's float32 tolerance against the full softmax: the scores, the
+#: softmax sums and p@v are float32 sums in another order (one online
+#: pass against a max-subtracted softmax), ~1e-7 relative.  In bf16 both
+#: round float32 results that differ by that much, so they are within
+#: one bf16 ulp, except where the output is within ~1e-7 of zero: there
+#: the two float32 values may straddle 0, so 1e-6 absolute is allowed on
+#: top of the ulp.
+FLASH_F32_TOL = dict(atol=1e-5, rtol=1e-5)
+FLASH_BF16_ATOL = 1e-6
+#: Outputs above this size are reported by their ulp distance (below it
+#: the float32 error alone is several bf16 ulp).
+ULP_FLOOR = 1e-4
+#: The reduced float32 models on the card against the JAX anchors:
+#: float32 matmuls and reductions in another order (TF32 off), as the CPU
+#: tests hold the port to the reference.
+ANCHOR_TOL = dict(atol=2e-5, rtol=1e-5)
+
+#: gemma2-2b's prompt forward: one sequence of 8192 tokens; the serve run
+#: at the reference's CLI defaults.
+LM_ARCH, LM_SEQ = "gemma2-2b", 8192
+SERVE_ARGV = ["--arch", LM_ARCH]
+
+# Kernel D's cases: (rows, d, dtype, what).
+RMSNORM_CASES = ((LM_SEQ, 2304, "bfloat16", "gemma2 forward"),
+                 (4, 2304, "bfloat16", "gemma2 decode"),
+                 (4096, 1024, "float32", "kernel_bench"),
+                 (997, 130, "float32", "ragged"),
+                 (997, 130, "bfloat16", "ragged"))
+
+# Kernel E's cases: (name, b, sq, skv, h, kv, d, causal, window, softcap,
+# dtype).
+FLASH_CASES = (
+    ("gemma2 local", 1, LM_SEQ, LM_SEQ, 8, 4, 256, True, 4096, 50.0,
+     "bfloat16"),
+    ("gemma2 global", 1, LM_SEQ, LM_SEQ, 8, 4, 256, True, 0, 50.0,
+     "bfloat16"),
+    ("kernel_bench", 1, 512, 512, 4, 2, 128, True, 0, 0.0, "float32"),
+    ("qwen2 d64", 1, 4096, 4096, 14, 2, 64, True, 0, 0.0, "bfloat16"),
+    ("non-causal", 2, 1024, 1024, 8, 2, 128, False, 0, 0.0, "float32"),
+    ("sq<skv", 1, 512, 2048, 8, 4, 256, True, 1000, 0.0, "float32"),
+    ("reduced d32", 2, 256, 256, 4, 2, 32, True, 64, 50.0, "float32"),
+)
+
+
+def ulps(got, want) -> int:
+    """Largest distance between ``got`` and ``want`` in units in the last
+    place of their dtype (float32 or bfloat16), counted through zero when
+    the signs differ."""
+    import torch
+
+    ib, mask = ((torch.int16, 0x7FFF) if got.dtype == torch.bfloat16
+                else (torch.int32, 0x7FFFFFFF))
+    g = got.contiguous().view(ib).long()
+    w = want.contiguous().view(ib).long()
+    gm, wm = g & mask, w & mask
+    d = torch.where((g < 0) == (w < 0), (gm - wm).abs(), gm + wm)
+    return int(d.max().item()) if d.numel() else 0
+
+
+def bf16_within_one_ulp(got, want, atol: float) -> tuple:
+    """Whether every element of ``got`` is within one bf16 ulp of
+    ``want`` (the spacing of bf16 values at |want|) plus ``atol``, and the
+    largest ulp distance among the elements with |want| > ULP_FLOOR."""
+    import torch
+
+    g, w = got.float(), want.float()
+    _, e = torch.frexp(w)
+    spacing = torch.where(w == 0, torch.zeros_like(w),
+                          torch.ldexp(torch.ones_like(w), e - 8))
+    close = bool(((g - w).abs() <= spacing + atol).all().item())
+    big = w.abs() > ULP_FLOOR
+    return close, (ulps(got[big], want[big]) if bool(big.any()) else 0)
+
+
+def rmsnorm_inputs(rows, d, dtype, seed, dev) -> tuple:
+    import torch
+
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.standard_normal((rows, d)).astype(np.float32))
+    scale = torch.as_tensor((rng.standard_normal(d) * 0.1)
+                            .astype(np.float32))
+    return x.to(getattr(torch, dtype)).to(dev), scale.to(dev)
+
+
+def phase_rmsnorm(dev) -> float:
+    """Kernel D against its plain version on the card at gemma2-2b's
+    forward and decode shapes, the kernel_bench shape and a ragged one;
+    returns the largest absolute difference."""
+    from repro_torch.kernels import rmsnorm as D
+
+    worst = 0.0
+    for i, (rows, d, dtype, what) in enumerate(RMSNORM_CASES):
+        x, scale = rmsnorm_inputs(rows, d, dtype, 40 + i, dev)
+        got = D.rmsnorm_fused(x, scale)
+        want = D.rmsnorm_ref(x, scale)
+        sync(dev)
+        u = ulps(got, want)
+        e = (got.float() - want.float()).abs().max().item()
+        worst = max(worst, e)
+        limit = BF16_ULPS if dtype == "bfloat16" else RMSNORM_F32_ULPS
+        check(u <= limit, f"kernel D {rows}x{d} {dtype}: {u} ulp from its "
+              f"plain version (limit {limit})")
+        print(f"kernel D {rows}x{d} {dtype} ({what}): max_abs_err={e!r}, "
+              f"{u} ulp")
+    return worst
+
+
+def flash_inputs(b, sq, skv, h, kv, d, dtype, seed, dev) -> tuple:
+    """q, k, v on ``dev``: normals made on the CPU from a numpy seed."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, dtype)
+    return tuple(
+        torch.as_tensor(rng.standard_normal(shape).astype(np.float32))
+        .to(dt).to(dev)
+        for shape in ((b, sq, h, d), (b, skv, kv, d), (b, skv, kv, d)))
+
+
+def visible_pairs(sq, skv, causal, window) -> int:
+    """(query, key) pairs the mask leaves visible, one head."""
+    qpos = np.arange(sq, dtype=np.int64) + (skv - sq)
+    hi = np.minimum(qpos, skv - 1) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(sq, int)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_work(b, sq, skv, h, kv, d, causal, window, itemsize) -> tuple:
+    """Bytes (q, k, v read once, out written once) and the operations of
+    q.k and of p@v over the visible pairs (an FMA as two)."""
+    nbytes = itemsize * d * (2 * b * sq * h + 2 * b * skv * kv)
+    half = 2 * d * h * b * visible_pairs(sq, skv, causal, window)
+    return nbytes, half, half
+
+
+def flash_bound(nbytes, qk_ops, pv_ops, bf16: bool) -> tuple:
+    """The least time of kernel E's work: its bytes over the memory rate
+    or its operations over the rates of their types, whichever is longer.
+    On bf16 inputs q.k multiplies bf16 values, whose products are exact
+    in float32, so the bf16 tensor cores (float32 accumulation) compute
+    the same function; p stays float32 (as the reference's p_bf16=False
+    keeps it), so p@v is float32 work.  On float32 inputs both are."""
+    tb = nbytes / PEAK_BYTES_PER_S * 1e3
+    qk_rate = PEAK_BF16_OPS_PER_S if bf16 else PEAK_F32_OPS_PER_S
+    to = (qk_ops / qk_rate + pv_ops / PEAK_F32_OPS_PER_S) * 1e3
+    return max(tb, to), "bytes" if tb >= to else "operations"
+
+
+def phase_flash(dev) -> float:
+    """Kernel E against its plain version (the full softmax) on the card;
+    returns the largest absolute difference."""
+    from repro_torch.kernels import flash_attention as E
+
+    worst = 0.0
+    for i, (name, b, sq, skv, h, kv, d, causal, window, cap,
+            dtype) in enumerate(FLASH_CASES):
+        q, k, v = flash_inputs(b, sq, skv, h, kv, d, dtype, 50 + i, dev)
+        kw = dict(causal=causal, window=window, logit_softcap=cap)
+        got = E.flash_attention_fwd(q, k, v, **kw)
+        want = E.flash_attention_ref(q, k, v, **kw)
+        sync(dev)
+        e = (got.float() - want.float()).abs().max().item()
+        worst = max(worst, e)
+        if dtype == "bfloat16":
+            close, u = bf16_within_one_ulp(got, want, FLASH_BF16_ATOL)
+            err = f"{u} ulp where |out| > {ULP_FLOOR}"
+        else:
+            close = bool(((got - want).abs() <= FLASH_F32_TOL["atol"]
+                          + FLASH_F32_TOL["rtol"] * want.abs()).all())
+            err = f"tolerance {FLASH_F32_TOL}"
+        print(f"kernel E {name} ({b},{sq},{skv},{h}/{kv},{d}) {dtype} "
+              f"causal={causal} window={window} softcap={cap}: "
+              f"max_abs_err={e!r} ({err})")
+        check(close, f"kernel E {name}: differs from its plain version")
+        check(bool(got.isfinite().all()), f"kernel E {name}: non-finite")
+        del q, k, v, got, want
+    return worst
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Inside the ``with``, the LM's norms and prompt attention run the
+    plain versions of kernels D and E (on any device), so the same
+    forward can be held against itself on the card.  The launch counts
+    are set to 0 on entry, and the block fails if D or E was launched
+    inside it (the swap missed a route to the kernels)."""
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.kernels.rmsnorm import rmsnorm_ref
+    from repro_torch.models import flash, layers
+
+    check(hasattr(layers, "rmsnorm_op")
+          and hasattr(flash, "flash_attention_fwd"),
+          "plain_kernels: the LM no longer reaches D and E by the names "
+          "it swaps")
+    saved = layers.rmsnorm_op, flash.flash_attention_fwd
+    layers.rmsnorm_op = lambda x, scale, eps=1e-6: rmsnorm_ref(x, scale, eps)
+    flash.flash_attention_fwd = flash_attention_ref
+    reset_counts()
+    try:
+        yield
+        counts = read_counts()
+        check(counts["D"] == counts["E"] == 0,
+              f"the plain path launched kernels: {counts}")
+    finally:
+        layers.rmsnorm_op, flash.flash_attention_fwd = saved
+
+
+def compare_logits(got, want, chunk: int = 512) -> dict:
+    """Largest absolute difference of two (B, S, V) logits tensors, their
+    largest magnitude, and the share of positions whose argmax agrees,
+    a chunk of positions at a time (the float32 temporaries of a whole
+    gemma2 prompt would take 8 GB each)."""
+    g2 = got.reshape(-1, got.shape[-1])
+    w2 = want.reshape(-1, want.shape[-1])
+    diff, mag, agree = 0.0, 0.0, 0
+    for i in range(0, g2.shape[0], chunk):
+        g, w = g2[i:i + chunk].float(), w2[i:i + chunk].float()
+        diff = max(diff, (g - w).abs().max().item())
+        mag = max(mag, w.abs().max().item())
+        agree += int((g.argmax(-1) == w.argmax(-1)).sum().item())
+        check(bool(g.isfinite().all()), "logits are not finite")
+    return {"max_abs_diff": diff, "max_abs": mag,
+            "argmax_agree": agree / g2.shape[0]}
+
+
+#: The card's bf16 LM against the same LM on the plain versions of D and
+#: E: every norm and attention output may differ by a bf16 ulp, and those
+#: flips propagate through 26 layers (the logits are softcapped at 30,
+#: |logit| <= 10.3 here).  Readings on the H100: 0.113 and 0.094 apart,
+#: 99.78 % and 100 % of the argmaxes equal (forward, serve); the limits
+#: leave about twice that.
+LM_BF16_MAX_DIFF = 0.25
+LM_BF16_ARGMAX = 0.98
+
+
+def phase_lm(dev, cfg, seq: int, serve_argv: list, smi: str) -> tuple:
+    """gemma2-2b at full width on ``dev``: (a) the prompt forward through
+    kernels D and E against the same forward on their plain versions,
+    (b) ``token_serve.main(serve_argv)`` (the reference's CLI defaults;
+    the argv must serve ``cfg``, whose weights are rebuilt from main's
+    seed), teacher-forced again on both paths, (c) the reduced float32
+    gemma2-2b and qwen2-0.5b against the frozen JAX anchors.  Returns the
+    forward's launch counts and the ``lm`` report."""
+    import torch
+
+    from repro_torch.launch import token_serve
+    from repro_torch.models import transformer as T
+
+    report: dict = {"arch": cfg.name, "layers": cfg.num_layers,
+                    "d_model": cfg.d_model, "dtype": cfg.dtype}
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with torch.no_grad():
+        params = T.init_params(cfg, gen, dev)
+        tokens = torch.randint(0, cfg.vocab_size, (1, seq), generator=gen,
+                               device=dev)
+        batch = T.Batch(tokens=tokens)
+        report["params"] = T.param_count(params)
+
+        # (a) the prompt forward
+        sync(dev)
+        reset_counts()
+        logits = T.forward(cfg, params, batch)
+        sync(dev)
+        fwd_launches = read_counts()
+        n_norms = 4 * cfg.num_layers + 1 if cfg.post_block_norm \
+            else 2 * cfg.num_layers + 1
+        check(fwd_launches["D"] == n_norms
+              and fwd_launches["E"] == cfg.num_layers
+              and fwd_launches["A"] == fwd_launches["B"]
+              == fwd_launches["C"] == 0,
+              f"forward: expected {n_norms} launches of D and "
+              f"{cfg.num_layers} of E, got {fwd_launches}")
+        check(tuple(logits.shape) == (1, seq, cfg.vocab_size),
+              f"forward logits {tuple(logits.shape)}")
+        with plain_kernels():
+            plain = T.forward(cfg, params, batch)
+        vs = compare_logits(logits, plain)
+        del logits, plain
+        check(vs["max_abs_diff"] <= LM_BF16_MAX_DIFF
+              and vs["argmax_agree"] >= LM_BF16_ARGMAX,
+              f"forward: kernels vs plain {vs}")
+        print(f"lm forward {cfg.name} B=1 S={seq}: launches {fwd_launches}, "
+              f"kernels vs plain {vs}")
+        fwd = lambda: T.forward(cfg, params, batch)  # noqa: E731
+        report["forward"] = {
+            "batch": 1, "seq": seq, "launches": fwd_launches,
+            "vs_plain": vs, "wall_ms": host_ms(fwd, 2)}
+        # The forward's calls have not got ahead of device_ms's hold on
+        # the card, so it may be timed from a trace: that trace must hold
+        # every launch of D and E (and none on the plain path).
+        mine = {"::rmsnorm_kernel<": n_norms,
+                "::flash_fwd_kernel<": cfg.num_layers}
+        timed(report["forward"], "device_ms", fwd, 2, "lm forward", mine)
+        with plain_kernels():
+            timed(report["forward"], "plain_device_ms", fwd, 2,
+                  "lm forward, plain", dict.fromkeys(mine, 0))
+        busy, wall = busy_share(fwd)
+        report["forward"]["busy_share"] = busy
+        report["forward"]["device_s_by_kernel"] = dict(sorted(
+            wall.items(), key=lambda kv: -kv[1])[:8])
+        del params, batch, tokens
+
+    # (b) token serving at the reference's CLI defaults
+    sync(dev)
+    reset_counts()
+    out = token_serve.main(serve_argv + ["--device", str(dev)])
+    sync(dev)
+    serve_launches = read_counts()
+    bsz, gen_n = out["tokens"].shape
+    plen = out["prompts"].shape[1]
+    steps = plen + gen_n - 1
+    check(serve_launches["D"] == n_norms * steps
+          and serve_launches["E"] == 0,
+          f"serve: expected {n_norms * steps} launches of D and none of E, "
+          f"got {serve_launches}")
+    with torch.no_grad():
+        # main's weights: init_params on a generator seeded with --seed 0
+        sparams = T.init_params(cfg, torch.Generator(device=dev)
+                                .manual_seed(0), dev)
+        seq_toks = torch.as_tensor(np.concatenate(
+            [out["prompts"], out["tokens"][:, :-1]], axis=1), device=dev)
+        k_logits = teacher_forced(cfg, sparams, seq_toks, dev)
+        with plain_kernels():
+            p_logits = teacher_forced(cfg, sparams, seq_toks, dev)
+    got = torch.stack(k_logits[plen - 1:], 1)
+    check(np.array_equal(got.argmax(-1).cpu().numpy(), out["tokens"]),
+          "serve: the teacher-forced kernel path does not reproduce the "
+          "served tokens")
+    svs = compare_logits(got, torch.stack(p_logits[plen - 1:], 1))
+    check(svs["max_abs_diff"] <= LM_BF16_MAX_DIFF
+          and svs["argmax_agree"] >= LM_BF16_ARGMAX,
+          f"serve: kernels vs plain {svs}")
+    prompts = torch.as_tensor(out["prompts"], device=dev)
+    busy, _ = busy_share(lambda: token_serve.generate(cfg, sparams,
+                                                      prompts, gen_n))
+    report["serve"] = {"batch": bsz, "prompt": plen, "gen": gen_n,
+                       "launches": serve_launches, "vs_plain": svs,
+                       "prefill_s": out["prefill_s"],
+                       "decode_tok_per_s": out["decode_tok_per_s"],
+                       "busy_share": busy}
+    print(f"lm serve {cfg.name} batch={bsz} prompt={plen} gen={gen_n}: "
+          f"launches {serve_launches}, kernels vs plain {svs}")
+    del sparams
+    if dev.type == "cuda":
+        report["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.empty_cache()
+
+    # (c) the reduced float32 models against the JAX anchors
+    report["anchors"] = {arch: phase_anchor(arch, dev)
+                         for arch in ("gemma2-2b", "qwen2-0.5b")}
+    report["card"] = smi
+    return fwd_launches, report
+
+
+def teacher_forced(cfg, params, seq_toks, dev) -> list:
+    """Logits (B, V) of each decode step over ``seq_toks`` (B, T)."""
+    from repro_torch.models import transformer as T
+
+    b, n = seq_toks.shape
+    cache = T.init_cache(cfg, b, n + 1, device=dev)
+    out = []
+    for t in range(n):
+        lg, cache = T.decode_step(cfg, params, cache,
+                                  T.Batch(tokens=seq_toks[:, t:t + 1]), t)
+        out.append(lg[:, -1])
+    return out
+
+
+def phase_anchor(arch: str, dev) -> dict:
+    """The reduced float32 ``arch`` on ``dev`` (weights from the numpy
+    seed of ``repro_torch.models.anchors``) against the logits and greedy
+    tokens frozen from the JAX reference."""
+    import torch
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.launch import token_serve
+    from repro_torch.models import anchors as A
+    from repro_torch.models import transformer as T
+
+    cfg = get_reduced_config(arch, dtype="float32")
+    a = A.LM_ANCHORS[arch]
+    params = T.to_device(T.params_from_jax(cfg, A.jax_layout_params(cfg)),
+                         dev)
+    fwd_np, prompt_np = A.anchor_tokens(cfg)
+    with torch.no_grad():
+        logits = T.forward(cfg, params, T.Batch(
+            tokens=torch.as_tensor(fwd_np, device=dev))).cpu().numpy()
+        toks = token_serve.generate(
+            cfg, params, torch.as_tensor(prompt_np, device=dev),
+            A.GREEDY_STEPS)["tokens"].cpu().numpy()
+    worst = 0.0
+    for (b, s), row, total in zip(A.ANCHOR_ROWS, a["logits"], a["row_sums"]):
+        got = logits[b, s, :A.ANCHOR_VOCAB].astype(np.float64)
+        want = np.asarray(row)
+        worst = max(worst, float(np.abs(got - want).max()))
+        check(np.all(np.abs(got - want) <= ANCHOR_TOL["atol"]
+                     + ANCHOR_TOL["rtol"] * np.abs(want)),
+              f"{arch}: logits at {(b, s)} differ from the JAX anchors")
+        check(abs(logits[b, s].astype(np.float64).sum() - total) <= 1e-3,
+              f"{arch}: row sum at {(b, s)} differs from the JAX anchors")
+    check(np.array_equal(toks, np.asarray(a["greedy"])),
+          f"{arch}: greedy tokens {toks.tolist()} differ from the JAX "
+          f"anchors {a['greedy']}")
+    print(f"lm anchors {arch} (reduced, float32) on {dev}: logits within "
+          f"{worst!r} of JAX, greedy tokens equal")
+    return {"max_abs_err": worst, "greedy_equal": True}
+
+
+def busy_share(run) -> tuple:
+    """The device's busy share of one profiled ``run()``: its device time
+    over its own wall time, taken inside the trace (the profiler's host
+    overhead is in that wall time, so this is a lower bound), and the
+    device time by kernel."""
+    import torch
+
+    wall = []
+
+    def timed():
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+
+    by_kernel = device_busy(timed)
+    return sum(by_kernel.values()) / wall[0], by_kernel
+
+
+def lm_kernel_report(err: dict, dev) -> tuple:
+    """Rows D and E of the ``kernels`` line at the LM forward's shapes
+    (D: one norm of gemma2-2b's 8192-token prompt; E: one local and one
+    global layer's attention, summed), each with a ``kernel`` key that
+    the forward's launch count replaces, and each case's timing."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as E
+    from repro_torch.kernels import rmsnorm as D
+
+    norm_rows = []
+    for i, (rows, d, dtype, what) in enumerate(RMSNORM_CASES):
+        x, scale = rmsnorm_inputs(rows, d, dtype, 40 + i, dev)
+        w = (1.0 + scale).to(x.dtype)
+        nbytes = 2 * x.numel() * x.element_size() + 4 * d
+        row = {"rows": rows, "d": d, "dtype": dtype, "what": what,
+               "bytes": nbytes,
+               "wall_ms": host_ms(lambda: D.rmsnorm_fused(x, scale), 50),
+               "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+               "bound_by": "bytes"}
+        timed(row, "ms", lambda: D.rmsnorm_fused(x, scale), 50,
+              f"kernel D {what}")
+        timed(row, "plain_ms", lambda: D.rmsnorm_ref(x, scale), 20,
+              f"kernel D {what}, plain")
+        # one PyTorch call: F.rms_norm, weight 1 + scale in x's dtype
+        timed(row, "library_ms", lambda: F.rms_norm(x, (d,), w, 1e-6), 50,
+              "F.rms_norm")
+        norm_rows.append(row)
+    attn_rows = []
+    for i, (name, b, sq, skv, h, kv, d, causal, window, cap,
+            dtype) in enumerate(FLASH_CASES):
+        q, k, v = flash_inputs(b, sq, skv, h, kv, d, dtype, 50 + i, dev)
+        kw = dict(causal=causal, window=window, logit_softcap=cap)
+        nbytes, qk_ops, pv_ops = flash_work(b, sq, skv, h, kv, d, causal,
+                                            window, q.element_size())
+        bf16 = dtype == "bfloat16"
+        b_ms, b_by = flash_bound(nbytes, qk_ops, pv_ops, bf16)
+        reps = 3 if sq * skv >= 2**24 else 20
+        run = lambda: E.flash_attention_fwd(q, k, v, **kw)  # noqa: E731
+        row = {"name": name, "b": b, "sq": sq, "skv": skv, "h": h, "kv": kv,
+               "d": d, "causal": causal, "window": window, "softcap": cap,
+               "dtype": dtype, "bytes": nbytes, "ops": qk_ops + pv_ops,
+               "qk_ops": qk_ops, "pv_ops": pv_ops, "bf16": bf16,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        timed(row, "ms", run, reps, f"kernel E {name}")
+        timed(row, "plain_ms", lambda: E.flash_attention_ref(q, k, v, **kw),
+              reps, f"kernel E {name}, plain")
+        row["tflops"] = row["ops"] / row["ms"] / 1e9
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        if name.startswith("gemma2"):
+            flex_library(row, qt, kt, vt, causal, window, cap, run(), reps)
+        elif not cap and not window and (not causal or sq == skv):
+            row["library"] = "scaled_dot_product_attention"
+            timed(row, "library_ms",
+                  lambda: F.scaled_dot_product_attention(
+                      qt, kt, vt, is_causal=causal, enable_gqa=True),
+                  reps, "F.scaled_dot_product_attention")
+        attn_rows.append(row)
+        del q, k, v, qt, kt, vt
+
+    main_d = norm_rows[0]
+    main_e = [r for r in attn_rows if r["name"].startswith("gemma2")]
+    e_bound, e_by = flash_bound(sum(r["bytes"] for r in main_e),
+                                sum(r["qk_ops"] for r in main_e),
+                                sum(r["pv_ops"] for r in main_e), True)
+    e_lib = [r["library_ms"] for r in main_e]
+    rows = [
+        {"name": "rmsnorm_fused", "route": "cuda",
+         "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+         "replaces": "src/repro/kernels/rmsnorm/kernel.py:20",
+         "kernel": "D", "max_abs_err": err["D"],
+         "ms": main_d["ms"], "plain_ms": main_d["plain_ms"],
+         "bound_ms": main_d["bound_ms"], "bound_by": "bytes",
+         "library_ms": main_d["library_ms"],
+         **methods([main_d], ("ms", "plain_ms", "library_ms"))},
+        {"name": "flash_attention_fwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:35",
+         "kernel": "E", "max_abs_err": err["E"],
+         "ms": sum(r["ms"] for r in main_e),
+         "plain_ms": sum(r["plain_ms"] for r in main_e),
+         "bound_ms": e_bound, "bound_by": e_by,
+         "library_ms": None if None in e_lib else sum(e_lib),
+         **methods(main_e, ("ms", "plain_ms", "library_ms"))}]
+    return rows, {"rmsnorm_shapes": norm_rows, "flash_shapes": attn_rows}
+
+
+def flex_library(row, qt, kt, vt, causal, window, cap, out, reps) -> None:
+    """``row["library_ms"]``: one call of PyTorch's ``flex_attention``
+    computing kernel E's function on (B, H, S, D) inputs: the softcap as
+    a score_mod on the scaled score, causal (and the window) as a block
+    mask, GQA by ``enable_gqa``.  It is compiled, and the block mask
+    made, before the timed calls; its largest difference from kernel E's
+    output ``out`` is reported beside it (it rounds p to bf16 before
+    p@v, where kernel E keeps p in float32).  A yardstick only: the port
+    never calls it."""
+    import torch
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+
+    sq, skv, d = qt.shape[2], kt.shape[2], qt.shape[3]
+    off = skv - sq
+
+    def mask_mod(b, h, qi, ki):
+        vis = ki <= qi + off if causal else ki >= 0
+        return vis & (ki > qi + off - window) if window else vis
+
+    def softcap(score, b, h, qi, ki):
+        return cap * torch.tanh(score / cap)
+
+    mask = create_block_mask(mask_mod, None, None, sq, skv,
+                             device=qt.device)
+    flex = torch.compile(flex_attention, dynamic=False)
+    call = lambda: flex(qt, kt, vt, score_mod=softcap if cap else None,  # noqa
+                        block_mask=mask, scale=d ** -0.5, enable_gqa=True)
+    got = call().transpose(1, 2)
+    row["library"] = "flex_attention"
+    row["library_max_abs_diff"] = (got.float() - out.float()).abs().max() \
+        .item()
+    check(tuple(got.shape) == tuple(out.shape)
+          and bool(got.isfinite().all()), "flex_attention: bad output")
+    timed(row, "library_ms", call, reps, "flex_attention")
+
+
+def run(dev, grid_big, smi: str, lm_cfg, lm_seq: int = LM_SEQ,
+        serve_argv: list = SERVE_ARGV) -> None:
+    """Phases 2-10 on ``dev`` with ``grid_big`` as the stream's grid and
+    ``lm_cfg`` run at ``lm_seq`` tokens as the LM."""
     from repro_torch.core import stream as ST
     from repro_torch.core.grids import (ANCHOR_10M, REFERENCE_GRID,
                                         stream_grid_axes)
@@ -789,9 +1552,14 @@ def run(dev, grid_big, smi: str) -> None:
                                  ANCHOR_10M, dev)
     err["C"] = phase_rbe(dev)
     ht_launches, ht = phase_pipeline(dev, smi)
+    err["D"] = phase_rmsnorm(dev)
+    err["E"] = phase_flash(dev)
     rows, host = kernel_report(res, launches, err, grid_big, dev)
     row_c, shapes = rbe_report(ht_launches, err["C"], dev, smi)
     rows.append(row_c)
+    rows_de, lm_shapes = lm_kernel_report(err, dev)
+    rows += rows_de
+    lm_shapes["card"] = smi
     print(json.dumps({"host_ms_per_call": host, "card": smi}))
     stats = {k: res.stats[k] for k in ("n_configs", "n_chunks", "total_s",
                                        "configs_per_s", "first_chunk_s",
@@ -810,9 +1578,16 @@ def run(dev, grid_big, smi: str) -> None:
     stats["device_busy_share"] = total / stats["profiled_total_s"]
     stats["device_s_by_kernel"] = dict(sorted(
         busy.items(), key=lambda kv: -kv[1])[:8])
+    # The LM last: its serve run's trace (~85,000 kernels) is the largest
+    # the script takes.
+    lm_launches, lm = phase_lm(dev, lm_cfg, lm_seq, serve_argv, smi)
+    for row in rows_de:
+        row["launches"] = lm_launches[row.pop("kernel")]
     print(json.dumps({"stream": stats, "card": smi}))
     print(json.dumps(shapes))
     print(json.dumps({"handtracking": ht}))
+    print(json.dumps(lm_shapes))
+    print(json.dumps({"lm": lm}))
     print(json.dumps({"kernels": rows}))
 
 
@@ -834,19 +1609,27 @@ def build(libs) -> None:
 
 
 def main() -> int:
+    # torch.compile (the flex_attention yardstick) caches in the checkout.
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
+                     ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, str(ROOT / "build" / sub))
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    from repro_torch.configs import get_config
     from repro_torch.core.grids import stream_grid_axes
-    from repro_torch.kernels.rbe_matmul import kernel as R
-    from repro_torch.kernels.sweep_grid import kernel as K
+    from repro_torch.kernels._build import all_libraries
 
+    # Float32 matmuls in full float32 (the default, stated and set): the
+    # reduced float32 LMs are held against the JAX anchors.
+    torch.backends.cuda.matmul.allow_tf32 = False
     smi = card()
     print(f"card: {smi}")
-    build((K.LIBRARY, R.LIBRARY))
-    run(torch.device("cuda"), stream_grid_axes(100_000_000), smi)
+    build(all_libraries())
+    run(torch.device("cuda"), stream_grid_axes(100_000_000), smi,
+        get_config(LM_ARCH))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib
 import os
 import pathlib
 import shutil
@@ -26,6 +27,22 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build"
 #: shared object, and ptxas's register/spill report.
 BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+#: The modules whose ``LIBRARY`` is a kernel library of the port, with
+#: their flags: the sweep grid (kernels A and B, ``--fmad=false`` for
+#: its bitwise contract), the RBE int8 matmul (kernel C), RMSNorm (kernel
+#: D) and flash attention (kernel E), the last three on BASE_FLAGS.
+LIBRARY_MODULES = ("repro_torch.kernels.sweep_grid.kernel",
+                   "repro_torch.kernels.rbe_matmul.kernel",
+                   "repro_torch.kernels.rmsnorm.kernel",
+                   "repro_torch.kernels.flash_attention.kernel")
+
+
+def all_libraries() -> tuple:
+    """Every kernel library of the port (imported on call: the kernel
+    modules import this one)."""
+    return tuple(importlib.import_module(m).LIBRARY for m in LIBRARY_MODULES)
 
 
 def nvcc() -> str:

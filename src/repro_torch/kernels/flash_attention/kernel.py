@@ -1,0 +1,116 @@
+"""Kernel E, flash-attention forward for Hopper: build, binding and
+wrapper.
+
+:func:`flash_attention_fwd` replaces the reference's Pallas kernel
+``repro/kernels/flash_attention/kernel.py::_flash_fwd_kernel`` (through
+``flash_attention_fwd``): GQA attention with a causal mask at absolute
+positions, an optional sliding window and an optional tanh logit
+softcap, online softmax with float32 statistics.  The kernel is CUDA C++
+(``csrc/flash_attention.cu``, whose note gives its design and what
+bounds it), built with ``nvcc`` for ``sm_90a`` at first use into
+``build/`` and loaded with ``ctypes``.  Given CPU tensors the wrapper
+runs the plain version (:func:`.ref.flash_attention_ref`); given CUDA
+tensors it launches the kernel on the current stream or raises.  It
+counts its launches in its ``launches`` attribute.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import pathlib
+
+import torch
+
+from .._build import BASE_FLAGS, Library
+from . import ref
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+# BASE_FLAGS alone: held to a tolerance, not bitwise, so FMA contraction
+# stays on (the dot products are explicit fmaf chains anyway); no
+# --use_fast_math, so expf and tanhf keep their full-accuracy forms
+# (__expf is a 2-ulp approximation that loses range near the masked
+# scores).
+LIBRARY = Library("flash_attention", CSRC, "flash_attention.cu",
+                  ("flash_attention.cu",), BASE_FLAGS)
+
+#: dtype codes of the C interface, and the head dims it is built for.
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (32, 64, 128, 256)
+
+
+@functools.lru_cache(maxsize=1)
+def _lib():
+    lib = LIBRARY.load()
+    lib.flash_attention_launch.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+        + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+           ctypes.c_void_p])
+    lib.flash_attention_launch.restype = ctypes.c_int
+    lib.flash_attention_error_string.argtypes = [ctypes.c_int]
+    lib.flash_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(q, k, v) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name}: expected a torch.Tensor, got {type(t)}")
+        if t.dim() != 4:
+            raise ValueError(f"{name} must be 4-D, got {tuple(t.shape)}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} has dtype {t.dtype}, q {q.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"dtype {q.dtype}: expected float32 or bfloat16")
+    b, sq, h, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} must "
+                         f"be (B, Skv, KV, D) with q {tuple(q.shape)}")
+    if h % k.shape[2]:
+        raise ValueError(f"{h} q heads are not a multiple of "
+                         f"{k.shape[2]} kv heads")
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        logit_softcap: float = 0.0,
+                        scale: float | None = None) -> torch.Tensor:
+    """q: (B, Sq, H, D); k/v: (B, Skv, KV, D), one dtype (float32 or
+    bfloat16), contiguous, on one device.  Returns (B, Sq, H, D) in q's
+    dtype.  ``window`` 0 and ``logit_softcap`` 0 turn those off."""
+    _check(q, k, v)
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    scale = float(scale if scale is not None else d ** -0.5)
+    dev = q.device
+    if dev.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       logit_softcap=logit_softcap,
+                                       scale=scale)
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention_fwd runs on cuda or cpu, not "
+                         f"{dev}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d}: the kernel is built for "
+                         f"{HEAD_DIMS}")
+    out = torch.empty_like(q)
+    if b and sq and skv and h:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _lib().flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, sq, skv, h, kvh, d, int(bool(causal)), int(window),
+            float(logit_softcap), scale, DTYPES[q.dtype],
+            dev.index if dev.index is not None else 0, stream)
+        if rc != 0:
+            msg = _lib().flash_attention_error_string(rc).decode()
+            raise RuntimeError(f"flash_attention_launch failed: {msg} "
+                               f"(code {rc})")
+        flash_attention_fwd.launches += 1
+    return out
+
+
+flash_attention_fwd.launches = 0

@@ -1,0 +1,210 @@
+"""Attention of the port's LM: the GQA half of the reference's
+``repro/models/attention.py`` (RoPE, sliding windows, logit softcap).
+
+Two paths, as in the reference:
+
+* **prompt forward** — :func:`gqa_forward` projects q, k and v and calls
+  :func:`repro_torch.models.flash.flash_attention`, which is kernel E on
+  the card;
+* **decode** — :func:`gqa_decode` writes one token's k and v into a
+  preallocated cache and attends over it with :func:`decode_attention`,
+  plain tensor code that masks by ``cache_len`` over the whole cache and
+  takes a full softmax, as the reference computes it outside any Pallas
+  kernel.
+
+Weights keep the reference's einsum layouts (``w_q`` (d, H, Dh),
+``w_o`` (H, Dh, d)); attention tensors are (B, S, H, Dh).  MLA
+(DeepSeek-V2) comes with a later slice.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.kernels.flash_attention.ref import NEG_INF, flash_attention_ref
+
+from .common import ModelConfig
+from .layers import apply_mrope, apply_rope, normal
+
+
+def _block_pairs(n_q: int, n_kv: int, q_block: int, kv_block: int,
+                 seq_offset: int, causal: bool,
+                 window: int) -> list[tuple[int, int]]:
+    """Statically enumerate (q_block, kv_block) pairs intersecting the mask.
+
+    Works in absolute positions, so unequal block sizes and
+    prefix-offset queries (``seq_offset = skv - sq``) are handled.  Pairs
+    are ordered by q block then kv block, which the online-softmax update
+    requires.  ``window`` prunes kv blocks entirely below the sliding
+    window.
+    """
+    pairs = []
+    for qi in range(n_q):
+        q_lo = qi * q_block + seq_offset        # first absolute q position
+        q_hi = q_lo + q_block - 1               # last absolute q position
+        for kj in range(n_kv):
+            k_lo = kj * kv_block
+            k_hi = k_lo + kv_block - 1
+            if causal and k_lo > q_hi:
+                continue                        # fully above the diagonal
+            if window and k_hi <= q_lo - window:
+                continue                        # fully below the window
+            pairs.append((qi, kj))
+    return pairs
+
+
+#: The O(S^2)-memory oracle of the reference's tests (small shapes
+#: only): the same full softmax as kernel E's plain version.
+full_attention_reference = flash_attention_ref
+
+
+def decode_attention(q, k_cache, v_cache, cache_len: int, *, window=0,
+                     logit_softcap=0.0, scale=None):
+    """Single-token attention over a preallocated cache.
+
+    q: (B, 1, H, Dh); caches: (B, S_max, KV, Dh); ``cache_len`` — number
+    of valid positions INCLUDING the token just inserted.
+    """
+    b, _, h, dh = q.shape
+    _, s_max, kv_heads, dv = v_cache.shape
+    g = h // kv_heads
+    scale = scale if scale is not None else dh ** -0.5
+    qg = q.reshape(b, kv_heads, g, dh).float()
+    s = torch.einsum("bkgd,btkd->bkgt", qg, k_cache.float()) * scale
+    if logit_softcap:
+        s = logit_softcap * torch.tanh(s / logit_softcap)
+    kpos = torch.arange(s_max, device=q.device)
+    valid = kpos < cache_len
+    if window:
+        valid &= kpos > cache_len - 1 - window
+    s = s.masked_fill(~valid[None, None, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgt,btkd->bkgd", p, v_cache.float())
+    return o.reshape(b, 1, h, dv).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA block
+# ---------------------------------------------------------------------------
+
+
+def gqa_init(cfg: ModelConfig, dtype, generator, device) -> dict:
+    d, h, kvh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    hd = cfg.resolved_head_dim
+    s = d ** -0.5
+    p = {
+        "w_q": normal((d, h, hd), s, dtype, generator, device),
+        "w_k": normal((d, kvh, hd), s, dtype, generator, device),
+        "w_v": normal((d, kvh, hd), s, dtype, generator, device),
+        "w_o": normal((h, hd, d), (h * hd) ** -0.5, dtype, generator,
+                      device),
+    }
+    if cfg.qkv_bias:
+        p["b_q"] = torch.zeros((h, hd), dtype=dtype, device=device)
+        p["b_k"] = torch.zeros((kvh, hd), dtype=dtype, device=device)
+        p["b_v"] = torch.zeros((kvh, hd), dtype=dtype, device=device)
+    return p
+
+
+def _rope_or_mrope(cfg: ModelConfig, x: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+    if not cfg.use_rope:
+        return x
+    if cfg.mrope_sections:
+        return apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
+    return apply_rope(x, positions, cfg.rope_theta)
+
+
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bsd,dhk->bshk", x, w)`` as one matmul."""
+    b, s, d = x.shape
+    return (x @ w.reshape(d, -1)).view(b, s, *w.shape[1:])
+
+
+def _qkv(cfg: ModelConfig, params: dict, x: torch.Tensor,
+         positions: torch.Tensor):
+    q = _project(x, params["w_q"])
+    k = _project(x, params["w_k"])
+    v = _project(x, params["w_v"])
+    if cfg.qkv_bias:
+        q, k, v = q + params["b_q"], k + params["b_k"], v + params["b_v"]
+    return (_rope_or_mrope(cfg, q, positions),
+            _rope_or_mrope(cfg, k, positions), v)
+
+
+def _out(o: torch.Tensor, w_o: torch.Tensor) -> torch.Tensor:
+    """``einsum("bshk,hkd->bsd", o, w_o)`` as one matmul."""
+    b, s = o.shape[:2]
+    return o.reshape(b, s, -1) @ w_o.reshape(-1, w_o.shape[-1])
+
+
+def gqa_forward(cfg: ModelConfig, params: dict, x: torch.Tensor,
+                positions: torch.Tensor, *, window: int = 0,
+                q_block: int = 512, kv_block: int = 512) -> torch.Tensor:
+    """Full-sequence (prompt) GQA: kernel E on the card."""
+    from .flash import flash_attention  # local import, as the reference's
+    q, k, v = _qkv(cfg, params, x, positions)
+    o = flash_attention(q, k, v.contiguous(), causal=True, window=window,
+                        logit_softcap=cfg.attn_logit_softcap,
+                        q_block=q_block, kv_block=kv_block,
+                        p_bf16=cfg.attn_p_bf16)
+    return _out(o, params["w_o"])
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor       # (B, S_max, KV, Dh)
+    v: torch.Tensor       # (B, S_max, KV, Dh)
+
+
+def gqa_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                   device) -> KVCache:
+    kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    return KVCache(
+        k=torch.zeros((batch, max_len, kvh, hd), dtype=dtype, device=device),
+        v=torch.zeros((batch, max_len, kvh, hd), dtype=dtype, device=device))
+
+
+def gqa_decode(cfg: ModelConfig, params: dict, x: torch.Tensor,
+               cache: KVCache, pos: int, *,
+               window: int = 0) -> tuple[torch.Tensor, KVCache]:
+    """One-token decode. x: (B, 1, d); ``pos`` the cache index to write.
+
+    The reference returns a new cache (``dynamic_update_slice``); the
+    port writes the token into ``cache`` in place and returns it.  k and
+    v are cast into the cache's dtype (the compute dtype) before the
+    write, as in the reference.
+    """
+    pos_b = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
+                       device=x.device)
+    q, k, v = _qkv(cfg, params, x, pos_b)
+    cache.k[:, pos:pos + 1] = k.to(cache.k.dtype)
+    cache.v[:, pos:pos + 1] = v.to(cache.v.dtype)
+    o = decode_attention(q, cache.k, cache.v, pos + 1, window=window,
+                         logit_softcap=cfg.attn_logit_softcap)
+    return _out(o, params["w_o"]), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA block (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+_MLA = ("MLA attention (deepseek-v2) comes with the MLA slice of the LM "
+        "port (ROADMAP Queue 1 item 12)")
+
+
+def mla_init(*args, **kwargs):
+    raise NotImplementedError(_MLA)
+
+
+def mla_forward(*args, **kwargs):
+    raise NotImplementedError(_MLA)
+
+
+def mla_init_cache(*args, **kwargs):
+    raise NotImplementedError(_MLA)
+
+
+def mla_decode(*args, **kwargs):
+    raise NotImplementedError(_MLA)

@@ -1,0 +1,337 @@
+"""Transformer assembly of the port's LM: dense GQA stacks (the
+reference's ``repro/models/transformer.py``).
+
+The reference scans (``lax.scan``) over ``R`` repeats of the config's
+``block_pattern`` with per-position parameters stacked along a leading
+repeat axis; the port keeps one parameter dict a layer and loops over
+the layers in order (layer ``i`` is pattern position ``i % P`` of repeat
+``i // P``).  :func:`params_from_jax` carries the reference's stacked
+pytree across.
+
+Public API:
+    init_params(cfg, generator, device)     -> params
+    forward(cfg, params, batch)             -> logits (B, S, V)
+    init_cache(cfg, batch, max_len, dtype, device) -> decode cache
+    decode_step(cfg, params, cache, batch, pos) -> (logits, cache)
+
+On the card every norm runs kernel D and every full-sequence attention
+kernel E; decode attention is plain tensor code, as in the reference.
+MoE, SSM and MLA blocks, the dense prologue (``first_k_dense``),
+sequence parallelism, frontend embeddings, rematerialization and the
+loss come with later slices and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.sweep import resolve_device
+
+from . import attention as attn
+from .common import ModelConfig
+from .layers import (compute_dtype, dense_ffn, dense_ffn_init, embed,
+                     embedding_init, rmsnorm, rmsnorm_init, unembed,
+                     unembed_init)
+
+_LATER = {
+    "moe": "MoE blocks come with the MoE slice of the LM port",
+    "ssm": "SSM blocks (mamba, mlstm, slstm) come with the SSM slice of "
+           "the LM port",
+    "mla": "MLA attention comes with the MLA slice of the LM port",
+    "first_k_dense": "the dense prologue (first_k_dense) comes with the "
+                     "MoE slice of the LM port",
+    "seq_parallel": "sequence parallelism comes with the sharding slice "
+                    "of the LM port",
+    "embeds": "frontend embeddings (modality stubs) come with the "
+              "modality-stub slice of the LM port",
+    "sinusoidal": "sinusoidal position embeddings (use_rope=False) come "
+                  "with the modality-stub slice of the LM port",
+    "remat": "rematerialization comes with the training slice of the LM "
+             "port",
+    "loss": "loss_fn comes with the training slice of the LM port",
+}
+
+
+def _later(what: str):
+    return NotImplementedError(f"{_LATER[what]} (ROADMAP Queue 1 item 12)")
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for what this slice does not run."""
+    if cfg.moe is not None:
+        raise _later("moe")
+    if any(not kind.startswith("attn") for kind in cfg.block_pattern):
+        raise _later("ssm")
+    if cfg.attention_kind == "mla":
+        raise _later("mla")
+    if cfg.first_k_dense:
+        raise _later("first_k_dense")
+    if cfg.seq_parallel:
+        raise _later("seq_parallel")
+    if cfg.frontend_stub:
+        raise _later("embeds")
+    if not cfg.use_rope:
+        raise _later("sinusoidal")
+
+
+class Batch(NamedTuple):
+    """Token ids (frontend embeddings come with a later slice).
+
+    tokens:    (B, S) integer
+    embeds:    (B, S, d_model) or None — not supported yet
+    positions: (B, S) integer, or None for 0..S-1
+    labels:    (B, S) next-token targets (training only)
+    """
+    tokens: Optional[torch.Tensor] = None
+    embeds: Optional[torch.Tensor] = None
+    positions: Optional[torch.Tensor] = None
+    labels: Optional[torch.Tensor] = None
+
+
+# ---------------------------------------------------------------------------
+# Per-block init / forward / decode
+# ---------------------------------------------------------------------------
+
+
+def _block_init(cfg: ModelConfig, dtype, generator, device) -> dict:
+    d = cfg.d_model
+    p: dict = {"norm1": rmsnorm_init(d, device),
+               "mixer": attn.gqa_init(cfg, dtype, generator, device)}
+    if cfg.d_ff > 0:
+        p["norm2"] = rmsnorm_init(d, device)
+        p["ffn"] = dense_ffn_init(d, cfg.d_ff, cfg.ffn_kind, dtype,
+                                  generator, device)
+    if cfg.post_block_norm:
+        p["post_norm1"] = rmsnorm_init(d, device)
+        if cfg.d_ff > 0:
+            p["post_norm2"] = rmsnorm_init(d, device)
+    return p
+
+
+def _window(cfg: ModelConfig, kind: str) -> int:
+    return cfg.sliding_window if kind == "attn_local" else 0
+
+
+def _ffn_half(cfg: ModelConfig, params: dict,
+              x: torch.Tensor) -> torch.Tensor:
+    if "ffn" not in params:
+        return x
+    h = rmsnorm(params["norm2"], x, cfg.norm_eps)
+    h = dense_ffn(params["ffn"], h, cfg.ffn_kind)
+    if cfg.post_block_norm:
+        h = rmsnorm(params["post_norm2"], h, cfg.norm_eps)
+    return x + h
+
+
+def _block_forward(cfg: ModelConfig, kind: str, params: dict,
+                   x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    h = rmsnorm(params["norm1"], x, cfg.norm_eps)
+    h = attn.gqa_forward(cfg, params["mixer"], h, positions,
+                         window=_window(cfg, kind))
+    if cfg.post_block_norm:
+        h = rmsnorm(params["post_norm1"], h, cfg.norm_eps)
+    return _ffn_half(cfg, params, x + h)
+
+
+def _block_decode(cfg: ModelConfig, kind: str, params: dict,
+                  x: torch.Tensor, cache: attn.KVCache,
+                  pos: int) -> tuple[torch.Tensor, attn.KVCache]:
+    h = rmsnorm(params["norm1"], x, cfg.norm_eps)
+    h, cache = attn.gqa_decode(cfg, params["mixer"], h, cache, pos,
+                               window=_window(cfg, kind))
+    if cfg.post_block_norm:
+        h = rmsnorm(params["post_norm1"], h, cfg.norm_eps)
+    return _ffn_half(cfg, params, x + h), cache
+
+
+# ---------------------------------------------------------------------------
+# Params
+# ---------------------------------------------------------------------------
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
+                device="cuda") -> dict:
+    """Random weights with the reference's fan-in scales (norm scales 0,
+    biases 0), drawn from ``generator`` (a generator on ``device``; by
+    default one seeded with 0)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    dtype = compute_dtype(cfg)
+    params: dict = {
+        "embed": embedding_init(cfg.vocab_size, cfg.d_model, dtype,
+                                generator, dev),
+        "final_norm": rmsnorm_init(cfg.d_model, dev),
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = unembed_init(cfg.vocab_size, cfg.d_model, dtype,
+                                         generator, dev)
+    params["layers"] = [_block_init(cfg, dtype, generator, dev)
+                        for _ in range(cfg.num_layers)]
+    return params
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def param_count(params) -> int:
+    return sum(t.numel() for t in _leaves(params))
+
+
+def param_bytes(params) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(params))
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def to_device(params, device) -> dict:
+    """A copy of ``params`` with every tensor on ``device``."""
+    dev = resolve_device(device)
+    return _tree_map(lambda t: t.to(dev), params)
+
+
+def _from_numpy(a) -> torch.Tensor:
+    a = np.ascontiguousarray(np.asarray(a))
+    if a.dtype.name == "bfloat16":      # ml_dtypes' bfloat16, as JAX hands it
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def params_from_jax(cfg: ModelConfig, params: dict) -> dict:
+    """Carry the reference's parameters (``repro.models.transformer.
+    init_params``'s pytree, as numpy arrays) into this model's layout, on
+    the CPU: ``params["blocks"]`` is a tuple over the P pattern positions,
+    each stacked along a leading repeat axis R; layer ``i`` is repeat
+    ``i // P`` at position ``i % P``.  Dtypes are kept (norm scales stay
+    float32 in a bf16 model)."""
+    check_supported(cfg)
+    blocks = params["blocks"]
+    pat, r = len(cfg.block_pattern), cfg.num_pattern_repeats
+    if len(blocks) != pat:
+        raise ValueError(f"{len(blocks)} stacked positions, pattern has "
+                         f"{pat}")
+    out = {k: _tree_map(_from_numpy, v) for k, v in params.items()
+           if k != "blocks"}
+    layers = []
+    for i in range(cfg.num_layers):
+        rep, posn = divmod(i, pat)
+
+        def take(a, rep=rep):
+            a = np.asarray(a)
+            if a.shape[0] != r:
+                raise ValueError(f"stacked leaf has {a.shape[0]} repeats, "
+                                 f"config has {r}")
+            return _from_numpy(a[rep])
+
+        layers.append(_tree_map(take, blocks[posn]))
+    out["layers"] = layers
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Forward (prompt)
+# ---------------------------------------------------------------------------
+
+
+def _default_positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
+
+
+def _sinusoidal(positions, d):
+    raise _later("sinusoidal")
+
+
+def _inputs_to_x(cfg: ModelConfig, params: dict,
+                 batch: Batch) -> tuple[torch.Tensor, torch.Tensor]:
+    if batch.embeds is not None:
+        raise _later("embeds")
+    x = embed(params["embed"], batch.tokens, cfg.scale_embeddings,
+              cfg.d_model)
+    b, s = batch.tokens.shape
+    pos = batch.positions
+    if pos is None:
+        pos = _default_positions(b, s, x.device)
+    if not cfg.use_rope:
+        x = x + _sinusoidal(pos, cfg.d_model)
+    return x, pos
+
+
+def hidden_states(cfg: ModelConfig, params: dict, batch: Batch,
+                  remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run the stack; returns (hidden (B,S,d) after the final norm,
+    aux_loss), aux_loss 0 for dense stacks."""
+    check_supported(cfg)
+    if remat:
+        raise _later("remat")
+    x, positions = _inputs_to_x(cfg, params, batch)
+    for i, p in enumerate(params["layers"]):
+        x = _block_forward(cfg, cfg.layer_kind(i), p, x, positions)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _logits(cfg: ModelConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
+    tied = params["embed"]["table"] if cfg.tie_embeddings else None
+    return unembed(params.get("unembed"), h, cfg.final_logit_softcap, tied)
+
+
+def forward(cfg: ModelConfig, params: dict, batch: Batch) -> torch.Tensor:
+    """Full logits (B, S, V) in the compute dtype."""
+    h, _ = hidden_states(cfg, params, batch)
+    return _logits(cfg, params, h)
+
+
+def loss_fn(cfg, params, batch, remat=False):
+    raise _later("loss")
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
+               device="cuda") -> dict:
+    """One KV cache a layer, zeros, in the compute dtype by default."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    dtype = dtype or compute_dtype(cfg)
+    return {"layers": [attn.gqa_init_cache(cfg, batch, max_len, dtype, dev)
+                       for _ in range(cfg.num_layers)]}
+
+
+def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: Batch,
+                pos: int, *, mla_absorb: bool = False
+                ) -> tuple[torch.Tensor, dict]:
+    """One-token step. batch.tokens: (B, 1).
+
+    ``pos`` is the cache position to write (== number of tokens already in
+    the cache).  Returns (logits (B, 1, V), cache); the cache is updated
+    in place.
+    """
+    check_supported(cfg)
+    x, _ = _inputs_to_x(cfg, params, batch)
+    pos = int(pos)
+    for i, p in enumerate(params["layers"]):
+        x, cache["layers"][i] = _block_decode(cfg, cfg.layer_kind(i), p, x,
+                                              cache["layers"][i], pos)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return _logits(cfg, params, x), cache

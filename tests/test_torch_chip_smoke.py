@@ -1,0 +1,119 @@
+"""The parts of ``chip_smoke.py`` that decide a result without the card:
+the checks of a trace-timed reading, kernel E's bound, the
+``flex_attention`` yardstick's function, and the guard of the LM's
+kernels-vs-plain comparison.  Everything here runs on the CPU; the
+script's timings and kernel launches run only on the card."""
+
+import pathlib
+import sys
+
+import pytest
+import torch
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+import chip_smoke as CS  # noqa: E402
+
+from repro_torch.kernels import flash_attention as E  # noqa: E402
+from repro_torch.kernels import rmsnorm as D  # noqa: E402
+from repro_torch.models import flash, layers  # noqa: E402
+
+FWD = {"void (anonymous namespace)::flash_fwd_kernel<bf16, 256>(...)": 26,
+       "void (anonymous namespace)::rmsnorm_kernel<bf16>(...)": 105,
+       "nvjet_gemm": 183}
+MINE = {"::flash_fwd_kernel<": 26, "::rmsnorm_kernel<": 105}
+
+
+def _fake_traces(monkeypatch, traces):
+    """``trace_events`` returns the given {name: records} traces in turn
+    (1 µs a record)."""
+    it = iter(traces)
+    monkeypatch.setattr(CS, "trace_events", lambda run: (run(), {
+        k: (n * 1e-6, n) for k, n in next(it).items()})[1])
+
+
+def test_a_complete_trace_is_read(monkeypatch):
+    _fake_traces(monkeypatch, [{k: 2 * n for k, n in FWD.items()}])
+    ms, method = CS.trace_ms(lambda: None, 2, "fwd", MINE)
+    assert method == "trace"
+    assert ms == pytest.approx(sum(FWD.values()) * 1e-3)
+
+
+@pytest.mark.parametrize("drop", [
+    "void (anonymous namespace)::flash_fwd_kernel<bf16, 256>(...)",
+    "nvjet_gemm"])
+def test_a_trace_missing_one_record_is_taken_again(monkeypatch, drop):
+    short = {k: 2 * n - (k == drop) for k, n in FWD.items()}
+    _fake_traces(monkeypatch, [short, {k: 2 * n for k, n in FWD.items()}])
+    ms, method = CS.trace_ms(lambda: None, 2, "fwd", MINE)
+    assert method == "trace"
+    assert ms == pytest.approx(sum(FWD.values()) * 1e-3)
+
+
+def test_three_traces_missing_records_are_not_read(monkeypatch):
+    """Their calls are timed by events as they run instead (an upper
+    bound on device time), and the method says so."""
+    short = {k: 2 * n for k, n in FWD.items()}
+    short["nvjet_gemm"] -= 2       # multiples of reps still, but E is
+    short[next(iter(FWD))] -= 2    # counted short of what is expected
+    _fake_traces(monkeypatch, [short] * 3)
+    monkeypatch.setattr(CS, "unheld_ms", lambda fn, reps: 650.0)
+    assert CS.trace_ms(lambda: None, 2, "fwd", MINE) == (650.0,
+                                                         "events_unheld")
+
+
+def test_a_trace_of_one_call_is_refused():
+    with pytest.raises(CS.SmokeFailure, match="one call"):
+        CS.trace_ms(lambda: None, 1, "fwd")
+
+
+def test_flash_bound_costs_qk_at_the_bf16_rate_on_bf16_inputs():
+    nbytes, qk, pv = CS.flash_work(1, 8192, 8192, 8, 4, 256, True, 0, 2)
+    assert qk == pv == 2 * 256 * 8 * 8192 * 8193 // 2
+    bf16, by = CS.flash_bound(nbytes, qk, pv, True)
+    f32, _ = CS.flash_bound(nbytes, qk, pv, False)
+    assert by == "operations"
+    assert bf16 == pytest.approx((qk / 989e12 + pv / 67e12) * 1e3)
+    assert f32 == pytest.approx((qk + pv) / 67e12 * 1e3)
+
+
+@pytest.mark.parametrize("sq,skv,causal,window,cap", [
+    (128, 128, True, 32, 50.0), (128, 128, True, 0, 50.0),
+    (64, 192, True, 40, 0.0), (128, 128, False, 0, 0.0)])
+def test_flex_yardstick_computes_kernel_e_function(monkeypatch, sq, skv,
+                                                   causal, window, cap):
+    """Uncompiled on the CPU, the yardstick's masks, offset, softcap and
+    GQA give kernel E's plain version to float32 rounding."""
+    monkeypatch.setattr(torch, "compile", lambda fn, **kw: fn)
+    monkeypatch.setattr(CS, "timed", lambda row, key, *a, **k: None)
+    q, k, v = CS.flash_inputs(1, sq, skv, 8, 4, 32, "float32", 0,
+                              torch.device("cpu"))
+    q = q * 3.0
+    want = E.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                 logit_softcap=cap)
+    row = {}
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    CS.flex_library(row, qt, kt, vt, causal, window, cap, want, 3)
+    assert row["library"] == "flex_attention"
+    assert row["library_max_abs_diff"] <= 1e-5
+
+
+def test_plain_kernels_swaps_in_the_plain_versions_and_restores():
+    g = torch.Generator().manual_seed(0)
+    x, scale = torch.randn(3, 16, generator=g), torch.randn(16, generator=g)
+    saved = layers.rmsnorm_op, flash.flash_attention_fwd
+    with CS.plain_kernels():
+        assert flash.flash_attention_fwd is E.flash_attention_ref
+        assert torch.equal(layers.rmsnorm_op(x, scale),
+                           D.rmsnorm_ref(x, scale))
+    assert (layers.rmsnorm_op, flash.flash_attention_fwd) == saved
+
+
+@pytest.mark.parametrize("kernel", ["rmsnorm_fused", "flash_attention_fwd"])
+def test_plain_kernels_fails_if_a_kernel_launches_inside(kernel):
+    fn = getattr(D if kernel == "rmsnorm_fused" else E, kernel)
+    saved = layers.rmsnorm_op, flash.flash_attention_fwd
+    with pytest.raises(CS.SmokeFailure, match="plain path launched"):
+        with CS.plain_kernels():
+            fn.launches += 1
+    assert (layers.rmsnorm_op, flash.flash_attention_fwd) == saved
+
