@@ -1,5 +1,5 @@
 """Kernel E, flash-attention forward (CUDA C++ for Hopper), and its plain
 version."""
 
-from .kernel import flash_attention_fwd  # noqa: F401
+from .kernel import flash_attention_fwd, plan  # noqa: F401
 from .ref import flash_attention_ref  # noqa: F401

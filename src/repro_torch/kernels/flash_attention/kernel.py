@@ -1,22 +1,26 @@
-"""Kernel E, flash-attention forward for Hopper: build, binding and
+"""Kernel E, flash-attention forward for Hopper: build, binding, plan and
 wrapper.
 
 :func:`flash_attention_fwd` replaces the reference's Pallas kernel
 ``repro/kernels/flash_attention/kernel.py::_flash_fwd_kernel`` (through
 ``flash_attention_fwd``): GQA attention with a causal mask at absolute
 positions, an optional sliding window and an optional tanh logit
-softcap, online softmax with float32 statistics.  The kernel is CUDA C++
-(``csrc/flash_attention.cu``, whose note gives its design and what
-bounds it), built with ``nvcc`` for ``sm_90a`` at first use into
-``build/`` and loaded with ``ctypes``.  Given CPU tensors the wrapper
-runs the plain version (:func:`.ref.flash_attention_ref`); given CUDA
-tensors it launches the kernel on the current stream or raises.  It
-counts its launches in its ``launches`` attribute.
+softcap, online softmax with float32 statistics.  The kernels are CUDA
+C++ (``csrc/flash_attention.cu``, whose note gives their design and what
+bounds them), built with ``nvcc`` for ``sm_90a`` at first use into
+``build/`` and loaded with ``ctypes``: bf16 inputs take the tensor-core
+route (``mma.sync``, p@v exact through a three-piece bf16 split of p),
+float32 inputs the CUDA-core route.  :func:`plan` chooses the route and
+its tiling in plain Python.  Given CPU tensors the wrapper runs the
+plain version (:func:`.ref.flash_attention_ref`); given CUDA tensors it
+launches the kernel on the current stream or raises.  It counts its
+launches in its ``launches`` attribute.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import pathlib
 
@@ -27,16 +31,73 @@ from . import ref
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 # BASE_FLAGS alone: held to a tolerance, not bitwise, so FMA contraction
-# stays on (the dot products are explicit fmaf chains anyway); no
-# --use_fast_math, so expf and tanhf keep their full-accuracy forms
-# (__expf is a 2-ulp approximation that loses range near the masked
-# scores).
+# stays on (the f32 route's dot products are explicit fmaf chains, the
+# bf16 route's are mma instructions); no --use_fast_math, so expf and
+# tanhf keep their full-accuracy forms (__expf is a 2-ulp approximation
+# that loses range near the masked scores).
 LIBRARY = Library("flash_attention", CSRC, "flash_attention.cu",
                   ("flash_attention.cu",), BASE_FLAGS)
 
 #: dtype codes of the C interface, and the head dims it is built for.
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128, 256)
+#: route codes of the C interface.
+ROUTES = {"simt": 0, "mma": 1}
+
+#: An H100 SM's shared memory, the most one block may take, and what the
+#: runtime keeps for each resident block (bytes).
+SMEM_PER_SM = 233_472
+SMEM_PER_BLOCK = 232_448
+SMEM_RESERVED = 1_024
+#: Rows of the folded (Sq x g) query matrix a block owns, on both routes.
+ROWS = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How kernel E runs one call.  ``route``: ``"mma"`` (bf16 inputs:
+    tensor cores, 4 warps of 16 rows, a ``cp.async`` ring of ``stages``
+    K/V tiles) or ``"simt"`` (float32 inputs: CUDA cores, 8 warps, one
+    tile staged as float32).  ``rows``: rows of the folded query matrix
+    a block; ``keys``: keys a K/V tile; ``smem_bytes``: dynamic shared
+    memory a block; ``grid``: (q tiles, kv heads, batch)."""
+
+    route: str
+    rows: int
+    keys: int
+    stages: int
+    smem_bytes: int
+    grid: tuple
+
+    @property
+    def blocks_per_sm(self) -> int:
+        """Blocks an SM holds by shared memory alone."""
+        return SMEM_PER_SM // (self.smem_bytes + SMEM_RESERVED)
+
+
+def plan(b: int, sq: int, h: int, kvh: int, d: int,
+         dtype: torch.dtype) -> Plan:
+    """The route and tiling of kernel E for q (b, sq, h, d) on kvh kv
+    heads.  bf16 takes the tensor cores: 64-key tiles (32 at d 256, where
+    the f32 O accumulator takes half the registers), rows padded by 16
+    bytes, and as many stages (2 or 3) as leave room for two blocks an
+    SM.  float32 keeps the CUDA-core kernel's tiling."""
+    if dtype not in DTYPES:
+        raise TypeError(f"dtype {dtype}: expected float32 or bfloat16")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d}: the kernel is built for "
+                         f"{HEAD_DIMS}")
+    grid = (-(-sq * (h // kvh) // ROWS), kvh, b)
+    if dtype == torch.float32:
+        smem = 4 * (ROWS * d + 32 * (d + 4) + 32 * d)
+        return Plan("simt", ROWS, 32, 1, smem, grid)
+    keys = 32 if d == 256 else 64
+    row_bytes = 2 * (d + 8)
+    q_bytes, stage_bytes = ROWS * row_bytes, 2 * keys * row_bytes
+    room = SMEM_PER_SM // 2 - SMEM_RESERVED - q_bytes
+    stages = max(2, min(3, room // stage_bytes))
+    return Plan("mma", ROWS, keys, stages, q_bytes + stages * stage_bytes,
+                grid)
 
 
 @functools.lru_cache(maxsize=1)
@@ -44,8 +105,9 @@ def _lib():
     lib = LIBRARY.load()
     lib.flash_attention_launch.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-        + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-           ctypes.c_void_p])
+        + [ctypes.c_float, ctypes.c_float]
+        + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 2
+        + [ctypes.c_int, ctypes.c_void_p])
     lib.flash_attention_launch.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -94,16 +156,15 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"flash_attention_fwd runs on cuda or cpu, not "
                          f"{dev}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d}: the kernel is built for "
-                         f"{HEAD_DIMS}")
+    p = plan(b, sq, h, kvh, d, q.dtype)
     out = torch.empty_like(q)
     if b and sq and skv and h:
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _lib().flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, sq, skv, h, kvh, d, int(bool(causal)), int(window),
-            float(logit_softcap), scale, DTYPES[q.dtype],
+            float(logit_softcap), scale, DTYPES[q.dtype], ROUTES[p.route],
+            p.keys, p.stages, p.smem_bytes, p.grid[0],
             dev.index if dev.index is not None else 0, stream)
         if rc != 0:
             msg = _lib().flash_attention_error_string(rc).decode()

@@ -1,5 +1,5 @@
 """Kernel D, RMSNorm (CUDA C++ for Hopper), and its plain version."""
 
-from .kernel import rmsnorm_fused  # noqa: F401
+from .kernel import plan, rmsnorm_fused  # noqa: F401
 from .ops import rmsnorm  # noqa: F401
 from .ref import rmsnorm_ref  # noqa: F401

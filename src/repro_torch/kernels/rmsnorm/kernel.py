@@ -1,4 +1,4 @@
-"""Kernel D, RMSNorm for Hopper: build, binding and wrapper.
+"""Kernel D, RMSNorm for Hopper: build, binding, plan and wrapper.
 
 :func:`rmsnorm_fused` replaces the reference's Pallas kernel
 ``repro/kernels/rmsnorm/kernel.py::_rmsnorm_kernel`` (through
@@ -7,15 +7,18 @@ becomes ``x * rsqrt(mean(x²) + eps) * (1 + scale)`` in float32 math,
 written in the input's dtype.  The kernel is CUDA C++
 (``csrc/rmsnorm.cu``, whose note gives its design and what bounds it),
 built with ``nvcc`` for ``sm_90a`` at first use into ``build/`` and
-loaded with ``ctypes``.  Given CPU tensors the wrapper runs the plain
-version (:func:`.ref.rmsnorm_ref`); given CUDA tensors it launches the
-kernel on the current stream or raises.  It counts its launches in its
-``launches`` attribute.
+loaded with ``ctypes``.  :func:`plan` picks its route in plain Python: a
+warp a row with the row held in 16-byte vectors, or the strided
+fallback where ``d`` or a pointer breaks 16-byte alignment.  Given CPU
+tensors the wrapper runs the plain version (:func:`.ref.rmsnorm_ref`);
+given CUDA tensors it launches the kernel on the current stream or
+raises.  It counts its launches in its ``launches`` attribute.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import pathlib
 
@@ -33,15 +36,58 @@ LIBRARY = Library("rmsnorm", CSRC, "rmsnorm.cu", ("rmsnorm.cu",), BASE_FLAGS)
 
 #: dtype codes of the C interface.
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: route codes of the C interface.
+ROUTES = {"strided": 0, "vector": 1}
+#: Warps a block; 16-byte vectors a lane at most (the row is held in
+#: registers); warps a row when one warp's lanes cannot hold it, or when
+#: there are fewer than FEW_ROWS rows (decode: a call's time is then its
+#: latency, which a row spread over a block's 8 warps cuts).
+WARPS = 8
+MAX_VECTORS = 16
+WIDE_WARPS = 8
+FEW_ROWS = 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How kernel D runs one call.  ``route``: ``"vector"`` (a lane holds
+    ``vectors`` 16-byte vectors of its row, ``warps_per_row`` warps a
+    row, 8 warps a block) or ``"strided"`` (a 256-thread block a row,
+    scalar loads); ``grid``: blocks."""
+
+    route: str
+    vectors: int
+    warps_per_row: int
+    rows_per_block: int
+    grid: int
+
+
+def plan(rows: int, d: int, itemsize: int, *pointers: int) -> Plan:
+    """The route of kernel D for ``rows`` rows of ``d`` elements of
+    ``itemsize`` bytes at the given data pointers (x, scale, out): the
+    vector route where ``d`` fills whole 16-byte vectors and every
+    pointer is 16-byte aligned, with one warp a row while 16 vectors a
+    lane hold it (d <= 4096 bf16, 2048 f32) and there are FEW_ROWS rows
+    or more, else 8; the strided route otherwise."""
+    per_vec = 16 // itemsize
+    if d % per_vec == 0 and all(p % 16 == 0 for p in pointers):
+        nv = d // per_vec
+        for w in ((1, WIDE_WARPS) if rows >= FEW_ROWS else (WIDE_WARPS,)):
+            v = -(-nv // (32 * w))
+            if v <= MAX_VECTORS:
+                rpb = WARPS // w
+                return Plan("vector", v, w, rpb, -(-rows // rpb))
+    return Plan("strided", 0, WARPS, 1, rows)
 
 
 @functools.lru_cache(maxsize=1)
 def _lib():
     lib = LIBRARY.load()
     lib.rmsnorm_launch.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
-                                 ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                                 ctypes.c_void_p])
+        [ctypes.c_void_p] * 3
+        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float]
+        + [ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_int,
+                                ctypes.c_void_p])
     lib.rmsnorm_launch.restype = ctypes.c_int
     lib.rmsnorm_error_string.argtypes = [ctypes.c_int]
     lib.rmsnorm_error_string.restype = ctypes.c_char_p
@@ -76,10 +122,13 @@ def rmsnorm_fused(x: torch.Tensor, scale: torch.Tensor, *,
         raise ValueError(f"rmsnorm_fused runs on cuda or cpu, not {dev}")
     out = torch.empty_like(x)
     if rows and d:
+        p = plan(rows, d, x.element_size(), x.data_ptr(), scale.data_ptr(),
+                 out.data_ptr())
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _lib().rmsnorm_launch(
             x.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, d,
-            float(eps), DTYPES[x.dtype],
+            float(eps), DTYPES[x.dtype], ROUTES[p.route], p.vectors,
+            p.warps_per_row, p.grid,
             dev.index if dev.index is not None else 0, stream)
         if rc != 0:
             msg = _lib().rmsnorm_error_string(rc).decode()
