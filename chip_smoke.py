@@ -27,9 +27,12 @@ Phases, each of which ends the run with a non-zero exit on any failure:
    argmin, top-k, counts and front.  Then the 10,009,600-config grid
    against the anchors frozen from the JAX reference.
 5. Kernel C vs plain on the card: ``rbe_matmul_raw`` against its plain
-   version at KeyNet's three int8 shapes (1 and 4 ROIs), the reference
-   test's shapes, a ragged shape and saturated (+-127) inputs: bitwise
-   equal.  ``quantize_rowwise`` on the card equals its CPU run bitwise.
+   version at KeyNet's three int8 shapes (1, 4 and 256 ROIs), the
+   reference test's shapes, ragged shapes, the tensor-core route's edges
+   (K not a multiple of 32, K over one shared-memory stage, N not a
+   multiple of 8, M = 1, the 64 x 64 tile with ragged M, N and K) and
+   saturated (+-127) inputs: bitwise equal.  ``quantize_rowwise`` on the
+   card equals its CPU run bitwise.
 6. Hand-tracking pipeline (the second path): DetNet -> ROI -> KeyNet
    float and int8 on 4 frames (one per camera) through
    ``repro_torch.handtracking_pipeline``, with the launch count read
@@ -75,11 +78,14 @@ Phases, each of which ends the run with a non-zero exit on any failure:
    1e-5 relative, tokens equal.
 10. Report: a ``kernels`` JSON line (launches, error, kernel and plain
    time at the main paths' shapes, the card's bound for the same work,
-   the library call's time where there is one), ``stream``,
-   ``rbe_shapes``, ``handtracking``, ``rmsnorm_shapes``/``flash_shapes``
-   (each case's route; E's registers and spills from ptxas and its share
-   of the bound) and ``lm`` JSON lines, the card's name and power limit,
-   and last the ``ok`` line.
+   the library call's time where there is one; A's and C's launch plans
+   and ptxas registers and spills, which must be none), ``stream``,
+   ``rbe_shapes`` (each layer at 4 and 256 ROIs with its tile),
+   ``handtracking``, ``rmsnorm_shapes``/``flash_shapes`` (each case's
+   route; E's registers and spills from ptxas and its share of the
+   bound) and ``lm`` JSON lines, the card's name and power limit, and
+   last the ``ok`` line.  Kernel C's SASS must hold int8 tensor-core
+   (IMMA) and cp.async (LDGSTS) instructions.
 
 Imports nothing of JAX or of the JAX reference package.
 """
@@ -87,6 +93,7 @@ Imports nothing of JAX or of the JAX reference package.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import json
 import os
@@ -618,17 +625,28 @@ def kernel_report(res, launches, err, grid_big, dev) -> list:
                + filt_bytes
                + CP * d * (8 + 8 + 1) + CP            # Fd, Fsg, valid, keep
                + Bn * nf * (8 + 8 + 4 + 8) + Bn * d * 8)
-    # Float64 operations a lane: Eq. 1-11 as the built eval_kernel issues
-    # it, then (from the source) the signs, two compares per filter row
-    # and objective, the edge searches and the table compare, and the
-    # block reductions (about one combine a lane: two compares and a max
-    # per tracked field, a min per objective).
+    # Float64 operations of the chunk: a lane's Eq. 1-11 as the built
+    # eval_kernel issues it, then (from the source) the signs and the block
+    # reductions (about one combine a lane: two compares and a max per
+    # tracked field, a min per objective); the filter's work is what this
+    # chunk's data needs (a lane stops at the first row that dominates it
+    # and only then reaches the table): two compares per row scanned and
+    # objective, the edge searches and the table compare.
     sass = sass_fp64(LIBRARY.path())
     eq_ops = sass["eval_kernel"]["fp64"]
+    scanned, to_table = filter_work(aux["filter"], plain_a()["Fsg"])
     bins = spec.filter_bins + 1
-    ops_a = spec.chunk * (eq_ops + d + spec.filter_rows * d * 2
-                          + (d - 1) * int(np.ceil(np.log2(bins))) + 1
-                          + 3 * nf + d)
+    ops_a = (spec.chunk * (eq_ops + d + 3 * nf + d) + 2 * d * scanned
+             + to_table * ((d - 1) * int(np.ceil(np.log2(bins))) + 1))
+    usage = ptxas_usage(LIBRARY.info.get("ptxas", ""))
+    usage_a = next((u for name, u in usage.items() if "chunk_kernel" in name),
+                   dict.fromkeys(("registers", "spill_stores", "spill_loads")))
+    plan_a = K.kernel.chunk_plan(spec)
+    if usage_a["registers"] is not None:
+        no_spills("kernel A", usage_a)
+        check(usage_a["registers"] <= plan_a.registers,
+              f"kernel A uses {usage_a['registers']} registers, its plan "
+              f"{plan_a.registers}")
 
     n = plan.n_total
     m = int(min(ST._PROBE, max(256, n // 128), n))
@@ -671,7 +689,26 @@ def kernel_report(res, launches, err, grid_big, dev) -> list:
                      "library_ms": None,
                      "ms_method": times[key + "_method"],
                      "plain_ms_method": times[key + "_plain_method"]})
+    rows[0].update(plan=dataclasses.asdict(plan_a), ptxas=usage_a,
+                   filter_rows_scanned=scanned, filter_table_lanes=to_table)
     return rows, host
+
+
+def filter_work(filt: dict, Fsg) -> tuple:
+    """What kernel A's dominance filter does on a chunk whose signed
+    objectives are ``Fsg`` (d, lanes): the rows it scans (a lane whose
+    objectives are all finite scans rows in order until one dominates it,
+    or all of them) and the lanes that then reach the prefix-min table
+    (those no row dominates, where the filter has one)."""
+    import torch
+
+    q = Fsg[:, torch.isfinite(Fsg).all(dim=0)].T[:, None, :]   # (n, 1, d)
+    rows = filt["rows"][None]                                  # (1, R, d)
+    dom = (rows <= q).all(dim=2) & (rows < q).any(dim=2)      # (n, R)
+    hit = dom.any(dim=1)
+    scanned = torch.where(hit, dom.int().argmax(dim=1) + 1, dom.shape[1])
+    return (int(scanned.sum()),
+            int((~hit).sum()) if "table" in filt else 0)
 
 
 # ---------------------------------------------------------------------------
@@ -696,7 +733,13 @@ RBE_FIXED_CASES = (
     (128, 128, 128, 1, False), (256, 512, 384, 2, False),
     (512, 256, 128, 3, False),                     # reference test shapes
     (997, 130, 200, 4, False), (1, 7, 3, 5, False),    # ragged M, K, N
-    (576, 128, 128, 6, True), (333, 4096, 65, 7, True))  # saturated
+    (576, 128, 128, 6, True), (333, 4096, 65, 7, True),  # saturated
+    # the tensor-core route's edges: K a multiple of 16 but not of 32; K
+    # over one 256-byte stage and not a multiple of 16; N not a multiple
+    # of 8; M = 1; the 64 x 64 tile with ragged M, N and K
+    (144, 80, 256, 8, False), (100, 520, 72, 9, False),
+    (37, 64, 30, 10, False), (1, 256, 256, 11, False),
+    (5000, 200, 300, 12, True))
 
 
 def reset_counts() -> None:
@@ -774,7 +817,7 @@ def phase_rbe(dev) -> float:
 
     from repro_torch.kernels import rbe_matmul as R
 
-    cases = [(m, k, n, 10 + b, False) for b in (1, PIPELINE_BATCH)
+    cases = [(m, k, n, 10 + b, False) for b in (1, PIPELINE_BATCH, BIG_ROIS)
              for _, m, k, n in keynet_int8_shapes(b)]
     worst = 0.0
     for m, k, n, seed, sat in cases + list(RBE_FIXED_CASES):
@@ -922,13 +965,51 @@ def phase_pipeline(dev, smi: str) -> tuple:
     return launches, report
 
 
+def rbe_kernel_usage(usage: dict, tile: str) -> dict:
+    """The ``ptxas_usage`` entry of kernel C's kernel for ``tile``:
+    ``rbe_matmul_kernel<MT, 2, WN>`` (two warps down, WN across; each
+    warp MT x 16 rows by 32 columns), by its mangled name; None for each
+    where this process did not build the library (no report)."""
+    from repro_torch.kernels.rbe_matmul.kernel import TILES
+
+    if not usage:
+        return dict.fromkeys(("registers", "spill_stores", "spill_loads"))
+    bm, bn, _, _ = TILES[tile]
+    want = f"17rbe_matmul_kernelILi{bm // 32}ELi2ELi{bn // 32}E"
+    hits = [u for name, u in usage.items() if want in name]
+    check(len(hits) == 1, f"ptxas report: {len(hits)} kernels match {want}")
+    return hits[0]
+
+
+def no_spills(what: str, usage: dict) -> None:
+    check(not usage["spill_stores"],
+          f"{what}: ptxas reports {usage['spill_stores']} bytes of spill "
+          f"stores")
+
+
 def rbe_report(launches: dict, err: float, dev, smi: str) -> tuple:
     """Kernel C's row of the ``kernels`` line at the pipeline's shapes
     (the three launches of one int8 KeyNet forward at 4 ROIs, summed),
-    and the per-shape readings, at 256 ROIs too."""
+    and the per-shape readings at 4 and 256 ROIs, each with its plan and
+    ptxas's registers and spills for its tile."""
+    import dataclasses
+
     import torch
 
     from repro_torch.kernels import rbe_matmul as R
+    from repro_torch.kernels.rbe_matmul.kernel import LIBRARY, TILES
+
+    usage = ptxas_usage(LIBRARY.info.get("ptxas", ""))
+    tiles = {t: rbe_kernel_usage(usage, t) for t in TILES}
+    for t, u in tiles.items():
+        if u["registers"] is not None:
+            no_spills(f"kernel C, {t} tile", u)
+    # the products run on the int8 tensor cores (IMMA), the operands
+    # staged by cp.async (LDGSTS)
+    sass = sass_opcodes(LIBRARY.path(), ("IMMA", "LDGSTS", "LDSM", "PRMT"))
+    check(sass["IMMA"] > 0 and sass["LDGSTS"] > 0,
+          f"kernel C's SASS lacks int8 tensor-core or cp.async "
+          f"instructions: {sass}")
 
     def library(row, args):
         # torch._int_mm: the int8 product alone (no dequant epilogue).
@@ -943,20 +1024,21 @@ def rbe_report(launches: dict, err: float, dev, smi: str) -> tuple:
     shapes = []
     for rois, reps in ((PIPELINE_BATCH, 50), (BIG_ROIS, 20)):
         for name, m, k, n in keynet_int8_shapes(rois):
-            if rois == BIG_ROIS and name != "b4.pw":
-                continue
             args = rbe_operands(m, k, n, 30, False, dev)
             nbytes, ops = int8_work(m, k, n)
             b_ms, b_by = int8_bound(nbytes, ops)
+            plan = R.kernel.plan(m, k, n)
             row = {"layer": name, "rois": rois, "m": m, "k": k, "n": n,
                    "bytes": nbytes, "ops": ops,
                    "wall_ms": host_ms(lambda: R.rbe_matmul_raw(*args), reps),
-                   "bound_ms": b_ms, "bound_by": b_by}
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   **dataclasses.asdict(plan), **tiles[plan.tile]}
             timed(row, "ms", lambda: R.rbe_matmul_raw(*args), reps,
                   f"kernel C {name}")
             timed(row, "plain_ms", lambda: R.rbe_matmul_ref(*args), reps,
                   f"kernel C {name}, plain")
             library(row, args)
+            row["bound_share"] = b_ms / row["ms"]
             shapes.append(row)
     main = [r for r in shapes if r["rois"] == PIPELINE_BATCH]
     lib = [r["library_ms"] for r in main]
@@ -969,9 +1051,10 @@ def rbe_report(launches: dict, err: float, dev, smi: str) -> tuple:
            "ms": sum(r["ms"] for r in main),
            "plain_ms": sum(r["plain_ms"] for r in main),
            "bound_ms": b_ms, "bound_by": b_by,
-           "library_ms": None if None in lib else sum(lib)}
+           "library_ms": None if None in lib else sum(lib),
+           "ptxas": tiles}
     row.update(methods(main, ("ms", "plain_ms", "library_ms")))
-    return row, {"rbe_shapes": shapes, "card": smi}
+    return row, {"rbe_shapes": shapes, "rbe_sass": sass, "card": smi}
 
 
 # ---------------------------------------------------------------------------

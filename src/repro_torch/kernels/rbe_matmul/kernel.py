@@ -1,15 +1,24 @@
-"""The RBE int8 matmul kernel for Hopper: build, binding and wrapper.
+"""Kernel C, the RBE int8 matmul for Hopper: build, binding, plan and
+wrapper.
 
 :func:`rbe_matmul_raw` replaces the reference's Pallas kernel
 ``repro/kernels/rbe_matmul/kernel.py::_rbe_matmul_kernel`` (through
 ``rbe_matmul_raw``): (M, K) int8 @ (K, N) int8 summed exactly in int32,
 then ``f32(acc) * sx[m] * sw[n]``.  The kernel is CUDA C++
-(``csrc/rbe_matmul.cu``, whose note gives its design and what bounds
-it), built with ``nvcc`` for ``sm_90a`` at first use into ``build/`` and
-loaded with ``ctypes``.  Given CPU tensors the wrapper runs the plain
-version (:mod:`.ref`); given CUDA tensors it launches the kernel on the
-current stream or raises.  It counts its launches in its ``launches``
-attribute.
+(``csrc/rbe_matmul.cu``, whose note gives its design), built with
+``nvcc`` for ``sm_90a`` at first use into ``build/`` and loaded with
+``ctypes``.  At the pipeline's shapes its bound is bytes, far below a
+launch, so its time is latency: it runs the products on the int8 tensor
+cores (``mma.sync`` m16n8k32, exact int32 sums), brings a block's whole
+K (up to :data:`KC_MAX` bytes) into shared memory with one round of
+16-byte ``cp.async`` copies, transposes w's 4 x 4 byte blocks into the
+``col`` B fragment with ``__byte_perm``, and takes 32 x 32 tiles while
+64 x 64 ones would not fill the card.  :func:`plan` picks the tile, the
+stage depth and the shared memory in plain Python.  Given CPU tensors
+the wrapper runs the plain version (:mod:`.ref`); given CUDA tensors it
+launches the kernel on the current stream or raises.  It counts its
+launches in its ``launches`` attribute.  ptxas's registers for both
+tiles are in PERF.md (``chip_smoke.py`` reports them).
 
 :func:`quantize_rowwise` is plain tensor code, as in the reference.
 """
@@ -17,6 +26,7 @@ attribute.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import pathlib
 
@@ -31,15 +41,70 @@ LIBRARY = Library("rbe_matmul", CSRC, "rbe_matmul.cu", ("rbe_matmul.cu",),
 
 #: Largest K whose int32 sums cannot overflow: 127² K < 2³¹.
 MAX_K = (2**31 - 1) // (127 * 127)
-#: Largest M the launch grid takes (65,535 blocks of 64 rows).
-MAX_M = 65535 * 64
+#: Largest M the launcher's int32 takes (M tiles run on the grid's x,
+#: which holds 2³¹ - 1 blocks; N tiles on its y, which :func:`plan`
+#: checks).
+MAX_M = 2**31 - 1
+
+#: Block tiles: (rows, columns, threads, launcher code).  Each warp takes
+#: 16 or 32 rows by 32 columns.
+TILES = {"small": (32, 32, 64, 0), "large": (64, 64, 128, 1)}
+#: Bytes of K a shared-memory stage holds at most, and the ring's depth
+#: when K takes more than one stage.
+KC_MAX, STAGES = 256, 2
+#: SMs of an H100 SXM: the large tile needs a grid this big to fill them.
+SMS = 132
+#: Shared memory a block may take on an H100.
+SMEM_PER_BLOCK = 232_448
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How kernel C runs one (m, k, n) product: ``tile`` (``"small"``,
+    32 x 32, or ``"large"``, 64 x 64) of ``bm`` x ``bn`` outputs and
+    ``threads`` threads a block, ``grid`` (m tiles, n tiles), ``kc``
+    bytes of K a stage, ``stages`` stages in shared memory (1: all of K
+    in one copy), ``smem_bytes`` of dynamic shared memory: a stage is
+    ``bm`` rows of ``kc + 16`` bytes of x and ``kc`` rows of ``bn`` bytes
+    of w."""
+
+    tile: str
+    bm: int
+    bn: int
+    threads: int
+    grid: tuple
+    kc: int
+    stages: int
+    smem_bytes: int
+
+
+@functools.lru_cache(maxsize=256)
+def plan(m: int, k: int, n: int) -> Plan:
+    """Kernel C's launch for an (m, k, n) product: the large tile where
+    its grid fills the card's SMs, else the small one (more blocks); K in
+    stages of up to :data:`KC_MAX` bytes, a multiple of 32 (one mma
+    depth), one stage where K fits it, else a ring of :data:`STAGES`."""
+    if m < 1 or n < 1 or k < 0:
+        raise ValueError(f"no plan for an empty product ({m}, {k}, {n})")
+    bm, bn, threads, _ = TILES["large"]
+    tile = "large" if -(-m // bm) * -(-n // bn) >= SMS else "small"
+    bm, bn, threads, _ = TILES[tile]
+    grid = (-(-m // bm), -(-n // bn))
+    if grid[1] > 65535:
+        raise ValueError(f"N = {n} exceeds the launch grid's 65,535 "
+                         f"column tiles")
+    kc = min(max(32, -(-k // 32) * 32), KC_MAX)
+    stages = STAGES if k > kc else 1
+    smem = stages * (bm * (kc + 16) + kc * bn)
+    return Plan(tile, bm, bn, threads, grid, kc, stages, smem)
 
 
 @functools.lru_cache(maxsize=1)
 def _lib():
     lib = LIBRARY.load()
     lib.rbe_matmul_launch.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        + [ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_void_p])
     lib.rbe_matmul_launch.restype = ctypes.c_int
     lib.rbe_matmul_error_string.argtypes = [ctypes.c_int]
     lib.rbe_matmul_error_string.restype = ctypes.c_char_p
@@ -85,14 +150,15 @@ def rbe_matmul_raw(x_q: torch.Tensor, w_q: torch.Tensor, sx: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"rbe_matmul_raw runs on cuda or cpu, not {dev}")
     if m > MAX_M:
-        raise ValueError(f"M = {m} exceeds the launch grid's {MAX_M}")
+        raise ValueError(f"M = {m} exceeds the launcher's {MAX_M}")
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     if m and n:
+        p = plan(m, k, n)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _lib().rbe_matmul_launch(
             x_q.data_ptr(), w_q.data_ptr(), sx.data_ptr(), sw.data_ptr(),
-            out.data_ptr(), m, k, n,
-            dev.index if dev.index is not None else 0, stream)
+            out.data_ptr(), m, k, n, TILES[p.tile][3], p.kc, p.smem_bytes,
+            *p.grid, dev.index if dev.index is not None else 0, stream)
         if rc != 0:
             msg = _lib().rbe_matmul_error_string(rc).decode()
             raise RuntimeError(f"rbe_matmul_launch failed: {msg} "

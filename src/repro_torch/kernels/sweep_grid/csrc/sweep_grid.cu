@@ -1,14 +1,14 @@
 // Sweep-grid kernels for Hopper (sm_90a), float64.
 //
 // Kernel A (chunk_kernel) replaces the reference's fused Pallas chunk
-// kernel, repro/kernels/sweep_grid/kernel.py::build_chunk_call: one
-// thread block per 512-lane block of a chunk, one lane per thread.  Each
+// kernel, repro/kernels/sweep_grid/kernel.py::build_chunk_call: each
 // lane decodes its flat index, evaluates Eq. 1-11 (eval_config), applies
-// the constraint predicates and the Pareto dominance pre-filter and writes
-// its lane outputs; shared-memory tree reductions then write the block's
-// min, first-min flat index, valid count, max and signed min.  No atomics
-// and no state across blocks: the partials are deterministic and keep the
-// layout of repro_torch.core.backend.chunk_partials, which folds them.
+// the constraint predicates and the Pareto dominance pre-filter and
+// writes its lane outputs; each 512-lane block of the chunk
+// (ChunkSpec.block) then writes its min, first-min flat index, valid
+// count, max and signed min.  No atomics and no state across blocks: the
+// partials are deterministic and keep the layout of
+// repro_torch.core.backend.chunk_partials, which folds them.
 //
 // Kernel B (eval_kernel) replaces the evaluate-only Pallas variant,
 // kernel.py::_flat_call / sweep_grid_eval: one thread per flat index,
@@ -22,21 +22,43 @@
 // FMA formed, the float64 pipe issues 64 instructions per SM per clock:
 // for a 131,072-lane chunk kernel A needs ~3.5 us of float64 work
 // against ~2.2 us of memory traffic, so arithmetic bounds it; kernel B
-// at the probe's 4,096 indices is bound by its bytes.  Both sit well
-// above their bounds: they are latency-bound, at ~100 registers a thread
-// one 512-thread block fits an SM.  The model tables
-// (a few KB) stay in L1/L2; kernel A keeps the filter rows in shared
-// memory and reads the edges and the prefix-min table (up to 257^2
-// doubles) from global memory through the cache.  Simple and right
-// first: one lane per thread, per-field tree reductions, no tuning yet.
+// at the probe's 4,096 indices is bound by its bytes.  Both run far above
+// those bounds: a lane is a long chain of dependent table gathers and
+// divide sequences, so the time is set by how many lanes an SM keeps in
+// flight and by what the block does besides Eq. 1-11.
+//
+// Kernel A's design, for that: (1) a block of CHUNK_THREADS threads
+// serves one 512-lane partial block, CHUNK_LANES lanes a thread (lane
+// tid + j * blockDim), so at the register cap of __launch_bounds__
+// (CHUNK_MIN_BLOCKS blocks an SM) the 256 blocks of a 131,072-lane chunk
+// are all resident at once instead of running in two waves of one
+// 512-thread block an SM.  (2) One reduction pass: each lane's tracked
+// values go to shared memory (thread-private slots, so no barrier), each
+// thread folds its lanes, a warp combines (min, first-min index), count,
+// max and the signed mins with shuffles, and one warp a reduction folds
+// the warps' partials: two barriers a block instead of ~70.  (3) The
+// filter runs only for lanes that can be kept, scans its rows until one
+// dominates the lane and only then reads the prefix-min table (either
+// proof decides alone, so the mask is the reference's); the rows and the
+// table's edges sit in shared memory.  (4) No local arrays: the tracked
+// channels are picked out of eval_config's outputs by selects.  Min, the
+// lexicographic first min, the integer count and max are exact in any
+// order, so the partials equal the plain version bit for bit.
+// eval_config and decode (sweep_grid.cuh) are shared with kernel B and
+// unchanged.  ptxas (CUDA 12, sm_90a, as built by kernel.py): chunk_kernel
+// 128 registers, the cap of two 256-thread blocks an SM, no spills (a cap
+// of 80 for three blocks spills 248 bytes and runs slower); eval_kernel
+// 96 registers.
+//
 // Kernel A decodes in int32 whenever the index space allows it; kernel
 // B, which takes arbitrary flat indices off the chunk path, in int64.
 //
 // Host interface: plain C, called through ctypes.  Every argument reaches
 // the launcher as one int64 array (scalars and device pointers) and one
 // float64 array, read in the order repro_torch/kernels/sweep_grid/
-// kernel.py writes them; a count mismatch is refused before any launch.
-// The launchers return cudaGetLastError() after the launch.
+// kernel.py writes them; a count mismatch is refused before any launch,
+// and so is a launch plan (kernel.py::chunk_plan) this build does not
+// run.  The launchers return cudaGetLastError() after the launch.
 
 #include <cuda_runtime.h>
 
@@ -44,17 +66,29 @@
 
 #include "sweep_grid.cuh"
 
+// Lanes a thread and resident blocks an SM of kernel A: set by the build
+// (kernel.py passes them as -D flags, from the constants its plan uses).
+#if !defined(CHUNK_LANES) || !defined(CHUNK_MIN_BLOCKS)
+#error "build with -DCHUNK_LANES=<n> -DCHUNK_MIN_BLOCKS=<n> (see kernel.py)"
+#endif
+
 using namespace sweep_grid;
 
 namespace {
 
 constexpr int MAX_W = 512;      // lanes per block (ChunkSpec.block)
+constexpr int CHUNK_THREADS = MAX_W / CHUNK_LANES;   // threads at most
 constexpr int MAX_CONS = 8;     // constraint predicates
 constexpr int MAX_ROWS = 64;    // explicit dominance-filter rows
 constexpr int EVAL_THREADS = 256;
+constexpr unsigned FULL = 0xffffffffu;
+
+static_assert(CHUNK_LANES >= 1 && MAX_W % (32 * CHUNK_LANES) == 0,
+              "CHUNK_LANES must divide 16");
 
 constexpr int ERR_ARGS = -1;    // argument count mismatch
 constexpr int ERR_RANGE = -2;   // argument outside the kernel's limits
+constexpr int ERR_PLAN = -3;    // a launch plan this build does not run
 
 struct ChunkArgs {
   Tables T;
@@ -97,6 +131,19 @@ struct EvalArgs {
   double* out;                  // (nf, n)
 };
 
+// Kernel A's dynamic shared memory, in this order: the filter rows
+// (n_rows x d), its edges (edge_len), each tracked channel's lane values
+// (nf x W), and the warps' partials of the nf + d reductions (value, max,
+// index, count; warps each).  kernel.py::chunk_plan sizes it alike.
+__host__ __device__ inline long long chunk_smem_bytes(int n_rows, int d,
+                                                      int edge_len, int nf,
+                                                      int W, int warps) {
+  const long long parts = static_cast<long long>(nf + d) * warps;
+  return 8LL * (static_cast<long long>(n_rows) * d + edge_len +
+                static_cast<long long>(nf) * W + 3 * parts) +
+         4 * parts;
+}
+
 __device__ __forceinline__ bool cons_ok(int op, double v, double b) {
   switch (op) {
     case 0: return v <= b;
@@ -104,6 +151,15 @@ __device__ __forceinline__ bool cons_ok(int op, double v, double b) {
     case 2: return v < b;
     default: return v > b;
   }
+}
+
+// out[i] for a runtime i in [0, N_FIELDS), by selects: indexing out with
+// a runtime value would put the whole array in local memory.
+__device__ __forceinline__ double pick(const double (&out)[N_FIELDS], int i) {
+  double v = out[0];
+#pragma unroll
+  for (int k = 1; k < N_FIELDS; ++k) v = (i == k) ? out[k] : v;
+  return v;
 }
 
 // searchsorted(e[0:n], x, side="right"): the number of entries <= x.
@@ -117,127 +173,190 @@ __device__ __forceinline__ int upper_bound(const double* e, int n, double x) {
   return lo;
 }
 
-__global__ void __launch_bounds__(MAX_W) chunk_kernel(const ChunkArgs a) {
-  __shared__ double s_rows[MAX_ROWS * N_FIELDS];
-  __shared__ double s_v[MAX_W];
-  __shared__ long long s_i[MAX_W];
-  __shared__ int s_c[MAX_W];
-  __shared__ double s_x[MAX_W];
-
-  const int tid = threadIdx.x;
-  const int blk = blockIdx.x;
-  for (int i = tid; i < a.n_rows * a.d; i += blockDim.x) s_rows[i] = a.rows[i];
-
-  const bool is_lane = tid < a.W;               // blockDim may exceed W
-  const long long g = static_cast<long long>(blk) * a.W + tid;
-  const bool real = is_lane && g < a.chunk;     // not block padding
+// One lane of the chunk (block-local lane l, chunk lane g): Eq. 1-11,
+// constraints, lane outputs, filter; its tracked values, +inf where not
+// valid, go to s_val[f * W + l].
+__device__ __forceinline__ void chunk_lane(const ChunkArgs& a, int l,
+                                           long long g, const double* s_rows,
+                                           const double* s_edges,
+                                           double* s_val) {
+  const bool real = g < a.chunk;                 // not block padding
   const long long flat = a.start + g;
-  const bool inchunk = real && flat < a.G.n_total;
-
   double out[N_FIELDS];
   bool feas = false;
   if (real) {
     long long c[N_AXES];
     decode(a.G, flat, a.small_index != 0, c);
     eval_config(a.T, a.C, a.G, c, out);
-    feas = inchunk;
+    feas = flat < a.G.n_total;
     for (int ci = 0; ci < a.n_cons; ++ci)
-      feas = feas && cons_ok(a.cons_op[ci], out[a.field[a.cons_field[ci]]],
+      feas = feas && cons_ok(a.cons_op[ci], pick(out, a.field[a.cons_field[ci]]),
                              a.cons_bound[ci]);
   }
-
-  // Lane outputs: the objectives, signed and masked, then the filter.
-  double q[N_FIELDS];
-  bool fin = true;
-  for (int c = 0; c < a.d; ++c) {
-    const double v = real ? out[a.field[c]] : NAN;
-    const bool ok = real && feas && isfinite(v);
-    q[c] = ok ? v * a.sign[c] : INFINITY;
-    fin = fin && isfinite(q[c]);
-    if (is_lane) {
-      const long long o = c * a.padded + g;
-      a.Fd[o] = v;
-      a.Fsg[o] = q[c];
-      a.valid[o] = ok;
-    }
-  }
-  __syncthreads();                               // s_rows loaded
-  if (is_lane) {
-    bool dom = false;
-    for (int r = 0; r < a.n_rows; ++r) {
-      bool le = true, lt = false;
-      for (int c = 0; c < a.d; ++c) {
-        const double rc = s_rows[r * a.d + c];
-        le = le && rc <= q[c];
-        lt = lt || rc < q[c];
-      }
-      dom = dom || (le && lt);
-    }
-    if (a.table_dims > 0) {
-      // Strictly-lower bin of each trailing objective, clipped into the
-      // table; the lookup proves domination only when every bin >= 0.
-      bool ok = true;
-      long long t = 0;
-      for (int c = 1; c < a.d; ++c) {
-        const int b =
-            upper_bound(a.edges + (c - 1) * (a.bins + 1), a.bins + 1, q[c]) -
-            2;
-        ok = ok && b >= 0;
-        t = t * (a.bins + 1) + (b < 0 ? 0 : (b > a.bins ? a.bins : b));
-      }
-      dom = dom || (ok && a.table[t] <= q[0]);
-    }
-    a.keep[g] = real && fin && !dom;
-  }
-
-  // Block partials of every tracked channel: (min, first-min index) as
-  // one lexicographic reduction, valid count, max.  Padding lanes take
-  // the reference's fills (+inf, n_total, 0, -inf); threads beyond W are
-  // neutral.
   for (int f = 0; f < a.nf; ++f) {
+    const double y = real ? pick(out, a.field[f]) : NAN;
+    s_val[f * a.W + l] = (feas && isfinite(y)) ? y : INFINITY;
+  }
+
+  // The objectives, signed and masked: lane outputs, and the first three
+  // kept for the filter.
+  bool fin = true;
+  double q0 = INFINITY, q1 = INFINITY, q2 = INFINITY;
+  for (int c = 0; c < a.d; ++c) {
+    const double v = real ? pick(out, a.field[c]) : NAN;
+    const bool ok = feas && isfinite(v);
+    const double q = ok ? v * a.sign[c] : INFINITY;
+    fin = fin && isfinite(q);
+    q0 = c == 0 ? q : q0;
+    q1 = c == 1 ? q : q1;
+    q2 = c == 2 ? q : q2;
+    const long long o = c * a.padded + g;
+    a.Fd[o] = v;
+    a.Fsg[o] = q;
+    a.valid[o] = ok;
+  }
+
+  // The filter, for lanes that can be kept: the explicit rows until one
+  // dominates, then the prefix-min table.  Either proof alone decides, so
+  // stopping at the first gives the reference's mask; most lanes of a
+  // sweep fall to an early row.
+  bool dom = !(real && fin);
+  for (int r = 0; r < a.n_rows && !dom; ++r) {
+    // row r dominates: <= the lane in every objective, < in one.  Past the
+    // third, an objective's signed value is its lane value (finite here)
+    // times its sign.
+    const double* row = s_rows + r * a.d;
+    bool le = row[0] <= q0, lt = row[0] < q0;
+    if (a.d > 1) { le = le && row[1] <= q1; lt = lt || row[1] < q1; }
+    if (a.d > 2) { le = le && row[2] <= q2; lt = lt || row[2] < q2; }
+    for (int c = 3; c < a.d; ++c) {
+      const double q = s_val[c * a.W + l] * a.sign[c];
+      le = le && row[c] <= q;
+      lt = lt || row[c] < q;
+    }
+    dom = le && lt;
+  }
+  if (!dom && a.table_dims > 0) {
+    // Strictly-lower bin of each trailing objective, clipped into the
+    // table; the lookup proves domination only when every bin >= 0.
+    bool ok = true;
+    long long t = 0;
+    for (int c = 1; c < a.d; ++c) {
+      const int b = upper_bound(s_edges + (c - 1) * (a.bins + 1), a.bins + 1,
+                                c == 1 ? q1 : q2) - 2;
+      ok = ok && b >= 0;
+      t = t * (a.bins + 1) + (b < 0 ? 0 : (b > a.bins ? a.bins : b));
+    }
+    dom = ok && a.table[t] <= q0;
+  }
+  a.keep[g] = !dom;
+}
+
+// (v, i) <- the lexicographic min of (v, i) and (v2, i2); n and x sum and
+// max.  Exact in any order.
+__device__ __forceinline__ void fold(double& v, long long& i, int& n,
+                                     double& x, double v2, long long i2,
+                                     int n2, double x2) {
+  if (v2 < v || (v2 == v && i2 < i)) { v = v2; i = i2; }
+  n += n2;
+  x = fmax(x, x2);
+}
+
+__device__ __forceinline__ void warp_fold(double& v, long long& i, int& n,
+                                          double& x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    fold(v, i, n, x, __shfl_xor_sync(FULL, v, o), __shfl_xor_sync(FULL, i, o),
+         __shfl_xor_sync(FULL, n, o), __shfl_xor_sync(FULL, x, o));
+}
+
+__device__ __forceinline__ double warp_min(double v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmin(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+
+__global__ void __launch_bounds__(CHUNK_THREADS, CHUNK_MIN_BLOCKS)
+chunk_kernel(const ChunkArgs a) {
+  extern __shared__ double smem[];
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31, nw = nt >> 5;
+  const int nr = a.nf + a.d;                     // reductions
+  const int edge_len = a.table_dims * (a.bins + 1);
+  double* s_rows = smem;
+  double* s_edges = s_rows + a.n_rows * a.d;
+  double* s_val = s_edges + edge_len;
+  double* s_pv = s_val + a.nf * a.W;
+  double* s_px = s_pv + nr * nw;
+  long long* s_pi = reinterpret_cast<long long*>(s_px + nr * nw);
+  int* s_pn = reinterpret_cast<int*>(s_pi + nr * nw);
+
+  for (int i = tid; i < a.n_rows * a.d; i += nt) s_rows[i] = a.rows[i];
+  for (int i = tid; i < edge_len; i += nt) s_edges[i] = a.edges[i];
+  __syncthreads();
+
+  const long long base = static_cast<long long>(blockIdx.x) * a.W;
+#pragma unroll 1
+  for (int j = 0; j < CHUNK_LANES; ++j) {
+    const int l = tid + j * nt;
+    if (l < a.W) chunk_lane(a, l, base + l, s_rows, s_edges, s_val);
+  }
+
+  // Reductions nf .. nf + d - 1 are the signed objectives' mins; padding
+  // lanes take the reference's index fill n_total.  Each thread reads
+  // back only the slots it wrote.
+  for (int f = 0; f < nr; ++f) {
+    const bool sg = f >= a.nf;
+    const int c = sg ? f - a.nf : f;
     double v = INFINITY, x = -INFINITY;
     long long ix = LLONG_MAX;
     int n = 0;
-    if (is_lane) {
-      ix = real ? flat : a.G.n_total;
-      if (real) {
-        const double y = out[a.field[f]];
-        if (feas && isfinite(y)) { v = y; x = y; n = 1; }
+    for (int j = 0; j < CHUNK_LANES; ++j) {
+      const int l = tid + j * nt;
+      if (l >= a.W) break;
+      const double y = s_val[c * a.W + l];
+      const bool ok = isfinite(y);
+      if (sg) {
+        v = fmin(v, ok ? y * a.sign[c] : INFINITY);
+      } else {
+        const long long g = base + l;
+        fold(v, ix, n, x, y, g < a.chunk ? a.start + g : a.G.n_total,
+             ok ? 1 : 0, ok ? y : -INFINITY);
       }
     }
-    s_v[tid] = v; s_i[tid] = ix; s_c[tid] = n; s_x[tid] = x;
-    __syncthreads();
-    for (int s = blockDim.x >> 1; s > 0; s >>= 1) {
-      if (tid < s) {
-        const double v2 = s_v[tid + s];
-        const long long i2 = s_i[tid + s];
-        if (v2 < s_v[tid] || (v2 == s_v[tid] && i2 < s_i[tid])) {
-          s_v[tid] = v2;
-          s_i[tid] = i2;
-        }
-        s_c[tid] += s_c[tid + s];
-        s_x[tid] = fmax(s_x[tid], s_x[tid + s]);
-      }
-      __syncthreads();
+    if (sg) {
+      v = warp_min(v);
+    } else {
+      warp_fold(v, ix, n, x);
     }
-    if (tid == 0) {
-      const long long o = static_cast<long long>(f) * a.n_blocks + blk;
-      a.bmin[o] = s_v[0];
-      a.bidx[o] = s_i[0];
-      a.cnt[o] = s_c[0];
-      a.bmax[o] = s_x[0];
+    if (lane == 0) {
+      s_pv[f * nw + warp] = v;
+      s_px[f * nw + warp] = x;
+      s_pi[f * nw + warp] = ix;
+      s_pn[f * nw + warp] = n;
     }
-    __syncthreads();
   }
-  for (int c = 0; c < a.d; ++c) {
-    s_v[tid] = is_lane ? q[c] : INFINITY;
-    __syncthreads();
-    for (int s = blockDim.x >> 1; s > 0; s >>= 1) {
-      if (tid < s) s_v[tid] = fmin(s_v[tid], s_v[tid + s]);
-      __syncthreads();
+  __syncthreads();
+  for (int f = warp; f < nr; f += nw) {
+    const bool has = lane < nw;
+    double v = has ? s_pv[f * nw + lane] : INFINITY;
+    if (f >= a.nf) {
+      v = warp_min(v);
+      if (lane == 0)
+        a.sgmin[static_cast<long long>(f - a.nf) * a.n_blocks + blockIdx.x] = v;
+      continue;
     }
-    if (tid == 0) a.sgmin[static_cast<long long>(c) * a.n_blocks + blk] = s_v[0];
-    __syncthreads();
+    double x = has ? s_px[f * nw + lane] : -INFINITY;
+    long long ix = has ? s_pi[f * nw + lane] : LLONG_MAX;
+    int n = has ? s_pn[f * nw + lane] : 0;
+    warp_fold(v, ix, n, x);
+    if (lane == 0) {
+      const long long o = static_cast<long long>(f) * a.n_blocks + blockIdx.x;
+      a.bmin[o] = v;
+      a.bidx[o] = ix;
+      a.cnt[o] = n;
+      a.bmax[o] = x;
+    }
   }
 }
 
@@ -333,9 +452,13 @@ int sweep_grid_chunk_launch(const long long* iargs, int n_i,
   a.cnt = as_ptr<int>(r.next());
   a.bmax = as_ptr<double>(r.next());
   a.sgmin = as_ptr<double>(r.next());
+  const long long threads = r.next();           // the plan
+  const long long lanes = r.next();
+  const long long smem = r.next();
   if (!r.done() || !dr.done()) return ERR_ARGS;
   if (a.W < 1 || a.W > MAX_W || a.n_blocks < 1 || a.n_rows < 0 ||
-      a.n_rows > MAX_ROWS || (a.table_dims != 0 && a.table_dims != a.d - 1))
+      a.n_rows > MAX_ROWS || a.table_dims < 0 || a.table_dims > 2 ||
+      (a.table_dims != 0 && a.table_dims != a.d - 1) || a.bins < 0)
     return ERR_RANGE;
   for (int f = 0; f < a.nf; ++f)
     if (a.field[f] < 0 || a.field[f] >= N_FIELDS) return ERR_RANGE;
@@ -343,11 +466,23 @@ int sweep_grid_chunk_launch(const long long* iargs, int n_i,
     if (a.cons_field[i] < 0 || a.cons_field[i] >= a.nf || a.cons_op[i] < 0 ||
         a.cons_op[i] > 3)
       return ERR_RANGE;
+  // The plan: CHUNK_LANES lanes a thread, whole warps, every lane served.
+  const long long per_lane = (a.W + CHUNK_LANES - 1) / CHUNK_LANES;
+  if (lanes != CHUNK_LANES || threads != (per_lane + 31) / 32 * 32 ||
+      threads > CHUNK_THREADS ||
+      smem < chunk_smem_bytes(a.n_rows, a.d, a.table_dims * (a.bins + 1),
+                              a.nf, a.W, static_cast<int>(threads / 32)))
+    return ERR_PLAN;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  int threads = 1;
-  while (threads < a.W) threads <<= 1;
-  chunk_kernel<<<a.n_blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(chunk_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  chunk_kernel<<<a.n_blocks, static_cast<int>(threads), static_cast<size_t>(smem),
+                 static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -379,6 +514,7 @@ int sweep_grid_eval_launch(const long long* iargs, int n_i,
 const char* sweep_grid_error_string(int code) {
   if (code == ERR_ARGS) return "argument count mismatch";
   if (code == ERR_RANGE) return "argument outside the kernel's limits";
+  if (code == ERR_PLAN) return "a launch plan this build does not run";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -1,4 +1,5 @@
-"""Hand-written Hopper kernels of the sweep grid: build, binding, wrappers.
+"""Hand-written Hopper kernels of the sweep grid: build, binding, plan,
+wrappers.
 
 Two CUDA C++ kernels in ``csrc/`` (see the note at the top of
 ``csrc/sweep_grid.cu`` for their design and what bounds them):
@@ -7,7 +8,15 @@ Two CUDA C++ kernels in ``csrc/`` (see the note at the top of
   Pallas chunk kernel ``repro/kernels/sweep_grid/kernel.py::
   build_chunk_call``: decode + Eq. 1-11 + constraint mask + dominance
   pre-filter + per-block reductions, returning the partials of
-  :func:`repro_torch.core.backend.chunk_partials` key for key.
+  :func:`repro_torch.core.backend.chunk_partials` key for key.  Its
+  time is latency: each lane is a chain of dependent table gathers and
+  IEEE divide sequences, far from the float64 pipe's rate.  So a block
+  of :data:`CHUNK_LANES`-lane threads serves one 512-lane partial block
+  and :data:`CHUNK_MIN_BLOCKS` such blocks fit an SM (a register cap
+  through ``__launch_bounds__``), every tracked channel is reduced in one
+  pass of warp shuffles, and the dominance filter stops at the first of
+  its rows that dominates a lane (its rows and edges in shared memory).
+  :func:`chunk_plan` gives the launch in plain Python.
 * :func:`sweep_grid_eval` — kernel B, replacing ``_flat_call`` /
   ``sweep_grid_eval`` there: decode + Eq. 1-11 at explicit flat
   indices.
@@ -22,12 +31,14 @@ the checkout at first use (never at import), into ``build/`` at the
 root of the checkout, and loaded with ``ctypes``.  A wrapper given CPU
 tensors runs the plain version; given CUDA tensors it launches its
 kernel on the current stream or raises.  Each wrapper counts its
-launches in its ``launches`` attribute.
+launches in its ``launches`` attribute.  ptxas's registers for both
+kernels are in PERF.md (``chip_smoke.py`` reports them).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import pathlib
 
@@ -41,11 +52,27 @@ from .._build import BASE_FLAGS, Library
 from . import ref
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+
+#: Kernel A: lanes a thread (a block of 512 / CHUNK_LANES threads serves
+#: one 512-lane partial block) and the blocks an SM its register cap
+#: (``__launch_bounds__(512 / CHUNK_LANES, CHUNK_MIN_BLOCKS)``) makes room
+#: for.  The build takes both from here.
+CHUNK_LANES = 2
+CHUNK_MIN_BLOCKS = 2
+#: An H100 SM: 32-bit registers, threads, shared memory (bytes) a block
+#: may take, an SM holds and the system keeps a block, and the registers
+#: a thread at most.
+SM_REGISTERS, SM_THREADS = 65536, 2048
+SMEM_PER_BLOCK, SMEM_PER_SM, SMEM_RESERVED = 232_448, 233_472, 1024
+MAX_REGISTERS = 255
+
 #: The kernels' library.  ``--fmad=false`` keeps every float64 add and
 #: multiply a separate IEEE operation, as in the plain version.
 LIBRARY = Library("sweep_grid", CSRC, "sweep_grid.cu",
                   ("sweep_grid.cu", "sweep_grid.cuh"),
-                  BASE_FLAGS + ("--fmad=false",))
+                  BASE_FLAGS + ("--fmad=false",
+                                f"-DCHUNK_LANES={CHUNK_LANES}",
+                                f"-DCHUNK_MIN_BLOCKS={CHUNK_MIN_BLOCKS}"))
 
 #: Tables the kernels read, in the order of ``enum Table`` in
 #: ``csrc/sweep_grid.cuh``.
@@ -68,6 +95,65 @@ _CONSTS = (A.CAMERA_SENSE_W, A.CAMERA_READ_W, A.CAMERA_IDLE_W, A.T_SENSE,
 _OPS = {"<=": 0, ">=": 1, "<": 2, ">": 3}
 MAX_CONS = 8
 MAX_ROWS = 64
+MAX_W = 512
+
+
+@dataclasses.dataclass(frozen=True)
+class ChunkPlan:
+    """How kernel A runs one chunk: ``blocks`` blocks (one a 512-lane
+    partial block, ``spec.n_blocks``) of ``threads`` threads, ``lanes``
+    lanes a thread (lane ``t + j * threads`` of the block for ``j <
+    lanes``), ``smem_bytes`` of dynamic shared memory; ``registers`` is
+    the most a thread may use under the launch bounds, and
+    ``blocks_per_sm`` the blocks an SM then holds."""
+
+    threads: int
+    lanes: int
+    blocks: int
+    smem_bytes: int
+    registers: int
+    blocks_per_sm: int
+
+
+def chunk_smem_bytes(n_rows: int, d: int, edge_len: int, nf: int, W: int,
+                     warps: int) -> int:
+    """Kernel A's shared memory (``chunk_smem_bytes`` in the .cu): the
+    filter rows and edges, each tracked channel's lane values, and the
+    warps' partials (value, max, index: 8 bytes; count: 4) of the nf + d
+    reductions."""
+    parts = (nf + d) * warps
+    return 8 * (n_rows * d + edge_len + nf * W + 3 * parts) + 4 * parts
+
+
+def chunk_plan(spec) -> ChunkPlan:
+    """Kernel A's launch for ``spec``: :data:`CHUNK_LANES` lanes a
+    thread, as many whole warps as cover ``spec.block`` lanes, and room
+    for the prefix-min table's edges wherever it may apply (2 <= d <=
+    3)."""
+    return _chunk_plan(spec.block, spec.d, len(spec.fields),
+                       spec.filter_rows, spec.filter_bins, spec.n_blocks)
+
+
+@functools.lru_cache(maxsize=256)
+def _chunk_plan(W: int, d: int, nf: int, rows: int, bins: int,
+                blocks: int) -> ChunkPlan:
+    per_lane = -(-W // CHUNK_LANES)
+    threads = -(-per_lane // 32) * 32
+    edge_len = (d - 1) * (bins + 1) if 2 <= d <= 3 else 0
+    smem = chunk_smem_bytes(rows, d, edge_len, nf, W, threads // 32)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"kernel A needs {smem} bytes of shared memory, "
+                         f"more than a block's {SMEM_PER_BLOCK}")
+    registers = min(MAX_REGISTERS, SM_REGISTERS // (
+        MAX_W // CHUNK_LANES * CHUNK_MIN_BLOCKS) // 8 * 8)
+    # registers are allocated a warp at a time, in units of 256
+    per_warp = -(-registers * 32 // 256) * 256
+    blocks_per_sm = min(SM_REGISTERS // (per_warp * (threads // 32)),
+                        SM_THREADS // threads,
+                        SMEM_PER_SM // (smem + SMEM_RESERVED))
+    return ChunkPlan(threads, CHUNK_LANES, blocks, smem, registers,
+                     blocks_per_sm)
+
 
 @functools.lru_cache(maxsize=1)
 def _lib():
@@ -145,6 +231,7 @@ def sweep_grid_chunk(spec, T: A.DeviceTables, axvals, aux, start: int) -> dict:
     if len(spec.cons_static) > MAX_CONS or spec.filter_rows > MAX_ROWS:
         raise ValueError(f"kernel A takes at most {MAX_CONS} constraints "
                          f"and {MAX_ROWS} filter rows")
+    plan = chunk_plan(spec)
     iargs, dargs = _common_args(T, spec.shape, axvals)
     filt = aux["filter"]
     _check(filt["rows"], "filter rows", torch.float64, dev,
@@ -156,8 +243,10 @@ def sweep_grid_chunk(spec, T: A.DeviceTables, axvals, aux, start: int) -> dict:
                (d - 1, bins + 1))
         _check(filt["table"], "filter table", torch.float64, dev,
                (bins + 1,) * (d - 1))
-        if not 2 <= d <= 3:
-            raise ValueError("the prefix-min table needs 2 <= d <= 3")
+        if not 2 <= d <= 3 or bins != spec.filter_bins:
+            raise ValueError(f"the prefix-min table needs 2 <= d <= 3 and "
+                             f"{spec.filter_bins} bins, got d = {d} and "
+                             f"{bins} bins")
         edges, table = filt["edges"].data_ptr(), filt["table"].data_ptr()
     else:
         bins, edges, table = 0, 0, 0
@@ -190,7 +279,8 @@ def sweep_grid_chunk(spec, T: A.DeviceTables, axvals, aux, start: int) -> dict:
               edges, table,
               *(out[k].data_ptr() for k in ("Fd", "Fsg", "valid", "keep",
                                             "bmin", "bidx", "cnt", "bmax",
-                                            "sgmin"))]
+                                            "sgmin")),
+              plan.threads, plan.lanes, plan.smem_bytes]
     dargs += [float(s) for s in spec.sign]
     _launch(_lib().sweep_grid_chunk_launch, iargs, dargs, dev)
     sweep_grid_chunk.launches += 1

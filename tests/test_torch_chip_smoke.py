@@ -1,8 +1,10 @@
 """The parts of ``chip_smoke.py`` that decide a result without the card:
 the checks of a trace-timed reading, kernel E's bound, the
-``flex_attention`` yardstick's function, and the guard of the LM's
-kernels-vs-plain comparison.  Everything here runs on the CPU; the
-script's timings and kernel launches run only on the card."""
+``flex_attention`` yardstick's function, the guard of the LM's
+kernels-vs-plain comparison, the ptxas report's registers and spills
+(kernels C and E), and the filter work that kernel A's bound counts.
+Everything here runs on the CPU; the script's timings and kernel
+launches run only on the card."""
 
 import pathlib
 import sys
@@ -162,3 +164,56 @@ def test_misaligned_rmsnorm_case_takes_the_strided_route():
         route = D.plan(*x.shape, x.element_size(), x.data_ptr(),
                        scale.data_ptr()).route
         assert (route == "strided") == (what in ("misaligned", "ragged"))
+
+
+# kernel C's two tiles as ptxas names them (CUDA 12, sm_90a)
+RBE_SMALL = ("_ZN46_GLOBAL__N__c35e109e_13_rbe_matmul_cu_77f2eb7e17rbe_matmul_"
+             "kernelILi1ELi2ELi1EEEvPKaS2_PKfS4_Pfiiii")
+RBE_LARGE = RBE_SMALL.replace("ILi1ELi2ELi1E", "ILi2ELi2ELi2E")
+RBE_PTXAS = f"""\
+ptxas info    : Compiling entry function '{RBE_LARGE}' for 'sm_90a'
+ptxas info    : Function properties for {RBE_LARGE}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers
+ptxas info    : Compiling entry function '{RBE_SMALL}' for 'sm_90a'
+ptxas info    : Function properties for {RBE_SMALL}
+    8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 48 registers, used 1 barriers
+"""
+
+
+def test_ptxas_report_gives_each_rbe_tile_its_registers_and_spills():
+    usage = CS.ptxas_usage(RBE_PTXAS)
+    large = CS.rbe_kernel_usage(usage, "large")
+    small = CS.rbe_kernel_usage(usage, "small")
+    assert large == {"registers": 64, "spill_stores": 0, "spill_loads": 0}
+    assert small == {"registers": 48, "spill_stores": 4, "spill_loads": 8}
+    CS.no_spills("large", large)
+    with pytest.raises(CS.SmokeFailure, match="4 bytes of spill stores"):
+        CS.no_spills("small", small)
+    # no report (a build this process did not make): nothing to check
+    assert CS.rbe_kernel_usage({}, "small")["registers"] is None
+
+
+def test_filter_work_counts_rows_until_the_first_dominating_one():
+    rng = torch.Generator().manual_seed(0)
+    d, n, r = 3, 500, 6
+    Fsg = torch.rand((d, n), generator=rng, dtype=torch.float64)
+    Fsg[1, :40] = float("inf")                      # lanes the filter skips
+    rows = torch.rand((r, d), generator=rng, dtype=torch.float64) * 0.6
+    rows[2] = Fsg[:, 100]                           # equal: not dominating
+    scanned = to_table = 0
+    for i in range(n):
+        q = Fsg[:, i]
+        if not torch.isfinite(q).all():
+            continue
+        for k in range(r):
+            scanned += 1
+            if bool((rows[k] <= q).all() and (rows[k] < q).any()):
+                break
+        else:
+            to_table += 1
+    assert to_table > 0 and scanned > n - 40
+    assert CS.filter_work({"rows": rows, "table": None}, Fsg) == \
+        (scanned, to_table)
+    assert CS.filter_work({"rows": rows}, Fsg) == (scanned, 0)

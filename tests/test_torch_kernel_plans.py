@@ -1,5 +1,5 @@
-"""The plain-Python plans of kernels D and E, and the arithmetic that
-kernel E's bf16 route rests on.
+"""The plain-Python plans of kernels A, C, D and E, and the index maps
+and arithmetic that the tensor-core kernels (C, E) rest on.
 
 Kernel E (``repro_torch.kernels.flash_attention.plan``): bf16 inputs take
 the tensor-core route and float32 inputs the CUDA-core one; the shared
@@ -14,16 +14,39 @@ Kernel D (``repro_torch.kernels.rmsnorm.plan``): 16-byte vectors a warp a
 row where d and every pointer allow it, several warps a row for rows too
 wide for one warp's registers, the strided fallback otherwise.
 
+Kernel C (``repro_torch.kernels.rbe_matmul.plan``): the grid covers every
+output tile, the shared memory fits a block and holds all of K at the
+pipeline's shapes, 32 x 32 tiles where 64 x 64 ones would not fill the
+card.  Its operand packing is emulated in numpy from the source: the
+``__byte_perm`` calls of ``transpose4`` (read from ``csrc/rbe_matmul.cu``)
+turn w's row-major 4 x 4 byte blocks into the words of the ``col``
+B fragment, and a warp's tile through the ldmatrix A fragments, those B
+fragments, the PTX ``m16n8k32`` layouts and the epilogue's column map is
+x @ w exactly; w's shared-memory swizzle keeps 16-byte pieces whole and
+a warp's reads on 32 banks.
+
+Kernel A (``repro_torch.kernels.sweep_grid.kernel.chunk_plan``): one block
+and one set of partials per 512-lane ``ChunkSpec.block``, every lane of
+it served once by ``lanes`` x ``threads``, the stream's 256 blocks
+resident at once, and its shared memory sized as the kernel lays it out.
+
 The kernels themselves run only on the card (``chip_smoke.py``).
 """
+
+import pathlib
+import re
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import backend as B
+from repro_torch.core import sweep as SW
 from repro_torch.kernels import flash_attention as E
 from repro_torch.kernels import rmsnorm as D
 from repro_torch.kernels.flash_attention import kernel as EK
+from repro_torch.kernels.rbe_matmul import kernel as RK
+from repro_torch.kernels.sweep_grid import kernel as AK
 
 # ---------------------------------------------------------------------------
 # Kernel E's plan
@@ -227,3 +250,288 @@ def test_rmsnorm_misaligned_tensor_plans_the_fallback():
     assert p.route == "strided"
     # and the CPU wrapper still computes the function on it
     assert torch.equal(D.rmsnorm_fused(x, scale), D.rmsnorm_ref(x, scale))
+
+
+# ---------------------------------------------------------------------------
+# Kernel C's plan (repro_torch.kernels.rbe_matmul.plan)
+
+#: (m, k, n): KeyNet's int8 layers at 4 and 256 ROIs, the saturated and
+#: reference-test shapes, and ragged ones (chip_smoke.py's cases).
+RBE_SHAPES = [(576, 128, 128), (144, 128, 256), (144, 256, 256),
+              (36864, 128, 128), (9216, 128, 256), (9216, 256, 256),
+              (333, 4096, 65), (256, 2048, 64), (256, 512, 384),
+              (997, 130, 200), (1, 7, 3), (97, 130, 61), (5000, 200, 300),
+              (144, 80, 256), (100, 520, 72), (37, 64, 30), (1, 256, 256),
+              (3, 0, 5)]
+
+
+@pytest.mark.parametrize("m,k,n", RBE_SHAPES)
+def test_rbe_grid_covers_every_output_tile_and_smem_fits(m, k, n):
+    p = RK.plan(m, k, n)
+    assert (p.bm, p.bn, p.threads) == RK.TILES[p.tile][:3]
+    assert p.grid[0] * p.bm >= m > (p.grid[0] - 1) * p.bm
+    assert p.grid[1] * p.bn >= n > (p.grid[1] - 1) * p.bn
+    # a warp takes 16 or 32 rows by 32 columns
+    assert p.threads == 32 * (p.bm // (16 if p.tile == "small" else 32)) \
+        * (p.bn // 32)
+    # K in stages of kc bytes, a multiple of the mma depth (32); one stage
+    # holds all of K up to 256 bytes
+    assert p.kc % 32 == 0 and 32 <= p.kc <= RK.KC_MAX
+    assert p.stages == (1 if k <= p.kc else RK.STAGES)
+    assert p.kc >= min(k, RK.KC_MAX)
+    assert p.smem_bytes == p.stages * (p.bm * (p.kc + 16) + p.kc * p.bn)
+    assert 0 < p.smem_bytes <= RK.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("rois,tiles,blocks", [
+    (4, ("small",) * 3, (72, 40, 40)),
+    (256, ("large",) * 3, (1152, 576, 576))])
+def test_rbe_pipeline_shapes_fill_the_card_with_blocks(rois, tiles, blocks):
+    shapes = [(rois * 144, 128, 128), (rois * 36, 128, 256),
+              (rois * 36, 256, 256)]
+    plans = [RK.plan(*s) for s in shapes]
+    assert tuple(p.tile for p in plans) == tiles
+    assert tuple(p.grid[0] * p.grid[1] for p in plans) == blocks
+    # all of K in one copy at the pipeline's K
+    assert all(p.stages == 1 for p in plans)
+
+
+def test_rbe_plan_refuses_a_grid_too_wide():
+    with pytest.raises(ValueError, match="column tiles"):
+        RK.plan(1, 8, 65536 * 64)
+    with pytest.raises(ValueError):
+        RK.plan(0, 8, 8)
+
+
+# ---------------------------------------------------------------------------
+# Kernel C's operand packing, emulated in numpy from csrc/rbe_matmul.cu
+
+RBE_CU = pathlib.Path(RK.__file__).resolve().parent / "csrc" / "rbe_matmul.cu"
+_PERM = re.compile(r"(\w+(?:\[\d\])?) = __byte_perm\((\w+(?:\[\d\])?), "
+                   r"(\w+(?:\[\d\])?), (0x[0-9a-fA-F]+)\)")
+
+
+def byte_perm(x, y, s: int):
+    """CUDA's __byte_perm on uint32 arrays: byte n of the result is byte
+    (s >> 4n) & 7 of the eight bytes of x (0-3) and y (4-7)."""
+    b = [(x >> (8 * i)) & 0xFF for i in range(4)] + \
+        [(y >> (8 * i)) & 0xFF for i in range(4)]
+    return sum(b[(s >> (4 * n)) & 7] << (8 * n) for n in range(4))
+
+
+def transpose4(r: list) -> list:
+    """transpose4 of the .cu, its __byte_perm calls read from the source
+    and run in order."""
+    src = RBE_CU.read_text()
+    body = src[src.index("void transpose4("):]
+    ops = _PERM.findall(body[:body.index("\n}\n")])
+    assert len(ops) == 8
+    env = {f"r[{i}]": r[i] for i in range(4)}
+    for out, x, y, sel in ops:
+        env[out] = byte_perm(env[x], env[y], int(sel, 16))
+    return [env[f"s[{j}]"] for j in range(4)]
+
+
+def words(b: np.ndarray) -> np.ndarray:
+    """Little-endian uint32 words of the last axis' groups of 4 bytes."""
+    b = b.astype(np.uint8).astype(np.uint64)
+    return (b[..., 0] | b[..., 1] << 8 | b[..., 2] << 16 | b[..., 3] << 24)
+
+
+def col_group(g):
+    """The 4-column group of a warp's 32 whose w bytes thread g (lane //
+    4) transposes (cg in the .cu): fragment column g of n8 tile j is real
+    column 4 cg + j."""
+    return (g >> 1) + 4 * (g & 1)
+
+
+def test_transpose4_turns_rows_into_columns():
+    rng = np.random.default_rng(0)
+    blk = rng.integers(0, 256, (10_000, 4, 4))        # [sample, row, column]
+    s = transpose4([words(blk[:, i, :]) for i in range(4)])
+    for j in range(4):
+        assert np.array_equal(s[j], words(blk[:, :, j]))
+
+
+def b_fragments(w: np.ndarray) -> np.ndarray:
+    """The kernel's B registers of a warp for one k32 step of a (32, 32)
+    int8 w tile: [lane, K half h, n8 tile j], from four 32-bit reads of
+    rows 16h + 4t + i at column 4 cg and transpose4."""
+    out = np.zeros((32, 2, 4), np.uint64)
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        c0 = 4 * col_group(g)
+        for h in range(2):
+            r = [words(w[16 * h + 4 * t + i, c0:c0 + 4]) for i in range(4)]
+            out[lane, h] = transpose4(r)
+    return out
+
+
+def test_b_operand_packing_gives_the_col_fragment():
+    """mma.m16n8k32 .col B: register h of thread (g, t) holds rows 16h +
+    4t .. 16h + 4t + 3 of fragment column g; with column g of tile j at
+    real column 4 cg + j, the transposed words are those bytes of w."""
+    w = np.random.default_rng(1).integers(-128, 128, (32, 32)).astype(np.int8)
+    got = b_fragments(w)
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        for h in range(2):
+            for j in range(4):
+                k0 = 16 * h + 4 * t
+                col = w[k0:k0 + 4, 4 * col_group(g) + j]
+                assert got[lane, h, j] == words(col)
+
+
+def a_fragments(x: np.ndarray) -> np.ndarray:
+    """The kernel's ldmatrix.x4 A registers of a warp for a (16, 32) x
+    tile: lane l gives the address of row l & 15, byte 16 (l >> 4), so
+    matrix q is rows 8 (q & 1) .. + 7, bytes 16 (q >> 1) .. + 15, and lane
+    l receives row l >> 2, bytes 4 (l & 3) .. + 3 of each."""
+    addr = [((lane & 15), 16 * (lane >> 4)) for lane in range(32)]
+    out = np.zeros((32, 4), np.uint64)
+    for lane in range(32):
+        for q in range(4):
+            row, byte = addr[8 * q + (lane >> 2)]
+            out[lane, q] = words(x[row, byte + 4 * (lane & 3):
+                                   byte + 4 * (lane & 3) + 4])
+    return out
+
+
+def unpack(word) -> np.ndarray:
+    return np.array([(int(word) >> (8 * i)) & 0xFF for i in range(4)],
+                    np.uint8).view(np.int8).astype(np.int64)
+
+
+def mma_s8(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """mma.sync.m16n8k32.row.col.s32.s8.s8.s32 on a warp's fragments (a:
+    [lane, 4], b: [lane, 2]) per the PTX ISA layouts; returns the
+    accumulator fragments [lane, 4]."""
+    A = np.zeros((16, 32), np.int64)
+    B = np.zeros((32, 8), np.int64)
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        for q in range(4):          # a_q: row g (+8 if q odd), k 4t (+16)
+            A[g + 8 * (q & 1), 4 * t + 16 * (q >> 1):][:4] = unpack(a[lane, q])
+        for h in range(2):          # b_h: column g, k 4t (+16)
+            B[16 * h + 4 * t:16 * h + 4 * t + 4, g] = unpack(b[lane, h])
+    D = A @ B
+    out = np.zeros((32, 4), np.int64)
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        for e in range(4):          # c_e: row g (+8 if e >= 2), col 2t + e % 2
+            out[lane, e] = D[g + 8 * (e >> 1), 2 * t + (e & 1)]
+    return out
+
+
+def test_warp_tile_through_the_fragments_is_the_product():
+    """A warp's 16 x 32 output tile over one k32 step, through the
+    kernel's A and B fragments and its epilogue's map (accumulator e of
+    the row pair h in tile j is row g + 8h, real column 4t + 16 (e % 2) +
+    j): exactly x @ w."""
+    rng = np.random.default_rng(2)
+    x = rng.integers(-127, 128, (16, 32)).astype(np.int8)
+    w = rng.integers(-127, 128, (32, 32)).astype(np.int8)
+    a, b = a_fragments(x), b_fragments(w)
+    acc = np.stack([mma_s8(a, b[:, :, j]) for j in range(4)], axis=1)
+    out = np.full((16, 32), -1 << 40, np.int64)
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        for j in range(4):
+            for h in range(2):
+                for e in range(2):
+                    out[g + 8 * h, 4 * t + 16 * e + j] = \
+                        acc[lane, j, 2 * h + e]
+    assert np.array_equal(out, x.astype(np.int64) @ w.astype(np.int64))
+
+
+def w_off(r, o, bn: int):
+    """The byte of (row r, byte o) in a stage's w tile (w_off in the
+    .cu): the 32-byte blocks of each 128-byte line XOR-swizzled by bits
+    2-3 of r."""
+    return (r * bn + o) ^ (((r >> 2) & 3) << 5)
+
+
+def test_w_swizzle_is_the_source_s():
+    assert "return (r * BN + o) ^ (((r >> 2) & 3) << 5);" in RBE_CU.read_text()
+
+
+@pytest.mark.parametrize("bn", [32, 64])
+@pytest.mark.parametrize("kc", [32, 128, 160, 256])
+def test_w_swizzle_keeps_pieces_whole_and_reads_conflict_free(bn, kc):
+    r, o = np.meshgrid(np.arange(kc), np.arange(bn), indexing="ij")
+    off = w_off(r, o, bn)
+    # a bijection of the tile that keeps each 16-byte piece contiguous
+    assert np.array_equal(np.sort(off.ravel()), np.arange(kc * bn))
+    assert np.array_equal(off[:, 1:16] - off[:, :1],
+                          np.broadcast_to(np.arange(1, 16), (kc, 15)))
+    # a warp's 32-bit reads of one (k step, half, i) hit 32 distinct banks
+    lanes = np.arange(32)
+    g, t = lanes >> 2, lanes & 3
+    for ks in range(kc // 32):
+        for h in range(2):
+            for i in range(4):
+                for wc in range(0, bn, 32):
+                    banks = w_off(32 * ks + 16 * h + 4 * t + i,
+                                  wc + 4 * col_group(g), bn) // 4 % 32
+                    assert len(set(banks.tolist())) == 32
+
+
+@pytest.mark.parametrize("kc", range(32, 257, 32))
+def test_x_rows_padded_by_16_bytes_read_conflict_free(kc):
+    # an ldmatrix phase reads 8 rows of 16 bytes: 8 distinct bank groups
+    for byte in (0, 16):
+        groups = (np.arange(8) * (kc + 16) + byte) // 16 % 8
+        assert len(set(groups.tolist())) == 8
+
+
+# ---------------------------------------------------------------------------
+# Kernel A's plan (repro_torch.kernels.sweep_grid.kernel.chunk_plan)
+
+
+def chunk_spec(chunk: int, d: int = 3, nf: int = 3, rows: int = 24,
+               bins: int = 256):
+    fields = SW.FIELDS[:nf]
+    return B.ChunkSpec(S=None, shape=(100_096_000,), n_total=100_096_000,
+                       chunk=chunk, fields=fields, d=d, k=4,
+                       sign=(1.0,) * d, cons_static=(), hist_bins=0,
+                       survivor_cap=chunk, small_index=True,
+                       filter_rows=rows, filter_bins=bins)
+
+
+@pytest.mark.parametrize("chunk", [131072, 4096, 997, 512, 100, 10, 1])
+def test_chunk_plan_serves_every_lane_of_each_512_lane_block_once(chunk):
+    spec = chunk_spec(chunk)
+    p = AK.chunk_plan(spec)
+    # one block, and one set of partials, per ChunkSpec.block lanes
+    assert spec.block == min(512, chunk) and p.blocks == spec.n_blocks
+    assert p.lanes == AK.CHUNK_LANES
+    assert p.threads % 32 == 0 and p.threads <= 512 // p.lanes
+    served = [t + j * p.threads for t in range(p.threads)
+              for j in range(p.lanes) if t + j * p.threads < spec.block]
+    assert sorted(served) == list(range(spec.block))
+    # the fewest whole warps that do
+    assert (p.threads - 32) * p.lanes < spec.block <= p.threads * p.lanes
+
+
+def test_chunk_plan_keeps_the_stream_chunk_resident_in_one_wave():
+    p = AK.chunk_plan(chunk_spec(131072))
+    assert (p.threads, p.blocks) == (256, 256)
+    # the register cap of __launch_bounds__(256, 2): 128 a thread, so two
+    # blocks an SM and all 256 blocks on 132 SMs at once
+    assert p.registers == 128 and p.blocks_per_sm >= AK.CHUNK_MIN_BLOCKS
+    assert p.blocks_per_sm * 132 >= p.blocks
+
+
+@pytest.mark.parametrize("d,nf,rows,bins", [
+    (3, 3, 24, 256), (1, 2, 24, 256), (3, 4, 24, 256), (11, 11, 64, 256),
+    (2, 2, 0, 16)])
+def test_chunk_plan_shared_memory_holds_the_filter_and_lane_values(
+        d, nf, rows, bins):
+    p = AK.chunk_plan(chunk_spec(131072, d, nf, rows, bins))
+    warps = p.threads // 32
+    edges = (d - 1) * (bins + 1) if 2 <= d <= 3 else 0
+    assert p.smem_bytes == (8 * (rows * d + edges + nf * 512
+                                 + 3 * (nf + d) * warps)
+                            + 4 * (nf + d) * warps)
+    assert p.smem_bytes <= AK.SMEM_PER_BLOCK
+    assert p.blocks_per_sm >= 1
