@@ -14,13 +14,23 @@ Phases, each of which ends the run with a non-zero exit on any failure:
    its plain PyTorch version for chunks of 997, 4096 and 131072 lanes,
    d = 1, 2, 3, constraints and a maximized objective; kernel B (dense
    evaluation) against its plain version on the 10,880-config reference
-   grid and at 10^6 strided indices of the 100,096,000-config grid.
+   grid, at 10^6 strided indices of the 100,096,000-config grid, and on
+   a grid of 2,202,112,000 configurations (past 2^31: the 64-bit decode)
+   at 4096 strided indices and its last 300,000.
    Floats must agree to 1e-12 relative (bitwise is expected: both sides
    round every operation the same way), integers, booleans and NaN
    patterns exactly.
 3. Dense: ``evaluate_grid`` of the reference grid on the card equals the
    port's CPU run, field for field, with the same argmin, top-k and
-   Pareto front.
+   Pareto front.  Then the dense engine at its largest size,
+   ``evaluate_grid`` over the 1,000,960-config grid, with the launch
+   counts read around exactly that call (one of kernel B, none of A):
+   every field bitwise equal to the plain path on the card, argmin,
+   top-4, finite count and front equal to ``ANCHOR_1M`` (frozen from the
+   JAX reference); kernel B there bitwise equal to its plain version;
+   B's device time, its plain version's, and ``evaluate_grid``'s wall
+   time split into the kernel, the eleven host copies and the rest
+   (``dense_engine`` line).
 4. Stream (the first path): ``stream_grid`` over the 100,096,000-config
    grid through the kernels (launch counts read around exactly this
    run), then again with ``backend="torch"`` on the card: the same
@@ -31,8 +41,9 @@ Phases, each of which ends the run with a non-zero exit on any failure:
    reference test's shapes, ragged shapes, the tensor-core route's edges
    (K not a multiple of 32, K over one shared-memory stage, N not a
    multiple of 8, M = 1, the 64 x 64 tile with ragged M, N and K) and
-   saturated (+-127) inputs: bitwise equal.  ``quantize_rowwise`` on the
-   card equals its CPU run bitwise.
+   saturated (+-127) inputs, and K = 131,071 (the largest the kernel
+   takes) with every operand -128: bitwise equal; K = 131,072 is refused.
+   ``quantize_rowwise`` on the card equals its CPU run bitwise.
 6. Hand-tracking pipeline (the second path): DetNet -> ROI -> KeyNet
    float and int8 on 4 frames (one per camera) through
    ``repro_torch.handtracking_pipeline``, with the launch count read
@@ -78,8 +89,10 @@ Phases, each of which ends the run with a non-zero exit on any failure:
    1e-5 relative, tokens equal.
 10. Report: a ``kernels`` JSON line (launches, error, kernel and plain
    time at the main paths' shapes, the card's bound for the same work,
-   the library call's time where there is one; A's and C's launch plans
-   and ptxas registers and spills, which must be none), ``stream``,
+   the library call's time where there is one; A's, B's and C's launch
+   plans and ptxas registers and spills, which must be none, and B's
+   stack frames, which must be empty; B's row holds its probe reading
+   and, under ``dense``, its 1,000,960-config one), ``stream``,
    ``rbe_shapes`` (each layer at 4 and 256 ROIs with its tile),
    ``handtracking``, ``rmsnorm_shapes``/``flash_shapes`` (each case's
    route; E's registers and spills from ptxas and its share of the
@@ -189,15 +202,27 @@ def sass_fp64(lib: pathlib.Path) -> dict:
                    len(ops))
         exits = [i for i, op in enumerate(ops[:ret]) if op == "EXIT"]
         body = ops[:exits[-1] + 1] if exits and ret < len(ops) else ops
-        key = next((k for k in ("chunk_kernel", "eval_kernel") if k in name),
-                   name)
+        key = "chunk_kernel" if "chunk_kernel" in name else name
         out[key] = {
             "fp64": sum(op.split(".")[0] in FP64_OPCODES
                         or op.startswith("MUFU.RCP64H") for op in body),
             "divides": sum(op.startswith("MUFU.RCP64H") for op in body)}
-    check({"chunk_kernel", "eval_kernel"} <= out.keys(),
-          f"kernels missing from the SASS of {lib}: {sorted(out)}")
-    return out
+    return eval_per_config(out, str(lib))
+
+
+def eval_per_config(out: dict, what: str) -> dict:
+    """``out`` with kernel B's instances (each ``eval_kernel`` template
+    instance, by its name) summed up as ``"eval_kernel"``: the count of
+    the instance that issues the fewest float64 instructions, the one
+    that evaluates one configuration a thread, so it is what one
+    configuration of Eq. 1-11 issues; each instance's own count stays
+    under ``"eval_instances"``."""
+    evals = {k: v for k, v in out.items() if "eval_kernel" in k}
+    check("chunk_kernel" in out and evals,
+          f"kernels missing from the SASS of {what}: {sorted(out)}")
+    rest = {k: v for k, v in out.items() if k not in evals}
+    return {**rest, "eval_kernel": min(evals.values(), key=lambda v: v["fp64"]),
+            "eval_instances": {k: v["fp64"] for k, v in evals.items()}}
 
 
 def max_err(got: dict, want: dict, what: str) -> float:
@@ -495,10 +520,19 @@ def phase_kernels(dev, grid_big, grid_ref) -> dict:
               f"cons={len(cons)} sign={spec.sign}: max_abs_err={e!r}")
 
     # Kernel B: all of the reference grid, 10^6 strided indices of the
-    # big one.
+    # big one, and on a grid past 2^31 configurations (its 64-bit decode)
+    # 4096 strided indices with the last 300,000 (two a thread along the
+    # last axis).
+    huge = dict(grid_big, camera_fps=tuple(np.linspace(20.0, 60.0, 2024)))
+    n_huge = n // len(grid_big["camera_fps"]) * 2024
+    check(n_huge > 2**31, f"the 64-bit case has only {n_huge} configs")
     for g, flat_np in ((grid_ref, None),
                        (grid_big, np.unique(np.linspace(0, n - 1, 10**6)
-                                            .astype(np.int64)))):
+                                            .astype(np.int64))),
+                       (huge, np.concatenate([
+                           np.linspace(0, n_huge - 300_001, 4096)
+                           .astype(np.int64),
+                           np.arange(n_huge - 300_000, n_huge)]))):
         Sg, ax_g, _ = SW.build_axes(**g)
         shp = tuple(a.size for a in ax_g)
         Tg = B.device_tables(Sg, dev)
@@ -510,6 +544,7 @@ def phase_kernels(dev, grid_big, grid_ref) -> dict:
         want = K.sweep_grid_eval_ref(Tg, shp, SW.FIELDS, axg, flat)
         sync(dev)
         e = max_err(got, want, f"kernel B n={flat.numel()}")
+        check_bitwise(got, want, f"kernel B n={flat.numel()}")
         err["B"] = max(err["B"], e)
         print(f"kernel B n={flat.numel()}: max_abs_err={e!r}")
     return err
@@ -555,6 +590,122 @@ def phase_dense(grid_ref, dev) -> None:
           f"(front {fg.size} points, argmin {gpu.argmin()['avg_power']!r})")
 
 
+def bitwise_equal(a: np.ndarray, b: np.ndarray) -> bool:
+    """Same shape, the same NaN positions and every other entry equal to
+    the bit."""
+    na, nb = np.isnan(a), np.isnan(b)
+    return (a.shape == b.shape and np.array_equal(na, nb)
+            and np.array_equal(a[~na].view(np.int64), b[~nb].view(np.int64)))
+
+
+def check_bitwise(got: dict, want: dict, what: str) -> None:
+    """Every tensor of ``got`` bitwise equal to ``want``'s (NaN pattern
+    included)."""
+    for k in want:
+        check(bitwise_equal(got[k].cpu().numpy(), want[k].cpu().numpy()),
+              f"{what}[{k}]: not bitwise equal to the plain version")
+
+
+#: The dense engine's grid: ``stream_grid_axes(10**6)``, 1,000,960
+#: configurations, just under ``partition.STREAM_THRESHOLD``.
+DENSE_N = 10**6
+
+
+def dense_inputs(grid, dev) -> tuple:
+    """What ``evaluate_grid`` hands kernel B for ``grid``: tables, shape,
+    axis tensors and the flat indices ``arange(n)``."""
+    import torch
+
+    from repro_torch.core import backend as B
+    from repro_torch.core import sweep as SW
+
+    S, axis_arrays, _ = SW.build_axes(**grid)
+    shape = tuple(a.size for a in axis_arrays)
+    flat = torch.arange(int(np.prod(shape)), dtype=torch.int64, device=dev)
+    return (B.device_tables(S, dev), shape,
+            SW.axes_to_device(axis_arrays, dev), flat)
+
+
+def staging(plan, n: int, smem_bytes: int):
+    """Kernel B's ``plan`` for ``n`` indices with ``smem_bytes`` of
+    tables and axes staged (0: read where they lie, a block a tile)."""
+    tiles = -(-n // (plan.threads * plan.configs))
+    return dataclasses.replace(plan, smem_bytes=smem_bytes,
+                               blocks=plan.blocks if smem_bytes else tiles)
+
+
+def eval_bytes(T, axvals, n: int, nf: int) -> int:
+    """Bytes kernel B must move for ``n`` indices of ``nf`` channels: the
+    tables and axis values read once, each 8-byte index read and each
+    8-byte channel value written."""
+    return (T.buf.numel() * 8 + sum(v.numel() * 8 for v in axvals)
+            + n * 8 * (1 + nf))
+
+
+def phase_dense_engine(dev, anchor) -> dict:
+    """The dense engine at its largest size: ``evaluate_grid`` over the
+    1,000,960-config grid, launches read around exactly that call (one of
+    kernel B, none of A); every field bitwise equal to the plain path on
+    the card (``backend="torch"``), NaN pattern included; argmin, top-4,
+    finite count and front equal to ``anchor`` (frozen from the JAX
+    reference).  Then B's device time there, its plain version's, and
+    ``evaluate_grid``'s wall time split into the kernel, the eleven
+    device-to-host copies and the rest."""
+    from repro_torch.core import pareto as P
+    from repro_torch.core import sweep as SW
+    from repro_torch.core.grids import dense_summary, stream_grid_axes
+    from repro_torch.kernels import sweep_grid as K
+
+    grid = stream_grid_axes(DENSE_N)
+    sync(dev)
+    reset_counts()
+    res = SW.evaluate_grid(**grid, device=dev)
+    launches = read_counts()
+    check(launches["B"] == 1 and launches["A"] == 0,
+          f"evaluate_grid: launches {launches}, expected one of B, none "
+          f"of A")
+    plain = SW.evaluate_grid(**grid, backend="torch", device=dev)
+    for f in SW.FIELDS:
+        check(bitwise_equal(res.data[f], plain.data[f]),
+              f"dense {res.n_configs} {f}: kernel B differs from the "
+              f"plain path on the card")
+    got = dense_summary(res.data, P.pareto_front(res).indices)
+    for key, want in anchor.items():
+        check(got[key] == want, f"dense {res.n_configs}: {key} {got[key]} "
+              f"differs from the JAX anchor {want}")
+    print(f"dense {res.n_configs} configs: one launch of B, bitwise equal "
+          f"to the plain path, matches the JAX anchors (best "
+          f"{got['best_avg_power']!r} W, front {got['front_size']})")
+
+    T, shape, axvals, flat = dense_inputs(grid, dev)
+    run = lambda: K.sweep_grid_eval(T, shape, SW.FIELDS, axvals, flat)  # noqa
+    plain_b = lambda: K.sweep_grid_eval_ref(T, shape, SW.FIELDS,  # noqa
+                                            axvals, flat)
+    e = max_err(run(), plain_b(), f"kernel B n={flat.numel()}")
+    check_bitwise(run(), plain_b(), f"kernel B n={flat.numel()}")
+    out: dict = {"n": flat.numel(), "fields": len(SW.FIELDS),
+                 "launches": launches["B"], "max_abs_err": e}
+    timed(out, "ms", run, 20, "kernel B, dense")
+    timed(out, "plain_ms", plain_b, 5, "kernel B, dense, plain")
+    # the same launch with the tables read where they lie
+    plan = K.kernel.eval_plan(flat.numel(), len(SW.FIELDS), flat.numel(),
+                              K.kernel.stage_bytes(T, shape))
+    unstaged = staging(plan, flat.numel(), 0)
+    run_u = lambda: K.sweep_grid_eval(T, shape, SW.FIELDS,  # noqa
+                                      axvals, flat, unstaged)
+    check_bitwise(run_u(), plain_b(), f"kernel B n={flat.numel()} unstaged")
+    out["plan"] = dataclasses.asdict(plan)
+    timed(out, "unstaged_ms", run_u, 20, "kernel B, dense, unstaged")
+    dev_out = run()
+    out["copies_ms"] = host_ms(lambda: [v.cpu() for v in dev_out.values()],
+                               5)
+    out["wall_ms"] = host_ms(lambda: SW.evaluate_grid(**grid, device=dev), 5)
+    out["rest_ms"] = out["wall_ms"] - out["ms"] - out["copies_ms"]
+    out["bytes"] = eval_bytes(T, axvals, flat.numel(), len(SW.FIELDS))
+    print(json.dumps({"dense_engine": out}))
+    return out
+
+
 def phase_stream(grid_big, grid_10m, anchor, dev) -> tuple:
     from repro_torch.core import stream as ST
     from repro_torch.core.grids import index_hash
@@ -595,10 +746,13 @@ def phase_stream(grid_big, grid_10m, anchor, dev) -> tuple:
     return res, launches
 
 
-def kernel_report(res, launches, err, grid_big, dev) -> list:
+def kernel_report(res, launches, err, grid_big, dense, dev) -> list:
     """Time both kernels and their plain versions at the main path's
     shapes: kernel A on a full chunk of the 100M plan with the final
-    front's filter, kernel B on the stream probe's 4096 indices."""
+    front's filter, kernel B on the stream probe's 4096 indices and, from
+    ``dense`` (:func:`phase_dense_engine`), on the dense engine's
+    1,000,960.  Kernel B's instances must report no stack frame and no
+    spills."""
     import torch
 
     from repro_torch.core import backend as B
@@ -640,7 +794,7 @@ def kernel_report(res, launches, err, grid_big, dev) -> list:
              + to_table * ((d - 1) * int(np.ceil(np.log2(bins))) + 1))
     usage = ptxas_usage(LIBRARY.info.get("ptxas", ""))
     usage_a = next((u for name, u in usage.items() if "chunk_kernel" in name),
-                   dict.fromkeys(("registers", "spill_stores", "spill_loads")))
+                   dict.fromkeys(PTXAS_KEYS))
     plan_a = K.kernel.chunk_plan(spec)
     if usage_a["registers"] is not None:
         no_spills("kernel A", usage_a)
@@ -657,11 +811,20 @@ def kernel_report(res, launches, err, grid_big, dev) -> list:
                                       axvals, flat)
     plain_b = lambda: K.sweep_grid_eval_ref(T, plan.shape,  # noqa
                                             SW.FIELDS, axvals, flat)
+    check_bitwise(run_b(), plain_b(), f"kernel B n={nb}")
+    # the probe's launch with the tables staged (its plan reads them where
+    # they lie)
+    plan_b = K.kernel.eval_plan(nb, len(SW.FIELDS), n,
+                                K.kernel.stage_bytes(T, plan.shape))
+    staged_b = staging(plan_b, nb, K.kernel.stage_bytes(T, plan.shape))
+    run_bs = lambda: K.sweep_grid_eval(T, plan.shape, SW.FIELDS,  # noqa
+                                       axvals, flat, staged_b)
+    check_bitwise(run_bs(), plain_b(), f"kernel B n={nb} staged")
     timed(times, "B", run_b, 50, "kernel B")
     timed(times, "B_plain", plain_b, 5, "kernel B, plain")
+    timed(times, "B_staged", run_bs, 50, "kernel B, staged")
     host.update(B=host_ms(run_b, 50), B_plain=host_ms(plain_b, 5))
-    bytes_b = (T.buf.numel() * 8 + sum(v.numel() * 8 for v in axvals)
-               + nb * 8 + nb * len(SW.FIELDS) * 8)
+    bytes_b = eval_bytes(T, axvals, nb, len(SW.FIELDS))
     ops_b = nb * eq_ops
     rate = fp64_rate()
     print(json.dumps({"sass_fp64": sass, "fp64_ops_per_s": rate}))
@@ -691,7 +854,27 @@ def kernel_report(res, launches, err, grid_big, dev) -> list:
                      "plain_ms_method": times[key + "_plain_method"]})
     rows[0].update(plan=dataclasses.asdict(plan_a), ptxas=usage_a,
                    filter_rows_scanned=scanned, filter_table_lanes=to_table)
+    usage_b = eval_kernel_usage(usage)
+    d_ms, d_by = bound(dense["bytes"], dense["n"] * eq_ops)
+    rows[1].update(
+        plan=dataclasses.asdict(plan_b), staged_ms=times["B_staged"],
+        staged_ms_method=times["B_staged_method"],
+        staged_smem_bytes=staged_b.smem_bytes,
+        dense={**dense, "bound_ms": d_ms, "bound_by": d_by},
+        ptxas=usage_b)
+    print(json.dumps({"kernel_B": rows[1]}))
+    for name, u in usage_b.items():
+        no_spills(f"kernel B {name}", u)
+        check(not u["stack_frame"], f"kernel B {name}: ptxas reports a "
+              f"{u['stack_frame']}-byte stack frame")
     return rows, host
+
+
+def eval_kernel_usage(usage: dict) -> dict:
+    """The ``ptxas_usage`` entries of kernel B's instances (every kernel
+    whose name holds ``eval_kernel``), by name; empty where this process
+    did not build the library (no report)."""
+    return {name: u for name, u in usage.items() if "eval_kernel" in name}
 
 
 def filter_work(filt: dict, Fsg) -> tuple:
@@ -832,6 +1015,28 @@ def phase_rbe(dev) -> float:
               f"differs from its plain version (max_abs_err {e!r})")
         print(f"kernel C {m}x{k}x{n}{' saturated' if sat else ''}: "
               f"max_abs_err={e!r}")
+    # The largest exact sum: K = MAX_K (131,071), every operand -128, each
+    # output 128² K = 2,147,467,264, just inside int32; one more K is
+    # refused on the card.
+    k = R.kernel.MAX_K
+    args = (torch.full((4, k), -128, dtype=torch.int8, device=dev),
+            torch.full((k, 8), -128, dtype=torch.int8, device=dev),
+            torch.ones(4, device=dev), torch.ones(8, device=dev))
+    got, want = R.rbe_matmul_raw(*args), R.rbe_matmul_ref(*args)
+    sync(dev)
+    check(torch.equal(got, want) and bool((want == 128 * 128 * k).all()),
+          f"kernel C 4x{k}x8 at -128: differs from its plain version or "
+          f"from 128² K")
+    print(f"kernel C 4x{k}x8 at -128 (sums 128² K = {128 * 128 * k}): "
+          f"bitwise equal")
+    if dev.type == "cuda":
+        try:
+            R.rbe_matmul_raw(args[0].new_zeros((4, k + 1)),
+                             args[1].new_zeros((k + 1, 8)), *args[2:])
+        except ValueError as e:
+            check("overflow" in str(e), f"kernel C at K = {k + 1}: {e}")
+        else:
+            raise SmokeFailure(f"kernel C took K = {k + 1} on the card")
     rng = np.random.default_rng(20)
     for shape, axis in (((576, 128), -1), ((128, 256), 0),
                         ((36864, 128), -1)):
@@ -973,7 +1178,7 @@ def rbe_kernel_usage(usage: dict, tile: str) -> dict:
     from repro_torch.kernels.rbe_matmul.kernel import TILES
 
     if not usage:
-        return dict.fromkeys(("registers", "spill_stores", "spill_loads"))
+        return dict.fromkeys(PTXAS_KEYS)
     bm, bn, _, _ = TILES[tile]
     want = f"17rbe_matmul_kernelILi{bm // 32}ELi2ELi{bn // 32}E"
     hits = [u for name, u in usage.items() if want in name]
@@ -1249,30 +1454,36 @@ def flash_bound(nbytes, qk_ops, pv_ops, bf16: bool) -> tuple:
     return max(tb, to), "bytes" if tb >= to else "operations"
 
 
+#: What ``ptxas_usage`` reads of each kernel (None each where this
+#: process did not build the library: no report).
+PTXAS_KEYS = ("registers", "stack_frame", "spill_stores", "spill_loads")
 _PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
 _PTXAS_PROPS = re.compile(r"Function properties for (\w+)")
 _PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads")
+_PTXAS_STACK = re.compile(r"(\d+) bytes stack frame")
 _PTXAS_REGS = re.compile(r"Used (\d+) registers")
 
 
 def ptxas_usage(text: str) -> dict:
-    """Registers and spill bytes of each kernel in an ``nvcc -Xptxas -v``
-    report: ``{mangled name: {"registers", "spill_stores",
-    "spill_loads"}}``."""
+    """Registers, stack frame and spill bytes of each kernel in an ``nvcc
+    -Xptxas -v`` report: ``{mangled name: {"registers", "stack_frame",
+    "spill_stores", "spill_loads"}}``."""
     out: dict = {}
     name = props = None
     for line in text.splitlines():
         if m := _PTXAS_ENTRY.search(line):
             name = m.group(1)
-            out[name] = {"registers": None, "spill_stores": 0,
-                         "spill_loads": 0}
+            out[name] = {"registers": None, "stack_frame": 0,
+                         "spill_stores": 0, "spill_loads": 0}
         elif m := _PTXAS_PROPS.search(line):
             props = m.group(1)
         elif props == name and name is not None \
                 and (m := _PTXAS_SPILL.search(line)):
             out[name]["spill_stores"] = int(m.group(1))
             out[name]["spill_loads"] = int(m.group(2))
+            if st := _PTXAS_STACK.search(line):
+                out[name]["stack_frame"] = int(st.group(1))
         elif name is not None and (m := _PTXAS_REGS.search(line)):
             out[name]["registers"] = int(m.group(1))
     return out
@@ -1284,7 +1495,7 @@ def flash_kernel_usage(usage: dict, route: str, d: int) -> dict:
     ``flash_fwd_kernel<float, D>`` (f32), by their mangled names; None
     for each where this process did not build the library (no report)."""
     if not usage:
-        return dict.fromkeys(("registers", "spill_stores", "spill_loads"))
+        return dict.fromkeys(PTXAS_KEYS)
     want = (f"3mma16flash_fwd_kernelILi{d}E" if route == "mma"
             else f"16flash_fwd_kernelIfLi{d}E")
     hits = [u for name, u in usage.items() if want in name]
@@ -1738,18 +1949,19 @@ def run(dev, grid_big, smi: str, lm_cfg, lm_seq: int = LM_SEQ,
     """Phases 2-10 on ``dev`` with ``grid_big`` as the stream's grid and
     ``lm_cfg`` run at ``lm_seq`` tokens as the LM."""
     from repro_torch.core import stream as ST
-    from repro_torch.core.grids import (ANCHOR_10M, REFERENCE_GRID,
-                                        stream_grid_axes)
+    from repro_torch.core.grids import (ANCHOR_1M, ANCHOR_10M,
+                                        REFERENCE_GRID, stream_grid_axes)
 
     err = phase_kernels(dev, grid_big, REFERENCE_GRID)
     phase_dense(REFERENCE_GRID, dev)
+    dense = phase_dense_engine(dev, ANCHOR_1M)
     res, launches = phase_stream(grid_big, stream_grid_axes(10_000_000),
                                  ANCHOR_10M, dev)
     err["C"] = phase_rbe(dev)
     ht_launches, ht = phase_pipeline(dev, smi)
     err["D"] = phase_rmsnorm(dev)
     err["E"] = phase_flash(dev)
-    rows, host = kernel_report(res, launches, err, grid_big, dev)
+    rows, host = kernel_report(res, launches, err, grid_big, dense, dev)
     row_c, shapes = rbe_report(ht_launches, err["C"], dev, smi)
     rows.append(row_c)
     rows_de, lm_shapes = lm_kernel_report(err, dev)

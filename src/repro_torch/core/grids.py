@@ -13,6 +13,12 @@ it along the rate axes to the sizes the streaming benchmark sweeps
 from a run of the JAX package on the CPU, and re-derived from it by
 ``tests/test_torch_anchors.py``.
 
+``ANCHOR_1M`` holds what the reference's dense ``evaluate_grid``
+returns over the 1,000,960-config grid, just under
+``partition.STREAM_THRESHOLD`` (so ``optimal_partition`` evaluates it
+densely), as :func:`dense_summary` reads it: copied from a run of the
+JAX package on the CPU and re-derived by ``tests/test_torch_anchors.py``.
+
 ``PRICING_ANCHOR`` holds the reference's pricing of the hand-tracking
 pipeline (``examples/handtracking_pipeline.py``): the average power of
 ``build_centralized("7nm")`` and ``build_distributed("7nm", "7nm")`` in
@@ -58,6 +64,40 @@ def index_hash(indices) -> str:
     return hashlib.sha256(a.tobytes()).hexdigest()
 
 
+#: The objectives of the anchors' top-k rows and fronts (the default
+#: objectives of ``pareto.pareto_front`` and ``stream.stream_grid``).
+ANCHOR_OBJECTIVES = ("avg_power", "latency", "mipi_bytes_per_s")
+
+
+def top_k_flat(values, k: int = 4) -> tuple:
+    """Flat indices of the ``k`` lowest finite values, ties by index
+    (``SweepResult.top_k``'s order), NaN never."""
+    v = np.asarray(values, np.float64).ravel()
+    v = np.where(np.isnan(v), np.inf, v)
+    order = np.lexsort((np.arange(v.size), v))[:k]
+    return tuple(int(i) for i in order if np.isfinite(v[i]))
+
+
+def dense_summary(data, front_indices) -> dict:
+    """What ``ANCHOR_1M`` freezes, from a dense result's channels
+    (``{field: array}``, C order) and the flat indices of its Pareto
+    front over :data:`ANCHOR_OBJECTIVES`: the size, each field's first
+    minimum (NaN ignored), the best ``avg_power``, the top-4 of each
+    objective, the finite ``avg_power`` count and the front's size and
+    :func:`index_hash`."""
+    flat = {f: np.asarray(v, np.float64).ravel() for f, v in data.items()}
+    power = flat["avg_power"]
+    return dict(
+        n_configs=power.size,
+        argmin_idx={f: int(np.nanargmin(v)) for f, v in flat.items()},
+        best_avg_power=float(np.nanmin(power)),
+        topk_idx=tuple(top_k_flat(flat[o]) for o in ANCHOR_OBJECTIVES),
+        finite=int(np.isfinite(power).sum()),
+        front_size=int(np.asarray(front_indices).size),
+        front_hash=index_hash(front_indices),
+    )
+
+
 ANCHOR_10M = dict(
     n_configs=10_009_600,
     argmin_idx=9_825_600,
@@ -69,6 +109,23 @@ ANCHOR_10M = dict(
     front_size=784,
     front_hash="8c441ebb46c2f302a055a8109e5c43bd"
                "8090bbaa37885da28ff560650b5f4af9",
+)
+
+ANCHOR_1M = dict(
+    n_configs=1_000_960,
+    argmin_idx={"avg_power": 982_560, "camera": 29_440, "utsv": 0,
+                "mipi": 971_520, "sensor_compute": 0, "sensor_memory": 0,
+                "agg_compute": 971_520, "agg_memory": 971_520,
+                "mipi_bytes_per_s": 971_520, "sensor_macs_per_s": 0,
+                "latency": 58_971},
+    best_avg_power=0.007680588538256027,
+    topk_idx=((982560, 997280, 982652, 997372),
+              (58971, 59063, 59339, 59431),
+              (971520, 971521, 971522, 971523)),
+    finite=758_080,
+    front_size=784,
+    front_hash="1502a2d7ecb0e12b83a79b633e259c91"
+               "a568aea8affec2dcd86d4fd2cbae2cfc",
 )
 
 PRICING_ANCHOR = dict(

@@ -16,7 +16,7 @@
 //
 // The design, for that:
 // - Tensor cores: mma.sync m16n8k32 s8 x s8 -> s32 (no .satfinite).  The
-//   int32 sums are exact (|acc| <= 127^2 K < 2^31 for K <= 133,144, which
+//   int32 sums are exact (|acc| <= 128^2 K < 2^31 for K <= 131,071, which
 //   the wrapper checks), so any tiling or summation order gives the same
 //   bits; the epilogue runs once on the whole sum, the reference's two f32
 //   multiplies in its order, so the result equals the plain version bit

@@ -39,8 +39,11 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 LIBRARY = Library("rbe_matmul", CSRC, "rbe_matmul.cu", ("rbe_matmul.cu",),
                   BASE_FLAGS)
 
-#: Largest K whose int32 sums cannot overflow: 127² K < 2³¹.
-MAX_K = (2**31 - 1) // (127 * 127)
+#: Largest K whose int32 sums cannot leave int32 on the card: int8
+#: reaches -128, so |sum| <= 128² K <= 2³¹ - 1.  Larger K is refused on
+#: CUDA tensors (whether the tensor cores' s32 sums wrap as int32 does is
+#: not relied on); CPU tensors take the plain version, which wraps.
+MAX_K = (2**31 - 1) // (128 * 128)
 #: Largest M the launcher's int32 takes (M tiles run on the grid's x,
 #: which holds 2³¹ - 1 blocks; N tiles on its y, which :func:`plan`
 #: checks).
@@ -125,13 +128,22 @@ def _check(t, name: str, dtype, device, shape) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def check_k(k: int) -> None:
+    """Refuse a K whose int32 sums could overflow on the card."""
+    if k > MAX_K:
+        raise ValueError(f"K = {k} exceeds {MAX_K}: the int32 sums could "
+                         f"overflow")
+
+
 def rbe_matmul_raw(x_q: torch.Tensor, w_q: torch.Tensor, sx: torch.Tensor,
                    sw: torch.Tensor) -> torch.Tensor:
     """Quantized matmul: (M, K) int8 @ (K, N) int8 -> (M, N) float32.
 
     ``sx`` (M,) per-row activation scales, ``sw`` (N,) per-channel weight
     scales, both float32 (the symmetric-quantization layout the RBE uses
-    at 8 bit).  All four tensors contiguous and on one device.
+    at 8 bit).  All four tensors contiguous and on one device.  On the
+    CPU any K runs, and sums beyond int32 wrap as the reference's do; on
+    the card K is at most :data:`MAX_K`.
     """
     if x_q.dim() != 2 or w_q.dim() != 2:
         raise ValueError(f"expected 2-D operands, got {tuple(x_q.shape)} "
@@ -142,13 +154,11 @@ def rbe_matmul_raw(x_q: torch.Tensor, w_q: torch.Tensor, sx: torch.Tensor,
     _check(w_q, "w_q", torch.int8, dev, (k, n))
     _check(sx, "sx", torch.float32, dev, (m,))
     _check(sw, "sw", torch.float32, dev, (n,))
-    if k > MAX_K:
-        raise ValueError(f"K = {k} exceeds {MAX_K}: the int32 sums could "
-                         f"overflow")
     if dev.type == "cpu":
         return ref.rbe_matmul_ref(x_q, w_q, sx, sw)
     if dev.type != "cuda":
         raise ValueError(f"rbe_matmul_raw runs on cuda or cpu, not {dev}")
+    check_k(k)
     if m > MAX_M:
         raise ValueError(f"M = {m} exceeds the launcher's {MAX_M}")
     out = torch.empty((m, n), dtype=torch.float32, device=dev)

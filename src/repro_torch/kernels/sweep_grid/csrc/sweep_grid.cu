@@ -11,8 +11,8 @@
 // repro_torch.core.backend.chunk_partials, which folds them.
 //
 // Kernel B (eval_kernel) replaces the evaluate-only Pallas variant,
-// kernel.py::_flat_call / sweep_grid_eval: one thread per flat index,
-// writing the requested channels as an (n_fields, n) matrix.
+// kernel.py::_flat_call / sweep_grid_eval: Eq. 1-11 at explicit flat
+// indices, writing the requested channels as an (n_fields, n) matrix.
 //
 // What bounds them on an H100: per configuration ~270 float64
 // instructions of Eq. 1-11, ten IEEE divide sequences included (kernel A
@@ -44,14 +44,56 @@
 // channels are picked out of eval_config's outputs by selects.  Min, the
 // lexicographic first min, the integer count and max are exact in any
 // order, so the partials equal the plain version bit for bit.
-// eval_config and decode (sweep_grid.cuh) are shared with kernel B and
-// unchanged.  ptxas (CUDA 12, sm_90a, as built by kernel.py): chunk_kernel
-// 128 registers, the cap of two 256-thread blocks an SM, no spills (a cap
-// of 80 for three blocks spills 248 bytes and runs slower); eval_kernel
-// 96 registers.
+// eval_config (sweep_grid.cuh) is shared with kernel B; decode there is
+// kernel A's alone.  ptxas (CUDA 12, sm_90a, as built by kernel.py):
+// chunk_kernel 128 registers, the cap of two 256-thread blocks an SM, no
+// spills (a cap of 80 for three blocks spills 248 bytes and runs slower);
+// eval_kernel's instances at most 168, their cap, with no stack frame.
 //
-// Kernel A decodes in int32 whenever the index space allows it; kernel
-// B, which takes arbitrary flat indices off the chunk path, in int64.
+// Kernel A decodes in int32 whenever the index space allows it.
+//
+// Kernel B's design.  It runs at two sizes: the stream's probe (4,096
+// indices) and the dense engine (evaluate_grid, evaluate_one and
+// optimal_partition below its stream threshold: up to 2^20 indices,
+// 1,000,960 for the reference's 10^6 grid), where it is bound by its
+// bytes (the 8-byte index and 8 bytes a channel: 96 a configuration at
+// all eleven, 28.7 us at 3.35 TB/s) ahead of its ~270 float64
+// instructions a configuration (~16 us at the float64 pipe's rate).  What
+// it issues besides is integer work: Eq. 1-11's ~75 table gathers each
+// form a 64-bit offset (off + row * width + col), and the first version
+// decoded with twenty software int64 divisions a configuration, so its
+// instructions, not its bytes, set its time.
+// (1) Decode: the flat index is divided by each axis's stride and size
+// with a multiply-high by a multiplier the host precomputes
+// (Granlund-Montgomery, the scheme of CUTLASS's FastDivmod): __umulhi
+// and a shift in 32-bit integers whenever the grid has fewer than 2^31
+// configurations (every grid of the repo), __umul64hi at or above.
+// (2) No local arrays: each channel eval_config writes goes to its
+// output row through an unrolled loop over the eleven FIELDS with a
+// per-field row (-1: not requested), so every index is known at compile
+// time and the values stay in registers (ptxas: no stack frame).
+// (3) Shared coordinates: a thread takes EVAL_CONFIGS consecutive
+// indices; where they run along the grid's last axis (as the dense
+// engine's arange does) they differ in that coordinate alone, so they
+// are decoded once and handed to eval_config with the same values for
+// the other nine, and the compiler evaluates everything that does not
+// depend on the last axis (every gather but one, most of Eq. 1-11) once
+// for the group.  Each of its rows then goes out as 16-byte stores where
+// aligned.  Other indices (the probe's, the overflow fallback's) are
+// evaluated one at a time.
+// (4) Staging: at the dense size the packed tables and the axis values
+// (a few KB) are copied to shared memory with cp.async, so the gathers
+// are shared-memory loads with 32-bit addresses (fewer instructions than
+// 64-bit global ones); as many blocks as the SMs hold stage them once
+// each and step over the tiles.  (5) A launch plan (kernel.py::
+// eval_plan) for both sizes: below a full card's worth of work, small
+// blocks of one index a thread spread over the SMs, the tables read where
+// they lie (staging a block cost more than it saved at the probe); at the
+// dense size EVAL_THREADS-thread blocks under __launch_bounds__(
+// EVAL_THREADS, EVAL_MIN_BLOCKS), a register cap that leaves
+// EVAL_MIN_BLOCKS blocks an SM without spills.  eval_config is shared
+// with kernel A and unchanged, so B still equals A and the plain version
+// to the bit.
 //
 // Host interface: plain C, called through ctypes.  Every argument reaches
 // the launcher as one int64 array (scalars and device pointers) and one
@@ -71,6 +113,12 @@
 #if !defined(CHUNK_LANES) || !defined(CHUNK_MIN_BLOCKS)
 #error "build with -DCHUNK_LANES=<n> -DCHUNK_MIN_BLOCKS=<n> (see kernel.py)"
 #endif
+// Kernel B's block size at most, consecutive indices a thread on its
+// dense plan, and resident blocks an SM: set by the build alike.
+#if !defined(EVAL_THREADS) || !defined(EVAL_CONFIGS) || \
+    !defined(EVAL_MIN_BLOCKS)
+#error "build with -DEVAL_THREADS=<n> -DEVAL_CONFIGS=<n> -DEVAL_MIN_BLOCKS=<n>"
+#endif
 
 using namespace sweep_grid;
 
@@ -80,11 +128,13 @@ constexpr int MAX_W = 512;      // lanes per block (ChunkSpec.block)
 constexpr int CHUNK_THREADS = MAX_W / CHUNK_LANES;   // threads at most
 constexpr int MAX_CONS = 8;     // constraint predicates
 constexpr int MAX_ROWS = 64;    // explicit dominance-filter rows
-constexpr int EVAL_THREADS = 256;
 constexpr unsigned FULL = 0xffffffffu;
 
 static_assert(CHUNK_LANES >= 1 && MAX_W % (32 * CHUNK_LANES) == 0,
               "CHUNK_LANES must divide 16");
+static_assert(EVAL_THREADS % 32 == 0 && EVAL_THREADS <= 1024 &&
+                  (EVAL_CONFIGS == 2 || EVAL_CONFIGS == 4),
+              "EVAL_THREADS: whole warps; EVAL_CONFIGS: 2 or 4");
 
 constexpr int ERR_ARGS = -1;    // argument count mismatch
 constexpr int ERR_RANGE = -2;   // argument outside the kernel's limits
@@ -124,11 +174,15 @@ struct EvalArgs {
   Tables T;
   Consts C;
   Grid G;
-  const long long* flat;
+  const long long* flat;        // (n,) in [0, G.n_total)
   long long n;
-  int nf;
-  int field[N_FIELDS];
-  double* out;                  // (nf, n)
+  int row[N_FIELDS];            // FIELDS channel -> output row, -1: none
+  // Fast division by each axis's stride ([0]) and size ([1]): see
+  // fast_div; mul 0 marks a divisor of 1.
+  unsigned long long mul[2][N_AXES];
+  int shr[2][N_AXES];
+  long long n_buf;              // doubles of the table buffer T.p
+  double* out;                  // (rows, n)
 };
 
 // Kernel A's dynamic shared memory, in this order: the filter rows
@@ -360,15 +414,161 @@ chunk_kernel(const ChunkArgs a) {
   }
 }
 
-__global__ void eval_kernel(const EvalArgs a) {
-  const long long i =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= a.n) return;
-  long long c[N_AXES];
-  decode(a.G, a.flat[i], false, c);
-  double out[N_FIELDS];
-  eval_config(a.T, a.C, a.G, c, out);
-  for (int f = 0; f < a.nf; ++f) a.out[f * a.n + i] = out[a.field[f]];
+// n / d by a multiply-high (Granlund & Montgomery, as CUTLASS's
+// FastDivmod): mul = ceil(2^p / d) with p = bits - 1 + ceil(log2 d) and
+// shr = p - bits, exact for 0 <= n < 2^(bits - 1); mul 0 stands for d = 1
+// (kernel.py::div_magic computes both).
+__device__ __forceinline__ uint32_t fast_div(uint32_t n,
+                                             unsigned long long mul,
+                                             int shr) {
+  return mul ? __umulhi(n, static_cast<uint32_t>(mul)) >> shr : n;
+}
+
+__device__ __forceinline__ uint64_t fast_div(uint64_t n,
+                                             unsigned long long mul,
+                                             int shr) {
+  return mul ? __umul64hi(n, mul) >> shr : n;
+}
+
+// decode()'s coordinates, (flat / stride) % size on every axis, in I
+// (uint32_t below 2^31 configurations, uint64_t at or above).
+template <typename I>
+__device__ __forceinline__ void eval_decode(const EvalArgs& a, I flat,
+                                            long long* c) {
+#pragma unroll
+  for (int x = 0; x < N_AXES; ++x) {
+    const I q = fast_div(flat, a.mul[0][x], a.shr[0][x]);
+    const I r = q - fast_div(q, a.mul[1][x], a.shr[1][x]) *
+                        static_cast<I>(a.G.size[x]);
+    c[x] = static_cast<long long>(r);
+  }
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// One thread's CONFIGS consecutive positions i0, i0 + 1, ...  Where
+// their indices run along the grid's last axis (flat[i0 + j] = flat[i0] +
+// j, and the last coordinate stays in range), the configurations share
+// every coordinate but the last: they are decoded once and handed to
+// eval_config with the same values, so the compiler evaluates what does
+// not depend on the last axis (every table gather but one, most of Eq.
+// 1-11) once for all of them; each row's values go out in 16-byte stores
+// where aligned.  Otherwise (and at the ragged end) one position at a
+// time, each decoded on its own.
+template <typename I, int CONFIGS>
+__device__ __forceinline__ void eval_thread(const EvalArgs& a,
+                                            const Tables& T, const Grid& G,
+                                            long long i0) {
+  if constexpr (CONFIGS > 1) {
+    if (i0 + CONFIGS <= a.n) {
+      long long f[CONFIGS];
+      if (aligned16(a.flat + i0)) {
+#pragma unroll
+        for (int j = 0; j < CONFIGS; j += 2) {
+          const longlong2 q =
+              *reinterpret_cast<const longlong2*>(a.flat + i0 + j);
+          f[j] = q.x;
+          f[j + 1] = q.y;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < CONFIGS; ++j) f[j] = a.flat[i0 + j];
+      }
+      bool run = true;
+#pragma unroll
+      for (int j = 1; j < CONFIGS; ++j) run = run && f[j] == f[0] + j;
+      long long c0[N_AXES];
+      eval_decode<I>(a, static_cast<I>(f[0]), c0);
+      if (run && c0[N_AXES - 1] + CONFIGS <= a.G.size[N_AXES - 1]) {
+        double v[CONFIGS][N_FIELDS];
+#pragma unroll
+        for (int j = 0; j < CONFIGS; ++j) {
+          long long c[N_AXES];
+#pragma unroll
+          for (int x = 0; x < N_AXES; ++x) c[x] = c0[x];
+          c[N_AXES - 1] += j;
+          eval_config(T, a.C, G, c, v[j]);
+        }
+#pragma unroll
+        for (int k = 0; k < N_FIELDS; ++k) {
+          const int r = a.row[k];
+          if (r < 0) continue;
+          double* o = a.out + static_cast<long long>(r) * a.n + i0;
+          if (aligned16(o)) {
+#pragma unroll
+            for (int j = 0; j < CONFIGS; j += 2)
+              *reinterpret_cast<double2*>(o + j) =
+                  make_double2(v[j][k], v[j + 1][k]);
+          } else {
+#pragma unroll
+            for (int j = 0; j < CONFIGS; ++j) o[j] = v[j][k];
+          }
+        }
+        return;
+      }
+    }
+  }
+#pragma unroll 1
+  for (int j = 0; j < CONFIGS; ++j) {
+    const long long i = i0 + j;
+    if (i >= a.n) break;
+    long long c[N_AXES];
+    eval_decode<I>(a, static_cast<I>(a.flat[i]), c);
+    double v[N_FIELDS];
+    eval_config(T, a.C, G, c, v);
+#pragma unroll
+    for (int k = 0; k < N_FIELDS; ++k)
+      if (a.row[k] >= 0)
+        a.out[static_cast<long long>(a.row[k]) * a.n + i] = v[k];
+  }
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(src));
+}
+
+// Kernel B: CONFIGS consecutive flat indices a thread, decoded in I, in
+// tiles of blockDim.x * CONFIGS indices.  Without STAGE a block serves
+// the tile of its index.  STAGE: the table buffer, then each axis's
+// values, are copied to shared memory (n_buf + the axis sizes, in
+// doubles) and read there, and the block serves the tiles from its index
+// in steps of the grid, so that a grid of as many blocks as the SMs hold
+// stages them once each.
+template <typename I, int CONFIGS, bool STAGE>
+__global__ void __launch_bounds__(EVAL_THREADS, EVAL_MIN_BLOCKS)
+eval_kernel(const EvalArgs a) {
+  const long long per_block = static_cast<long long>(blockDim.x) * CONFIGS;
+  const long long lane0 = static_cast<long long>(threadIdx.x) * CONFIGS;
+  if constexpr (STAGE) {
+    const long long tiles = (a.n + per_block - 1) / per_block;
+    extern __shared__ double s_tab[];
+    for (long long i = threadIdx.x; i < a.n_buf; i += blockDim.x)
+      cp_async8(s_tab + i, a.T.p + i);
+    Tables T = a.T;
+    Grid G = a.G;
+    T.p = s_tab;
+    double* s_ax = s_tab + a.n_buf;
+#pragma unroll
+    for (int x = 0; x < N_AXES; ++x) {
+      const double* src = static_cast<const double*>(a.G.ax[x]);
+      for (long long i = threadIdx.x; i < a.G.size[x]; i += blockDim.x)
+        cp_async8(s_ax + i, src + i);
+      G.ax[x] = s_ax;
+      s_ax += a.G.size[x];
+    }
+    asm volatile("cp.async.wait_all;\n" ::);
+    __syncthreads();
+    for (long long t = blockIdx.x; t < tiles; t += gridDim.x)
+      if (t * per_block + lane0 < a.n)
+        eval_thread<I, CONFIGS>(a, T, G, t * per_block + lane0);
+  } else {
+    const long long i0 = blockIdx.x * per_block + lane0;
+    if (i0 < a.n) eval_thread<I, CONFIGS>(a, a.T, a.G, i0);
+  }
 }
 
 template <typename T>
@@ -408,6 +608,34 @@ void read_common(Reader<long long>& r, Reader<double>& dr, Tables& T,
   C.l1_scale = dr.next();
   C.sensor_l1 = dr.next();
   C.agg_l1 = dr.next();
+}
+
+template <typename I, int CONFIGS, bool STAGE>
+cudaError_t launch_eval(const EvalArgs& a, long long blocks, int threads,
+                        long long smem, void* stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        eval_kernel<I, CONFIGS, STAGE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  eval_kernel<I, CONFIGS, STAGE>
+      <<<static_cast<unsigned>(blocks), threads, static_cast<size_t>(smem),
+         static_cast<cudaStream_t>(stream)>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename I>
+cudaError_t launch_eval(const EvalArgs& a, long long blocks, int threads,
+                        int configs, long long smem, void* stream) {
+  if (configs == 1)
+    return smem ? launch_eval<I, 1, true>(a, blocks, threads, smem, stream)
+                : launch_eval<I, 1, false>(a, blocks, threads, 0, stream);
+  return smem
+             ? launch_eval<I, EVAL_CONFIGS, true>(a, blocks, threads, smem,
+                                                  stream)
+             : launch_eval<I, EVAL_CONFIGS, false>(a, blocks, threads, 0,
+                                                   stream);
 }
 
 }  // namespace
@@ -495,20 +723,56 @@ int sweep_grid_eval_launch(const long long* iargs, int n_i,
   read_common(r, dr, a.T, a.C, a.G);
   a.flat = as_ptr<const long long>(r.next());
   a.n = r.next();
-  a.nf = static_cast<int>(r.next());
-  if (a.nf < 1 || a.nf > N_FIELDS) return ERR_RANGE;
-  for (int f = 0; f < a.nf; ++f) a.field[f] = static_cast<int>(r.next());
+  for (int k = 0; k < N_FIELDS; ++k) a.row[k] = static_cast<int>(r.next());
+  for (int w = 0; w < 2; ++w)
+    for (int x = 0; x < N_AXES; ++x) {
+      a.mul[w][x] = static_cast<unsigned long long>(r.next());
+      a.shr[w][x] = static_cast<int>(r.next());
+    }
+  a.n_buf = r.next();
   a.out = as_ptr<double>(r.next());
+  const long long threads = r.next();            // the plan
+  const long long configs = r.next();
+  const long long blocks = r.next();
+  const long long index_bits = r.next();
+  const long long smem = r.next();
   if (!r.done() || !dr.done()) return ERR_ARGS;
-  for (int f = 0; f < a.nf; ++f)
-    if (a.field[f] < 0 || a.field[f] >= N_FIELDS) return ERR_RANGE;
-  if (a.n <= 0) return ERR_RANGE;
+  // Each requested channel has its own row, and they are rows 0 .. rows-1.
+  unsigned seen = 0;
+  int rows = 0;
+  for (int k = 0; k < N_FIELDS; ++k) {
+    if (a.row[k] < -1 || a.row[k] >= N_FIELDS) return ERR_RANGE;
+    if (a.row[k] < 0) continue;
+    if ((seen >> a.row[k]) & 1u) return ERR_RANGE;
+    seen |= 1u << a.row[k];
+    ++rows;
+  }
+  if (seen != (1u << rows) - 1) return ERR_RANGE;
+  for (int w = 0; w < 2; ++w)
+    for (int x = 0; x < N_AXES; ++x)
+      if (a.shr[w][x] < 0 || a.shr[w][x] > 63) return ERR_RANGE;
+  if (a.n <= 0 || rows < 1 || a.n_buf < 0) return ERR_RANGE;
+  // The plan: whole warps up to EVAL_THREADS, one or EVAL_CONFIGS indices
+  // a thread, the index width the grid needs, and either no shared memory
+  // and a block a tile, or exactly the staged tables and axes and at most
+  // a block a tile (the blocks step over the tiles): every index served.
+  long long staged = a.n_buf;
+  for (int x = 0; x < N_AXES; ++x) staged += a.G.size[x];
+  const long long per_block = threads * configs;
+  const long long tiles = (a.n + per_block - 1) / per_block;
+  if (threads < 32 || threads > EVAL_THREADS || threads % 32 != 0 ||
+      (configs != 1 && configs != EVAL_CONFIGS) || blocks < 1 ||
+      blocks > tiles || (smem == 0 && blocks != tiles) || blocks > INT_MAX ||
+      index_bits != (a.G.n_total < (1LL << 31) ? 32 : 64) ||
+      (smem != 0 && smem != 8 * staged))
+    return ERR_PLAN;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const long long blocks = (a.n + EVAL_THREADS - 1) / EVAL_THREADS;
-  eval_kernel<<<static_cast<unsigned>(blocks), EVAL_THREADS, 0,
-                static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  const int t = static_cast<int>(threads), c = static_cast<int>(configs);
+  e = index_bits == 32
+          ? launch_eval<uint32_t>(a, blocks, t, c, smem, stream)
+          : launch_eval<uint64_t>(a, blocks, t, c, smem, stream);
+  return static_cast<int>(e);
 }
 
 const char* sweep_grid_error_string(int code) {

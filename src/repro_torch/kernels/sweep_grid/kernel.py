@@ -19,7 +19,16 @@ Two CUDA C++ kernels in ``csrc/`` (see the note at the top of
   :func:`chunk_plan` gives the launch in plain Python.
 * :func:`sweep_grid_eval` — kernel B, replacing ``_flat_call`` /
   ``sweep_grid_eval`` there: decode + Eq. 1-11 at explicit flat
-  indices.
+  indices.  At the dense engine's size its bytes bound it, at the
+  stream probe's a launch and one lane's chain; its time is the integer
+  work around Eq. 1-11.  It decodes by a multiply-high by host-computed
+  multipliers (:func:`div_magic`) in 32-bit integers below 2³¹
+  configurations and keeps every channel in registers.
+  :func:`eval_plan` gives its launch: small blocks that spread over the
+  SMs for few indices; at the dense size :data:`EVAL_CONFIGS`
+  consecutive indices a thread, which share their decode and every
+  table gather off the grid's last axis, with the tables staged in
+  shared memory.
 
 Both call one ``__device__`` function, ``eval_config``, so their values
 agree to the bit, and both are compiled with ``--fmad=false`` and IEEE
@@ -59,6 +68,16 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 #: for.  The build takes both from here.
 CHUNK_LANES = 2
 CHUNK_MIN_BLOCKS = 2
+#: Kernel B: threads a block at most, consecutive indices a thread on
+#: its dense plan, and the blocks an SM its register cap
+#: (``__launch_bounds__(EVAL_THREADS, EVAL_MIN_BLOCKS)``) makes room for.
+#: The build takes all three from here.
+EVAL_THREADS = 128
+EVAL_CONFIGS = 2
+EVAL_MIN_BLOCKS = 3
+#: SMs of an H100 SXM: below this many blocks kernel B's plan shrinks
+#: its blocks so that the work spreads over them.
+SMS = 132
 #: An H100 SM: 32-bit registers, threads, shared memory (bytes) a block
 #: may take, an SM holds and the system keeps a block, and the registers
 #: a thread at most.
@@ -72,7 +91,10 @@ LIBRARY = Library("sweep_grid", CSRC, "sweep_grid.cu",
                   ("sweep_grid.cu", "sweep_grid.cuh"),
                   BASE_FLAGS + ("--fmad=false",
                                 f"-DCHUNK_LANES={CHUNK_LANES}",
-                                f"-DCHUNK_MIN_BLOCKS={CHUNK_MIN_BLOCKS}"))
+                                f"-DCHUNK_MIN_BLOCKS={CHUNK_MIN_BLOCKS}",
+                                f"-DEVAL_THREADS={EVAL_THREADS}",
+                                f"-DEVAL_CONFIGS={EVAL_CONFIGS}",
+                                f"-DEVAL_MIN_BLOCKS={EVAL_MIN_BLOCKS}"))
 
 #: Tables the kernels read, in the order of ``enum Table`` in
 #: ``csrc/sweep_grid.cuh``.
@@ -153,6 +175,85 @@ def _chunk_plan(W: int, d: int, nf: int, rows: int, bins: int,
                         SMEM_PER_SM // (smem + SMEM_RESERVED))
     return ChunkPlan(threads, CHUNK_LANES, blocks, smem, registers,
                      blocks_per_sm)
+
+
+@dataclasses.dataclass(frozen=True)
+class EvalPlan:
+    """How kernel B runs ``n`` flat indices: ``blocks`` blocks of
+    ``threads`` threads, ``configs`` consecutive indices a thread (index
+    ``(block * threads + thread) * configs + j``), decoded in
+    ``index_bits``-bit integers; ``registers`` is the most a thread may
+    use under the launch bounds; ``smem_bytes`` of shared memory hold the
+    staged tables and axis values (0: read where they lie, a block a tile
+    of ``threads * configs`` indices; else the blocks step over the
+    tiles)."""
+
+    threads: int
+    configs: int
+    blocks: int
+    registers: int
+    index_bits: int
+    smem_bytes: int
+
+
+def eval_registers() -> int:
+    """Kernel B's register cap: what ``__launch_bounds__(EVAL_THREADS,
+    EVAL_MIN_BLOCKS)`` leaves a thread, in the allocation's units of 8."""
+    return min(MAX_REGISTERS,
+               SM_REGISTERS // (EVAL_THREADS * EVAL_MIN_BLOCKS) // 8 * 8)
+
+
+#: Most shared memory kernel B stages a block: what leaves room for
+#: EVAL_MIN_BLOCKS blocks an SM.
+EVAL_STAGE_MAX = SMEM_PER_SM // EVAL_MIN_BLOCKS - SMEM_RESERVED
+
+
+@functools.lru_cache(maxsize=256)
+def eval_plan(n: int, nf: int, n_total: int | None = None,
+              stage_bytes: int = 0) -> EvalPlan:
+    """Kernel B's launch for ``n`` indices of ``nf`` channels each into a
+    grid of ``n_total`` configurations (default ``n``, the dense
+    engine's), whose tables and axis values take ``stage_bytes``.  Where
+    :data:`EVAL_CONFIGS` indices a thread fill every SM with
+    :data:`EVAL_MIN_BLOCKS` blocks of :data:`EVAL_THREADS`, that is the
+    plan, and the tables and axes are staged in shared memory (when they
+    fit :data:`EVAL_STAGE_MAX`) by as many blocks as the SMs hold, each
+    stepping over the tiles; below it one index a thread, read where
+    the tables lie, in the largest whole-warp blocks (up to
+    :data:`EVAL_THREADS`) that still give each SM a block (32 threads at
+    the probe's 4,096).  Indices decode in 32-bit integers below 2³¹
+    configurations, else in 64.  ``nf`` is checked; the work a
+    configuration is the same for any set of channels."""
+    n_total = n if n_total is None else n_total
+    if n < 1 or not 1 <= nf <= len(SW.FIELDS) or n_total < 1:
+        raise ValueError(f"no plan for {n} indices of {nf} channels into "
+                         f"{n_total} configurations")
+    if n >= SMS * EVAL_MIN_BLOCKS * EVAL_THREADS * EVAL_CONFIGS:
+        threads, configs = EVAL_THREADS, EVAL_CONFIGS
+        smem = stage_bytes if stage_bytes <= EVAL_STAGE_MAX else 0
+    else:
+        threads = min(EVAL_THREADS, max(32, n // SMS // 32 * 32))
+        configs, smem = 1, 0
+    blocks = -(-n // (threads * configs))
+    if smem:
+        blocks = min(blocks, SMS * EVAL_MIN_BLOCKS)
+    return EvalPlan(threads, configs, blocks, eval_registers(),
+                    32 if n_total < 2**31 else 64, smem)
+
+
+def div_magic(d: int, bits: int) -> tuple[int, int]:
+    """``(mul, shr)`` of kernel B's division by ``d`` in ``bits``-bit
+    integers (``fast_div`` in the .cu): ``n // d == (n * mul) >> (bits +
+    shr)`` for ``0 <= n < 2**(bits - 1)``, with ``mul = ceil(2**p / d)``,
+    ``p = bits - 1 + ceil(log2 d)``, ``shr = p - bits`` (Granlund and
+    Montgomery; CUTLASS's ``FastDivmod``).  ``mul`` 0 stands for ``d`` =
+    1, where the kernel takes ``n`` itself."""
+    if d < 1 or bits not in (32, 64):
+        raise ValueError(f"no fast division by {d} in {bits} bits")
+    if d == 1:
+        return 0, 0
+    p = bits - 1 + (d - 1).bit_length()
+    return -(-(1 << p) // d), p - bits
 
 
 @functools.lru_cache(maxsize=1)
@@ -290,10 +391,30 @@ def sweep_grid_chunk(spec, T: A.DeviceTables, axvals, aux, start: int) -> dict:
 sweep_grid_chunk.launches = 0
 
 
-def sweep_grid_eval(T: A.DeviceTables, shape, fields, axvals, flat) -> dict:
+def stage_bytes(T: A.DeviceTables, shape) -> int:
+    """Shared memory kernel B stages: the table buffer and every axis's
+    values, 8 bytes each."""
+    return 8 * (T.buf.numel() + sum(int(s) for s in shape))
+
+
+def decode_args(shape, bits: int) -> list:
+    """Kernel B's decode as its launcher reads it: ``(mul, shr)`` of
+    :func:`div_magic` for each axis's stride, then for each axis's size,
+    a 64-bit ``mul`` at or above 2⁶³ as the int64 of its bits."""
+    strides = [int(np.prod(shape[i + 1:])) for i in range(len(shape))]
+    out = []
+    for d in (*strides, *shape):
+        mul, shr = div_magic(int(d), bits)
+        out += [mul - (mul >> 63 << 64), shr]
+    return out
+
+
+def sweep_grid_eval(T: A.DeviceTables, shape, fields, axvals, flat,
+                    plan: EvalPlan | None = None) -> dict:
     """Kernel B: ``fields`` at the flat grid indices ``flat`` (int64, in
-    ``[0, prod(shape))``), as ``{field: (n,) float64}``.  CPU tables run
-    the plain version."""
+    ``[0, prod(shape))``), as ``{field: (n,) float64}``, launched by
+    ``plan`` (default :func:`eval_plan`'s; the launcher refuses one this
+    build does not run).  CPU tables run the plain version."""
     dev = T.buf.device
     fields = tuple(fields)
     if dev.type == "cpu":
@@ -303,13 +424,24 @@ def sweep_grid_eval(T: A.DeviceTables, shape, fields, axvals, flat) -> dict:
     n = flat.shape[0]
     _check(flat, "flat", torch.int64, dev, (n,))
     iargs, dargs = _common_args(T, shape, axvals)
-    F = torch.empty((len(fields), n), dtype=torch.float64, device=dev)
+    # one row per distinct channel, in the order first asked for
+    rows = {f: i for i, f in enumerate(dict.fromkeys(fields))}
+    unknown = sorted(set(rows) - set(SW.FIELDS))
+    if unknown:
+        raise ValueError(f"unknown channels {unknown}; have {SW.FIELDS}")
+    F = torch.empty((len(rows), n), dtype=torch.float64, device=dev)
     if n:
-        iargs += [flat.data_ptr(), n, len(fields),
-                  *(SW.FIELDS.index(f) for f in fields), F.data_ptr()]
+        shape = tuple(int(s) for s in shape)
+        plan = plan or eval_plan(n, len(rows), int(np.prod(shape)),
+                                 stage_bytes(T, shape))
+        iargs += [flat.data_ptr(), n,
+                  *(rows.get(f, -1) for f in SW.FIELDS),
+                  *decode_args(shape, plan.index_bits),
+                  T.buf.numel(), F.data_ptr(), plan.threads, plan.configs,
+                  plan.blocks, plan.index_bits, plan.smem_bytes]
         _launch(_lib().sweep_grid_eval_launch, iargs, dargs, dev)
         sweep_grid_eval.launches += 1
-    return {f: F[i] for i, f in enumerate(fields)}
+    return {f: F[i] for f, i in rows.items()}
 
 
 sweep_grid_eval.launches = 0

@@ -270,6 +270,16 @@ def task_stream(p):
     return out
 
 
+def task_dense(p):
+    """The reference's dense ``evaluate_grid`` over ``grid``: every
+    channel (flat, C order) and its Pareto front's flat indices (default
+    objectives)."""
+    from repro.core import pareto, sweep
+    dense = sweep.evaluate_grid(**p["grid"])
+    return {"data": {f: np.asarray(v).ravel() for f, v in dense.data.items()},
+            "front_idx": np.asarray(pareto.pareto_front(dense).indices)}
+
+
 def task_pareto(p):
     from repro.core import pareto, sweep
     dense = sweep.evaluate_grid(**p["grid"])
@@ -321,6 +331,17 @@ def rbe_inputs(m: int, k: int, n: int, seed: int, saturate: bool = False):
     return x_q, w_q, sx, sw
 
 
+def rbe_wrap_inputs(m: int, k: int, n: int, seed: int):
+    """int8 operands over the whole range [-128, 127] with x's row 0 and
+    w's column 0 all -128, so that output (0, 0) sums 128² K (beyond
+    int32 for K > 131,071), and float32 scales of 1."""
+    rng = np.random.default_rng(seed)
+    x_q = rng.integers(-128, 128, (m, k)).astype(np.int8)
+    w_q = rng.integers(-128, 128, (k, n)).astype(np.int8)
+    x_q[0], w_q[:, 0] = -128, -128
+    return x_q, w_q, np.ones(m, np.float32), np.ones(n, np.float32)
+
+
 def float_inputs(shape, seed: int, scale: float = 1.0) -> np.ndarray:
     """float32 standard-normal values, rows scaled over several decades
     (so per-row quantization scales differ widely)."""
@@ -338,18 +359,22 @@ def frames(batch: int, seed: int) -> np.ndarray:
 
 def task_rbe(p):
     """The Pallas kernel (interpret mode) and its oracle on the raw
-    cases; ``quantize_rowwise`` and ``rbe_matmul`` as the reference's
-    jitted ``rbe_matmul`` runs them, on the float cases."""
+    cases; the oracle alone on the ``wrap`` cases (:func:`rbe_wrap_inputs`);
+    ``quantize_rowwise`` and ``rbe_matmul`` as the reference's jitted
+    ``rbe_matmul`` runs them, on the float cases."""
     jax = _import_reference()
     import jax.numpy as jnp
 
     from repro.kernels.rbe_matmul import (quantize_rowwise, rbe_matmul,
                                           rbe_matmul_raw, rbe_matmul_ref)
-    out = {"raw": [], "quant": [], "float": []}
+    out = {"raw": [], "quant": [], "float": [], "wrap": []}
     for case in p["raw"]:
         args = tuple(map(jnp.asarray, rbe_inputs(*case)))
         out["raw"].append({"kernel": np.asarray(rbe_matmul_raw(*args)),
                            "ref": np.asarray(rbe_matmul_ref(*args))})
+    for case in p.get("wrap", ()):
+        args = tuple(map(jnp.asarray, rbe_wrap_inputs(*case)))
+        out["wrap"].append(np.asarray(rbe_matmul_ref(*args)))
     quant = jax.jit(quantize_rowwise, static_argnames="axis")
     for shape, seed, axis in p["quant"]:
         q, s = quant(jnp.asarray(float_inputs(tuple(shape), seed)),

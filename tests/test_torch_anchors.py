@@ -1,13 +1,19 @@
 """The parity anchors frozen in ``repro_torch.core.grids`` are what the
 JAX reference computes, recomputed here on the CPU: its ``stream_grid``
-over the 10,009,600-config grid (default objectives, top-4), and its
-pricing of the hand-tracking pipeline (``PRICING_ANCHOR``)."""
+over the 10,009,600-config grid (default objectives, top-4), its dense
+``evaluate_grid`` over the 1,000,960-config grid (``ANCHOR_1M``), and its
+pricing of the hand-tracking pipeline (``PRICING_ANCHOR``).  The port's
+plain path on the CPU is held to ``ANCHOR_1M`` too (the card is, in
+``chip_smoke.py``)."""
 
 import numpy as np
+import pytest
 
-from _jax_reference import run
-from repro_torch.core.grids import (ANCHOR_10M, PRICING_ANCHOR, index_hash,
-                                    stream_grid_axes)
+from _jax_reference import assert_close, run
+from repro_torch.core import pareto, sweep
+from repro_torch.core.grids import (ANCHOR_1M, ANCHOR_10M, PRICING_ANCHOR,
+                                    dense_summary, index_hash,
+                                    stream_grid_axes, top_k_flat)
 
 
 def test_anchor_10m_matches_reference():
@@ -25,3 +31,39 @@ def test_anchor_10m_matches_reference():
 def test_pricing_anchor_matches_reference():
     ref = run("scalar", systems={})
     assert ref["pricing"] == PRICING_ANCHOR
+
+
+@pytest.fixture(scope="module")
+def dense_1m():
+    return run("dense", grid=stream_grid_axes(10**6))
+
+
+def test_anchor_1m_is_what_jax_computes(dense_1m):
+    assert dense_summary(dense_1m["data"], dense_1m["front_idx"]) == ANCHOR_1M
+    assert list(ANCHOR_1M["argmin_idx"]) == list(sweep.FIELDS)
+
+
+def test_plain_dense_path_matches_anchor_1m(dense_1m):
+    """The port's ``evaluate_grid`` on the CPU over the 1,000,960-config
+    grid: every channel within 1e-12 of the reference's (NaN pattern
+    equal), and the frozen anchor read from it."""
+    res = sweep.evaluate_grid(**stream_grid_axes(10**6), device="cpu")
+    assert res.n_configs == ANCHOR_1M["n_configs"] < 1 << 20
+    for f in sweep.FIELDS:
+        assert_close(res.data[f].ravel(), dense_1m["data"][f], what=f)
+    got = dense_summary(res.data, pareto.pareto_front(res).indices)
+    assert got == ANCHOR_1M
+
+
+def test_top_k_flat_is_sweep_results_order():
+    v = np.array([3.0, np.nan, 1.0, 1.0, np.inf, 0.5, 3.0])
+    assert top_k_flat(v, 4) == (5, 2, 3, 0)
+    assert top_k_flat(v, 10) == (5, 2, 3, 0, 6)
+    res = sweep.evaluate_grid(device="cpu")
+    for f in sweep.FIELDS:
+        flat = res.data[f].ravel()
+        want = res.top_k(f, 4)
+        got = top_k_flat(flat)
+        assert len(got) == len(want)
+        for i, cfg in zip(got, want):
+            assert {**res.config_at(i), f: float(flat[i])} == cfg

@@ -1,8 +1,10 @@
 """The parts of ``chip_smoke.py`` that decide a result without the card:
 the checks of a trace-timed reading, kernel E's bound, the
 ``flex_attention`` yardstick's function, the guard of the LM's
-kernels-vs-plain comparison, the ptxas report's registers and spills
-(kernels C and E), and the filter work that kernel A's bound counts.
+kernels-vs-plain comparison, the ptxas report's registers, stack frames
+and spills (kernels B, C and E), the float64 count a configuration read
+from kernel B's SASS instances, kernel B's dense bound, the bitwise
+comparison, and the filter work that kernel A's bound counts.
 Everything here runs on the CPU; the script's timings and kernel
 launches run only on the card."""
 
@@ -149,9 +151,11 @@ ptxas info    : Used 178 registers, used 1 barriers
 def test_ptxas_report_gives_each_route_its_registers_and_spills():
     usage = CS.ptxas_usage(PTXAS)
     assert CS.flash_kernel_usage(usage, "mma", 256) == {
-        "registers": 255, "spill_stores": 168, "spill_loads": 288}
+        "registers": 255, "stack_frame": 120, "spill_stores": 168,
+        "spill_loads": 288}
     assert CS.flash_kernel_usage(usage, "simt", 256) == {
-        "registers": 178, "spill_stores": 0, "spill_loads": 0}
+        "registers": 178, "stack_frame": 0, "spill_stores": 0,
+        "spill_loads": 0}
     with pytest.raises(CS.SmokeFailure, match="0 kernels"):
         CS.flash_kernel_usage(usage, "mma", 128)
 
@@ -186,8 +190,10 @@ def test_ptxas_report_gives_each_rbe_tile_its_registers_and_spills():
     usage = CS.ptxas_usage(RBE_PTXAS)
     large = CS.rbe_kernel_usage(usage, "large")
     small = CS.rbe_kernel_usage(usage, "small")
-    assert large == {"registers": 64, "spill_stores": 0, "spill_loads": 0}
-    assert small == {"registers": 48, "spill_stores": 4, "spill_loads": 8}
+    assert large == {"registers": 64, "stack_frame": 0, "spill_stores": 0,
+                     "spill_loads": 0}
+    assert small == {"registers": 48, "stack_frame": 8, "spill_stores": 4,
+                     "spill_loads": 8}
     CS.no_spills("large", large)
     with pytest.raises(CS.SmokeFailure, match="4 bytes of spill stores"):
         CS.no_spills("small", small)
@@ -217,3 +223,78 @@ def test_filter_work_counts_rows_until_the_first_dominating_one():
     assert CS.filter_work({"rows": rows, "table": None}, Fsg) == \
         (scanned, to_table)
     assert CS.filter_work({"rows": rows}, Fsg) == (scanned, 0)
+
+
+# kernels of the sweep-grid library as ptxas names them: an untemplated
+# kernel B with a local array (an 88-byte stack frame), two template
+# instances of kernel B (one and two indices a thread) and kernel A
+NS = "_ZN46_GLOBAL__N__cccfe8ff_13_sweep_grid_cu_59f9aeff"
+EVAL_OLD = NS + "11eval_kernelENS_8EvalArgsE"
+EVAL_1 = NS + "11eval_kernelIjLi1ELb0EEEvNS_8EvalArgsE"
+EVAL_2 = NS + "11eval_kernelIjLi2ELb0EEEvNS_8EvalArgsE"
+CHUNK = NS + "12chunk_kernelENS_9ChunkArgsE"
+SWEEP_PTXAS = f"""\
+ptxas info    : Compiling entry function '{EVAL_OLD}' for 'sm_90a'
+ptxas info    : Function properties for {EVAL_OLD}
+    88 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 96 registers, used 0 barriers, 88 bytes cumulative \
+stack size
+ptxas info    : Compiling entry function '{EVAL_2}' for 'sm_90a'
+ptxas info    : Function properties for {EVAL_2}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 126 registers, used 0 barriers
+ptxas info    : Compiling entry function '{CHUNK}' for 'sm_90a'
+ptxas info    : Function properties for {CHUNK}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+"""
+
+
+def test_ptxas_report_gives_kernel_b_instances_their_stack_frames():
+    usage = CS.eval_kernel_usage(CS.ptxas_usage(SWEEP_PTXAS))
+    assert usage == {
+        EVAL_OLD: {"registers": 96, "stack_frame": 88, "spill_stores": 0,
+                   "spill_loads": 0},
+        EVAL_2: {"registers": 126, "stack_frame": 0, "spill_stores": 0,
+                 "spill_loads": 0}}
+    assert CS.eval_kernel_usage({}) == {}
+
+
+def test_eval_float64_count_is_the_one_config_instance():
+    """Kernel B's instances that evaluate two configurations a thread
+    issue twice Eq. 1-11's float64 work; the count a configuration is the
+    smallest instance's."""
+    sass = CS.eval_per_config({
+        "chunk_kernel": {"fp64": 434, "divides": 10},
+        EVAL_1: {"fp64": 268, "divides": 10},
+        EVAL_2: {"fp64": 536, "divides": 20}}, "test")
+    assert sass["eval_kernel"] == {"fp64": 268, "divides": 10}
+    assert sass["eval_instances"] == {EVAL_1: 268, EVAL_2: 536}
+    assert sass["chunk_kernel"]["fp64"] == 434
+    with pytest.raises(CS.SmokeFailure, match="missing"):
+        CS.eval_per_config({"chunk_kernel": {"fp64": 1, "divides": 0}}, "x")
+
+
+def test_dense_bound_is_bytes_at_the_1m_grid():
+    """1,000,960 configurations x (8-byte index + 11 x 8 output bytes) plus
+    the tables and axes, over 3.35 TB/s: 28.7 us, above the float64 work
+    (268 instructions a configuration at ~16.7e12/s: ~16 us)."""
+    dev = torch.device("cpu")
+    from repro_torch.core.grids import stream_grid_axes
+    T, shape, axvals, flat = CS.dense_inputs(stream_grid_axes(CS.DENSE_N),
+                                             dev)
+    n = flat.numel()
+    assert n == 1_000_960 and tuple(T.buf.shape) == (447,)
+    nbytes = CS.eval_bytes(T, axvals, n, 11)
+    assert nbytes == 447 * 8 + 144 * 8 + n * 96 == 96_096_888
+    assert nbytes / CS.PEAK_BYTES_PER_S * 1e6 == pytest.approx(28.7, abs=0.05)
+    assert n * 268 / 16.7e12 * 1e6 == pytest.approx(16.1, abs=0.1)
+
+
+def test_bitwise_equal_holds_nan_positions_and_bits():
+    import numpy as np
+    a = np.array([1.0, np.nan, 0.0, 2.0])
+    assert CS.bitwise_equal(a, a.copy())
+    assert not CS.bitwise_equal(a, np.array([1.0, np.nan, -0.0, 2.0]))
+    assert not CS.bitwise_equal(a, np.array([1.0, 3.0, 0.0, 2.0]))
+    assert not CS.bitwise_equal(a, np.nextafter(a, 3.0))

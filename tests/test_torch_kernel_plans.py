@@ -30,6 +30,15 @@ and one set of partials per 512-lane ``ChunkSpec.block``, every lane of
 it served once by ``lanes`` x ``threads``, the stream's 256 blocks
 resident at once, and its shared memory sized as the kernel lays it out.
 
+Kernel B (``repro_torch.kernels.sweep_grid.kernel.eval_plan``): every
+index served once by ``configs`` x ``threads`` x ``blocks``, the probe's
+4,096 spread over the SMs in 32-thread blocks, the dense sizes at
+``EVAL_CONFIGS`` indices a thread with every SM's blocks resident, and
+the 32-bit decode below 2³¹ configurations.  Its multiply-high division
+(``div_magic``, ``fast_div`` in the .cu) is emulated in numpy as the
+kernel computes it and held against ``//`` and ``%`` on every stride and
+size of the 10⁶, 10⁷ and 10⁸ grids and random ones.
+
 The kernels themselves run only on the card (``chip_smoke.py``).
 """
 
@@ -535,3 +544,160 @@ def test_chunk_plan_shared_memory_holds_the_filter_and_lane_values(
                             + 4 * (nf + d) * warps)
     assert p.smem_bytes <= AK.SMEM_PER_BLOCK
     assert p.blocks_per_sm >= 1
+
+
+# ---------------------------------------------------------------------------
+# Kernel B's plan and its fast division
+
+
+#: Kernel B's staged bytes at the stream grids: the 447-double table
+#: buffer and the axis values (144 at 10^6).
+STAGE_1M = 8 * (447 + 144)
+
+
+@pytest.mark.parametrize("n,n_total,threads,configs,bits,blocks", [
+    (1, None, 32, 1, 32, 1),
+    (4096, 100_096_000, 32, 1, 32, 128),     # the stream's probe
+    (10_880, None, 64, 1, 32, 170),          # the reference grid
+    (1_000_960, None, 128, 2, 32, 396),      # the dense engine's 10^6 grid
+    (100_096_000, None, 128, 2, 32, 396),
+    (2**31 + 5, None, 128, 2, 64, 396),
+])
+def test_eval_plan_at_both_sizes(n, n_total, threads, configs, bits, blocks):
+    p = AK.eval_plan(n, 11, n_total, STAGE_1M)
+    assert (p.threads, p.configs, p.index_bits) == (threads, configs, bits)
+    assert p.blocks == blocks
+    assert p.threads % 32 == 0 and p.threads <= AK.EVAL_THREADS
+    assert p.registers == AK.eval_registers()
+    tiles = -(-n // (threads * configs))
+    if configs == 1:
+        # a block a tile, tables read where they lie, no idle block
+        assert p.smem_bytes == 0 and p.blocks == tiles
+    else:
+        # the tables staged once by each of the blocks the SMs hold
+        assert p.smem_bytes == STAGE_1M
+        assert p.blocks == min(tiles, AK.SMS * AK.EVAL_MIN_BLOCKS)
+
+
+def test_eval_plan_spreads_the_probe_and_fills_the_card_at_dense_size():
+    probe = AK.eval_plan(4096, 11, 100_096_000, STAGE_1M)
+    assert probe.blocks >= AK.SMS // 2 and probe.blocks * 32 >= 4096
+    dense = AK.eval_plan(1_000_960, 11, None, STAGE_1M)
+    assert dense.blocks == AK.SMS * AK.EVAL_MIN_BLOCKS
+    # the register cap and the staged tables leave EVAL_MIN_BLOCKS blocks
+    # an SM
+    per_warp = -(-dense.registers * 32 // 256) * 256
+    assert AK.SM_REGISTERS // (per_warp * dense.threads // 32) \
+        >= AK.EVAL_MIN_BLOCKS
+    assert AK.EVAL_MIN_BLOCKS * (dense.smem_bytes + AK.SMEM_RESERVED) \
+        <= AK.SMEM_PER_SM
+
+
+def test_eval_plan_reads_tables_too_big_to_stage_in_place():
+    big = AK.EVAL_STAGE_MAX + 8
+    p = AK.eval_plan(1_000_960, 11, None, big)
+    assert p.smem_bytes == 0 and p.blocks == -(-1_000_960 // (128 * 2))
+    assert AK.eval_plan(1_000_960, 11).smem_bytes == 0
+
+
+@pytest.mark.parametrize("n,nf,n_total", [(0, 11, None), (5, 0, None),
+                                          (5, 12, None), (5, 11, 0)])
+def test_eval_plan_refuses_empty_or_unknown_work(n, nf, n_total):
+    with pytest.raises(ValueError, match="no plan"):
+        AK.eval_plan(n, nf, n_total)
+
+
+def _fast_divmod(n, d: int, bits: int):
+    """(q, r) of n by d as the kernel computes them: q = d == 1 ? n :
+    umulhi(n, mul) >> shr (the high half of the 2·bits-bit product), r =
+    n - q·d."""
+    mul, shr = AK.div_magic(d, bits)
+    if bits == 32:
+        n = np.asarray(n, np.uint64)
+        q = n if mul == 0 else (n * np.uint64(mul)) >> np.uint64(32 + shr)
+        return q, n - q * np.uint64(d)
+    q = [x if mul == 0 else (x * mul) >> (64 + shr) for x in map(int, n)]
+    return q, [x - y * d for x, y in zip(map(int, n), q)]
+
+
+def _grid_divisors():
+    from repro_torch.core.grids import stream_grid_axes
+    out = set()
+    for n in (10**6, 10**7, 10**8):
+        _, ax, _ = SW.build_axes(**stream_grid_axes(n))
+        shape = [a.size for a in ax]
+        out |= set(shape)
+        out |= {int(np.prod(shape[i + 1:])) for i in range(len(shape))}
+        out.add(int(np.prod(shape)))
+    return sorted(out)
+
+
+GRID_DIVISORS = _grid_divisors()
+
+
+def test_grid_divisors_cover_the_stream_grids():
+    assert {1, 2, 34, 92, 1_000_960, 100_096_000, 2_944_000} \
+        <= set(GRID_DIVISORS)
+
+
+@pytest.mark.parametrize("bits", [32, 64])
+def test_fast_division_is_exact_on_the_grids_and_random_divisors(bits):
+    """Every stride and size of the 10^6/10^7/10^8 grids and random
+    divisors, at 0, 1, d - 1, d, n - 1 and 2^31 - 1 (2^63 - 1 in 64
+    bits) and random indices below 2^(bits - 1)."""
+    rng = np.random.default_rng(7)
+    top = 2**(bits - 1) - 1
+    divisors = GRID_DIVISORS + [int(x) for x in rng.integers(1, 2**31, 40)]
+    divisors += [2**k for k in range(31)] + [2**k + 1 for k in range(1, 31)]
+    if bits == 64:
+        divisors += [int(x) for x in rng.integers(2**31, 2**62, 20)]
+    for d in divisors:
+        idx = [0, 1, d - 1, d, min(d + 1, top), top, top - 1, 2**31 - 1]
+        idx += [int(x) for x in rng.integers(0, top, 200, dtype=np.int64)]
+        q, r = _fast_divmod(idx, d, bits)
+        assert [int(x) for x in q] == [x // d for x in idx], d
+        assert [int(x) for x in r] == [x % d for x in idx], d
+
+
+@pytest.mark.parametrize("n_total", [1_000_960, 10_009_600, 100_096_000])
+def test_fast_decode_is_the_grid_coordinates(n_total):
+    """The kernel's decode, (flat / stride) % size on each axis by two
+    fast divisions, equals numpy's unravel_index at 0, n - 1 and random
+    flat indices of the grid."""
+    from repro_torch.core.grids import stream_grid_axes
+    _, ax, _ = SW.build_axes(**stream_grid_axes(n_total))
+    shape = tuple(a.size for a in ax)
+    assert int(np.prod(shape)) == n_total
+    rng = np.random.default_rng(n_total % 97)
+    flat = np.concatenate([[0, n_total - 1],
+                           rng.integers(0, n_total, 5000)]).astype(np.uint64)
+    want = np.unravel_index(flat.astype(np.int64), shape)
+    for x, size in enumerate(shape):
+        stride = int(np.prod(shape[x + 1:]))
+        q, _ = _fast_divmod(flat, stride, 32)
+        _, c = _fast_divmod(q, size, 32)
+        assert np.array_equal(c.astype(np.int64), want[x]), x
+
+
+@pytest.mark.parametrize("d,bits", [(1, 32), (2, 32), (3, 32), (92, 32),
+                                    (2**31 - 1, 32), (1, 64), (3, 64),
+                                    (2**62 + 1, 64)])
+def test_div_magic_multipliers_fit_their_width(d, bits):
+    mul, shr = AK.div_magic(d, bits)
+    assert 0 <= mul < 2**bits and 0 <= shr < bits
+    assert (mul == 0) == (d == 1)
+
+
+@pytest.mark.parametrize("bits", [32, 64])
+def test_decode_args_are_the_launchers_int64s(bits):
+    """Strides then sizes, (mul, shr) each; a 64-bit multiplier at or
+    above 2^63 reaches the launcher's int64 array as its bits."""
+    shape = (1, 34, 2, 2, 2, 5, 2, 2, 2, 92)
+    args = AK.decode_args(shape, bits)
+    a = np.asarray(args, np.int64)
+    strides = [int(np.prod(shape[i + 1:])) for i in range(len(shape))]
+    for i, d in enumerate(strides + list(shape)):
+        mul, shr = AK.div_magic(d, bits)
+        assert int(a[2 * i:2 * i + 1].view(np.uint64)[0]) == mul
+        assert a[2 * i + 1] == shr
+    assert (a < 0).any() == (bits == 64)

@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from _jax_reference import float_inputs, rbe_inputs, run
+from _jax_reference import float_inputs, rbe_inputs, rbe_wrap_inputs, run
 from repro_torch.kernels import rbe_matmul as R
 
 #: (m, k, n, seed): the reference test's three shapes, KeyNet's three
@@ -31,13 +31,18 @@ RAW_CASES = ((128, 128, 128, 0), (256, 512, 384, 1), (512, 256, 128, 2),
 #: (shape, seed, axis) of the quantization cases.
 QUANT_CASES = (((576, 128), 10, -1), ((128, 256), 11, 0), ((33, 7), 12, -1),
                ((5, 300), 13, 0))
+#: (m, k, n, seed) of the cases past int32: -128 operands at K 133,000,
+#: output (0, 0) summing 128² K = 2,179,072,000 (the reference's int32
+#: product wraps it to -2,115,895,296), the other cells in range.
+WRAP_CASES = ((3, 133_000, 4, 30),)
 #: (m, k, n, seed) of the float-in cases.
 FLOAT_CASES = ((256, 256, 256, 20), (576, 128, 128, 21), (97, 130, 61, 22))
 
 
 @pytest.fixture(scope="module")
 def ref():
-    return run("rbe", raw=RAW_CASES, quant=QUANT_CASES, float=FLOAT_CASES)
+    return run("rbe", raw=RAW_CASES, quant=QUANT_CASES, float=FLOAT_CASES,
+               wrap=WRAP_CASES)
 
 
 def _t(*arrays):
@@ -141,8 +146,34 @@ def test_wrapper_checks_its_operands(bad, match):
 
 
 def test_k_beyond_exact_int32_sums_is_refused():
+    """The card's route refuses K past :data:`MAX_K` (checked on CUDA
+    tensors, before any launch); CPU tensors take the plain version,
+    which wraps as the reference does, at any K."""
     k = R.kernel.MAX_K + 1
     with pytest.raises(ValueError, match="overflow"):
-        R.rbe_matmul_raw(torch.zeros((1, k), dtype=torch.int8),
-                         torch.zeros((k, 1), dtype=torch.int8),
-                         torch.ones(1), torch.ones(1))
+        R.kernel.check_k(k)
+    R.kernel.check_k(k - 1)
+    out = R.rbe_matmul_raw(torch.full((1, k), -128, dtype=torch.int8),
+                           torch.full((k, 1), -128, dtype=torch.int8),
+                           torch.ones(1), torch.ones(1))
+    assert out.item() == float(128 * 128 * k - 2**32)
+
+
+def test_max_k_is_the_largest_exact_int32_sum_of_int8():
+    assert R.kernel.MAX_K == 131_071
+    assert 128 * 128 * R.kernel.MAX_K <= 2**31 - 1
+    assert 128 * 128 * (R.kernel.MAX_K + 1) > 2**31 - 1
+
+
+@pytest.mark.parametrize("i", range(len(WRAP_CASES)),
+                         ids=[f"{c[0]}x{c[1]}x{c[2]}" for c in WRAP_CASES])
+@pytest.mark.parametrize("fn", ["rbe_matmul_ref", "rbe_matmul_raw"])
+def test_sums_past_int32_wrap_as_the_reference(ref, i, fn):
+    """The plain version (and the wrapper on CPU tensors) equals the
+    reference's int32 product bit for bit past int32's range."""
+    got = getattr(R, fn)(*_t(*rbe_wrap_inputs(*WRAP_CASES[i]))).numpy()
+    want = ref["wrap"][i]
+    k = WRAP_CASES[i][1]
+    assert want[0, 0] == np.float32(128 * 128 * k - 2**32) == -2_115_895_296
+    assert np.array_equal(got, want)
+    assert np.abs(want[1:, 1:]).max() < 2**31     # the ordinary cells

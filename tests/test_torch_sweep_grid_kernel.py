@@ -167,6 +167,21 @@ def test_sweep_grid_eval_ref_matches(grid, ref, oracle):
         assert_close(got[f].numpy(), ref["eval"][oracle][f], what=f)
 
 
+def test_cpu_eval_wrapper_is_the_plain_version(grid, ref):
+    """Kernel B's wrapper on CPU tables: the plain version, no launch
+    counted, a channel asked for twice answered once."""
+    S, shape, axvals = grid
+    n = sweep_grid.sweep_grid_eval.launches
+    fields = ("latency", "avg_power", "latency")
+    got = sweep_grid.sweep_grid_eval(
+        B.device_tables(S, "cpu"), shape, fields, axvals,
+        torch.as_tensor(EVAL_FLAT))
+    assert sweep_grid.sweep_grid_eval.launches == n
+    assert list(got) == ["latency", "avg_power"]
+    for f in got:
+        assert_close(got[f].numpy(), ref["eval"]["xla"][f], what=f)
+
+
 def test_merged_carries_equal_one_fold(grid, ref):
     """Two chunks folded into two carries and merged on the host
     (``merge_device_carries``) give the carry of folding both into one."""

@@ -231,3 +231,40 @@ def test_token_serve_main_on_cpu():
     sampled = token_serve.main(argv + ["--temperature", "0.8"])
     assert sampled["tokens"].shape == (2, 5)
     assert (sampled["tokens"] < cfg.vocab_size).all()
+
+
+#: Decode steps past gemma2's sliding window: the reduced config's window
+#: is 64, so after the 8-token prompt the last 48 of these steps attend
+#: through it.
+PAST_WINDOW_STEPS = 104
+
+
+def test_decode_past_the_window_matches_reference():
+    """Teacher-forced decode of the reduced gemma2-2b (window 64) for
+    :data:`PAST_WINDOW_STEPS` steps against the reference's jitted
+    ``decode_step``, every step's logits at the float32 tolerances, and
+    the greedy tokens of the same length."""
+    case = Case("gemma2-2b")
+    assert case.cfg.sliding_window == 64
+    toks, want = jax_greedy(case, PAST_WINDOW_STEPS)
+    plen = case.prompt.shape[1]
+    assert plen + PAST_WINDOW_STEPS > 1.5 * case.cfg.sliding_window
+    seq = np.concatenate([case.prompt, toks[:, :-1]], axis=1)
+    cache = TT.init_cache(case.cfg, seq.shape[0], seq.shape[1] + 1,
+                          device="cpu")
+    worst = 0.0
+    with torch.no_grad():
+        for t in range(seq.shape[1]):
+            lg, cache = TT.decode_step(
+                case.cfg, case.params, cache,
+                TT.Batch(tokens=torch.as_tensor(seq[:, t:t + 1])), t)
+            if t >= plen - 1:
+                ref = want[t - plen + 1]
+                np.testing.assert_allclose(lg.numpy(), ref, **F32,
+                                           err_msg=f"step {t}")
+                worst = max(worst, float(np.abs(lg.numpy() - ref).max()))
+        got = token_serve.generate(case.cfg, case.params,
+                                   torch.as_tensor(case.prompt),
+                                   PAST_WINDOW_STEPS)
+    np.testing.assert_array_equal(got["tokens"].numpy(), toks)
+    print(f"worst |logit error| over {PAST_WINDOW_STEPS} steps: {worst:.3g}")
