@@ -32,10 +32,19 @@ Phases, each of which ends the run with a non-zero exit on any failure:
    time split into the kernel, the eleven host copies and the rest
    (``dense_engine`` line).
 4. Stream (the first path): ``stream_grid`` over the 100,096,000-config
-   grid through the kernels (launch counts read around exactly this
-   run), then again with ``backend="torch"`` on the card: the same
-   argmin, top-k, counts and front.  Then the 10,009,600-config grid
-   against the anchors frozen from the JAX reference.
+   grid at its defaults (scan fusion K = 8: eight chunk steps, kernel A
+   and the fold's ops, as one captured CUDA graph replayed a dispatch;
+   prefetch 2), its step built beforehand and the launch counts read
+   around exactly this run (kernel A: K a replay); then synchronous (K =
+   1, prefetch 0): bitwise the same deliverables; then with
+   ``backend="torch"`` on the card: the same argmin, top-k, counts and
+   front.  Then the 10,009,600-config grid at the defaults against the
+   anchors frozen from the JAX reference.  Then ``stream_resilience`` on
+   the 10M grid, each bitwise equal to its uninterrupted run: a
+   checkpointed run with an injected transient fault and a lost device,
+   a child SIGKILLed mid-run and resumed here, ``flat_range`` halves
+   folded by ``merge_results``, and a ``should_stop`` prefix against the
+   ``flat_range`` run of that prefix.
 5. Kernel C vs plain on the card: ``rbe_matmul_raw`` against its plain
    version at KeyNet's three int8 shapes (1, 4 and 256 ROIs), the
    reference test's shapes, ragged shapes, the tensor-core route's edges
@@ -92,7 +101,10 @@ Phases, each of which ends the run with a non-zero exit on any failure:
    the library call's time where there is one; A's, B's and C's launch
    plans and ptxas registers and spills, which must be none, and B's
    stack frames, which must be empty; B's row holds its probe reading
-   and, under ``dense``, its 1,000,960-config one), ``stream``,
+   and, under ``dense``, its 1,000,960-config one; A's its graph replays
+   and K), ``stream`` (the default path's wall, dispatch, wait, merge
+   and busy share, the synchronous path's beside it, the plain
+   backend's), ``stream_resilience``,
    ``rbe_shapes`` (each layer at 4 and 256 ROIs with its tile),
    ``handtracking``, ``rmsnorm_shapes``/``flash_shapes`` (each case's
    route; E's registers and spills from ptxas and its share of the
@@ -515,6 +527,14 @@ def phase_kernels(dev, grid_big, grid_ref) -> dict:
         want = K.chunk_partials_ref(spec, T, axvals, aux, start)
         sync(dev)
         e = max_err(got, want, f"kernel A chunk={spec.chunk} d={spec.d}")
+        # the graph-replayed step's form: the start split into a device
+        # base (read by the kernel) and a fixed offset
+        base = torch.tensor(start - spec.chunk, dtype=torch.int64,
+                            device=dev)
+        got = K.sweep_grid_chunk(spec, T, axvals, aux, spec.chunk, base)
+        sync(dev)
+        e = max(e, max_err(got, want, f"kernel A chunk={spec.chunk} "
+                                      f"d={spec.d}, device base"))
         err["A"] = max(err["A"], e)
         print(f"kernel A chunk={spec.chunk} d={spec.d} "
               f"cons={len(cons)} sign={spec.sign}: max_abs_err={e!r}")
@@ -706,24 +726,75 @@ def phase_dense_engine(dev, anchor) -> dict:
     return out
 
 
+def stream_split(res) -> dict:
+    """A stream run's wall and its dispatch, wait and merge seconds."""
+    return {k: res.stats[k] for k in (
+        "n_configs", "n_chunks", "scan_chunks", "prefetch", "graph_replays",
+        "total_s", "configs_per_s", "first_chunk_s", "dispatch_s",
+        "device_wait_s", "host_merge_s", "fallback_chunks", "fallback_s")}
+
+
+def prepared_plan(dev, **kw):
+    """A stream plan and its chunk step, built (on the card: warmed up
+    and its graph captured) ahead of the run that uses it, so that run
+    launches kernel A only from graph replays.  Returns the plan and the
+    seconds the step took to build."""
+    from repro_torch.core import backend as B
+    from repro_torch.core import stream as ST
+
+    plan = ST.plan_stream(**kw, device=dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    step = B.cached_step(plan.spec, plan.backend, plan.scan, dev)
+    step.busy = False
+    sync(dev)
+    return plan, time.perf_counter() - t0
+
+
 def phase_stream(grid_big, grid_10m, anchor, dev) -> tuple:
+    """The 100M stream at its defaults (auto scan fusion: K chunk steps a
+    captured CUDA graph; prefetch 2), counts read around exactly that
+    run: kernel A launched K times a replay.  Then the synchronous run
+    (K = 1, prefetch 0), the plain backend at the defaults and the 10M
+    JAX anchors: the same deliverables, bitwise where the kernels run."""
     from repro_torch.core import stream as ST
     from repro_torch.core.grids import index_hash
 
-    sync(dev)
+    plan, capture_s = prepared_plan(dev, **grid_big)
+    check(plan.scan == 8, f"auto scan fusion gave K = {plan.scan}, not 8")
     reset_counts()
-    res = ST.stream_grid(**grid_big, device=dev)
+    res = ST.stream_grid(plan=plan)
     launches = read_counts()
-    check(launches["A"] > 0 and launches["B"] > 0,
-          f"main path skipped a kernel: launches {launches}")
-    print(f"stream {res.n_configs} configs via kernels: "
-          f"{res.stats['total_s']:.3f} s, launches {launches}, "
-          f"front {res.front_indices.size}")
+    replays = int(res.stats["graph_replays"])
+    check(replays == res.stats["n_chunks"] > 0,
+          f"stream: {replays} graph replays for {res.stats['n_chunks']} "
+          f"dispatches")
+    check(launches["A"] == plan.scan * replays and launches["B"] > 0,
+          f"main path: launches {launches}, expected A = {plan.scan} x "
+          f"{replays} replays")
+    print(f"stream {res.n_configs} configs via kernels (K {plan.scan}, "
+          f"prefetch {res.stats['prefetch']:.0f}): "
+          f"{res.stats['total_s']:.3f} s, {replays} replays, launches "
+          f"{launches}, front {res.front_indices.size}; step built in "
+          f"{capture_s:.3f} s")
+
+    plan1, capture1_s = prepared_plan(dev, **grid_big, scan_chunks=1)
+    sync1 = ST.stream_grid(plan=plan1, prefetch=0)
+    same_deliverables(res, sync1, "stream default vs synchronous",
+                      exact_values=True)
+    check(np.array_equal(res.topk_val, sync1.topk_val)
+          and res.channel_min == sync1.channel_min
+          and res.channel_max == sync1.channel_max,
+          "stream default vs synchronous: top-k values or bounds differ")
+    print(f"stream {sync1.n_configs} configs synchronous (K 1, prefetch "
+          f"0): {sync1.stats['total_s']:.3f} s, bitwise equal")
+
     plain = ST.stream_grid(**grid_big, backend="torch", device=dev)
     same_deliverables(res, plain, "stream cuda vs torch", exact_values=False)
     bitwise = (res.min_val == plain.min_val and np.array_equal(
         res.front_values, plain.front_values))
-    print(f"stream {plain.n_configs} configs via plain torch on the card: "
+    print(f"stream {plain.n_configs} configs via plain torch on the card "
+          f"(K {plain.stats['scan_chunks']:.0f}): "
           f"{plain.stats['total_s']:.3f} s, same deliverables "
           f"({'bitwise' if bitwise else 'within 1e-12'})")
 
@@ -742,8 +813,121 @@ def phase_stream(grid_big, grid_10m, anchor, dev) -> tuple:
           and index_hash(r10.front_indices) == anchor["front_hash"],
           "anchor: front differs from the JAX reference")
     print(f"stream {r10.n_configs} configs matches the JAX anchors "
-          f"(best {best!r} W, front {r10.front_indices.size})")
-    return res, launches
+          f"(best {best!r} W, front {r10.front_indices.size}, K "
+          f"{r10.stats['scan_chunks']:.0f})")
+    paths = {"default": dict(stream_split(res), step_build_s=capture_s),
+             "synchronous": dict(stream_split(sync1),
+                                 step_build_s=capture1_s),
+             "plain": stream_split(plain), "bitwise_plain": bitwise}
+    return res, launches, paths, (plan, plan1)
+
+
+def deliverables(res) -> tuple:
+    """Everything a stream result reduces, floats by their bits."""
+    def bits(a):
+        return np.asarray(a, np.float64).tobytes()
+    return (tuple(sorted(res.min_idx.items())),
+            bits([res.min_val[f] for f in res.min_val]),
+            tuple(sorted(res.finite_counts.items())),
+            bits([res.channel_min[f] for f in res.channel_min]),
+            bits([res.channel_max[f] for f in res.channel_max]),
+            res.topk_idx.tobytes(), bits(res.topk_val),
+            res.front_indices.tobytes(), bits(res.front_values))
+
+
+#: A child that streams the 10M grid on the card with a checkpoint a
+#: dispatch and SIGKILLs itself at a chunk ordinal (argv: the checkpoint
+#: directory, the ordinal).
+_KILL_CHILD = """
+import sys
+from repro_torch.core import stream
+from repro_torch.core.grids import stream_grid_axes
+from repro_torch.runtime import FaultInjector, FaultPlan
+stream.stream_grid(**stream_grid_axes(10_000_000), device="cuda",
+                   checkpoint_dir=sys.argv[1], checkpoint_every_steps=1,
+                   fault_injector=FaultInjector(FaultPlan(
+                       kill_at=int(sys.argv[2]))))
+print("UNREACHABLE")
+"""
+
+
+def phase_stream_resilience(dev) -> dict:
+    """The 10M stream at its defaults, interrupted every way the executor
+    recovers from, each bitwise equal to the uninterrupted run: a
+    checkpointed run with injected transient faults and a lost device;
+    a SIGKILLed child, resumed here; ``flat_range`` halves folded by
+    ``merge_results``; a ``should_stop`` prefix against the
+    ``flat_range`` run of the same prefix."""
+    import shutil
+
+    from repro_torch.core import stream as ST
+    from repro_torch.core.grids import stream_grid_axes
+    from repro_torch.runtime import FaultInjector, FaultPlan, RetryPolicy
+
+    grid = stream_grid_axes(10_000_000)
+    root = ROOT / "build" / "stream_resilience"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    whole = ST.stream_grid(**grid, device=dev)
+    want = deliverables(whole)
+    plan = ST.plan_stream(**grid, device=dev)
+    per_step = plan.chunk * plan.scan
+    n_disp = int(whole.stats["n_chunks"])
+    out = {"n_configs": whole.n_configs, "scan_chunks": plan.scan,
+           "dispatches": n_disp}
+
+    inj = FaultInjector(FaultPlan(fail_chunks=(plan.scan * 3,),
+                                  lose_device=(plan.scan * 11, 0)))
+    res = ST.stream_grid(**grid, device=dev, fault_injector=inj,
+                         checkpoint_dir=str(root / "faults"),
+                         checkpoint_every_steps=2,
+                         retry_policy=RetryPolicy(backoff_s=0.0))
+    check(deliverables(res) == want, "resilience: faults run differs")
+    check(res.stats["retries"] == 1.0 and res.stats["restarts"] == 1.0,
+          f"resilience: retries {res.stats['retries']}, restarts "
+          f"{res.stats['restarts']}")
+    out["faults"] = {k: res.stats[k] for k in (
+        "retries", "restarts", "chunks_reissued", "checkpoints_written",
+        "checkpoint_write_s", "total_s")}
+
+    ckpt = root / "killed"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    child = subprocess.run(
+        [sys.executable, "-c", _KILL_CHILD, str(ckpt),
+         str(plan.scan * (n_disp // 2) + 1)],
+        env=env, capture_output=True, text=True, timeout=300)
+    check(child.returncode == -9 and "UNREACHABLE" not in child.stdout,
+          f"resilience: the child was not killed (rc {child.returncode}): "
+          f"{child.stderr[-1500:]}")
+    res = ST.stream_grid(**grid, device=dev, checkpoint_dir=str(ckpt),
+                         checkpoint_every_steps=1)
+    check(deliverables(res) == want, "resilience: resumed run differs")
+    check(res.stats["resumed_from_step"] > 0, "resilience: no resume")
+    out["sigkill"] = {"resumed_from_step": res.stats["resumed_from_step"],
+                      "total_s": res.stats["total_s"]}
+
+    cut = per_step * (n_disp // 2)
+    parts = [ST.stream_grid(**grid, device=dev, flat_range=r)
+             for r in ((cut, whole.n_configs), (0, cut))]
+    merged = ST.merge_results(parts)
+    check(deliverables(merged) == want, "resilience: merged halves differ")
+    out["flat_range"] = {"cut": cut, "merge_s": merged.stats["merge_s"]}
+
+    calls = []
+    stop = 5
+    part = ST.stream_grid(**grid, device=dev, should_stop=lambda: (
+        calls.append(1) or len(calls) > stop))
+    ranged = ST.stream_grid(**grid, device=dev,
+                            flat_range=(0, stop * per_step))
+    check(part.partial and deliverables(part) == deliverables(ranged),
+          "resilience: the stopped prefix differs from its flat_range run")
+    out["should_stop"] = {"fraction_complete":
+                          part.stats["fraction_complete"]}
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"stream_resilience {whole.n_configs} configs (K {plan.scan}): "
+          f"faults, SIGKILL + resume, flat_range + merge_results, "
+          f"should_stop: all bitwise equal to the uninterrupted run")
+    return out
 
 
 def kernel_report(res, launches, err, grid_big, dense, dev) -> list:
@@ -853,7 +1037,9 @@ def kernel_report(res, launches, err, grid_big, dense, dev) -> list:
                      "ms_method": times[key + "_method"],
                      "plain_ms_method": times[key + "_plain_method"]})
     rows[0].update(plan=dataclasses.asdict(plan_a), ptxas=usage_a,
-                   filter_rows_scanned=scanned, filter_table_lanes=to_table)
+                   filter_rows_scanned=scanned, filter_table_lanes=to_table,
+                   graph_replays=int(res.stats["graph_replays"]),
+                   scan_chunks=int(res.stats["scan_chunks"]))
     usage_b = eval_kernel_usage(usage)
     d_ms, d_by = bound(dense["bytes"], dense["n"] * eq_ops)
     rows[1].update(
@@ -1955,8 +2141,9 @@ def run(dev, grid_big, smi: str, lm_cfg, lm_seq: int = LM_SEQ,
     err = phase_kernels(dev, grid_big, REFERENCE_GRID)
     phase_dense(REFERENCE_GRID, dev)
     dense = phase_dense_engine(dev, ANCHOR_1M)
-    res, launches = phase_stream(grid_big, stream_grid_axes(10_000_000),
-                                 ANCHOR_10M, dev)
+    res, launches, paths, plans = phase_stream(
+        grid_big, stream_grid_axes(10_000_000), ANCHOR_10M, dev)
+    resilience = phase_stream_resilience(dev)
     err["C"] = phase_rbe(dev)
     ht_launches, ht = phase_pipeline(dev, smi)
     err["D"] = phase_rmsnorm(dev)
@@ -1968,29 +2155,32 @@ def run(dev, grid_big, smi: str, lm_cfg, lm_seq: int = LM_SEQ,
     rows += rows_de
     lm_shapes["card"] = smi
     print(json.dumps({"host_ms_per_call": host, "card": smi}))
-    stats = {k: res.stats[k] for k in ("n_configs", "n_chunks", "total_s",
-                                       "configs_per_s", "first_chunk_s",
-                                       "dispatch_s", "device_wait_s",
-                                       "host_merge_s", "fallback_chunks")}
-    # The device's busy share of the main path, from one profiled run of
-    # the same sweep: its device time over its own wall time (the
-    # profiler's host overhead is in that wall time, so the share is a
-    # lower bound on the unprofiled run's).
-    profiled = []
-    busy = device_busy(
-        lambda: profiled.append(ST.stream_grid(**grid_big, device=dev)))
-    total = sum(busy.values())
-    stats["profiled_total_s"] = profiled[0].stats["total_s"]
-    stats["device_busy_s"] = total
-    stats["device_busy_share"] = total / stats["profiled_total_s"]
-    stats["device_s_by_kernel"] = dict(sorted(
-        busy.items(), key=lambda kv: -kv[1])[:8])
+    # The device's busy share of each path, from one profiled run of the
+    # same sweep: its device time over its own wall time (the profiler's
+    # host overhead is in that wall time, so the share is a lower bound
+    # on the unprofiled run's).  The plans' steps are built, so no
+    # capture falls inside a trace.
+    for key, plan, prefetch in (("default", plans[0], 2),
+                                ("synchronous", plans[1], 0)):
+        profiled = []
+        busy = device_busy(lambda: profiled.append(
+            ST.stream_grid(plan=plan, prefetch=prefetch)))
+        total = sum(busy.values())
+        paths[key].update(
+            profiled_total_s=profiled[0].stats["total_s"],
+            device_busy_s=total,
+            device_busy_share=total / profiled[0].stats["total_s"],
+            device_s_by_kernel=dict(sorted(
+                busy.items(), key=lambda kv: -kv[1])[:8]))
+    stats = dict(paths["default"], synchronous=paths["synchronous"],
+                 plain=paths["plain"], bitwise_plain=paths["bitwise_plain"])
     # The LM last: its serve run's trace (~85,000 kernels) is the largest
     # the script takes.
     lm_launches, lm = phase_lm(dev, lm_cfg, lm_seq, serve_argv, smi)
     for row in rows_de:
         row["launches"] = lm_launches[row.pop("kernel")]
     print(json.dumps({"stream": stats, "card": smi}))
+    print(json.dumps({"stream_resilience": resilience, "card": smi}))
     print(json.dumps(shapes))
     print(json.dumps({"handtracking": ht}))
     print(json.dumps(lm_shapes))

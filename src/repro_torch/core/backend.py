@@ -21,15 +21,26 @@ engine runs through the same **chunk-evaluation contract**::
   block partials into the running carry (argmin with first-minimum
   tie-breaking, counts, bounds, the exact per-objective top-k merge,
   optional histograms) and compacts the dominance survivors.
+* :class:`ChunkStep` (:func:`build_step` / :func:`cached_step`) — ``K``
+  consecutive chunk folds as one dispatch (the reference's ``lax.scan``
+  scan fusion), over state kept on the device at fixed addresses.  On a
+  CUDA device the ``K`` folds are one captured CUDA graph, replayed once
+  a dispatch; on the CPU they run as a loop.
+* The carry's serialization contract: :data:`CARRY_VERSION`,
+  :func:`merge_device_carries`, :func:`stack_host_carries` and the
+  content hash :func:`job_signature` that keys checkpoints.
 
 All channel arithmetic is float64; flat indices are int64.
 """
 
 from __future__ import annotations
 
+import collections.abc
 import dataclasses
 import functools
+import hashlib
 import importlib
+import threading
 from collections import OrderedDict
 from typing import Callable, Sequence
 
@@ -64,10 +75,18 @@ class EvalBackend:
         raise NotImplementedError
 
     def build_chunk_eval(self, spec: "ChunkSpec", device) -> Callable:
-        """``fn(axvals, aux, start) -> partials``: evaluate the chunk
-        ``[start, start + spec.chunk)`` and return the block partials
-        of :func:`chunk_partials`."""
+        """``fn(axvals, aux, start, base=None) -> partials``: evaluate the
+        chunk ``[base + start, base + start + spec.chunk)`` and return the
+        block partials of :func:`chunk_partials`.  ``start`` is a host
+        integer; ``base``, when given, a 0-d int64 tensor on the device,
+        read there (so a captured CUDA graph can be replayed at any
+        start)."""
         raise NotImplementedError
+
+    def graph_replayed(self, chunks: int) -> None:
+        """Account ``chunks`` chunk evaluations that a CUDA-graph replay
+        of :class:`ChunkStep` just launched (the kernel wrappers count
+        their eager launches themselves)."""
 
 
 def register_backend(backend: EvalBackend) -> EvalBackend:
@@ -86,7 +105,7 @@ def default_backend(device) -> str:
     return "cuda" if torch.device(device).type == "cuda" else "torch"
 
 
-def get_backend(name: str | None = None, device="cpu") -> EvalBackend:
+def get_backend(name: str | None = None, device="cuda") -> EvalBackend:
     """Resolve a backend name (``None`` -> :func:`default_backend` of
     ``device``); raises :class:`ValueError` naming the available
     backends for unknown names."""
@@ -191,8 +210,10 @@ def chunk_partials(spec: ChunkSpec, F, flat, ingrid, aux) -> dict:
     if all(s == 1.0 for s in spec.sign):
         Fsg = Fm[:d]
     else:
-        sign = torch.tensor(spec.sign, dtype=SW.F64, device=F.device)
-        Fsg = torch.where(valid[:d], F[:d] * sign[:, None], inf)
+        # Scalar multiplies, not a sign tensor: no host-to-device copy,
+        # so the step can be captured in a CUDA graph (x * -1.0 is exact).
+        Fsg = torch.where(valid[:d], torch.stack(
+            [F[c] * s for c, s in enumerate(spec.sign)]), inf)
     keep = P.dominance_filter_mask_torch(aux["filter"], Fsg)
 
     lp = spec.padded - spec.chunk
@@ -223,11 +244,14 @@ def plain_dense(T: A.DeviceTables, shape, fields, axvals, flat) -> dict:
 
 
 def plain_chunk(spec: ChunkSpec, T: A.DeviceTables, axvals, aux,
-                start: int) -> dict:
+                start: int, base=None) -> dict:
     """Plain-PyTorch chunk step: decode + Eq. 1-11 + :func:`
-    chunk_partials` over ``[start, start + spec.chunk)``."""
+    chunk_partials` over ``[base + start, base + start + spec.chunk)``
+    (``base``: an optional 0-d int64 tensor)."""
     flat = start + torch.arange(spec.chunk, dtype=torch.int64,
                                 device=T.device)
+    if base is not None:
+        flat = base + flat
     out = SW.config_eval(T, *decode_gather(spec.shape, axvals, flat))
     F = torch.stack([out[f] for f in spec.fields])
     return chunk_partials(spec, F, flat, flat < spec.n_total, aux)
@@ -262,8 +286,11 @@ def _sort_pairs(vals, idx):
     return torch.gather(vals, 1, o), torch.gather(idx, 1, o)
 
 
-def fold_chunk(spec: ChunkSpec, carry, partials, aux, start: int):
+def fold_chunk(spec: ChunkSpec, carry, partials, aux, start):
     """Fold one chunk's block partials into the running carry.
+
+    ``start`` is the chunk's first flat index: a host integer, or a 0-d
+    int64 tensor on the device (the graph-captured step).
 
     Returns ``(new_carry, survivors)``: the lexicographic ``(value,
     index)`` running argmin, counts and bounds; the exact top-k (the k
@@ -391,23 +418,195 @@ class TorchBackend(EvalBackend):
 
     def build_chunk_eval(self, spec: ChunkSpec, device):
         T = device_tables(spec.S, device)
-        return lambda axvals, aux, start: plain_chunk(spec, T, axvals, aux,
-                                                      start)
+        return lambda axvals, aux, start, base=None: plain_chunk(
+            spec, T, axvals, aux, start, base)
 
 
 register_backend(TorchBackend())
 
 
-def build_step(spec: ChunkSpec, backend: str | None, device):
-    """The chunk step ``(carry, axvals, aux, start) -> (carry,
-    survivors)`` of one backend on one device."""
-    evalfn = get_backend(backend, device).build_chunk_eval(spec, device)
+# ---------------------------------------------------------------------------
+# Step assembly (scan fusion, CUDA graphs) and its cache
+# ---------------------------------------------------------------------------
 
-    def step(carry, axvals, aux, start):
-        partials = evalfn(axvals, aux, start)
-        return fold_chunk(spec, carry, partials, aux, start)
 
-    return step
+def _copy_in(dst: torch.Tensor, src) -> None:
+    """Write host data into a device buffer in place (its address is what
+    a captured graph holds), through pinned memory, without waiting."""
+    src = torch.as_tensor(np.ascontiguousarray(src), dtype=dst.dtype)
+    if dst.is_cuda:
+        dst.copy_(src.pin_memory(), non_blocking=True)
+    else:
+        dst.copy_(src)
+
+
+class ChunkStep:
+    """``scan`` consecutive chunk folds as one dispatch.
+
+    The counterpart of the reference's compiled step with scan fusion
+    (``lax.scan`` over ``scan`` chunk carries).  Everything the step
+    reads lives in buffers of fixed address: the axis values
+    (:attr:`axvals`), the constraint bounds, histogram edges and
+    dominance filter (:attr:`aux`), the running carry (:attr:`carry`)
+    and the dispatch's first flat index (:attr:`base`, a 0-d int64
+    tensor).  :meth:`load` writes new values into them in place, never
+    rebinding them.  ``step(start)`` folds chunks ``start, start +
+    chunk, ..., start + (scan - 1) * chunk`` in order into the carry and
+    returns their survivors ``(flat, values, count)`` with a leading
+    ``scan`` axis.  The same folds run in the same order for every
+    ``scan``, so the results are bitwise the same.
+
+    On a CUDA device the ``scan`` folds (the backend's chunk evaluation
+    and :func:`fold_chunk`'s ops) are captured once, at construction,
+    as one ``torch.cuda.CUDAGraph`` after a warm-up run on a side stream
+    (which makes the launchers' one-time attribute calls and the
+    libraries' workspaces happen outside the capture); each dispatch
+    writes :attr:`base` and replays it.  A capture that fails raises:
+    there is no eager fallback on the card.  The returned survivors are
+    then the graph's own output buffers, overwritten by the next replay,
+    so the caller copies them out (on the same stream) first.  On the
+    CPU the folds run as a Python loop and return fresh tensors.
+
+    A step holds state between :meth:`load` and its last dispatch, so
+    one run uses it at a time (:attr:`busy`, set by the executor).
+    """
+
+    def __init__(self, spec: ChunkSpec, backend: str | None, device,
+                 scan: int = 1):
+        dev = torch.device(device)
+        be = get_backend(backend, dev)
+        self.spec, self.scan, self.device, self.backend = spec, scan, dev, be
+        self._eval = be.build_chunk_eval(spec, dev)
+        self.axvals = SW.axes_to_device(
+            [np.zeros(n) for n in spec.shape], dev)
+        d = spec.d
+        filt = P.build_dominance_filter(np.empty((0, d)), d,
+                                        spec.filter_rows, spec.filter_bins)
+        self.aux = {"filter": {k: torch.as_tensor(v, device=dev)
+                               for k, v in filt.items()}}
+        if spec.cons_static:
+            self.aux["cons"] = torch.zeros(len(spec.cons_static),
+                                           dtype=SW.F64, device=dev)
+        if spec.hist_bins:
+            self.aux["hist_edges"] = torch.as_tensor(np.tile(
+                np.linspace(0.0, 1.0, spec.hist_bins + 1), (d, 1)),
+                device=dev)
+        self.carry = carry_to_device(init_carry(spec), dev)
+        self.base = torch.zeros((), dtype=torch.int64, device=dev)
+        self.graph = None
+        self.replays = 0
+        self.busy = False
+        self._out = None
+        if dev.type == "cuda":
+            self._capture()
+
+    def _fold(self):
+        spec, carry, survs = self.spec, self.carry, []
+        for j in range(self.scan):
+            off = j * spec.chunk
+            partials = self._eval(self.axvals, self.aux, off, self.base)
+            carry, surv = fold_chunk(spec, carry, partials, self.aux,
+                                     self.base + off)
+            survs.append(surv)
+        for key, v in carry.items():
+            self.carry[key].copy_(v)
+        return tuple(torch.stack(parts) for parts in zip(*survs))
+
+    def _capture(self) -> None:
+        # Warm up on a side stream (first launches set kernel attributes
+        # and library workspaces, which a capture must not do), then
+        # capture the folds.  "thread_local": this thread's unsafe calls
+        # (a synchronisation, a pageable copy) fail the capture, while
+        # the caller's other threads may go on using the card.
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            self._fold()
+        cur.wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self._out = self._fold()
+        self.load(carry=init_carry(self.spec))
+
+    def load(self, carry=None, axvals=None, cons=None, hist_edges=None,
+             filt=None) -> None:
+        """Write new state into the step's buffers, in place: a host
+        carry (:func:`init_carry` layout), the axis values, the
+        constraint bounds, the histogram edges, the dominance filter
+        (:func:`repro_torch.core.pareto.build_dominance_filter`)."""
+        for dst, src in ((self.carry, carry), (self.aux.get("filter"), filt)):
+            if src is not None:
+                for key, v in src.items():
+                    _copy_in(dst[key], v)
+        if axvals is not None:
+            for dst, v in zip(self.axvals, axvals):
+                _copy_in(dst, v)
+        if cons is not None:
+            _copy_in(self.aux["cons"], cons)
+        if hist_edges is not None:
+            _copy_in(self.aux["hist_edges"], hist_edges)
+
+    def __call__(self, start: int):
+        self.base.fill_(int(start))
+        if self.graph is None:
+            return self._fold()
+        self.graph.replay()
+        self.replays += 1
+        self.backend.graph_replayed(self.scan)
+        return self._out
+
+
+def build_step(spec: ChunkSpec, backend: str | None, device,
+               scan_chunks: int = 1) -> ChunkStep:
+    """The chunk step of one backend on one device, folding
+    ``scan_chunks`` consecutive chunks a dispatch (:class:`ChunkStep`)."""
+    return ChunkStep(spec, backend, device, max(1, int(scan_chunks)))
+
+
+_STEP_CACHE: "OrderedDict[tuple, ChunkStep]" = OrderedDict()
+_STEP_CACHE_MAX = 32
+_STEP_CACHE_STATS = {"hits": 0, "misses": 0, "evictions": 0}
+_STEP_CACHE_LOCK = threading.Lock()
+
+
+def cached_step(spec: ChunkSpec, backend: str | None, scan_chunks: int,
+                device) -> ChunkStep:
+    """LRU-cached :func:`build_step`: repeated sweeps of one spec reuse
+    its step (and on the card its captured graph).
+
+    Keyed like the reference's (``spec`` hashes its model stack by
+    identity, so callers that want reuse keep the plan object).  A
+    cached step that another run holds (:attr:`ChunkStep.busy`) is not
+    shared: the caller gets a fresh, uncached one.
+    """
+    dev = torch.device(device)
+    key = (spec, backend or default_backend(dev), int(scan_chunks),
+           str(dev))
+    with _STEP_CACHE_LOCK:
+        fn = _STEP_CACHE.get(key)
+        if fn is not None and not fn.busy:
+            _STEP_CACHE_STATS["hits"] += 1
+            _STEP_CACHE.move_to_end(key)
+            fn.busy = True
+            return fn
+        _STEP_CACHE_STATS["misses"] += 1
+    fn = build_step(spec, backend, dev, scan_chunks)
+    fn.busy = True
+    with _STEP_CACHE_LOCK:
+        if key not in _STEP_CACHE:
+            _STEP_CACHE[key] = fn
+            while len(_STEP_CACHE) > _STEP_CACHE_MAX:
+                _STEP_CACHE.popitem(last=False)
+                _STEP_CACHE_STATS["evictions"] += 1
+    return fn
+
+
+def step_cache_stats() -> dict:
+    """Snapshot of the step LRU: ``hits`` / ``misses`` / ``evictions``
+    since process start plus the current ``size`` and ``capacity``."""
+    return dict(_STEP_CACHE_STATS, size=len(_STEP_CACHE),
+                capacity=_STEP_CACHE_MAX)
 
 
 def cached_dense_eval(backend: str | None, S, shape: tuple[int, ...],
@@ -423,3 +622,97 @@ def cached_dense_eval(backend: str | None, S, shape: tuple[int, ...],
 @functools.lru_cache(maxsize=32)
 def _cached_dense_eval(backend: str, S, shape, fields, device: str):
     return get_backend(backend).build_dense_eval(S, shape, fields, device)
+
+
+# ---------------------------------------------------------------------------
+# Carry serialization contract (checkpoint/resume, range merging)
+# ---------------------------------------------------------------------------
+
+#: Version of the carry layout of :func:`init_carry` / :func:`fold_chunk`
+#: (the reference's, key for key).  Baked into :func:`job_signature`, so a
+#: checkpoint written under another carry format never restores.
+CARRY_VERSION = 1
+
+
+def stack_host_carries(carries: Sequence[dict]) -> dict:
+    """Stack N host carries (:func:`init_carry` layout) into the ``(n,
+    ...)`` leading-axis form :func:`merge_device_carries` folds.  Carries
+    with and without histograms do not mix: their keys differ, which
+    raises."""
+    keys = tuple(carries[0])
+    for c in carries[1:]:
+        if tuple(c) != keys:
+            raise ValueError(f"carries with different keys: {keys} vs "
+                             f"{tuple(c)}")
+    return {k: np.stack([c[k] for c in carries]) for k in keys}
+
+
+def _hash_update(h, obj) -> None:
+    """Recursively fold ``obj`` into hash ``h`` content-wise: scalars and
+    strings, arrays (dtype + shape + bytes), dataclasses
+    field by field (the model stack and its workload arrays), sequences
+    and mappings.  Type tags and delimiters keep the encoding
+    prefix-free."""
+    if obj is None or isinstance(obj, (bool, int, float, str,
+                                       np.integer, np.floating)):
+        h.update(f"<{type(obj).__name__}:{obj!r}>".encode())
+    elif isinstance(obj, bytes):
+        h.update(b"<bytes:")
+        h.update(obj)
+        h.update(b">")
+    elif isinstance(obj, np.ndarray):
+        h.update(f"<arr:{obj.dtype}:{obj.shape}:".encode())
+        h.update(np.ascontiguousarray(obj).tobytes())
+        h.update(b">")
+    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        h.update(f"<dc:{type(obj).__name__}:".encode())
+        for f in dataclasses.fields(obj):
+            h.update(f.name.encode())
+            h.update(b"=")
+            _hash_update(h, getattr(obj, f.name))
+        h.update(b">")
+    elif isinstance(obj, (tuple, list)):
+        h.update(b"<seq:")
+        for x in obj:
+            _hash_update(h, x)
+        h.update(b">")
+    elif isinstance(obj, collections.abc.Mapping):
+        h.update(b"<map:")
+        for kk in sorted(obj, key=str):
+            h.update(str(kk).encode())
+            h.update(b":")
+            _hash_update(h, obj[kk])
+        h.update(b">")
+    else:
+        _hash_update(h, np.asarray(obj))
+
+
+#: ChunkSpec fields folded into the job signature — not ``small_index``,
+#: ``survivor_cap`` or ``filter_*``, which shape the computation but never
+#: the reductions (the filter is a pre-cull, a survivor overflow is
+#: re-derived exactly), so they must not invalidate checkpoints.
+_SIGNATURE_SPEC_FIELDS = ("shape", "n_total", "chunk", "fields", "d", "k",
+                          "sign", "cons_static", "hist_bins")
+
+
+def job_signature(spec: ChunkSpec, backend: str, scan_chunks: int,
+                  cons: Sequence[tuple[str, str, float]],
+                  axis_vals: Sequence, hist_ranges=None) -> str:
+    """Content hash of one resumable sweep job: the model stack (by
+    content, every table entry), the axes and their values, the tracked
+    fields and their orientation, top-k width, constraints and bounds,
+    chunk geometry and scan fusion, backend, histogram spec and carry
+    format.  Two runs share it iff their checkpoints are
+    interchangeable; the executor refuses to resume from a checkpoint
+    recorded under another."""
+    h = hashlib.sha256()
+    _hash_update(h, ("carry-format", CARRY_VERSION))
+    _hash_update(h, ("backend", backend))
+    _hash_update(h, ("scan", int(scan_chunks)))
+    for name in _SIGNATURE_SPEC_FIELDS:
+        _hash_update(h, (name, getattr(spec, name)))
+    _hash_update(h, ("model-stack", spec.S))
+    _hash_update(h, ("constraints", tuple(cons)))
+    _hash_update(h, ("axes", tuple(np.asarray(a) for a in axis_vals)))
+    _hash_update(h, ("hist-ranges", hist_ranges))
+    return h.hexdigest()

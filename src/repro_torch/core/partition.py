@@ -75,11 +75,7 @@ _AXIS_TO_KWARG = {"agg_node": "agg_node", "sensor_node": "sensor_node",
 
 #: Reference ``optimal_partition`` parameters this slice does not run
 #: yet, with the slice that brings each.
-_NOT_PORTED = {"scenarios": "the scenario-engine slice",
-               "checkpoint_dir": "the checkpoint/resume slice of the "
-                                 "streaming executor",
-               "checkpoint_every_s": "the checkpoint/resume slice of the "
-                                     "streaming executor"}
+_NOT_PORTED = {"scenarios": "the scenario-engine slice"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -267,18 +263,21 @@ def optimal_partition(engine: str = "array",
     ``backend`` names the array engines' evaluation backend (``"torch"``,
     ``"cuda"``, or ``None`` for ``device``'s default); ``device`` is where
     they run (``"cuda"`` by default, which raises without a card; pass
-    ``"cpu"`` for the plain PyTorch path).  ``scenarios=``,
-    ``checkpoint_dir=`` and ``checkpoint_every_s=`` raise
-    ``NotImplementedError`` until the slices that bring them.
+    ``"cpu"`` for the plain PyTorch path).
+
+    ``checkpoint_dir`` (with optional ``checkpoint_every_s``) makes the
+    streaming route fault-tolerant: searches above
+    :data:`STREAM_THRESHOLD` configurations snapshot their running
+    reductions there and resume bitwise after a crash (see
+    :func:`repro_torch.core.stream.stream_grid`).  Dense and scalar
+    searches finish in one pass and ignore both.  ``scenarios=`` raises
+    ``NotImplementedError`` until the slice that brings it.
     """
-    for name, value in (("scenarios", scenarios),
-                        ("checkpoint_dir", checkpoint_dir),
-                        ("checkpoint_every_s", checkpoint_every_s)):
-        if value is not None:
-            raise NotImplementedError(
-                f"optimal_partition({name}=...) is not ported yet; it "
-                f"arrives with {_NOT_PORTED[name]} of the PyTorch port "
-                f"(see ROADMAP.md)")
+    if scenarios is not None:
+        raise NotImplementedError(
+            f"optimal_partition(scenarios=...) is not ported yet; it "
+            f"arrives with {_NOT_PORTED['scenarios']} of the PyTorch port "
+            f"(see ROADMAP.md)")
     if objective in SESSION_OBJECTIVES:
         raise NotImplementedError(
             f"objective {objective!r} is a session channel (scenarios=), "
@@ -347,9 +346,15 @@ def optimal_partition(engine: str = "array",
             n_configs *= len(axes[name])
         if n_configs > STREAM_THRESHOLD:
             from . import stream as _stream
+            ckpt_kw = {}
+            if checkpoint_dir is not None:
+                ckpt_kw["checkpoint_dir"] = checkpoint_dir
+                if checkpoint_every_s is not None:
+                    ckpt_kw["checkpoint_every_s"] = checkpoint_every_s
             win = _stream.stream_grid(
                 cuts=cuts, objectives=(objective,), constraints=cons,
-                backend=backend, device=dev, **axes).argmin(objective)
+                backend=backend, device=dev, **ckpt_kw,
+                **axes).argmin(objective)
         else:
             win = constrained_best(_sweep.evaluate_grid(
                 cuts=cuts, backend=backend, device=dev, **axes))

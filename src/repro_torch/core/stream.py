@@ -1,26 +1,51 @@
 """Streaming sweep executor: memory-bounded giant design spaces.
 
-The PyTorch counterpart of the reference ``repro.core.stream`` — its
-single-device, synchronous core.  The grid is never materialized: each
-chunk of flat indices is decoded on the device, evaluated, masked by
-the compiled constraint predicates and the Pareto dominance pre-filter,
-and folded into a running device carry (:func:`repro_torch.core.backend.
-fold_chunk`): argmin, feasibility counts and bounds per tracked channel,
-per-objective top-k, optional histograms.  Each step hands the host only
-a compacted survivor set, which is merged into the exact running Pareto
-front on the host.  Argmin, top-k and front are exactly the dense-path
-results (:func:`repro_torch.core.sweep.evaluate_grid` +
+The PyTorch counterpart of the reference ``repro.core.stream`` on one
+device.  The grid is never materialized: each chunk of flat indices is
+decoded on the device, evaluated, masked by the compiled constraint
+predicates and the Pareto dominance pre-filter, and folded into a
+running device carry (:func:`repro_torch.core.backend.fold_chunk`):
+argmin, feasibility counts and bounds per tracked channel, per-objective
+top-k, optional histograms.  Each step hands the host only a compacted
+survivor set, which is merged into the exact running Pareto front on the
+host.  Argmin, top-k and front are exactly the dense-path results
+(:func:`repro_torch.core.sweep.evaluate_grid` +
 :func:`repro_torch.core.pareto.pareto_front`).
 
+* **Scan fusion** — ``scan_chunks=`` folds K consecutive chunks a
+  dispatch (:class:`repro_torch.core.backend.ChunkStep`); on a CUDA
+  device the K chunk steps (kernel A and the fold's ops) are one
+  captured CUDA graph, replayed once a dispatch.  Results are bitwise
+  the same for every K.
+* **Prefetch** — ``prefetch=`` dispatches stay in flight ahead of the
+  host merges: each dispatch's survivors are copied asynchronously into
+  a ring of pinned host buffers, an event a buffer, and the host waits
+  only on the oldest (:class:`_Fetch`).  One thread drives both sides,
+  in the reference's order: chunk 0's survivors reach the filter before
+  chunk 1 is dispatched, the filter is refreshed between dispatches, a
+  checkpoint comes behind its step's survivors.
+* **Fault tolerance** — ``checkpoint_dir=`` snapshots the consistent
+  state (merged carry, exact front, next flat index) through
+  :class:`repro_torch.checkpoint.CheckpointManager`, keyed by
+  :func:`repro_torch.core.backend.job_signature`; a re-run resumes
+  bitwise.  ``retry_policy=`` bounds in-place retries of faults raised
+  before a dispatch and restarts from the snapshot (a lost device
+  restarts too); ``fault_injector=`` (:mod:`repro_torch.runtime.
+  fault_injection`) drives every path deterministically.
+* **Ranges, stops and hooks** — ``flat_range=`` reduces one slice of the
+  flat-index space and :func:`merge_results` folds a tiling back into the
+  whole; ``should_stop=`` halts between dispatches with an exact prefix
+  (``partial=True``); ``on_progress=`` / ``on_snapshot=`` report, after
+  any checkpoint due is on disk.  :func:`result_to_json` and the delta
+  codec are the results' wire format.
+
 On a CUDA device the chunk step runs kernel A of
-:mod:`repro_torch.kernels.sweep_grid` and the strided probe and the
-survivor-overflow fallback run kernel B — the same backend as the chunk
-step, so all three evaluate through one compiled ``eval_config``.
+:mod:`repro_torch.kernels.sweep_grid`, and the strided probe and the
+survivor-overflow fallback run kernel B.
 
 Not in this slice (each raises ``NotImplementedError`` when passed):
-checkpoint/resume, retries and fault injection, elastic replanning,
-``flat_range``, the progress/stop/snapshot hooks, prefetch threads,
-scan fusion, multiple devices and scenario sweeps.
+``devices=`` (several devices and the elastic replan) and
+``scenarios=``.
 """
 
 from __future__ import annotations
@@ -28,12 +53,15 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from collections import OrderedDict
+from collections import OrderedDict, deque
 from typing import Iterable, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..checkpoint import CheckpointManager
+from ..runtime.fault_injection import DeviceLostError, TransientDeviceError
+from ..runtime.fault_tolerance import RetryPolicy, StragglerDetector
 from . import arrays as A
 from . import backend as B
 from . import pareto as P
@@ -45,28 +73,40 @@ from .workloads import NNWorkload
 #: Default flat-index chunk evaluated per step (the reference's default).
 DEFAULT_CHUNK = 1 << 17
 
+#: Default number of dispatches kept in flight ahead of the host merges.
+DEFAULT_PREFETCH = 2
+
 _FILTER_ROWS = 24      # explicit front rows in the dominance pre-filter
 _FILTER_BINS = 256     # quantile bins of the prefix-min dominance table
 _SURVIVOR_CAP = 16384  # per-chunk compacted-survivor capacity
 _PROBE = 4096          # strided probe (front seed + histogram ranges)
 _MERGE_EVERY = 4096    # candidate-buffer size that triggers an exact merge
 _CHUNK_QUANTUM = 4096  # chunk sizes are clamped to multiples of this
+_SCAN_MAX = 8          # auto scan fusion: at most this many chunks/dispatch
+_SCAN_PER = 16         # ... one fused chunk per this many raw steps
 
-#: Reference ``stream_grid`` parameters this slice does not run yet.
-_NOT_PORTED = ("scenarios", "devices", "scan_chunks", "prefetch",
-               "checkpoint_dir", "checkpoint_every_s",
-               "checkpoint_every_steps", "checkpoint_keep", "retry_policy",
-               "fault_injector", "flat_range", "should_stop", "on_progress",
-               "on_snapshot", "snapshot_every_s")
+#: Default seconds between checkpoint snapshots when ``checkpoint_dir``
+#: is set (``checkpoint_every_steps`` overrides it with a step cadence).
+DEFAULT_CHECKPOINT_EVERY_S = 30.0
+
+#: Failures that restart the pipeline from the last consistent snapshot
+#: (after the in-place retries of pre-dispatch faults are spent).
+_RESTARTABLE: tuple = (TransientDeviceError,)
+
+#: Reference ``stream_grid`` parameters this port does not run yet.
+_NOT_PORTED = {"devices": "the multi-device slice (ROADMAP Queue 1 "
+                          "item 6)",
+               "scenarios": "the scenario-engine slice (ROADMAP Queue 1 "
+                            "item 7)"}
 
 
-def _reject_not_ported(kw: Mapping) -> None:
-    for name in _NOT_PORTED:
-        if kw.get(name) is not None:
+def _reject_not_ported(**kw) -> None:
+    for name, value in kw.items():
+        if value is not None:
             raise NotImplementedError(
                 f"stream_grid({name}=...) is not ported yet: the PyTorch "
-                f"port runs the single-device synchronous executor; "
-                f"{name} arrives with a later slice (see ROADMAP.md)")
+                f"port streams on one device; {name} arrives with "
+                f"{_NOT_PORTED[name]}")
 
 
 # ---------------------------------------------------------------------------
@@ -89,6 +129,7 @@ class StreamResult:
     objectives: tuple[str, ...]
     maximize: tuple[str, ...]
     chunk_size: int
+    n_devices: int
 
     min_val: Mapping[str, float]
     min_idx: Mapping[str, int]
@@ -108,6 +149,10 @@ class StreamResult:
     hist: Optional[Mapping[str, tuple[np.ndarray, np.ndarray]]]
     stats: Mapping[str, float]
     constraints: tuple[tuple[str, str, float], ...] = ()
+    #: ``True`` when the stream halted early (``should_stop=``): every
+    #: reduction is then exact over the contiguous flat-index prefix
+    #: ``[range_start, range_start + fraction_complete * span)``.
+    partial: bool = False
 
     @property
     def shape(self) -> tuple[int, ...]:
@@ -183,6 +228,168 @@ class StreamResult:
             result=self, objectives=self.objectives, maximize=self.maximize,
             indices=self.front_indices[order],
             values=self.front_values[order])
+
+
+# ---------------------------------------------------------------------------
+# Exact JSON codec + progress snapshots (the reference's wire format)
+# ---------------------------------------------------------------------------
+
+
+def _jsonable_scalar(v):
+    return v.item() if isinstance(v, np.generic) else v
+
+
+def result_to_json(res: StreamResult) -> dict:
+    """Exact JSON-able encoding of a :class:`StreamResult` (the
+    reference's ``stream-result/v1``): floats round-trip bitwise
+    (``repr`` is the shortest exact decimal; non-finite values use the
+    ``NaN``/``Infinity`` tokens), index tables stay integers."""
+    hist = None
+    if res.hist is not None:
+        hist = {f: [c.tolist(), e.tolist()]
+                for f, (c, e) in res.hist.items()}
+    return {
+        "schema": "stream-result/v1",
+        "axes": [[k, [_jsonable_scalar(v) for v in vals]]
+                 for k, vals in res.axes.items()],
+        "objectives": list(res.objectives),
+        "maximize": list(res.maximize),
+        "chunk_size": int(res.chunk_size),
+        "n_devices": int(res.n_devices),
+        "min_val": {k: float(v) for k, v in res.min_val.items()},
+        "min_idx": {k: int(v) for k, v in res.min_idx.items()},
+        "finite_counts": {k: int(v)
+                          for k, v in res.finite_counts.items()},
+        "channel_min": {k: float(v) for k, v in res.channel_min.items()},
+        "channel_max": {k: float(v) for k, v in res.channel_max.items()},
+        "axis_valid": [[k, np.asarray(v).tolist()]
+                       for k, v in res.axis_valid.items()],
+        "topk_idx": res.topk_idx.tolist(),
+        "topk_val": res.topk_val.tolist(),
+        "front_indices": res.front_indices.tolist(),
+        "front_values": res.front_values.tolist(),
+        "hist": hist,
+        "stats": {k: float(v) for k, v in res.stats.items()},
+        "constraints": [list(c) for c in res.constraints],
+        "partial": bool(res.partial),
+    }
+
+
+def result_from_json(d: Mapping) -> StreamResult:
+    """Inverse of :func:`result_to_json` (bitwise-exact round trip)."""
+    n_obj = len(d["objectives"])
+    hist = None
+    if d.get("hist") is not None:
+        hist = {f: (np.asarray(c), np.asarray(e, np.float64))
+                for f, (c, e) in d["hist"].items()}
+    front_v = np.asarray(d["front_values"], np.float64)
+    return StreamResult(
+        axes=OrderedDict((k, tuple(vals)) for k, vals in d["axes"]),
+        objectives=tuple(d["objectives"]),
+        maximize=tuple(d["maximize"]),
+        chunk_size=int(d["chunk_size"]),
+        n_devices=int(d["n_devices"]),
+        min_val=dict(d["min_val"]),
+        min_idx={k: int(v) for k, v in d["min_idx"].items()},
+        finite_counts={k: int(v)
+                       for k, v in d["finite_counts"].items()},
+        channel_min=dict(d["channel_min"]),
+        channel_max=dict(d["channel_max"]),
+        axis_valid=OrderedDict((k, np.asarray(v))
+                               for k, v in d["axis_valid"]),
+        topk_idx=np.asarray(d["topk_idx"], np.int64).reshape(n_obj, -1),
+        topk_val=np.asarray(d["topk_val"],
+                            np.float64).reshape(n_obj, -1),
+        front_indices=np.asarray(d["front_indices"], np.int64),
+        front_values=front_v.reshape(-1, n_obj),
+        hist=hist,
+        stats=dict(d["stats"]),
+        constraints=tuple((f, op, v) for f, op, v in d["constraints"]),
+        partial=bool(d["partial"]),
+    )
+
+
+def _progress_snapshot(folded: int, n_total: int, front_vals, front_idx,
+                       objectives, sign) -> dict:
+    """JSON-able progress snapshot over the folded prefix ``[0,
+    folded)``: fraction complete, running per-objective best (off the
+    running front) and the front itself, rows sorted by flat index.  A
+    mid-run ``best`` can only be pessimistic (the front is pre-filtered
+    against probe witnesses of the whole grid); the final result and a
+    cooperative-stop partial are exact."""
+    best = {}
+    for oi, f in enumerate(objectives):
+        if front_vals.shape[0]:
+            j = int(np.argmin(front_vals[:, oi] * sign[oi]))
+            best[f] = {"value": float(front_vals[j, oi]),
+                       "index": int(front_idx[j])}
+    return {"fraction_complete": (folded / n_total if n_total else 1.0),
+            "front_size": int(front_vals.shape[0]),
+            "partial": True,
+            "best": best,
+            "front": {"i": [int(i) for i in front_idx],
+                      "v": [[float(x) for x in row]
+                            for row in front_vals]}}
+
+
+def result_delta_to_json(prev: Optional[Mapping],
+                         cur: Mapping) -> dict:
+    """Delta between two consecutive progress snapshots: changed
+    scalars, changed per-objective bests, front entrants and evictions
+    keyed by flat index (a configuration's values never change).  With
+    ``prev=None`` the delta is the full snapshot;
+    :func:`apply_result_delta` rebuilds ``cur`` exactly."""
+    if prev is None:
+        return dict(cur)
+    out: dict = {}
+    for k in ("fraction_complete", "front_size", "partial"):
+        if prev.get(k) != cur.get(k):
+            out[k] = cur[k]
+    pb, cb = prev.get("best", {}), cur.get("best", {})
+    changed = {f: v for f, v in cb.items() if pb.get(f) != v}
+    if changed:
+        out["best"] = changed
+    gone = [f for f in pb if f not in cb]
+    if gone:
+        out["best_del"] = gone
+    pf = prev.get("front") or {"i": [], "v": []}
+    cf = cur.get("front") or {"i": [], "v": []}
+    pset = set(pf["i"])
+    add_i = [i for i in cf["i"] if i not in pset]
+    if add_i:
+        vmap = dict(zip(cf["i"], cf["v"]))
+        out["front_add"] = {"i": add_i, "v": [vmap[i] for i in add_i]}
+    dels = sorted(pset - set(cf["i"]))
+    if dels:
+        out["front_del"] = dels
+    return out
+
+
+def apply_result_delta(prev: Optional[Mapping],
+                       delta: Mapping) -> dict:
+    """Inverse of :func:`result_delta_to_json`: fold one delta into the
+    previous snapshot (rows re-sorted by flat index)."""
+    if prev is None:
+        return dict(delta)
+    cur = dict(prev)
+    for k in ("fraction_complete", "front_size", "partial"):
+        if k in delta:
+            cur[k] = delta[k]
+    best = dict(prev.get("best", {}))
+    best.update(delta.get("best", {}))
+    for f in delta.get("best_del", ()):
+        best.pop(f, None)
+    cur["best"] = best
+    pf = prev.get("front") or {"i": [], "v": []}
+    rows = dict(zip(pf["i"], pf["v"]))
+    for i in delta.get("front_del", ()):
+        rows.pop(i, None)
+    add = delta.get("front_add")
+    if add:
+        rows.update(zip(add["i"], add["v"]))
+    idx = sorted(rows)
+    cur["front"] = {"i": idx, "v": [rows[i] for i in idx]}
+    return cur
 
 
 # ---------------------------------------------------------------------------
@@ -281,6 +488,46 @@ def _probe(dense_eval, axvals, shape, n_total, obj_fields, sign, cons,
     return seed, edges, axis_valid
 
 
+def _resume_into(mgr: CheckpointManager, signature: str, state: dict,
+                 counters: dict, chunk: int) -> None:
+    """Restore the newest valid snapshot of ``mgr`` into ``state``.
+
+    Snapshots are tried newest first; one whose manifest is unreadable
+    falls back to the next older.  A snapshot recorded under a different
+    job signature is a hard error: a stale snapshot must never merge
+    into another sweep."""
+    for step in reversed(mgr.all_steps()):
+        try:
+            meta = mgr.metadata(step)
+        except (OSError, ValueError, KeyError):
+            continue
+        saved = meta.get("signature") if isinstance(meta, dict) else None
+        if saved != signature:
+            raise ValueError(
+                f"checkpoint directory {mgr.root!r} (step {step}) was "
+                f"written by a different sweep job (signature "
+                f"{str(saved)[:12]}... != {signature[:12]}...): refusing "
+                f"to resume, a stale snapshot must never merge into a "
+                f"new sweep.  The signature covers the model stack, "
+                f"axes, objectives/tracked fields, constraints, top_k, "
+                f"histogram spec, backend, chunk size and scan fusion "
+                f"(scan_chunks auto-derives from the grid unless passed "
+                f"explicitly).  Point checkpoint_dir at a fresh directory "
+                f"or delete the stale checkpoints.")
+        items = mgr.restore_items(step)
+        state["carry"] = {kk.split("/", 1)[1]: np.array(v)
+                          for kk, v in items.items()
+                          if kk.startswith("carry/")}
+        state["front_vals"] = np.array(items["front_values"], np.float64)
+        state["front_idx"] = np.array(items["front_indices"], np.int64)
+        state["base"] = int(meta["next_flat"])
+        for kk, v in (meta.get("counters") or {}).items():
+            if kk in counters:
+                counters[kk] = float(v)
+        counters["resumed_from_step"] = float(state["base"] // chunk)
+        return
+
+
 # ---------------------------------------------------------------------------
 # Plan: the resolved job definition
 # ---------------------------------------------------------------------------
@@ -289,8 +536,10 @@ def _probe(dense_eval, axvals, shape, n_total, obj_fields, sign, cons,
 @dataclasses.dataclass(frozen=True, eq=False)
 class StreamPlan:
     """Resolved execution plan of one streamed sweep: model stack, axes,
-    tracked fields, constraints, chunk geometry, backend, device and the
-    :class:`~repro_torch.core.backend.ChunkSpec`."""
+    tracked fields, constraints, chunk and scan geometry, backend,
+    device, the :class:`~repro_torch.core.backend.ChunkSpec` and its
+    content ``signature``.  Re-running the same plan object is what
+    keeps its chunk step (and on the card its captured graph) cached."""
 
     S: object
     axis_vals: tuple
@@ -305,11 +554,15 @@ class StreamPlan:
     d: int
     k: int
     chunk: int
+    scan: int                       # chunks folded per dispatch
     backend: str
     device: torch.device
     hist_bins: int
     hist_ranges: Optional[Mapping]
     spec: B.ChunkSpec
+    #: Content hash of the job (:func:`repro_torch.core.backend.
+    #: job_signature`), the checkpoint/resume key.
+    signature: str
 
 
 def plan_stream(cuts: Optional[Iterable[int]] = None,
@@ -334,10 +587,13 @@ def plan_stream(cuts: Optional[Iterable[int]] = None,
                 constraints=None,
                 hist_bins: int = 0,
                 hist_ranges: Optional[Mapping] = None,
+                devices: Optional[Sequence] = None,
                 backend: Optional[str] = None,
+                scan_chunks: Optional[int] = None,
                 device="cuda") -> StreamPlan:
     """Resolve a :func:`stream_grid` job into a :class:`StreamPlan`
     without running anything (same argument semantics)."""
+    _reject_not_ported(devices=devices)
     dev = SW.resolve_device(device)
     S, axis_vals, axes = SW.build_axes(
         cuts, agg_nodes, sensor_nodes, weight_mems, detnet_fps, keynet_fps,
@@ -375,24 +631,98 @@ def plan_stream(cuts: Optional[Iterable[int]] = None,
     # pay for a mostly-padded default chunk.
     chunk = max(1, int(chunk_size), k)
     chunk = min(chunk, -(-n_total // _CHUNK_QUANTUM) * _CHUNK_QUANTUM)
+    # Scan fusion: K consecutive chunks a dispatch.  Auto mode scales K
+    # with the raw step count (the reference's rule); small grids keep
+    # K = 1 and a fine-grained filter refresh.
+    raw_steps = -(-n_total // chunk)
+    if scan_chunks is None:
+        scan = max(1, min(_SCAN_MAX, raw_steps // _SCAN_PER))
+    else:
+        scan = max(1, int(scan_chunks))
+    scan = min(scan, raw_steps)
+    per_step = chunk * scan
     spec = B.ChunkSpec(
         S=S, shape=full_shape, n_total=n_total, chunk=chunk,
         fields=fields, d=d, k=k, sign=tuple(float(s) for s in sign),
         cons_static=cons_static, hist_bins=hist_bins,
         survivor_cap=min(_SURVIVOR_CAP, chunk),
-        small_index=n_total + chunk < 2**31,
+        # the last dispatch decodes up to K chunks past its start
+        small_index=n_total + per_step < 2**31,
         filter_rows=_FILTER_ROWS, filter_bins=_FILTER_BINS)
+    signature = B.job_signature(spec, be.name, scan, cons, axis_vals,
+                                hist_ranges)
     return StreamPlan(
         S=S, axis_vals=tuple(axis_vals), axes=axes, shape=full_shape,
         n_total=n_total, objectives=objectives, maximize=maximize,
         fields=fields, cons=cons, sign=tuple(sign), d=d, k=k, chunk=chunk,
-        backend=be.name, device=dev, hist_bins=hist_bins,
-        hist_ranges=hist_ranges, spec=spec)
+        scan=scan, backend=be.name, device=dev, hist_bins=hist_bins,
+        hist_ranges=hist_ranges, spec=spec, signature=signature)
 
 
 # ---------------------------------------------------------------------------
 # The executor
 # ---------------------------------------------------------------------------
+
+
+class _Fetch:
+    """Survivor fetches in flight, oldest first.
+
+    On a CUDA device :meth:`put` copies a dispatch's survivors
+    asynchronously into one of ``slots`` pinned host buffers, on the
+    stream that ran the step (so behind it, and ahead of the next replay,
+    which overwrites the graph's output buffers), and records an event;
+    :meth:`get` waits on the oldest event only.  On the CPU the survivors
+    are host tensors already.  :attr:`in_use` counts, over every
+    instance, the fetches put and not yet taken: it is back at zero once
+    a stream ends, whether it finished or raised (:meth:`close`)."""
+
+    in_use = 0
+
+    def __init__(self, slots: int, device: torch.device):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        self.free = list(range(slots))
+        self.bufs: list = [None] * slots
+        self.queue: deque = deque()
+
+    def __len__(self) -> int:
+        return len(self.queue)
+
+    def put(self, tag, surv) -> None:
+        if not self.cuda:
+            self.queue.append((tag, surv, None))
+        else:
+            i = self.free.pop()
+            if self.bufs[i] is None:
+                self.bufs[i] = tuple(
+                    torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                    for t in surv)
+            for b, t in zip(self.bufs[i], surv):
+                b.copy_(t, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self.device))
+            self.queue.append((tag, i, ev))
+        _Fetch.in_use += 1
+
+    def get(self):
+        """``(tag, (flat, values, count))`` of the oldest fetch, as numpy
+        views valid until the next :meth:`put`."""
+        tag, item, ev = self.queue.popleft()
+        _Fetch.in_use -= 1
+        if ev is None:
+            return tag, tuple(t.numpy() for t in item)
+        ev.synchronize()
+        self.free.append(item)
+        return tag, tuple(b.numpy() for b in self.bufs[item])
+
+    def close(self) -> None:
+        """Drop every fetch still in flight, after its copy has landed
+        (so no copy writes into a buffer that is gone)."""
+        while self.queue:
+            _, _, ev = self.queue.popleft()
+            _Fetch.in_use -= 1
+            if ev is not None:
+                ev.synchronize()
 
 
 def stream_grid(cuts: Optional[Iterable[int]] = None,
@@ -408,24 +738,39 @@ def stream_grid(cuts: Optional[Iterable[int]] = None,
                 keynet: NNWorkload | None = None,
                 model: A.ModelArrays | None = None,
                 models=None,
+                scenarios=None,
                 chunk_size: int = DEFAULT_CHUNK,
                 top_k: int = 4,
                 objectives: Sequence[str] = P.DEFAULT_OBJECTIVES,
                 maximize: Iterable[str] = (),
                 track: Optional[Sequence[str]] = None,
                 constraints=None,
+                prefetch: int = DEFAULT_PREFETCH,
                 hist_bins: int = 0,
                 hist_ranges: Optional[Mapping] = None,
+                devices: Optional[Sequence] = None,
                 backend: Optional[str] = None,
+                scan_chunks: Optional[int] = None,
+                checkpoint_dir: Optional[str] = None,
+                checkpoint_every_s: float = DEFAULT_CHECKPOINT_EVERY_S,
+                checkpoint_every_steps: Optional[int] = None,
+                checkpoint_keep: int = 3,
+                retry_policy: Optional[RetryPolicy] = None,
+                fault_injector=None,
                 plan: Optional[StreamPlan] = None,
-                device="cuda",
-                **not_ported) -> StreamResult:
+                flat_range: Optional[tuple] = None,
+                should_stop=None,
+                on_progress=None,
+                on_snapshot=None,
+                snapshot_every_s: float = 0.5,
+                device="cuda") -> StreamResult:
     """Stream Eqs. 1-11 over an arbitrarily large cartesian grid.
 
     Same axes (and ``models=`` workload batch) as :func:`repro_torch.
     core.sweep.evaluate_grid`, but the grid is never materialized: flat
     indices are decoded on the device in ``chunk_size`` pieces and folded
-    into running reductions, so host memory is O(chunk + front).
+    into running reductions, so host memory is O(chunk + front).  The
+    reference's parameters, with its semantics:
 
     ``objectives``/``maximize`` select the channels tracked by top-k and
     the Pareto front; ``track`` adds channels to the argmin/count/bounds
@@ -434,15 +779,46 @@ def stream_grid(cuts: Optional[Iterable[int]] = None,
     parse_constraints`) into the chunk step; ``hist_bins`` adds
     per-objective histograms (ranges from ``hist_ranges`` or the strided
     probe).  ``backend`` selects the chunk step's backend (``None``:
-    ``"cuda"`` kernels on a CUDA device, plain ``"torch"`` on the CPU);
-    ``plan`` reuses a :func:`plan_stream` result.  Reference parameters
-    this slice does not run yet raise ``NotImplementedError``.
+    ``"cuda"`` kernels on a CUDA device, plain ``"torch"`` on the CPU).
+
+    ``scan_chunks`` folds that many consecutive chunks a dispatch
+    (``None``: one a dispatch per 16 chunks of the grid, at most 8; on a
+    CUDA device one captured graph of them, replayed a dispatch);
+    ``prefetch`` keeps that many dispatches in flight ahead of the host
+    merges (0: synchronous).  Both leave the results bitwise unchanged.
+
+    ``checkpoint_dir`` snapshots the consistent state (merged carry,
+    exact front, next flat index) every ``checkpoint_every_s`` seconds,
+    or every ``checkpoint_every_steps`` dispatches, keeping the
+    ``checkpoint_keep`` newest; a later call with the same specification
+    resumes from the newest with bitwise-identical deliverables, one
+    with another specification raises :class:`ValueError`.
+    ``retry_policy`` (default :class:`repro_torch.runtime.
+    fault_tolerance.RetryPolicy`) bounds the in-place retries of faults
+    raised before a dispatch and the restarts from the last snapshot
+    (after spent retries or a lost device); ``fault_injector`` is called
+    as ``injector(chunk_ordinal, flat_start)`` before every dispatch
+    (:mod:`repro_torch.runtime.fault_injection`).
+
+    ``plan`` reuses a :func:`plan_stream` result (the axis, objective
+    and backend arguments are then ignored).  ``flat_range=(start,
+    stop)`` reduces only that slice of the flat-index space: ``stop``
+    must land on a dispatch boundary (``(stop - start) % (chunk *
+    scan_chunks) == 0``) unless it is the grid's end, and
+    :func:`merge_results` folds the results of a tiling back into the
+    whole grid's, bitwise.  ``should_stop`` is polled before every
+    dispatch: when it returns truthy the executor folds what it has
+    dispatched and returns the exact prefix as a ``partial=True`` result
+    (``stats["fraction_complete"]`` < 1), checkpointed when
+    ``checkpoint_dir`` is set.  ``on_progress`` is called after each
+    dispatch with the fraction issued; ``on_snapshot`` (at most every
+    ``snapshot_every_s`` seconds) with a JSON-able progress snapshot
+    (:func:`_progress_snapshot`); both only after any checkpoint due at
+    that step is durably on disk.
+
+    ``devices=`` and ``scenarios=`` raise ``NotImplementedError``.
     """
-    _reject_not_ported(not_ported)
-    unknown = set(not_ported) - set(_NOT_PORTED)
-    if unknown:
-        raise TypeError(f"stream_grid() got unexpected keyword arguments "
-                        f"{sorted(unknown)}")
+    _reject_not_ported(devices=devices, scenarios=scenarios)
     if plan is None:
         plan = plan_stream(
             cuts, agg_nodes, sensor_nodes, weight_mems, detnet_fps,
@@ -451,16 +827,44 @@ def stream_grid(cuts: Optional[Iterable[int]] = None,
             chunk_size=chunk_size, top_k=top_k, objectives=objectives,
             maximize=maximize, track=track, constraints=constraints,
             hist_bins=hist_bins, hist_ranges=hist_ranges, backend=backend,
-            device=device)
+            scan_chunks=scan_chunks, device=device)
     dev = plan.device
     objectives, fields, cons = plan.objectives, plan.fields, plan.cons
     sign = np.asarray(plan.sign)
-    d, chunk, n_total = plan.d, plan.chunk, plan.n_total
-    spec = plan.spec
+    d, k, chunk, scan = plan.d, plan.k, plan.chunk, plan.scan
+    n_total, spec = plan.n_total, plan.spec
     cap = spec.survivor_cap
-    n_steps = math.ceil(n_total / chunk)
+    per_step = chunk * scan
+    if flat_range is None:
+        start0, stop0 = 0, n_total
+    else:
+        start0, stop0 = int(flat_range[0]), int(flat_range[1])
+        if not 0 <= start0 < stop0 <= n_total:
+            raise ValueError(
+                f"flat_range {flat_range} outside the grid "
+                f"[0, {n_total})")
+        if stop0 != n_total and (stop0 - start0) % per_step:
+            # The step masks lanes only against the grid's end, so an
+            # interior stop must land on a dispatch boundary or the last
+            # dispatch would fold lanes of the next range.
+            raise ValueError(
+                f"flat_range length {stop0 - start0} is not a multiple "
+                f"of the dispatch quantum {per_step} (chunk {chunk} x "
+                f"scan {scan} x 1 device(s)) and stop != n_total "
+                f"({n_total}): pass chunk_size/scan_chunks explicitly "
+                f"and carve ranges on dispatch boundaries")
+    span = stop0 - start0
+    n_steps = math.ceil(span / per_step)
+    prefetch = max(0, int(prefetch))
 
     t0 = time.perf_counter()
+    policy = retry_policy if retry_policy is not None else RetryPolicy()
+    counters = {
+        "retries": 0.0, "restarts": 0.0, "resumed_from_step": 0.0,
+        "checkpoint_write_s": 0.0, "checkpoints_written": 0.0,
+        "chunks_reissued": 0.0, "elastic_replans": 0.0,
+        "stragglers": 0.0, "step_timeouts": 0.0,
+    }
     axvals = SW.axes_to_device(plan.axis_vals, dev)
     # Probe, fallback and chunk step share one backend (and so, on the
     # card, one compiled eval_config).  The dense evaluator runs every
@@ -470,6 +874,38 @@ def stream_grid(cuts: Optional[Iterable[int]] = None,
     seed_signed, hist_edges, axis_valid = _probe(
         dense_eval, axvals, plan.shape, n_total, objectives, sign, cons,
         plan.hist_bins, plan.hist_ranges, dev)
+
+    # The consistent snapshot every recovery pivots on: the host carry,
+    # the exact running front and the next flat-index cursor — every
+    # chunk below ``base`` is folded in, nothing above it is.
+    state = {"carry": B.init_carry(spec),
+             "front_vals": np.empty((0, d)),
+             "front_idx": np.empty((0,), np.int64),
+             "base": start0}
+    mgr = None
+    signature = ""
+    if checkpoint_dir is not None:
+        mgr = CheckpointManager(checkpoint_dir,
+                                keep=max(1, int(checkpoint_keep)))
+        # Ranged runs suffix the signature, so a range's checkpoint never
+        # restores into another range of the same job.
+        signature = (plan.signature if flat_range is None else
+                     f"{plan.signature}:r{start0}-{stop0}")
+        _resume_into(mgr, signature, state, counters, chunk)
+
+    def write_checkpoint():
+        tw = time.perf_counter()
+        mgr.save(int(state["base"]),
+                 {"carry": state["carry"],
+                  "front_values": state["front_vals"],
+                  "front_indices": state["front_idx"]},
+                 metadata={"signature": signature,
+                           "next_flat": int(state["base"]),
+                           "counters": dict(counters),
+                           "format": B.CARRY_VERSION})
+        counters["checkpoint_write_s"] += time.perf_counter() - tw
+        counters["checkpoints_written"] += 1.0
+
     # Pre-cull the probe seed toward its near-front subset: the filter
     # build draws quantile bins and spread rows from the rows it is
     # given, and a mostly-dominated cloud drags both toward the data
@@ -479,116 +915,330 @@ def stream_grid(cuts: Optional[Iterable[int]] = None,
                                       _FILTER_BINS)
         seed_signed = seed_signed[P.dominance_filter_mask(
             f0, np.ascontiguousarray(seed_signed.T), xp=np)]
-
-    step = B.build_step(spec, plan.backend, dev)
-    carry = B.carry_to_device(B.init_carry(spec), dev)
-    front_vals = np.empty((0, d))
-    front_idx = np.empty((0,), np.int64)
-    buf_vals: list = []                 # pending front candidates
-    buf_idx: list = []
-    buf_n = 0
-    filt_np: dict = {}                  # host mirror of the device filter
-    aux_extra = {}
-    if cons:
-        aux_extra["cons"] = torch.tensor([v for _, _, v in cons],
-                                         dtype=SW.F64, device=dev)
-    if plan.hist_bins:
-        aux_extra["hist_edges"] = torch.as_tensor(hist_edges, device=dev)
-    aux = dict(aux_extra)
-    t_host = t_wait = t_dispatch = 0.0
+    cons_np = np.asarray([v for _, _, v in cons], np.float64)
+    t_host = t_wait = t_dispatch = t_fallback = 0.0
     t_first = None
     n_fallback = 0
+    n_replays = 0
+    detector = StragglerDetector(policy.straggler_factor,
+                                 policy.straggler_window)
+    dispatched_flat = state["base"]     # dispatch high-water mark
+    # Cooperative halt: set when should_stop fires before a dispatch;
+    # the incarnation then folds exactly the dispatches already issued.
+    ctl = {"halted": False}
+    snap_t = {"last": time.perf_counter()}
 
-    def rebuild_filter():
-        nonlocal filt_np, aux
-        base_sg = (np.concatenate([front_vals * sign, seed_signed])
-                   if seed_signed.size else front_vals * sign)
-        filt_np = P.build_dominance_filter(base_sg, d, _FILTER_ROWS,
-                                           _FILTER_BINS)
-        aux = dict(aux_extra, filter={
-            kk: torch.as_tensor(v, device=dev) for kk, v in filt_np.items()})
+    def drive():
+        # One incarnation of the pipeline: load the snapshot into the
+        # step, run every remaining dispatch, then advance the snapshot
+        # to completion (or to the halt).  Raises on device loss or
+        # spent retries; the loop below decides whether to restart.
+        nonlocal t_first, t_wait, t_host, t_dispatch, t_fallback
+        nonlocal n_fallback, dispatched_flat, n_replays
+        base = state["base"]
+        if base >= stop0:           # resumed from a finished run
+            return
+        n_run = -(-(stop0 - base) // per_step)
+        step = B.cached_step(spec, plan.backend, scan, dev)
+        replays0 = step.replays
+        fetch = _Fetch(max(1, prefetch), dev)
+        try:
+            step.load(carry=state["carry"], axvals=plan.axis_vals,
+                      cons=cons_np if cons else None,
+                      hist_edges=hist_edges if plan.hist_bins else None)
+            front_vals = state["front_vals"].copy()
+            front_idx = state["front_idx"].copy()
+            buf_vals: list = []             # pending front candidates
+            buf_idx: list = []
+            buf_n = 0
+            filt_np: dict = {}              # host mirror of the filter
+            last_ckpt = time.perf_counter()
 
-    def merge(final=False):
-        # Fold the candidate buffer into the running exact front; the
-        # filter-based pre-cull keeps the exact dominance passes small.
-        nonlocal front_vals, front_idx, buf_vals, buf_idx, buf_n
-        if buf_n:
-            cat_v = np.concatenate(buf_vals)
-            cat_i = np.concatenate(buf_idx)
-            cat_sg = cat_v * sign
-            base_sg = np.concatenate([front_vals * sign, cat_sg,
-                                      seed_signed])
-            f = P.build_dominance_filter(base_sg, d, _FILTER_ROWS,
-                                         _FILTER_BINS)
-            keep = P.dominance_filter_mask(
-                f, np.ascontiguousarray(cat_sg.T), xp=np)
-            front_vals, front_idx = _merge_into_front(
-                front_vals, front_idx, cat_v[keep], cat_i[keep], sign)
-            buf_vals, buf_idx, buf_n = [], [], 0
-        if not final:
-            rebuild_filter()
+            def rebuild_filter():
+                nonlocal filt_np
+                base_sg = (np.concatenate([front_vals * sign, seed_signed])
+                           if seed_signed.size else front_vals * sign)
+                filt_np = P.build_dominance_filter(base_sg, d, _FILTER_ROWS,
+                                                   _FILTER_BINS)
+                step.load(filt=filt_np)
 
-    def host_chunk_survivors(dstart, vlen):
-        # Survivor-capacity overflow: re-derive this chunk's survivors
-        # exactly through the dense evaluator (the chunk step's backend),
-        # with the same constraint mask and (host-mirror) pre-filter.
-        flat = np.arange(dstart, dstart + vlen, dtype=np.int64)
-        out = dense_eval(axvals, torch.as_tensor(flat, device=dev))
-        out = {f: v.cpu().numpy() for f, v in out.items()}
-        O = np.stack([out[f] for f in objectives])
-        feas = np.ones(vlen, bool)
-        with np.errstate(invalid="ignore"):
-            for f, op, v in cons:
-                feas &= SW.CONSTRAINT_OPS[op](out[f], v)
-        Osg = np.where(feas[None, :], O * sign[:, None], np.inf)
-        keep = P.dominance_filter_mask(filt_np, Osg, xp=np)
-        loc = np.flatnonzero(keep)
-        return flat[loc], O[:, loc].T
+            def merge(final=False):
+                # Fold the candidate buffer into the running exact front;
+                # on the card this overlaps the dispatches in flight.
+                nonlocal front_vals, front_idx, buf_vals, buf_idx, buf_n
+                if buf_n:
+                    cat_v = np.concatenate(buf_vals)
+                    cat_i = np.concatenate(buf_idx)
+                    cat_sg = cat_v * sign
+                    base_sg = np.concatenate([front_vals * sign, cat_sg,
+                                              seed_signed])
+                    f = P.build_dominance_filter(base_sg, d, _FILTER_ROWS,
+                                                 _FILTER_BINS)
+                    keep = P.dominance_filter_mask(
+                        f, np.ascontiguousarray(cat_sg.T), xp=np)
+                    front_vals, front_idx = _merge_into_front(
+                        front_vals, front_idx, cat_v[keep], cat_i[keep],
+                        sign)
+                    buf_vals, buf_idx, buf_n = [], [], 0
+                if not final:
+                    rebuild_filter()
 
-    rebuild_filter()
-    for si in range(n_steps):
-        start = si * chunk
-        td = time.perf_counter()
-        carry, surv = step(carry, axvals, aux, start)
-        tw = time.perf_counter()
-        t_dispatch += tw - td
-        flat_s, val_s, cnt = (x.cpu().numpy() for x in surv)
-        t_wait += time.perf_counter() - tw
-        th = time.perf_counter()
-        cnt = int(cnt)
-        if cnt > cap:
-            n_fallback += 1
-            fl, vv = host_chunk_survivors(start, min(chunk, n_total - start))
-        else:
-            fl, vv = flat_s[:cnt], val_s[:cnt]
-        if len(fl):
-            buf_idx.append(np.asarray(fl, np.int64))
-            buf_vals.append(np.asarray(vv, np.float64))
-            buf_n += len(fl)
-        if buf_n >= _MERGE_EVERY or (si == 0 and n_steps > 1):
-            merge()
-        if t_first is None:
-            t_first = time.perf_counter() - t0
-        t_host += time.perf_counter() - th
-    merge(final=True)
-    carry = B.carry_to_host(carry)
+            def host_chunk_survivors(dstart, vlen):
+                # Survivor-capacity overflow: re-derive this chunk's
+                # survivors exactly through the dense evaluator (the
+                # chunk step's backend), with the same constraint mask
+                # and (host-mirror) pre-filter.
+                flat = np.arange(dstart, dstart + vlen, dtype=np.int64)
+                out = dense_eval(axvals, torch.as_tensor(flat, device=dev))
+                out = {f: v.cpu().numpy() for f, v in out.items()}
+                O = np.stack([out[f] for f in objectives])
+                feas = np.ones(vlen, bool)
+                with np.errstate(invalid="ignore"):
+                    for f, op, v in cons:
+                        feas &= SW.CONSTRAINT_OPS[op](out[f], v)
+                Osg = np.where(feas[None, :], O * sign[:, None], np.inf)
+                keep = P.dominance_filter_mask(filt_np, Osg, xp=np)
+                loc = np.flatnonzero(keep)
+                return flat[loc], O[:, loc].T
+
+            def maybe_snapshot(covered):
+                # A consistent progress snapshot over the folded prefix
+                # [start0, covered), if the cadence allows one.
+                if (on_snapshot is not None
+                        and time.perf_counter() - snap_t["last"]
+                        >= snapshot_every_s):
+                    merge()
+                    snap_t["last"] = time.perf_counter()
+                    on_snapshot(_progress_snapshot(
+                        covered - start0, span, front_vals, front_idx,
+                        objectives, sign))
+
+            def process(start, surv, defer_snap):
+                # One dispatch's survivors, chunk by chunk in ascending
+                # order.  ``defer_snap``: a checkpoint is due at this
+                # step, and its snapshot waits until it is on disk.
+                nonlocal buf_n, t_host, t_first, n_fallback, t_fallback
+                th = time.perf_counter()
+                flat_s, val_s, cnt_s = surv
+                for j in range(scan):
+                    dstart = start + chunk * j
+                    vlen = min(chunk, n_total - dstart)
+                    if vlen <= 0:
+                        break
+                    cnt = int(cnt_s[j])
+                    if cnt > cap:
+                        n_fallback += 1
+                        tf = time.perf_counter()
+                        fl, vv = host_chunk_survivors(dstart, vlen)
+                        t_fallback += time.perf_counter() - tf
+                    else:
+                        # copies: the fetch's buffers are reused
+                        fl = np.array(flat_s[j, :cnt], np.int64)
+                        vv = np.array(val_s[j, :cnt], np.float64)
+                    if len(fl):
+                        buf_idx.append(fl)
+                        buf_vals.append(vv)
+                        buf_n += len(fl)
+                if buf_n >= _MERGE_EVERY:
+                    merge()
+                if not defer_snap:
+                    maybe_snapshot(min(start + per_step, stop0))
+                if t_first is None:
+                    t_first = time.perf_counter() - t0
+                t_host += time.perf_counter() - th
+
+            def dispatch(si):
+                # Injector hook + bounded in-place retry + the dispatch;
+                # returns the step's survivors.  A TransientDeviceError
+                # fires before the step touched the carry, so running it
+                # again in place is safe.
+                nonlocal t_dispatch, dispatched_flat
+                start = base + si * per_step
+                dispatched_flat = max(dispatched_flat,
+                                      min(start + per_step, stop0))
+                tstep = time.perf_counter()
+                if fault_injector is not None:
+                    backoff = policy.backoff_s
+                    for attempt in range(policy.max_retries + 1):
+                        try:
+                            fault_injector(start // chunk, start)
+                            break
+                        except TransientDeviceError:
+                            counters["retries"] += 1.0
+                            if attempt >= policy.max_retries:
+                                raise
+                            time.sleep(backoff)
+                            backoff = min(backoff * 2.0,
+                                          policy.backoff_max_s)
+                td = time.perf_counter()
+                surv = step(start)
+                t_dispatch += time.perf_counter() - td
+                dur = time.perf_counter() - tstep
+                if detector.record(dur):
+                    counters["stragglers"] += 1.0
+                if (policy.step_timeout_s is not None
+                        and dur > policy.step_timeout_s):
+                    counters["step_timeouts"] += 1.0
+                return surv
+
+            def ckpt_due(si):
+                # Snapshot cadence, decided at dispatch; the last step
+                # never snapshots here (completion writes the terminal
+                # checkpoint).
+                nonlocal last_ckpt
+                if mgr is None or si + 1 >= n_run:
+                    return False
+                if checkpoint_every_steps is not None:
+                    due = ((si + 1) % max(1, int(checkpoint_every_steps))
+                           == 0)
+                else:
+                    due = (time.perf_counter() - last_ckpt
+                           >= checkpoint_every_s)
+                if due:
+                    last_ckpt = time.perf_counter()
+                return due
+
+            merged_first = False
+
+            def consume():
+                # Wait for the oldest dispatch's survivors and fold them;
+                # chunk 0's reach the filter before chunk 1 is issued.
+                nonlocal t_wait, merged_first
+                tw = time.perf_counter()
+                (start, due), surv = fetch.get()
+                t_wait += time.perf_counter() - tw
+                process(start, surv, due)
+                if not merged_first:
+                    merged_first = True
+                    if n_run > 1:
+                        merge()
+
+            def issue(si):
+                nonlocal t_dispatch
+                surv = dispatch(si)
+                due = ckpt_due(si)
+                td = time.perf_counter()
+                fetch.put((base + si * per_step, due), surv)
+                t_dispatch += time.perf_counter() - td
+                if due:
+                    # Durability barrier: snapshot the carry right after
+                    # step si, fold every survivor up to si, write the
+                    # checkpoint, and only then dispatch further.
+                    carry_si = B.carry_to_host(step.carry)
+                    while len(fetch):
+                        consume()
+                    merge()
+                    state["carry"] = carry_si
+                    state["front_vals"] = front_vals.copy()
+                    state["front_idx"] = front_idx.copy()
+                    state["base"] = min(base + (si + 1) * per_step, stop0)
+                    write_checkpoint()
+                    maybe_snapshot(state["base"])
+                if on_progress is not None:
+                    on_progress(min(1.0, (dispatched_flat - start0) / span))
+
+            rebuild_filter()                # front/seed filter
+            depth = max(1, prefetch)
+            si = 0
+            while True:
+                while (si < n_run and not ctl["halted"]
+                       and len(fetch) < depth
+                       and (si == 0 or merged_first)):
+                    if should_stop is not None and should_stop():
+                        ctl["halted"] = True
+                        break
+                    issue(si)
+                    si += 1
+                if not len(fetch):
+                    break
+                consume()
+            merge(final=True)
+            state["carry"] = B.carry_to_host(step.carry)
+            state["front_vals"] = front_vals
+            state["front_idx"] = front_idx
+            # A halt finalizes at the dispatch high-water mark: every
+            # chunk below it was issued and folded, so the snapshot is
+            # the exact contiguous prefix.
+            state["base"] = (min(dispatched_flat, stop0)
+                             if ctl["halted"] else stop0)
+        finally:
+            fetch.close()
+            n_replays += step.replays - replays0
+            step.busy = False
+
+    def reissue_count():
+        # Chunks dispatched past the snapshot when an incarnation died:
+        # the ranges the next one issues again.
+        nonlocal dispatched_flat
+        n = max(0, -(-(dispatched_flat - state["base"]) // chunk))
+        dispatched_flat = state["base"]
+        return float(n)
+
+    restarts_left = policy.max_restarts
+    while True:
+        try:
+            drive()
+            break
+        except DeviceLostError:
+            # One device: the last one "died" — restart it from the
+            # snapshot (the elastic replan needs several).
+            counters["chunks_reissued"] += reissue_count()
+            if restarts_left <= 0:
+                raise
+            restarts_left -= 1
+            counters["restarts"] += 1.0
+        except _RESTARTABLE:
+            # In-place retries spent: restart from the last snapshot.
+            counters["chunks_reissued"] += reissue_count()
+            if restarts_left <= 0:
+                raise
+            restarts_left -= 1
+            counters["restarts"] += 1.0
+            time.sleep(min(policy.backoff_s * (2.0 ** counters["restarts"]),
+                           policy.backoff_max_s))
+    # Terminal snapshot: resume == done (or, after a halt, resume ==
+    # continue from the stop).
+    if mgr is not None and mgr.latest_step() != state["base"]:
+        write_checkpoint()
     total_s = time.perf_counter() - t0
 
+    # Deliverables come straight off the committed snapshot — the arrays
+    # a checkpoint persists — so a resumed run and an uninterrupted one
+    # return bitwise-identical results.
+    carry = state["carry"]
+    front_vals, front_idx = state["front_vals"], state["front_idx"]
+    partial = int(state["base"]) < stop0
     stats = {
         "n_configs": float(n_total),
         "n_chunks": float(n_steps),
+        "fraction_complete": ((int(state["base"]) - start0) / span
+                              if span else 1.0),
+        "range_start": float(start0),
+        "range_stop": float(stop0),
         "total_s": total_s,
         "first_chunk_s": t_first if t_first is not None else total_s,
-        "configs_per_s": n_total / total_s if total_s else float("inf"),
-        # dispatch_s: issuing the chunk steps (kernel launch and the
-        # fold's torch ops; on the card this is host time, the work runs
-        # asynchronously); device_wait_s: blocked fetching survivors
-        # (un-hidden device work plus the transfer); host_merge_s: exact
-        # front merges, buffering and overflow fallbacks on the host.
-        "dispatch_s": t_dispatch,
-        "device_wait_s": t_wait,
+        "configs_per_s": span / total_s if total_s else float("inf"),
+        "steady_configs_per_s": (
+            (span - min(per_step, span))
+            / max(total_s - (t_first or 0.0), 1e-9)
+            if n_steps > 1 else span / max(total_s, 1e-9)),
+        # host_merge_s: exact front merges, buffering and overflow
+        # fallbacks on the host (fallback_s of it: re-deriving the
+        # survivors of chunks that overflowed); device_wait_s: blocked
+        # on a dispatch's
+        # survivors (device work not hidden behind the host, plus the
+        # copy); dispatch_s: issuing the steps (on the card host time:
+        # writing the start, replaying the graph, queueing the copies).
         "host_merge_s": t_host,
+        "device_wait_s": t_wait,
+        "dispatch_s": t_dispatch,
+        "steps_per_s": n_steps / total_s if total_s else float("inf"),
+        "scan_chunks": float(scan),
+        "prefetch": float(prefetch),
+        "graph_replays": float(n_replays),
         "fallback_chunks": float(n_fallback),
+        "fallback_s": t_fallback,
+        **counters,
     }
     # Entries past the feasible count keep the +inf sentinel value —
     # point their indices at n_total too.
@@ -604,7 +1254,7 @@ def stream_grid(cuts: Optional[Iterable[int]] = None,
                           else axis_valid)     # drop hidden model axis
     return StreamResult(
         axes=axes, objectives=objectives, maximize=plan.maximize,
-        chunk_size=chunk,
+        chunk_size=chunk, n_devices=1,
         min_val={f: float(carry["min_val"][i]) for i, f in enumerate(fields)},
         min_idx={f: int(carry["min_idx"][i]) for i, f in enumerate(fields)},
         finite_counts={f: int(carry["finite"][i])
@@ -616,4 +1266,145 @@ def stream_grid(cuts: Optional[Iterable[int]] = None,
         axis_valid=OrderedDict(zip(axes, visible_axis_valid)),
         topk_val=topk_val, topk_idx=topk_idx,
         front_indices=front_idx, front_values=front_vals,
-        hist=hist_out, stats=stats, constraints=cons)
+        hist=hist_out, stats=stats, constraints=cons, partial=partial)
+
+
+# ---------------------------------------------------------------------------
+# Cross-range folding (the worker pool's merge step)
+# ---------------------------------------------------------------------------
+
+
+def _carry_from_result(res: StreamResult, sign: np.ndarray,
+                       n_total: int) -> dict:
+    """The serialization-form carry of one :class:`StreamResult`, exactly
+    (``topk_val`` is stored ``carry * sign`` with ``sign`` in ±1, so
+    multiplying by ``sign`` again is a bitwise round trip, the ±inf
+    sentinels included)."""
+    fields = tuple(res.min_val)
+    carry = {
+        "min_val": np.array([res.min_val[f] for f in fields], np.float64),
+        "min_idx": np.array([res.min_idx[f] for f in fields], np.int64),
+        "finite": np.array([res.finite_counts[f] for f in fields],
+                           np.int64),
+        "fmin": np.array([res.channel_min[f] for f in fields], np.float64),
+        "fmax": np.array([res.channel_max[f] for f in fields], np.float64),
+        "topk_val": np.asarray(res.topk_val, np.float64) * sign[:, None],
+        "topk_idx": np.where(np.isfinite(res.topk_val),
+                             np.asarray(res.topk_idx, np.int64), n_total),
+    }
+    if res.hist is not None:
+        carry["hist"] = np.stack([np.asarray(res.hist[f][0], np.int64)
+                                  for f in res.objectives])
+    return carry
+
+
+def merge_results(parts: Sequence[StreamResult]) -> StreamResult:
+    """Fold the results of ``flat_range=`` runs whose ranges tile ``[0,
+    n_configs)`` into one, bitwise equal to a single sweep of the whole
+    grid: every carry reduction is associative with the dense path's tie
+    rules (:func:`repro_torch.core.backend.merge_device_carries`) and the
+    parts' fronts merge exactly (:func:`_merge_into_front`).  Parts may
+    come in any order.  Raises :class:`ValueError` on gaps, overlaps,
+    partial parts or parts of different specifications."""
+    if not parts:
+        raise ValueError("merge_results needs at least one part")
+    parts = sorted(parts, key=lambda r: r.stats.get("range_start", 0.0))
+    first = parts[0]
+    n_total = first.n_configs
+    fields = tuple(first.min_val)
+    sign = np.where([o in first.maximize for o in first.objectives],
+                    -1.0, 1.0)
+    cursor = 0
+    for r in parts:
+        if (r.axes != first.axes or r.objectives != first.objectives
+                or r.maximize != first.maximize
+                or tuple(r.min_val) != fields
+                or r.constraints != first.constraints):
+            raise ValueError("merge_results: parts from different "
+                             "sweep specifications")
+        start = int(r.stats.get("range_start", 0))
+        stop = int(r.stats.get("range_stop", r.n_configs))
+        if start != cursor:
+            raise ValueError(
+                f"merge_results: range gap/overlap at flat index "
+                f"{cursor} (next part starts at {start})")
+        if r.partial:
+            raise ValueError(
+                f"merge_results: part [{start}, {stop}) is partial "
+                f"({r.stats.get('fraction_complete', 0.0):.1%})")
+        cursor = stop
+    if cursor != n_total:
+        raise ValueError(f"merge_results: ranges cover [0, {cursor}) "
+                         f"of {n_total} configs")
+
+    t0 = time.perf_counter()
+    k = first.topk_idx.shape[1]
+    carry = B.merge_device_carries(B.stack_host_carries(
+        [_carry_from_result(r, sign, n_total) for r in parts]), k)
+    d = len(first.objectives)
+    front_vals = np.empty((0, d))
+    front_idx = np.empty((0,), np.int64)
+    for r in parts:
+        front_vals, front_idx = _merge_into_front(
+            front_vals, front_idx, np.asarray(r.front_values, np.float64),
+            np.asarray(r.front_indices, np.int64), sign)
+
+    hist_out = None
+    if first.hist is not None:
+        for r in parts[1:]:
+            for f in first.objectives:
+                if not np.array_equal(r.hist[f][1], first.hist[f][1]):
+                    raise ValueError(
+                        f"merge_results: histogram edges of {f!r} "
+                        f"differ across parts")
+        hist_out = {f: (np.asarray(carry["hist"][oi]),
+                        np.asarray(first.hist[f][1]).copy())
+                    for oi, f in enumerate(first.objectives)}
+
+    summed = ("retries", "restarts", "checkpoints_written",
+              "checkpoint_write_s", "chunks_reissued", "elastic_replans",
+              "stragglers", "step_timeouts", "fallback_chunks",
+              "n_chunks", "host_merge_s", "device_wait_s", "dispatch_s",
+              "fallback_s")
+    total_s = max(float(r.stats.get("total_s", 0.0)) for r in parts)
+    stats = {
+        "n_configs": float(n_total),
+        "fraction_complete": 1.0,
+        "range_start": 0.0,
+        "range_stop": float(n_total),
+        "n_parts": float(len(parts)),
+        # The slowest part's wall time: with parts running concurrently
+        # that is the job's, and configs_per_s its aggregate rate.
+        "total_s": total_s,
+        "configs_per_s": (n_total / total_s if total_s
+                          else float("inf")),
+        "first_chunk_s": min(float(r.stats.get("first_chunk_s", 0.0))
+                             for r in parts),
+        "merge_s": 0.0,
+        **{kk: float(sum(r.stats.get(kk, 0.0) for r in parts))
+           for kk in summed},
+    }
+    topk_val = carry["topk_val"] * sign[:, None]
+    topk_idx = np.where(np.isfinite(carry["topk_val"]),
+                        carry["topk_idx"], n_total)
+    stats["merge_s"] = time.perf_counter() - t0
+    return StreamResult(
+        axes=first.axes, objectives=first.objectives,
+        maximize=first.maximize, chunk_size=first.chunk_size,
+        n_devices=sum(r.n_devices for r in parts),
+        min_val={f: float(carry["min_val"][i])
+                 for i, f in enumerate(fields)},
+        min_idx={f: int(carry["min_idx"][i])
+                 for i, f in enumerate(fields)},
+        finite_counts={f: int(carry["finite"][i])
+                       for i, f in enumerate(fields)},
+        channel_min={f: float(carry["fmin"][i])
+                     for i, f in enumerate(fields)},
+        channel_max={f: float(carry["fmax"][i])
+                     for i, f in enumerate(fields)},
+        axis_valid=OrderedDict((kk, np.asarray(v).copy())
+                               for kk, v in first.axis_valid.items()),
+        topk_val=topk_val, topk_idx=topk_idx,
+        front_indices=front_idx, front_values=front_vals,
+        hist=hist_out, stats=stats, constraints=first.constraints,
+        partial=False)

@@ -145,6 +145,12 @@ struct ChunkArgs {
   Consts C;
   Grid G;
   long long start, chunk, padded;
+  // The dispatch's first flat index on the device, or null: the chunk is
+  // [*base + start, *base + start + chunk).  A captured CUDA graph holds
+  // its launches' arguments, so the stream's graph-replayed step keeps
+  // the index that changes between replays here (written before each
+  // replay) and a fixed offset in start.
+  const long long* base;
   int W, n_blocks, small_index;
   int nf, d;
   int field[N_FIELDS];          // tracked channel -> index in FIELDS
@@ -231,11 +237,12 @@ __device__ __forceinline__ int upper_bound(const double* e, int n, double x) {
 // constraints, lane outputs, filter; its tracked values, +inf where not
 // valid, go to s_val[f * W + l].
 __device__ __forceinline__ void chunk_lane(const ChunkArgs& a, int l,
-                                           long long g, const double* s_rows,
+                                           long long g, long long start,
+                                           const double* s_rows,
                                            const double* s_edges,
                                            double* s_val) {
   const bool real = g < a.chunk;                 // not block padding
-  const long long flat = a.start + g;
+  const long long flat = start + g;
   double out[N_FIELDS];
   bool feas = false;
   if (real) {
@@ -345,6 +352,7 @@ chunk_kernel(const ChunkArgs a) {
   long long* s_pi = reinterpret_cast<long long*>(s_px + nr * nw);
   int* s_pn = reinterpret_cast<int*>(s_pi + nr * nw);
 
+  const long long start = a.start + (a.base ? *a.base : 0LL);
   for (int i = tid; i < a.n_rows * a.d; i += nt) s_rows[i] = a.rows[i];
   for (int i = tid; i < edge_len; i += nt) s_edges[i] = a.edges[i];
   __syncthreads();
@@ -353,7 +361,7 @@ chunk_kernel(const ChunkArgs a) {
 #pragma unroll 1
   for (int j = 0; j < CHUNK_LANES; ++j) {
     const int l = tid + j * nt;
-    if (l < a.W) chunk_lane(a, l, base + l, s_rows, s_edges, s_val);
+    if (l < a.W) chunk_lane(a, l, base + l, start, s_rows, s_edges, s_val);
   }
 
   // Reductions nf .. nf + d - 1 are the signed objectives' mins; padding
@@ -374,7 +382,7 @@ chunk_kernel(const ChunkArgs a) {
         v = fmin(v, ok ? y * a.sign[c] : INFINITY);
       } else {
         const long long g = base + l;
-        fold(v, ix, n, x, y, g < a.chunk ? a.start + g : a.G.n_total,
+        fold(v, ix, n, x, y, g < a.chunk ? start + g : a.G.n_total,
              ok ? 1 : 0, ok ? y : -INFINITY);
       }
     }
@@ -650,6 +658,7 @@ int sweep_grid_chunk_launch(const long long* iargs, int n_i,
   ChunkArgs a;
   read_common(r, dr, a.T, a.C, a.G);
   a.start = r.next();
+  a.base = as_ptr<const long long>(r.next());
   a.chunk = r.next();
   a.padded = r.next();
   a.W = static_cast<int>(r.next());

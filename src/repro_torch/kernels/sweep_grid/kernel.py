@@ -318,13 +318,19 @@ def _common_args(T: A.DeviceTables, shape, axvals) -> tuple[list, list]:
     return iargs, list(_CONSTS)
 
 
-def sweep_grid_chunk(spec, T: A.DeviceTables, axvals, aux, start: int) -> dict:
-    """Kernel A: the block partials of chunk ``[start, start +
-    spec.chunk)`` (:func:`repro_torch.core.backend.chunk_partials`'s
-    keys, shapes and dtypes).  CPU tables run the plain version."""
+def sweep_grid_chunk(spec, T: A.DeviceTables, axvals, aux, start: int,
+                     base=None) -> dict:
+    """Kernel A: the block partials of chunk ``[base + start, base + start
+    + spec.chunk)`` (:func:`repro_torch.core.backend.chunk_partials`'s
+    keys, shapes and dtypes); ``base`` is an optional 0-d int64 tensor on
+    the device, read by the kernel (a captured graph replays at the
+    ``base`` written before the replay).  CPU tables run the plain
+    version.  A launch recorded into a CUDA graph is not counted: the
+    graph's replays count theirs (:meth:`CudaGridBackend.
+    graph_replayed`)."""
     dev = T.buf.device
     if dev.type == "cpu":
-        return ref.chunk_partials_ref(spec, T, axvals, aux, start)
+        return ref.chunk_partials_ref(spec, T, axvals, aux, start, base)
     if dev.type != "cuda":
         raise ValueError(f"sweep_grid_chunk runs on cuda or cpu, not {dev}")
     nf, d = len(spec.fields), spec.d
@@ -351,6 +357,10 @@ def sweep_grid_chunk(spec, T: A.DeviceTables, axvals, aux, start: int) -> dict:
         edges, table = filt["edges"].data_ptr(), filt["table"].data_ptr()
     else:
         bins, edges, table = 0, 0, 0
+    base_ptr = 0
+    if base is not None:
+        _check(base, "base", torch.int64, dev, ())
+        base_ptr = base.data_ptr()
     cons_ptr = 0
     if spec.cons_static:
         _check(aux["cons"], "constraint bounds", torch.float64, dev,
@@ -371,7 +381,8 @@ def sweep_grid_chunk(spec, T: A.DeviceTables, axvals, aux, start: int) -> dict:
         "bmax": empty((nf, Bn), torch.float64),
         "sgmin": empty((d, Bn), torch.float64),
     }
-    iargs += [int(start), spec.chunk, CP, W, Bn, int(spec.small_index),
+    iargs += [int(start), base_ptr, spec.chunk, CP, W, Bn,
+              int(spec.small_index),
               nf, d, *(SW.FIELDS.index(f) for f in spec.fields),
               len(spec.cons_static),
               *(fi for fi, _ in spec.cons_static),
@@ -384,7 +395,8 @@ def sweep_grid_chunk(spec, T: A.DeviceTables, axvals, aux, start: int) -> dict:
               plan.threads, plan.lanes, plan.smem_bytes]
     dargs += [float(s) for s in spec.sign]
     _launch(_lib().sweep_grid_chunk_launch, iargs, dargs, dev)
-    sweep_grid_chunk.launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        sweep_grid_chunk.launches += 1
     return out
 
 

@@ -22,8 +22,11 @@ class CudaGridBackend(B.EvalBackend):
 
     def build_chunk_eval(self, spec, device):
         T = B.device_tables(spec.S, device)
-        return lambda axvals, aux, start: kernel.sweep_grid_chunk(
-            spec, T, axvals, aux, start)
+        return lambda axvals, aux, start, base=None: kernel.sweep_grid_chunk(
+            spec, T, axvals, aux, start, base)
+
+    def graph_replayed(self, chunks):
+        kernel.sweep_grid_chunk.launches += chunks
 
     def build_dense_eval(self, S, shape, fields, device):
         T = B.device_tables(S, device)

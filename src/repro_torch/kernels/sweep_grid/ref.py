@@ -13,9 +13,10 @@ from __future__ import annotations
 from repro_torch.core import backend as B
 
 
-def chunk_partials_ref(spec, T, axvals, aux, start: int) -> dict:
+def chunk_partials_ref(spec, T, axvals, aux, start: int,
+                       base=None) -> dict:
     """Block partials of one chunk (the plain version of kernel A)."""
-    return B.plain_chunk(spec, T, axvals, aux, start)
+    return B.plain_chunk(spec, T, axvals, aux, start, base)
 
 
 def sweep_grid_eval_ref(T, shape, fields, axvals, flat) -> dict:

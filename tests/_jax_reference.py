@@ -270,6 +270,83 @@ def task_stream(p):
     return out
 
 
+def _grid(g):
+    """A grid of the params: ``camera_n`` widens the camera-rate axis to
+    that many values (a grid that is only planned, never evaluated)."""
+    g = dict(g)
+    n = g.pop("camera_n", None)
+    if n is not None:
+        g["camera_fps"] = tuple(np.linspace(20.0, 60.0, n))
+    return g
+
+
+def task_stream_pipeline(p):
+    """The reference's ``stream_grid`` at each run's arguments (scan
+    fusion, prefetch, chunk): the summary, ``result_to_json`` and the
+    stats; its ``plan_stream`` geometry of each plan; ``flat_range``
+    halves + ``merge_results``; and the messages of its range errors."""
+    from repro.core import stream
+    grid = p["grid"]
+    out = {"runs": {}, "plans": {}, "errors": {}}
+    for name, kw in p["runs"].items():
+        res = stream.stream_grid(**grid, **kw)
+        out["runs"][name] = dict(_stream_summary(res),
+                                 json=stream.result_to_json(res),
+                                 stats=dict(res.stats))
+    for name, (g, kw) in p["plans"].items():
+        plan = stream.plan_stream(**_grid(g), **kw)
+        again = stream.plan_stream(**_grid(g), **kw)
+        out["plans"][name] = dict(
+            n_total=plan.n_total, chunk=plan.chunk, scan=plan.scan,
+            survivor_cap=plan.spec.survivor_cap,
+            small_index=plan.spec.small_index,
+            stable=plan.signature == again.signature)
+    kw, cut = p["ranges"]["kw"], p["ranges"]["cut"]
+    n = stream.plan_stream(**grid).n_total
+    parts = [stream.stream_grid(**grid, **kw, flat_range=r)
+             for r in ((cut, n), (0, cut))]
+    out["merged"] = _stream_summary(stream.merge_results(parts))
+    out["parts"] = [_stream_summary(r) for r in parts]
+
+    def error(fn):
+        try:
+            fn()
+        except ValueError as e:
+            return str(e)
+        return None
+
+    out["errors"] = {
+        "outside": error(lambda: stream.stream_grid(
+            **grid, **kw, flat_range=(0, n + 1))),
+        "quantum": error(lambda: stream.stream_grid(
+            **grid, **kw, flat_range=(0, cut + 1))),
+        "gap": error(lambda: stream.merge_results(parts[:1])),
+    }
+    return out
+
+
+def task_checkpoint(p):
+    """The reference writes the checkpoints of a stream run into
+    ``p["write"]`` (a snapshot every dispatch, all kept) and reads every
+    step of ``p["read"]`` (written by the port): each step's
+    ``restore_items`` and metadata, and the run's summary."""
+    from repro.checkpoint import CheckpointManager
+    from repro.core import stream
+
+    def read(root):
+        mgr = CheckpointManager(root, keep=10**6)
+        return {step: {"items": mgr.restore_items(step),
+                       "meta": mgr.metadata(step)}
+                for step in mgr.all_steps()}
+
+    res = stream.stream_grid(**p["grid"], **p["kw"],
+                             checkpoint_dir=p["write"],
+                             checkpoint_every_steps=1,
+                             checkpoint_keep=10**6)
+    return {"written": read(p["write"]), "read": read(p["read"]),
+            "summary": _stream_summary(res)}
+
+
 def task_dense(p):
     """The reference's dense ``evaluate_grid`` over ``grid``: every
     channel (flat, C order) and its Pareto front's flat indices (default

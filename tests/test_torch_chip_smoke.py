@@ -298,3 +298,14 @@ def test_bitwise_equal_holds_nan_positions_and_bits():
     assert not CS.bitwise_equal(a, np.array([1.0, np.nan, -0.0, 2.0]))
     assert not CS.bitwise_equal(a, np.array([1.0, 3.0, 0.0, 2.0]))
     assert not CS.bitwise_equal(a, np.nextafter(a, 3.0))
+
+
+def test_stream_split_and_deliverables_read_a_stream_result():
+    from repro_torch.core import stream
+    from repro_torch.core.grids import REFERENCE_GRID
+    res = stream.stream_grid(**REFERENCE_GRID, chunk_size=4096,
+                             device="cpu")
+    split = CS.stream_split(res)
+    assert split["n_configs"] == 10880.0 and split["graph_replays"] == 0.0
+    assert CS.deliverables(res) == CS.deliverables(stream.merge_results(
+        [res]))

@@ -97,6 +97,16 @@ def test_backend_defaults_follow_the_device():
         B.get_backend("xla")
 
 
+def test_get_backend_defaults_to_the_card():
+    """Like every entry point, get_backend() defaults to device="cuda"
+    and so to the kernels' backend (resolving it needs no card)."""
+    assert B.get_backend().name == "cuda"
+    assert B.get_backend(None).name == "cuda"
+    assert B.get_backend(None, "cpu").name == "torch"
+    with pytest.raises(ValueError, match="unknown"):
+        B.get_backend("xla")
+
+
 def test_kernel_wrappers_take_the_plain_version_on_cpu():
     S, axis_arrays, _ = sweep.build_axes(cuts=(0, 5, 33),
                                          sensor_nodes=("7nm", "16nm"))
@@ -116,11 +126,14 @@ def test_kernel_wrappers_take_the_plain_version_on_cpu():
             sweep_grid.sweep_grid_chunk.launches) == before
 
 
-@pytest.mark.parametrize("kw", [dict(prefetch=2), dict(scan_chunks=4),
-                                dict(checkpoint_dir="ckpt"),
-                                dict(flat_range=(0, 8)),
-                                dict(scenarios="default")])
+@pytest.mark.parametrize("kw", [dict(devices=("cuda:0",)),
+                                dict(devices=("cuda:0", "cuda:1")),
+                                dict(devices=()),
+                                dict(scenarios="default"),
+                                dict(scenarios=("default",))])
 def test_unported_stream_features_raise(kw):
+    """Of the reference's stream_grid parameters only devices= and
+    scenarios= are still to port."""
     with pytest.raises(NotImplementedError):
         stream.stream_grid(cuts=(0, 1), device="cpu", **kw)
 

@@ -181,10 +181,10 @@ def test_scalar_axes_maps_kwargs():
 
 
 @pytest.mark.parametrize("kw, match", [
-    (dict(scenarios="all"), "scenario-engine slice"),
-    (dict(checkpoint_dir="ckpt"), "checkpoint/resume slice"),
-    (dict(checkpoint_every_s=5.0), "checkpoint/resume slice"),
-    (dict(objective="time_to_empty_s"), "session channel"),
+    pytest.param(dict(scenarios="all"), "scenario-engine slice",
+                 id="kw0-scenario-engine slice"),
+    pytest.param(dict(objective="time_to_empty_s"), "session channel",
+                 id="kw3-session channel"),
 ])
 def test_unported_options_raise(kw, match):
     with pytest.raises(NotImplementedError, match=match):
