@@ -45,6 +45,26 @@ Phases, each of which ends the run with a non-zero exit on any failure:
    a child SIGKILLed mid-run and resumed here, ``flat_range`` halves
    folded by ``merge_results``, and a ``should_stop`` prefix against the
    ``flat_range`` run of that prefix.
+4b. Scenario (the fourth path): ``stream_grid(scenarios="all",
+   objectives=("time_to_empty_s", "peak_case_temp_c"), maximize=
+   ("time_to_empty_s",))`` over the reference scenario benchmark's
+   1,018,368 (config x trace) pairs (20 session steps each), counts read
+   around it: no kernel of A-E is launched (a scenario sweep runs the
+   plain ``"torch"`` backend on the card, the reference's ``xla``
+   counterpart; its chunk step, session loop included, is one captured
+   CUDA graph), cold and warm bitwise equal, held to
+   ``ANCHOR_SCENARIO_1M`` frozen from the JAX reference (best
+   time-to-empty and least peak temperature within 1e-12 relative, their
+   indices and traces, the top-4, the valid count and the front exactly);
+   the same pairs through the dense ``evaluate_grid`` on the card give
+   the same argmin, top-4 and front, values bitwise.  The reference
+   scenario grid densely on the card equals the port's CPU run within
+   1e-12 (NaN patterns and index sets exactly); ``simulate_session``
+   with the throttle engaged equals the batched evaluation on the card
+   bitwise; ``optimal_partition(scenarios="all")`` on the card picks the
+   CPU's winner.  Prints the ``scenario`` line (wall, pairs/s, steps/s,
+   replays, host merge and fallback seconds, device busy share, backend,
+   largest relative error, card).
 5. Kernel C vs plain on the card: ``rbe_matmul_raw`` against its plain
    version at KeyNet's three int8 shapes (1, 4 and 256 ROIs), the
    reference test's shapes, ragged shapes, the tensor-core route's edges
@@ -820,6 +840,201 @@ def phase_stream(grid_big, grid_10m, anchor, dev) -> tuple:
                                  step_build_s=capture1_s),
              "plain": stream_split(plain), "bitwise_plain": bitwise}
     return res, launches, paths, (plan, plan1)
+
+
+def rel_err(got, want) -> float:
+    """Largest relative difference of the entries that are finite in
+    ``want`` (after checking the NaN patterns are the same); 0 when the
+    infinities and everything else are equal."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    check(np.array_equal(np.isnan(got), np.isnan(want)), "NaN patterns")
+    fin = np.isfinite(want)
+    check(np.array_equal(got[~fin & ~np.isnan(want)],
+                         want[~fin & ~np.isnan(want)]), "infinities")
+    if not fin.any():
+        return 0.0
+    return float(np.max(np.abs(got[fin] - want[fin])
+                        / np.maximum(np.abs(want[fin]), 1e-300)))
+
+
+def session_winners(data, axes) -> dict:
+    """Dense session channels' deliverables: the argmin of peak
+    temperature, the top-4 of each scenario objective (time-to-empty
+    maximized; ties by flat index) and the front's flat indices, as
+    ``SweepResult`` and ``pareto_front`` read them."""
+    from repro_torch.core import pareto as P
+    from repro_torch.core import sweep as SW
+    from repro_torch.core.grids import SCENARIO_OBJECTIVES, top_k_flat
+
+    tte, peak = (np.asarray(data[f]) for f in SCENARIO_OBJECTIVES)
+    front = P.pareto_front(SW.SweepResult(axes=axes, data=data),
+                           objectives=SCENARIO_OBJECTIVES,
+                           maximize=SCENARIO_OBJECTIVES[:1])
+    return {"argmin_peak": int(np.nanargmin(peak)),
+            "top": {"time_to_empty_s": list(top_k_flat(-tte)),
+                    "peak_case_temp_c": list(top_k_flat(peak))},
+            "front": sorted(int(i) for i in front.indices)}
+
+
+def phase_scenario(dev, smi: str, big_grid=None, anchor=None) -> dict:
+    """The scenario engine on the card (the fourth path).
+
+    (a) ``stream_grid(scenarios="all")`` over the 1,018,368-pair grid of
+    the reference's scenario benchmark (20 session steps a pair), counts
+    read around it (no kernel of A-E: scenario sweeps run the plain
+    ``"torch"`` backend, its chunk step one captured CUDA graph), once
+    cold (the step built and captured in the run) and once warm (timed),
+    held to ``ANCHOR_SCENARIO_1M`` (frozen from the JAX reference), and
+    the same pairs through the dense ``evaluate_grid`` on the card: the
+    same argmin, top-4 and front.  (b) The reference grid densely on the
+    card against the port's CPU run.  (c) ``simulate_session`` with the
+    throttle engaged on the card, bitwise equal to the batched
+    evaluation on the card.  (d) ``optimal_partition(scenarios="all")``
+    on the card against the CPU.  Prints the ``scenario`` line."""
+    from repro_torch.core import partition as PT
+    from repro_torch.core import scenario as SC
+    from repro_torch.core import stream as ST
+    from repro_torch.core import sweep as SW
+    from repro_torch.core.grids import (ANCHOR_SCENARIO_1M,
+                                        SCENARIO_BIG_GRID,
+                                        SCENARIO_OBJECTIVES,
+                                        SCENARIO_REF_GRID, scenario_summary)
+
+    big_grid = SCENARIO_BIG_GRID if big_grid is None else big_grid
+    anchor = ANCHOR_SCENARIO_1M if anchor is None else anchor
+    obj = SCENARIO_OBJECTIVES
+    kw = dict(scenarios="all", objectives=obj, maximize=obj[:1],
+              **big_grid)
+    errs = []
+
+    # (a) the acceptance-scale stream: cold, then warm on the same plan
+    plan = ST.plan_stream(**kw, device=dev)
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    cold = ST.stream_grid(plan=plan)
+    sync(dev)
+    cold_s = time.perf_counter() - t0
+    launches = read_counts()
+    check(not any(launches.values()),
+          f"scenario stream launched kernels {launches}: it runs the "
+          f"torch backend")
+    check(cold.backend == plan.backend == "torch",
+          f"scenario stream ran backend {cold.backend!r}, not 'torch'")
+    res = ST.stream_grid(plan=plan)
+    check(deliverables(res) == deliverables(cold),
+          "scenario stream: warm run differs from the cold one")
+    got = scenario_summary(res)
+    for key in ("n_pairs", "best_tte_idx", "best_tte_trace", "min_peak_idx",
+                "min_peak_trace", "topk_idx", "finite", "front_idx"):
+        check(got[key] == anchor[key],
+              f"scenario anchor {key}: {got[key]!r} != {anchor[key]!r}")
+    for key in ("best_tte", "min_peak"):
+        errs.append(rel_err(got[key], anchor[key]))
+        check(errs[-1] <= RTOL, f"scenario anchor {key}: {got[key]!r} "
+              f"vs {anchor[key]!r}")
+    replays = int(res.stats["graph_replays"])
+    check(replays == res.stats["n_chunks"] > 0 or dev.type != "cuda",
+          f"scenario stream: {replays} graph replays for "
+          f"{res.stats['n_chunks']} dispatches")
+    # The busy share from one profiled run of the same plan: its device
+    # time over its own wall time (a lower bound, as phase_stream's).
+    profiled = []
+    busy = device_busy(lambda: profiled.append(ST.stream_grid(plan=plan)))
+    wall = res.stats["total_s"]
+    n_steps = plan.S.step_tables[0].shape[1]
+    print(f"scenario stream {res.n_configs} pairs x {n_steps} steps: "
+          f"cold {cold_s:.3f} s, warm {wall:.3f} s "
+          f"({res.n_configs / wall:.0f} pairs/s), matches the JAX anchor "
+          f"(best tte {got['best_tte']!r} s on {got['best_tte_trace']})")
+
+    sync(dev)
+    t0 = time.perf_counter()
+    dense = SW.evaluate_grid(**big_grid, scenarios="all", device=dev)
+    dense_s = time.perf_counter() - t0
+    check(tuple(dense.data) == SW.FIELDS + SW.SCENARIO_FIELDS,
+          "scenario dense: channels")
+    win = session_winners(dense.data, dense.axes)
+    check(win["argmin_peak"] == res.min_idx["peak_case_temp_c"],
+          "scenario dense vs stream: argmin")
+    check([win["top"][o] for o in obj] == res.topk_idx.tolist(),
+          "scenario dense vs stream: top-4")
+    check(win["front"] == sorted(res.front_indices.tolist()),
+          "scenario dense vs stream: front")
+    flat = {f: dense.data[f].ravel() for f in obj}
+    check(all(flat[f][res.min_idx[f]] == res.min_val[f] for f in obj),
+          "scenario dense vs stream: values not bitwise")
+
+    # (b) the reference grid: card against the CPU
+    gpu = SW.evaluate_grid(**SCENARIO_REF_GRID, scenarios="all",
+                           device=dev)
+    cpu = SW.evaluate_grid(**SCENARIO_REF_GRID, scenarios="all",
+                           device="cpu")
+    for f in gpu.data:
+        errs.append(rel_err(gpu.data[f], cpu.data[f]))
+        check(errs[-1] <= RTOL, f"scenario ref grid {f}: {errs[-1]:.3e}")
+    check(session_winners(gpu.data, gpu.axes)
+          == session_winners(cpu.data, cpu.axes),
+          "scenario ref grid: argmin, top-4 or front differ card vs cpu")
+
+    # (c) the throttle engaged: loop twin vs batched, both on the card
+    # gaming with the onset just above ambient, as the reference's
+    # throttle parity test runs it
+    sset = SC.ScenarioSet(traces=(SC.PROFILES["gaming"],),
+                          thermal=dataclasses.replace(
+                              SC.DEFAULT_THERMAL, throttle_onset_c=25.05,
+                              throttle_gain_per_c=2.0))
+    sim = SC.simulate_session(scenarios=sset, cut=11, detnet_fps=30.0,
+                              device=dev)
+    one = SW.evaluate_grid(cuts=(11,), detnet_fps=(30.0,), scenarios=sset,
+                           device=dev)
+    check(sim["throttle_fraction"] > 0.0, "throttle never engaged")
+    for f in SW.SCENARIO_FIELDS:
+        check(sim[f] == float(one.data[f].ravel()[0]),
+              f"simulate_session vs batched on the card: {f} not bitwise")
+
+    # (d) the partition search: card against the CPU
+    pkw = dict(objective="time_to_empty_s", scenarios="all",
+               constraints={"peak_case_temp_c": ("<=", 40.0)},
+               sensor_node=("7nm", "16nm"), detnet_fps=(5.0, 15.0, 30.0))
+    pg = PT.optimal_partition(**pkw, device=dev)
+    pc = PT.optimal_partition(**pkw, device="cpu")
+    check((pg.cut, pg.trace, pg.avg_power) == (pc.cut, pc.trace,
+                                               pc.avg_power),
+          f"optimal_partition: card {(pg.cut, pg.trace)} vs cpu "
+          f"{(pc.cut, pc.trace)}")
+    for f in SW.SCENARIO_FIELDS:
+        errs.append(rel_err(pg.session[f], pc.session[f]))
+        check(errs[-1] <= RTOL, f"optimal_partition session {f}")
+    print(f"scenario: ref grid card == cpu within {max(errs):.3e}, "
+          f"throttled session bitwise (throttled "
+          f"{sim['throttle_fraction']:.4f}), partition winner cut "
+          f"{pg.cut} on {pg.trace}")
+
+    total = sum(busy.values())
+    out = {"n_pairs": res.n_configs, "n_steps": n_steps, "wall_s": wall,
+           "cold_wall_s": cold_s,
+           "pairs_per_s": res.n_configs / wall,
+           "evals_per_s": res.n_configs * n_steps / wall,
+           "scan_chunks": res.stats["scan_chunks"],
+           "graph_replays": res.stats["graph_replays"],
+           "n_chunks": res.stats["n_chunks"],
+           # the strided probe (eager: ~7,900 ops on 4,096 lanes) and the
+           # first dispatch's survivors
+           "first_chunk_s": res.stats["first_chunk_s"],
+           "host_merge_s": res.stats["host_merge_s"],
+           "fallback_s": res.stats["fallback_s"],
+           "dispatch_s": res.stats["dispatch_s"],
+           "device_wait_s": res.stats["device_wait_s"],
+           "profiled_total_s": profiled[0].stats["total_s"],
+           "device_busy_s": total,
+           "device_busy_share": total / profiled[0].stats["total_s"],
+           "dense_wall_s": dense_s, "backend": res.backend,
+           "launches": launches, "max_rel_err": max(errs),
+           "best_tte_s": got["best_tte"], "min_peak_c": got["min_peak"],
+           "front_size": len(got["front_idx"]), "card": smi}
+    print(json.dumps({"scenario": out}))
+    return out
 
 
 def deliverables(res) -> tuple:
@@ -2144,6 +2359,7 @@ def run(dev, grid_big, smi: str, lm_cfg, lm_seq: int = LM_SEQ,
     res, launches, paths, plans = phase_stream(
         grid_big, stream_grid_axes(10_000_000), ANCHOR_10M, dev)
     resilience = phase_stream_resilience(dev)
+    phase_scenario(dev, smi)
     err["C"] = phase_rbe(dev)
     ht_launches, ht = phase_pipeline(dev, smi)
     err["D"] = phase_rmsnorm(dev)

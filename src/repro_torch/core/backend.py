@@ -16,7 +16,8 @@ engine runs through the same **chunk-evaluation contract**::
   (:func:`plain_dense`, :func:`plain_chunk`), and ``"cuda"``, the
   hand-written kernels of :mod:`repro_torch.kernels.sweep_grid` (which
   registers itself on first request).  ``backend=None`` resolves to
-  ``"cuda"`` on a CUDA device and ``"torch"`` on the CPU.
+  ``"cuda"`` on a CUDA device and ``"torch"`` on the CPU, and to
+  ``"torch"`` on either for a scenario sweep (:func:`default_backend`).
 * :func:`fold_chunk` — backend-independent torch ops: folds one chunk's
   block partials into the running carry (argmin with first-minimum
   tie-breaking, counts, bounds, the exact per-objective top-k merge,
@@ -62,9 +63,14 @@ class EvalBackend:
 
     Both builders take the device the evaluation runs on; the model
     tables are packed onto it once per build (:func:`device_tables`).
+    ``supports_scenarios`` gates scenario-wrapped lowerings
+    (``scenario.ScenarioStack``, the session evaluation): a backend that
+    re-implements the evaluation in a kernel of its own, like the
+    ``"cuda"`` one, opts out until its kernel runs the sessions too.
     """
 
     name: str = "?"
+    supports_scenarios: bool = True
 
     def build_dense_eval(self, S, shape: tuple[int, ...],
                          fields: Sequence[str], device) -> Callable:
@@ -100,16 +106,28 @@ def available_backends() -> tuple[str, ...]:
     return tuple(dict.fromkeys((*_REGISTRY, *_LAZY)))
 
 
-def default_backend(device) -> str:
-    """``"cuda"`` (the kernels) on a CUDA device, ``"torch"`` elsewhere."""
+def default_backend(device, scenarios: bool = False) -> str:
+    """The backend ``backend=None`` resolves to on ``device``.
+
+    ``"cuda"`` (the hand-written kernels) on a CUDA device, ``"torch"``
+    elsewhere.  A scenario sweep (``scenarios=True``: the lowering is a
+    ``scenario.ScenarioStack``) resolves to ``"torch"`` on any device,
+    the card included: the counterpart of the reference, whose sessions
+    run only on its default ``xla`` backend (no TPU kernel computes the
+    session loop, and the kernels here refuse it).  It runs where the
+    caller's tensors are; it is never a move to the CPU.
+    """
+    if scenarios:
+        return "torch"
     return "cuda" if torch.device(device).type == "cuda" else "torch"
 
 
-def get_backend(name: str | None = None, device="cuda") -> EvalBackend:
+def get_backend(name: str | None = None, device="cuda",
+                scenarios: bool = False) -> EvalBackend:
     """Resolve a backend name (``None`` -> :func:`default_backend` of
-    ``device``); raises :class:`ValueError` naming the available
-    backends for unknown names."""
-    name = name or default_backend(device)
+    ``device`` and ``scenarios``); raises :class:`ValueError` naming the
+    available backends for unknown names."""
+    name = name or default_backend(device, scenarios)
     if name not in _REGISTRY and name in _LAZY:
         importlib.import_module(_LAZY[name])
     be = _REGISTRY.get(name)
@@ -119,15 +137,55 @@ def get_backend(name: str | None = None, device="cuda") -> EvalBackend:
     return be
 
 
+def is_scenario(S) -> bool:
+    """Whether ``S`` is a scenario-wrapped lowering (duck-checked via the
+    ``is_scenario`` marker, so plain model stacks cost nothing)."""
+    return getattr(S, "is_scenario", False)
+
+
+def check_scenario_support(be: EvalBackend, S) -> None:
+    """Reject a scenario-wrapped lowering on a backend that cannot run
+    the session evaluation, naming the backends that can."""
+    if is_scenario(S) and not be.supports_scenarios:
+        scen = tuple(n for n in available_backends()
+                     if get_backend(n).supports_scenarios)
+        raise ValueError(
+            f"evaluation backend {be.name!r} does not support "
+            f"scenario sweeps (the session lax.scan kernel); "
+            f"scenario-capable backends: {scen}")
+
+
 @functools.lru_cache(maxsize=16)
 def _device_tables(S, device: str) -> A.DeviceTables:
+    if is_scenario(S):
+        from . import scenario as SC
+        T = _device_tables(S.S, device)
+        steps = torch.as_tensor(np.stack(S.step_tables), dtype=SW.F64,
+                                device=device)
+        return dataclasses.replace(
+            T, views={**T.views, **dict(zip(SC.STEP_TABLES, steps))})
     return A.tables_to_device(S, device)
 
 
 def device_tables(S, device) -> A.DeviceTables:
     """The packed table buffer of ``S`` on ``device``, built once per
-    (stack, device) and kept (``S`` hashes by identity)."""
+    (stack, device) and kept (``S`` hashes by identity).  For a
+    scenario stack: the wrapped stack's tables plus its step tables
+    (``scenario.STEP_TABLES``, each ``(n_traces, n_steps)``) on the same
+    device."""
     return _device_tables(S, str(torch.device(device)))
+
+
+def lane_eval(S) -> Callable:
+    """The plain evaluation ``(T, *coords) -> channels`` of decoded lanes
+    for the lowering ``S``, chosen once when an evaluator is built:
+    Eq. 1-11 (:func:`repro_torch.core.sweep.config_eval`), or for a
+    scenario stack every static field plus the session channels
+    (:func:`repro_torch.core.scenario.session_eval`)."""
+    if is_scenario(S):
+        from . import scenario as SC
+        return functools.partial(SC.session_eval, S)
+    return SW.config_eval
 
 
 # ---------------------------------------------------------------------------
@@ -237,22 +295,25 @@ def chunk_partials(spec: ChunkSpec, F, flat, ingrid, aux) -> dict:
     }
 
 
-def plain_dense(T: A.DeviceTables, shape, fields, axvals, flat) -> dict:
-    """Plain-PyTorch dense evaluation: decode + Eq. 1-11 at ``flat``."""
-    out = SW.config_eval(T, *decode_gather(shape, axvals, flat))
+def plain_dense(T: A.DeviceTables, shape, fields, axvals, flat,
+                evaluate=SW.config_eval) -> dict:
+    """Plain-PyTorch dense evaluation: decode + ``evaluate`` (Eq. 1-11,
+    or the session evaluation of :func:`lane_eval`) at ``flat``."""
+    out = evaluate(T, *decode_gather(shape, axvals, flat))
     return {f: out[f] for f in fields}
 
 
 def plain_chunk(spec: ChunkSpec, T: A.DeviceTables, axvals, aux,
-                start: int, base=None) -> dict:
-    """Plain-PyTorch chunk step: decode + Eq. 1-11 + :func:`
-    chunk_partials` over ``[base + start, base + start + spec.chunk)``
-    (``base``: an optional 0-d int64 tensor)."""
+                start: int, base=None, evaluate=SW.config_eval) -> dict:
+    """Plain-PyTorch chunk step: decode + ``evaluate`` (Eq. 1-11, or the
+    session evaluation of :func:`lane_eval`) + :func:`chunk_partials`
+    over ``[base + start, base + start + spec.chunk)`` (``base``: an
+    optional 0-d int64 tensor)."""
     flat = start + torch.arange(spec.chunk, dtype=torch.int64,
                                 device=T.device)
     if base is not None:
         flat = base + flat
-    out = SW.config_eval(T, *decode_gather(spec.shape, axvals, flat))
+    out = evaluate(T, *decode_gather(spec.shape, axvals, flat))
     F = torch.stack([out[f] for f in spec.fields])
     return chunk_partials(spec, F, flat, flat < spec.n_total, aux)
 
@@ -411,15 +472,15 @@ class TorchBackend(EvalBackend):
     name = "torch"
 
     def build_dense_eval(self, S, shape, fields, device):
-        T = device_tables(S, device)
+        T, ev = device_tables(S, device), lane_eval(S)
         shape, fields = tuple(shape), tuple(fields)
         return lambda axvals, flat: plain_dense(T, shape, fields, axvals,
-                                                flat)
+                                                flat, ev)
 
     def build_chunk_eval(self, spec: ChunkSpec, device):
-        T = device_tables(spec.S, device)
+        T, ev = device_tables(spec.S, device), lane_eval(spec.S)
         return lambda axvals, aux, start, base=None: plain_chunk(
-            spec, T, axvals, aux, start, base)
+            spec, T, axvals, aux, start, base, ev)
 
 
 register_backend(TorchBackend())
@@ -465,7 +526,9 @@ class ChunkStep:
     there is no eager fallback on the card.  The returned survivors are
     then the graph's own output buffers, overwritten by the next replay,
     so the caller copies them out (on the same stream) first.  On the
-    CPU the folds run as a Python loop and return fresh tensors.
+    CPU the folds run as a Python loop and return fresh tensors.  A
+    scenario stack's session loop (``n_steps`` evaluations of Eq. 1-11
+    a chunk) is captured in the same graph.
 
     A step holds state between :meth:`load` and its last dispatch, so
     one run uses it at a time (:attr:`busy`, set by the executor).
@@ -474,7 +537,8 @@ class ChunkStep:
     def __init__(self, spec: ChunkSpec, backend: str | None, device,
                  scan: int = 1):
         dev = torch.device(device)
-        be = get_backend(backend, dev)
+        be = get_backend(backend, dev, is_scenario(spec.S))
+        check_scenario_support(be, spec.S)
         self.spec, self.scan, self.device, self.backend = spec, scan, dev, be
         self._eval = be.build_chunk_eval(spec, dev)
         self.axvals = SW.axes_to_device(
@@ -581,8 +645,8 @@ def cached_step(spec: ChunkSpec, backend: str | None, scan_chunks: int,
     shared: the caller gets a fresh, uncached one.
     """
     dev = torch.device(device)
-    key = (spec, backend or default_backend(dev), int(scan_chunks),
-           str(dev))
+    key = (spec, backend or default_backend(dev, is_scenario(spec.S)),
+           int(scan_chunks), str(dev))
     with _STEP_CACHE_LOCK:
         fn = _STEP_CACHE.get(key)
         if fn is not None and not fn.busy:
@@ -615,13 +679,15 @@ def cached_dense_eval(backend: str | None, S, shape: tuple[int, ...],
     resolved backend name, stack identity, grid shape, fields and
     device)."""
     dev = torch.device(device)
-    return _cached_dense_eval(backend or default_backend(dev), S,
-                              tuple(shape), tuple(fields), str(dev))
+    return _cached_dense_eval(backend or default_backend(dev, is_scenario(S)),
+                              S, tuple(shape), tuple(fields), str(dev))
 
 
 @functools.lru_cache(maxsize=32)
 def _cached_dense_eval(backend: str, S, shape, fields, device: str):
-    return get_backend(backend).build_dense_eval(S, shape, fields, device)
+    be = get_backend(backend)
+    check_scenario_support(be, S)
+    return be.build_dense_eval(S, shape, fields, device)
 
 
 # ---------------------------------------------------------------------------
@@ -650,9 +716,11 @@ def stack_host_carries(carries: Sequence[dict]) -> dict:
 def _hash_update(h, obj) -> None:
     """Recursively fold ``obj`` into hash ``h`` content-wise: scalars and
     strings, arrays (dtype + shape + bytes), dataclasses
-    field by field (the model stack and its workload arrays), sequences
-    and mappings.  Type tags and delimiters keep the encoding
-    prefix-free."""
+    field by field (the model stack and its workload arrays; a scenario
+    stack's wrapped stack, trace set with its battery and thermal specs,
+    and step tables), sequences and mappings.  Type tags and delimiters
+    keep the encoding prefix-free.  The bytes are the reference's, so
+    equal jobs hash alike in both packages."""
     if obj is None or isinstance(obj, (bool, int, float, str,
                                        np.integer, np.floating)):
         h.update(f"<{type(obj).__name__}:{obj!r}>".encode())
@@ -694,6 +762,13 @@ def _hash_update(h, obj) -> None:
 _SIGNATURE_SPEC_FIELDS = ("shape", "n_total", "chunk", "fields", "d", "k",
                           "sign", "cons_static", "hist_bins")
 
+#: The reference's name of each backend's counterpart, which the job
+#: signature hashes: the plain path (``"torch"``; the reference's
+#: ``xla``) and the hand-written kernel (``"cuda"``; its ``pallas``).
+#: With it a job's signature is the reference's digest, so each package
+#: resumes the other's checkpoints of the same job.
+SIGNATURE_BACKEND = {"torch": "xla", "cuda": "pallas"}
+
 
 def job_signature(spec: ChunkSpec, backend: str, scan_chunks: int,
                   cons: Sequence[tuple[str, str, float]],
@@ -704,10 +779,12 @@ def job_signature(spec: ChunkSpec, backend: str, scan_chunks: int,
     chunk geometry and scan fusion, backend, histogram spec and carry
     format.  Two runs share it iff their checkpoints are
     interchangeable; the executor refuses to resume from a checkpoint
-    recorded under another."""
+    recorded under another.  The backend enters under its reference name
+    (:data:`SIGNATURE_BACKEND`), so the digest equals the reference's
+    ``job_signature`` of the same job."""
     h = hashlib.sha256()
     _hash_update(h, ("carry-format", CARRY_VERSION))
-    _hash_update(h, ("backend", backend))
+    _hash_update(h, ("backend", SIGNATURE_BACKEND.get(backend, backend)))
     _hash_update(h, ("scan", int(scan_chunks)))
     for name in _SIGNATURE_SPEC_FIELDS:
         _hash_update(h, (name, getattr(spec, name)))

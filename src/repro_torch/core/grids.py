@@ -19,6 +19,19 @@ returns over the 1,000,960-config grid, just under
 densely), as :func:`dense_summary` reads it: copied from a run of the
 JAX package on the CPU and re-derived by ``tests/test_torch_anchors.py``.
 
+``SCENARIO_REF_GRID`` and ``SCENARIO_BIG_GRID`` are the reference's
+scenario benchmark grids (``benchmarks/scenario_bench.py``: ``REF_GRID``,
+36 configs x 4 traces, and ``BIG_GRID``, 34 cuts x 2 sensor nodes x 2
+weight memories x 26 DetNet rates x 72 camera rates = 254,592 configs x
+4 traces = 1,018,368 (config x trace) pairs, 20 session steps each).
+``ANCHOR_SCENARIO_1M`` holds what the reference's ``stream_grid(
+scenarios="all", objectives=SCENARIO_OBJECTIVES, maximize=(
+"time_to_empty_s",), **SCENARIO_BIG_GRID)`` returns, as
+:func:`scenario_summary` reads it: copied from a run of the JAX package
+on the CPU (through the ``enable_x64`` shim of
+``tests/_jax_reference.py``: ``run("scenario", streams=...)``; 7.9 s
+there) and re-derived from it by ``tests/test_torch_scenario.py``.
+
 ``PRICING_ANCHOR`` holds the reference's pricing of the hand-tracking
 pipeline (``examples/handtracking_pipeline.py``): the average power of
 ``build_centralized("7nm")`` and ``build_distributed("7nm", "7nm")`` in
@@ -126,6 +139,59 @@ ANCHOR_1M = dict(
     front_size=784,
     front_hash="1502a2d7ecb0e12b83a79b633e259c91"
                "a568aea8affec2dcd86d4fd2cbae2cfc",
+)
+
+#: The reference scenario benchmark's grids (``REF_GRID``, ``BIG_GRID``)
+#: and objectives; every sweep of them runs ``scenarios="all"``.
+SCENARIO_REF_GRID = dict(
+    cuts=(0, 11, 20),
+    sensor_nodes=("7nm", "16nm"),
+    weight_mems=("sram", "mram"),
+    detnet_fps=(5.0, 15.0, 30.0),
+)
+SCENARIO_BIG_GRID = dict(
+    sensor_nodes=("7nm", "16nm"),
+    weight_mems=("sram", "mram"),
+    detnet_fps=tuple(np.linspace(5.0, 30.0, 26)),
+    camera_fps=tuple(np.linspace(20.0, 60.0, 72)),
+)
+SCENARIO_OBJECTIVES = ("time_to_empty_s", "peak_case_temp_c")
+
+
+def scenario_summary(res) -> dict:
+    """What ``ANCHOR_SCENARIO_1M`` freezes, from a ``StreamResult`` of
+    :data:`SCENARIO_OBJECTIVES` with ``time_to_empty_s`` maximized: the
+    size, the best (largest) time-to-empty and the smallest peak case
+    temperature with their flat indices and traces, the top-4 of each
+    objective, the finite counts and the front's flat indices."""
+    best = res.top_k("time_to_empty_s")[0]
+    cool = res.argmin("peak_case_temp_c")
+    return dict(
+        n_pairs=res.n_configs,
+        best_tte=float(res.topk_val[0][0]),
+        best_tte_idx=int(res.topk_idx[0][0]),
+        best_tte_trace=best["trace"],
+        min_peak=float(res.min_val["peak_case_temp_c"]),
+        min_peak_idx=int(res.min_idx["peak_case_temp_c"]),
+        min_peak_trace=cool["trace"],
+        topk_idx=tuple(tuple(int(i) for i in row) for row in res.topk_idx),
+        finite=int(res.finite_counts["time_to_empty_s"]),
+        front_idx=tuple(sorted(int(i) for i in res.front_indices)),
+    )
+
+
+ANCHOR_SCENARIO_1M = dict(
+    n_pairs=1_018_368,
+    best_tte=1130028.8246170545,
+    best_tte_idx=1_010_882,
+    best_tte_trace="workday",
+    min_peak=25.197729423587923,
+    min_peak_idx=1_010_882,
+    min_peak_trace="workday",
+    topk_idx=((1010882, 1010886, 1011170, 1010890),
+              (1010882, 1010886, 1011170, 1010890)),
+    finite=771_264,
+    front_idx=(1_010_882,),
 )
 
 PRICING_ANCHOR = dict(

@@ -54,10 +54,14 @@ from .workloads import NNWorkload
 #: can minimize (the paper's three headline objectives).
 OBJECTIVES = ("avg_power", "latency", "mipi_bytes_per_s")
 
-#: The reference's session channels (``scenarios=``), which arrive with
-#: the scenario-engine slice of the port.
+#: Session-level channels, available when ``scenarios=`` is passed (the
+#: battery/thermal session simulator of :mod:`repro_torch.core.scenario`).
+#: All are minimized except ``time_to_empty_s``, which is maximized.
 SESSION_OBJECTIVES = ("session_energy_j", "time_to_empty_s",
                       "peak_case_temp_c", "throttle_fraction")
+
+#: Objective channels where "optimal" means the *largest* value.
+_MAXIMIZED = ("time_to_empty_s",)
 
 #: Grid size above which ``optimal_partition`` routes the search through
 #: the streaming executor (`repro_torch.core.stream.stream_grid`) instead
@@ -73,10 +77,6 @@ _AXIS_TO_KWARG = {"agg_node": "agg_node", "sensor_node": "sensor_node",
                   "mipi_energy_scale": "mipi_energy_scale",
                   "camera_fps": "camera_fps"}
 
-#: Reference ``optimal_partition`` parameters this slice does not run
-#: yet, with the slice that brings each.
-_NOT_PORTED = {"scenarios": "the scenario-engine slice"}
-
 
 @dataclasses.dataclass(frozen=True)
 class PartitionPoint:
@@ -91,8 +91,9 @@ class PartitionPoint:
     sensor_macs_per_s: float
     latency: float
     report: SystemReport
-    #: Winning trace name and session channel dict of a scenario search
-    #: (the reference's ``scenarios=``; always None in this slice).
+    #: Winning trace name and session channel dict (the four
+    #: :data:`SESSION_OBJECTIVES` values) — populated only by scenario
+    #: searches (``optimal_partition(..., scenarios=...)``).
     trace: str | None = None
     session: dict | None = None
 
@@ -242,7 +243,8 @@ def optimal_partition(engine: str = "array",
     """Optimal partition point along one objective (Fig. 2 generalized).
 
     ``objective`` selects which channel is minimized over the cut axis —
-    one of :data:`OBJECTIVES`.  ``constraints`` restricts the search to
+    one of :data:`OBJECTIVES`, or with ``scenarios=`` one of
+    :data:`SESSION_OBJECTIVES`.  ``constraints`` restricts the search to
     feasible configurations (:func:`repro_torch.core.sweep.
     parse_constraints`); raises :class:`ValueError` when none is.
 
@@ -261,37 +263,48 @@ def optimal_partition(engine: str = "array",
     the scalar engine automatically.
 
     ``backend`` names the array engines' evaluation backend (``"torch"``,
-    ``"cuda"``, or ``None`` for ``device``'s default); ``device`` is where
-    they run (``"cuda"`` by default, which raises without a card; pass
-    ``"cpu"`` for the plain PyTorch path).
+    ``"cuda"``, or ``None`` for ``device``'s default, which is
+    ``"torch"`` for a scenario search); ``device`` is where they run
+    (``"cuda"`` by default, which raises without a card; pass ``"cpu"``
+    for the plain PyTorch path).
+
+    ``scenarios`` runs the search at *session* level: every
+    configuration is simulated through the given user-behavior traces (a
+    :class:`~repro_torch.core.scenario.ScenarioSet`, profile name(s), or
+    ``"all"``), the trace becomes one more search axis, and ``objective``
+    may then be any of :data:`SESSION_OBJECTIVES` (``time_to_empty_s``
+    is maximized, the rest minimized).  The returned point carries the
+    winning ``trace`` and a ``session`` dict of the four session
+    channels.  Constraints may mix static and session channels.
 
     ``checkpoint_dir`` (with optional ``checkpoint_every_s``) makes the
     streaming route fault-tolerant: searches above
     :data:`STREAM_THRESHOLD` configurations snapshot their running
     reductions there and resume bitwise after a crash (see
     :func:`repro_torch.core.stream.stream_grid`).  Dense and scalar
-    searches finish in one pass and ignore both.  ``scenarios=`` raises
-    ``NotImplementedError`` until the slice that brings it.
+    searches finish in one pass and ignore both.
     """
-    if scenarios is not None:
-        raise NotImplementedError(
-            f"optimal_partition(scenarios=...) is not ported yet; it "
-            f"arrives with {_NOT_PORTED['scenarios']} of the PyTorch port "
-            f"(see ROADMAP.md)")
-    if objective in SESSION_OBJECTIVES:
-        raise NotImplementedError(
-            f"objective {objective!r} is a session channel (scenarios=), "
-            f"which arrives with {_NOT_PORTED['scenarios']}")
-    if objective not in OBJECTIVES:
+    if objective not in OBJECTIVES + SESSION_OBJECTIVES:
         raise ValueError(f"unknown objective {objective!r}; "
-                         f"have {OBJECTIVES}")
+                         f"have {OBJECTIVES} plus the session channels "
+                         f"{SESSION_OBJECTIVES} (which require scenarios=)")
+    if objective in SESSION_OBJECTIVES and scenarios is None:
+        raise ValueError(
+            f"objective {objective!r} is a session channel; pass "
+            f"scenarios= (a ScenarioSet, profile name, or 'all' — see "
+            f"repro_torch.core.scenario)")
+    sset = None
+    if scenarios is not None:
+        from . import scenario as _scenario
+        sset = _scenario.as_scenario_set(scenarios)
     from . import backend as _backend
     from . import sweep as _sweep
     dev = _sweep.resolve_device(device)
     if backend is not None and engine == "scalar":
         raise ValueError("backend= applies to the array/streaming "
                          "engines; engine='scalar' evaluates none")
-    _backend.get_backend(backend, dev)   # fail fast, naming the backends
+    # fail fast, naming the backends
+    _backend.get_backend(backend, dev, sset is not None)
     known = set(_AXIS_TO_KWARG.values()) | {"detnet", "keynet", "cuts"}
     unknown_kw = sorted(set(kw) - known)
     if unknown_kw:
@@ -304,22 +317,31 @@ def optimal_partition(engine: str = "array",
     def constrained_best(res):
         if cons:
             res = res.constrain(cons)
+            # isnan (not isfinite): time_to_empty_s is legitimately +inf
+            # for configurations that drain nothing.
             if np.isnan(res.data[objective]).all():
                 raise ValueError(
                     "no configuration satisfies constraints ("
                     + ", ".join(f"{f} {op} {v:g}" for f, op, v in cons)
                     + ") — loosen the constraints or widen the knobs")
+        if objective in _MAXIMIZED:
+            neg = dataclasses.replace(
+                res, data={**dict(res.data),
+                           objective: -np.asarray(res.data[objective])})
+            win = neg.argmin(objective)
+            win[objective] = -win[objective]
+            return win
         return res.argmin(objective)
 
     cuts = kw.pop("cuts", None)
     if cuts is not None:
         cuts = tuple(cuts)        # may be a generator: materialize once
-    multi = cuts is not None or any(
+    multi = cuts is not None or sset is not None or any(
         _is_axis(v) for k, v in kw.items() if k not in ("detnet", "keynet"))
     if multi:
         if engine != "array":
-            raise ValueError("sequence-valued knobs (cuts= or sequence "
-                             "knobs) require engine='array'")
+            raise ValueError("sequence-valued knobs (cuts= or scenarios=) "
+                             "require engine='array'")
         axes = _sweep.scalar_axes(kw)
         for name in ("agg_nodes", "sensor_nodes"):
             bad = [n for n in axes[name] if _registry_name(n) is None]
@@ -344,6 +366,8 @@ def optimal_partition(engine: str = "array",
                      "detnet_fps", "keynet_fps", "num_cameras",
                      "mipi_energy_scale", "camera_fps"):
             n_configs *= len(axes[name])
+        if sset is not None:
+            n_configs *= len(sset.traces)
         if n_configs > STREAM_THRESHOLD:
             from . import stream as _stream
             ckpt_kw = {}
@@ -351,18 +375,44 @@ def optimal_partition(engine: str = "array",
                 ckpt_kw["checkpoint_dir"] = checkpoint_dir
                 if checkpoint_every_s is not None:
                     ckpt_kw["checkpoint_every_s"] = checkpoint_every_s
-            win = _stream.stream_grid(
-                cuts=cuts, objectives=(objective,), constraints=cons,
-                backend=backend, device=dev, **ckpt_kw,
-                **axes).argmin(objective)
+            maximize = ((objective,) if objective in _MAXIMIZED else ())
+            sres = _stream.stream_grid(
+                cuts=cuts, objectives=(objective,), maximize=maximize,
+                constraints=cons, backend=backend, scenarios=sset,
+                device=dev, **ckpt_kw, **axes)
+            # StreamResult.argmin minimizes the natural orientation;
+            # under maximize= the best point heads the top-k table.
+            win = (sres.top_k(objective)[0] if maximize
+                   else sres.argmin(objective))
         else:
             win = constrained_best(_sweep.evaluate_grid(
-                cuts=cuts, backend=backend, device=dev, **axes))
+                cuts=cuts, backend=backend, scenarios=sset, device=dev,
+                **axes))
         scalar_kw = {_AXIS_TO_KWARG[name]: win[name]
                      for name in _AXIS_TO_KWARG}
         scalar_kw["num_cameras"] = int(scalar_kw["num_cameras"])
-        return evaluate_cut(int(win["cut"]), detnet=kw.get("detnet"),
-                            keynet=kw.get("keynet"), **scalar_kw)
+        point = evaluate_cut(int(win["cut"]), detnet=kw.get("detnet"),
+                             keynet=kw.get("keynet"), **scalar_kw)
+        if sset is not None:
+            # Re-simulate the winning (config, trace) pair through the
+            # dense engine to attach all four session channels.
+            r1 = _sweep.evaluate_grid(
+                cuts=(int(win["cut"]),), scenarios=sset.only(win["trace"]),
+                detnet=kw.get("detnet"), keynet=kw.get("keynet"),
+                backend=backend, device=dev,
+                agg_nodes=(win["agg_node"],),
+                sensor_nodes=(win["sensor_node"],),
+                weight_mems=(win["weight_mem"],),
+                detnet_fps=(float(win["detnet_fps"]),),
+                keynet_fps=(float(win["keynet_fps"]),),
+                num_cameras=(float(win["num_cameras"]),),
+                mipi_energy_scale=(float(win["mipi_energy_scale"]),),
+                camera_fps=(float(win["camera_fps"]),))
+            session = {f: float(r1.data[f].ravel()[0])
+                       for f in _sweep.SCENARIO_FIELDS}
+            point = dataclasses.replace(point, trace=str(win["trace"]),
+                                        session=session)
+        return point
 
     agg = _registry_name(kw.get("agg_node", "7nm"))
     sen = _registry_name(kw.get("sensor_node", "7nm"))

@@ -39,13 +39,21 @@ host.  Argmin, top-k and front are exactly the dense-path results
   any checkpoint due is on disk.  :func:`result_to_json` and the delta
   codec are the results' wire format.
 
+* **Scenarios** — ``scenarios=`` appends a trailing ``trace`` axis and
+  drives every (config x trace) pair through the session simulator
+  (:mod:`repro_torch.core.scenario`) inside the same chunk contract; the
+  four session channels (``sweep.SCENARIO_FIELDS``) work as objectives,
+  constraints and tracked channels like the static fields.
+
 On a CUDA device the chunk step runs kernel A of
 :mod:`repro_torch.kernels.sweep_grid`, and the strided probe and the
-survivor-overflow fallback run kernel B.
+survivor-overflow fallback run kernel B.  A scenario sweep runs the
+plain ``"torch"`` backend on the same device (its chunk step, session
+loop included, still one captured CUDA graph): the kernels do not run
+the session loop, as the reference's Pallas kernel does not.
 
-Not in this slice (each raises ``NotImplementedError`` when passed):
-``devices=`` (several devices and the elastic replan) and
-``scenarios=``.
+Not in this slice (raises ``NotImplementedError`` when passed):
+``devices=`` (several devices and the elastic replan).
 """
 
 from __future__ import annotations
@@ -95,9 +103,7 @@ _RESTARTABLE: tuple = (TransientDeviceError,)
 
 #: Reference ``stream_grid`` parameters this port does not run yet.
 _NOT_PORTED = {"devices": "the multi-device slice (ROADMAP Queue 1 "
-                          "item 6)",
-               "scenarios": "the scenario-engine slice (ROADMAP Queue 1 "
-                            "item 7)"}
+                          "item 6)"}
 
 
 def _reject_not_ported(**kw) -> None:
@@ -153,6 +159,11 @@ class StreamResult:
     #: reduction is then exact over the contiguous flat-index prefix
     #: ``[range_start, range_start + fraction_complete * span)``.
     partial: bool = False
+    #: The evaluation backend the chunk step ran on (``"cuda"``, or
+    #: ``"torch"``: the CPU, or a scenario sweep on either device).  A
+    #: property of the run, not of the deliverables: the wire format
+    #: (:func:`result_to_json`) leaves it out, as the reference's does.
+    backend: Optional[str] = None
 
     @property
     def shape(self) -> tuple[int, ...]:
@@ -601,23 +612,26 @@ def plan_stream(cuts: Optional[Iterable[int]] = None,
         models, scenarios)
     full_shape = tuple(a.size for a in axis_vals)
     n_total = int(np.prod(full_shape))
+    kfields = SW.kernel_fields(S)
 
     objectives = tuple(objectives)
     maximize = tuple(maximize)
     if not objectives:
         raise ValueError("need at least one objective channel")
     if track == "all":
-        extra: tuple = SW.FIELDS
+        extra: tuple = kfields
     else:
         extra = tuple(track) if track is not None else ()
     cons = SW.parse_constraints(constraints)
     extra = extra + tuple(f for f, _, _ in cons)
     fields = objectives + tuple(dict.fromkeys(
         f for f in extra if f not in objectives))
-    unknown = [o for o in fields if o not in SW.FIELDS]
+    unknown = [o for o in fields if o not in kfields]
     if unknown:
+        hint = (" — session channels require scenarios="
+                if any(o in SW.SCENARIO_FIELDS for o in unknown) else "")
         raise ValueError(f"unknown objective channels {unknown}; this "
-                         f"sweep evaluates {SW.FIELDS}")
+                         f"sweep evaluates {kfields}{hint}")
     stray = [o for o in maximize if o not in objectives]
     if stray:
         raise ValueError(f"maximize entries {stray} not in objectives")
@@ -625,7 +639,9 @@ def plan_stream(cuts: Optional[Iterable[int]] = None,
     d = len(objectives)
     cons_static = tuple((fields.index(f), op) for f, op, _ in cons)
 
-    be = B.get_backend(backend, dev)     # fail fast on unknown backends
+    # fail fast on unknown backends; None -> the device's default, which
+    # for a scenario sweep is "torch" on that device
+    be = B.get_backend(backend, dev, B.is_scenario(S))
     k = max(1, min(int(top_k), n_total))
     # Clamp the chunk to the quantized grid size: a small grid must not
     # pay for a mostly-padded default chunk.
@@ -643,7 +659,9 @@ def plan_stream(cuts: Optional[Iterable[int]] = None,
     per_step = chunk * scan
     spec = B.ChunkSpec(
         S=S, shape=full_shape, n_total=n_total, chunk=chunk,
-        fields=fields, d=d, k=k, sign=tuple(float(s) for s in sign),
+        # np.float64 entries, as the reference's (the job signature
+        # hashes their type)
+        fields=fields, d=d, k=k, sign=tuple(sign),
         cons_static=cons_static, hist_bins=hist_bins,
         survivor_cap=min(_SURVIVOR_CAP, chunk),
         # the last dispatch decodes up to K chunks past its start
@@ -779,7 +797,17 @@ def stream_grid(cuts: Optional[Iterable[int]] = None,
     parse_constraints`) into the chunk step; ``hist_bins`` adds
     per-objective histograms (ranges from ``hist_ranges`` or the strided
     probe).  ``backend`` selects the chunk step's backend (``None``:
-    ``"cuda"`` kernels on a CUDA device, plain ``"torch"`` on the CPU).
+    ``"cuda"`` kernels on a CUDA device, plain ``"torch"`` on the CPU,
+    and ``"torch"`` on either for a scenario sweep; the result's
+    ``backend`` says which ran).
+
+    ``scenarios=`` (a :class:`repro_torch.core.scenario.ScenarioSet` or
+    profile name(s)) appends a trailing ``trace`` axis and drives every
+    (config x trace) pair through the session simulator inside the same
+    chunk contract; the four session channels (``sweep.SCENARIO_FIELDS``,
+    e.g. ``time_to_empty_s`` with ``maximize=("time_to_empty_s",)``,
+    and ``peak_case_temp_c``) then work as objectives, constraints and
+    tracked channels exactly like the static fields.
 
     ``scan_chunks`` folds that many consecutive chunks a dispatch
     (``None``: one a dispatch per 16 chunks of the grid, at most 8; on a
@@ -816,14 +844,14 @@ def stream_grid(cuts: Optional[Iterable[int]] = None,
     (:func:`_progress_snapshot`); both only after any checkpoint due at
     that step is durably on disk.
 
-    ``devices=`` and ``scenarios=`` raise ``NotImplementedError``.
+    ``devices=`` raises ``NotImplementedError``.
     """
-    _reject_not_ported(devices=devices, scenarios=scenarios)
+    _reject_not_ported(devices=devices)
     if plan is None:
         plan = plan_stream(
             cuts, agg_nodes, sensor_nodes, weight_mems, detnet_fps,
             keynet_fps, num_cameras, mipi_energy_scale, camera_fps,
-            detnet, keynet, model, models,
+            detnet, keynet, model, models, scenarios,
             chunk_size=chunk_size, top_k=top_k, objectives=objectives,
             maximize=maximize, track=track, constraints=constraints,
             hist_bins=hist_bins, hist_ranges=hist_ranges, backend=backend,
@@ -870,7 +898,7 @@ def stream_grid(cuts: Optional[Iterable[int]] = None,
     # card, one compiled eval_config).  The dense evaluator runs every
     # field, as the dense engine does.
     dense_eval = B.cached_dense_eval(plan.backend, plan.S, plan.shape,
-                                     SW.FIELDS, dev)
+                                     SW.kernel_fields(plan.S), dev)
     seed_signed, hist_edges, axis_valid = _probe(
         dense_eval, axvals, plan.shape, n_total, objectives, sign, cons,
         plan.hist_bins, plan.hist_ranges, dev)
@@ -1266,7 +1294,8 @@ def stream_grid(cuts: Optional[Iterable[int]] = None,
         axis_valid=OrderedDict(zip(axes, visible_axis_valid)),
         topk_val=topk_val, topk_idx=topk_idx,
         front_indices=front_idx, front_values=front_vals,
-        hist=hist_out, stats=stats, constraints=cons, partial=partial)
+        hist=hist_out, stats=stats, constraints=cons, partial=partial,
+        backend=plan.backend)
 
 
 # ---------------------------------------------------------------------------
@@ -1407,4 +1436,4 @@ def merge_results(parts: Sequence[StreamResult]) -> StreamResult:
         topk_val=topk_val, topk_idx=topk_idx,
         front_indices=front_idx, front_values=front_vals,
         hist=hist_out, stats=stats, constraints=first.constraints,
-        partial=False)
+        partial=False, backend=first.backend)

@@ -52,6 +52,10 @@ AXIS_NAMES = ("cut", "agg_node", "sensor_node", "weight_mem", "detnet_fps",
 #: Name of the optional leading axis over stacked workload batches.
 MODEL_AXIS = "model"
 
+#: Name of the optional trailing axis over scenario traces
+#: (``scenarios=``); its values are the trace names of the scenario set.
+SCENARIO_AXIS = "trace"
+
 #: Number of leading integer (table-index) axes in the kernel's axis
 #: tuple: model, cut, agg node, sensor node, weight memory.  The five
 #: after them are float64 knob values.
@@ -61,6 +65,21 @@ N_INDEX_AXES = 5
 FIELDS = ("avg_power", "camera", "utsv", "mipi", "sensor_compute",
           "sensor_memory", "agg_compute", "agg_memory", "mipi_bytes_per_s",
           "sensor_macs_per_s", "latency")
+
+#: Session channels emitted *in addition to* :data:`FIELDS` when a sweep
+#: runs with ``scenarios=`` (see :mod:`repro_torch.core.scenario`); they
+#: are objectives and constraints everywhere a static field is, and
+#: inherit validity (NaN on invalid corners) from ``avg_power``.
+SCENARIO_FIELDS = ("session_energy_j", "time_to_empty_s",
+                   "peak_case_temp_c", "throttle_fraction")
+
+
+def kernel_fields(S=None) -> tuple[str, ...]:
+    """Channels the evaluation of a (possibly scenario-wrapped) lowering
+    emits: :data:`FIELDS`, plus :data:`SCENARIO_FIELDS` for a
+    ``scenario.ScenarioStack`` (its ``fields`` attribute)."""
+    return getattr(S, "fields", FIELDS) if S is not None else FIELDS
+
 
 #: Comparison operators a constraint predicate may use.
 CONSTRAINT_OPS: Mapping[str, callable] = {
@@ -88,8 +107,10 @@ def parse_constraints(constraints) -> tuple[tuple[str, str, float], ...]:
 
     Accepted forms: a mapping ``{field: bound}`` (upper bounds), a
     mapping ``{field: (op, bound)}``, or an iterable of ``"field <=
-    bound"`` strings or ``(field, op, bound)`` tuples.  NaN channel
-    values (invalid configurations) never satisfy a predicate.
+    bound"`` strings or ``(field, op, bound)`` tuples.  Fields are
+    :data:`FIELDS`, or :data:`SCENARIO_FIELDS` on sweeps run with
+    ``scenarios=``.  NaN channel values (invalid configurations) never
+    satisfy a predicate.
     """
     if not constraints:
         return ()
@@ -119,9 +140,11 @@ def parse_constraints(constraints) -> tuple[tuple[str, str, float], ...]:
                 items.append((field, op, bound))
     out = []
     for field, op, bound in items:
-        if field not in FIELDS:
+        if field not in FIELDS + SCENARIO_FIELDS:
             raise ValueError(f"unknown constraint channel {field!r}; "
-                             f"kernel channels are {FIELDS}")
+                             f"kernel channels are {FIELDS} plus the "
+                             f"scenario channels {SCENARIO_FIELDS} "
+                             f"(which require scenarios=)")
         if op not in CONSTRAINT_OPS:
             raise ValueError(f"unknown constraint op {op!r}; "
                              f"have {tuple(CONSTRAINT_OPS)}")
@@ -523,11 +546,12 @@ def build_axes(cuts=None, agg_nodes=("7nm",), sensor_nodes=("7nm",),
     tables it indexes (cuts below ``n_cuts_max``, known nodes and weight
     memories), so no gather of the model — in the plain version or in
     the kernels — can leave its table.
+
+    ``scenarios`` (a ``scenario.ScenarioSet``, profile name(s) or
+    trace(s); see ``scenario.as_scenario_set``) wraps the lowering into a
+    ``scenario.ScenarioStack`` and appends a trailing ``trace`` axis
+    whose user-facing values are the trace names.
     """
-    if scenarios is not None:
-        raise NotImplementedError(
-            "scenarios= (the session engine) is not ported yet; it "
-            "arrives with the scenario-engine slice of the PyTorch port")
     if models is not None:
         if model is not None or detnet is not None or keynet is not None:
             raise ValueError("pass either models= or a single "
@@ -575,14 +599,29 @@ def build_axes(cuts=None, agg_nodes=("7nm",), sensor_nodes=("7nm",),
                                (S.model_names,) + labels))
     else:
         axes = OrderedDict(zip(AXIS_NAMES, labels))
+    if scenarios is not None:
+        # Wrap *after* node/cut validation, which ran against the raw
+        # stack; the wrapper delegates every lookup back to it.
+        from . import scenario as _scenario  # deferred: scenario imports us
+        sset = _scenario.as_scenario_set(scenarios)
+        S = _scenario.scenario_stack(S, sset)
+        axis_arrays.append(np.arange(len(sset.traces), dtype=np.int32))
+        axes[SCENARIO_AXIS] = sset.names
     return S, axis_arrays, axes
 
 
+#: Position of the trace axis in a scenario sweep's axis tuple (after
+#: the model axis, the four index axes and the five knob axes).
+_TRACE_POS = N_INDEX_AXES + 5
+
+
 def axes_to_device(axis_arrays, device) -> tuple:
-    """The axis arrays as device tensors: int64 for the index axes,
-    float64 for the knob axes (the dtypes the kernels take)."""
+    """The axis arrays as device tensors: int64 for the index axes (and
+    a scenario sweep's trailing trace axis), float64 for the knob axes
+    (the dtypes the evaluations take)."""
     return tuple(
-        torch.as_tensor(np.asarray(a, np.int64 if i < N_INDEX_AXES
+        torch.as_tensor(np.asarray(a, np.int64 if (i < N_INDEX_AXES
+                                                   or i == _TRACE_POS)
                                    else np.float64), device=device)
         for i, a in enumerate(axis_arrays))
 
@@ -609,9 +648,14 @@ def evaluate_grid(cuts: Optional[Iterable[int]] = None,
     (:mod:`repro_torch.core.backend`): flat indices are decoded to
     coordinates on the device.  ``backend=None`` picks ``"cuda"`` (the
     hand-written kernel) on a CUDA device and ``"torch"`` (the plain
-    version) on the CPU.  Returns a :class:`SweepResult` of host arrays
-    indexed ``[cut, agg, sensor, wmem, dfps, kfps, ncam, mipi_scale,
-    cam_fps]`` (with a leading ``model`` axis when ``models`` is given).
+    version) on the CPU; with ``scenarios=`` it picks ``"torch"`` on
+    ``device`` (:func:`repro_torch.core.backend.default_backend`).
+    Returns a :class:`SweepResult` of host arrays indexed ``[cut, agg,
+    sensor, wmem, dfps, kfps, ncam, mipi_scale, cam_fps]`` (with a
+    leading ``model`` axis when ``models`` is given, and a trailing
+    ``trace`` axis when ``scenarios`` is: each configuration is then
+    driven through every session trace and the four
+    :data:`SCENARIO_FIELDS` join the output).
     """
     from . import backend as _backend   # import cycle: backend uses sweep
 
@@ -623,7 +667,8 @@ def evaluate_grid(cuts: Optional[Iterable[int]] = None,
     shape = tuple(len(v) for v in axes.values())
     full_shape = tuple(a.size for a in axis_arrays)
     n = int(np.prod(full_shape))
-    evalfn = _backend.cached_dense_eval(backend, S, full_shape, FIELDS, dev)
+    evalfn = _backend.cached_dense_eval(backend, S, full_shape,
+                                        kernel_fields(S), dev)
     out = evalfn(axes_to_device(axis_arrays, dev),
                  torch.arange(n, dtype=torch.int64, device=dev))
     data = {k: v.cpu().numpy().reshape(shape) for k, v in out.items()}

@@ -3,7 +3,10 @@
 Importing this module (or ``backend.get_backend("cuda")``, which imports
 it lazily) registers :class:`CudaGridBackend`: the chunk step runs
 kernel A and dense evaluation (the dense engine, the stream probe and
-the survivor-overflow fallback) runs kernel B.
+the survivor-overflow fallback) runs kernel B.  Neither kernel runs the
+session loop of a scenario sweep, so the backend refuses scenario stacks
+(``supports_scenarios = False``, as the reference's Pallas backend does);
+``backend=None`` sends those to ``"torch"`` on the same device.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ class CudaGridBackend(B.EvalBackend):
     tensors on the CPU)."""
 
     name = "cuda"
+    supports_scenarios = False
 
     def build_chunk_eval(self, spec, device):
         T = B.device_tables(spec.S, device)

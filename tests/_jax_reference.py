@@ -339,12 +339,37 @@ def task_checkpoint(p):
                        "meta": mgr.metadata(step)}
                 for step in mgr.all_steps()}
 
-    res = stream.stream_grid(**p["grid"], **p["kw"],
+    from repro.core import scenario as SC
+    kw = dict(p["kw"])
+    if kw.get("scenarios") is not None:
+        kw["scenarios"] = scenario_set(SC, kw["scenarios"])
+    res = stream.stream_grid(**p["grid"], **kw,
                              checkpoint_dir=p["write"],
                              checkpoint_every_steps=1,
                              checkpoint_keep=10**6)
-    return {"written": read(p["write"]), "read": read(p["read"]),
-            "summary": _stream_summary(res)}
+    out = {"written": read(p["write"]), "read": read(p["read"]),
+           "summary": _stream_summary(res),
+           "signature": stream.plan_stream(**p["grid"], **{
+               k: v for k, v in kw.items() if k != "prefetch"}).signature}
+    if p.get("resume"):
+        # Resume in the reference from the port's checkpoints: the
+        # newest as they stand, and (a copy cut back to) an early step.
+        import shutil
+        import tempfile
+        resumed = {}
+        for tag, keep_upto in p["resume"].items():
+            with tempfile.TemporaryDirectory() as tmp:
+                root = pathlib.Path(tmp) / "c"
+                shutil.copytree(p["read"], root)
+                for d in root.iterdir():
+                    if d.name.startswith("step_") and keep_upto is not None \
+                            and int(d.name[5:]) > keep_upto:
+                        shutil.rmtree(d)
+                r = stream.stream_grid(**p["grid"], **kw,
+                                       checkpoint_dir=str(root))
+                resumed[tag] = dict(_stream_summary(r), stats=dict(r.stats))
+        out["resumed"] = resumed
+    return out
 
 
 def task_dense(p):
@@ -386,6 +411,96 @@ def task_anchor(p):
             "topk_idx": np.asarray(res.topk_idx),
             "finite": res.finite_counts["avg_power"],
             "front_idx": np.asarray(res.front_indices)}
+
+
+# ---------------------------------------------------------------------------
+# Scenario engine: scenario sets described in JSON, built on both sides
+# ---------------------------------------------------------------------------
+
+
+def scenario_set(SC, spec):
+    """A ``ScenarioSet`` of the module ``SC`` (the reference's
+    ``repro.core.scenario`` or the port's) from a JSON-able spec: a
+    profile name or list of names (``as_scenario_set``), or a dict with
+    ``traces`` (``[name, [[duration, det, key, cam, active], ...]]`` or a
+    profile name each) and optional ``battery`` / ``thermal`` field
+    overrides, ``steps_per_phase`` and ``throttle``; None for None."""
+    import dataclasses
+    if spec is None:
+        return None
+    if not isinstance(spec, dict):
+        return SC.as_scenario_set(spec if isinstance(spec, str)
+                                  else tuple(spec))
+    traces = []
+    for t in spec["traces"]:
+        if isinstance(t, str):
+            traces.append(SC.PROFILES[t])
+        else:
+            name, phases = t
+            traces.append(SC.ScenarioTrace(name, tuple(
+                SC.Phase(*map(float, ph)) for ph in phases)))
+    kw = {}
+    base = SC.ScenarioSet(traces=tuple(traces))
+    for key in ("battery", "thermal"):
+        if key in spec:
+            kw[key] = dataclasses.replace(getattr(base, key), **spec[key])
+    for key in ("steps_per_phase", "throttle"):
+        if key in spec:
+            kw[key] = spec[key]
+    return dataclasses.replace(base, **kw)
+
+
+def task_scenario(p):
+    """The reference's scenario engine on the given calls: ``dense``
+    (``evaluate_grid(scenarios=...)``: every channel, flat), ``streams``
+    (``stream_grid`` summaries), ``sims`` (``simulate_session``),
+    ``signatures`` (``plan_stream(...).signature``), ``optimal``
+    (``optimal_partition``, each at its ``STREAM_THRESHOLD``, None for
+    the default) and ``errors`` (the type and message of each failing
+    call)."""
+    from repro.core import partition, pareto, scenario as SC, stream, sweep
+    out = {"dense": {}, "streams": {}, "sims": {}, "signatures": {},
+           "optimal": {}, "errors": {}}
+    for name, (grid, spec, fronts) in p.get("dense", {}).items():
+        res = sweep.evaluate_grid(scenarios=scenario_set(SC, spec), **grid)
+        out["dense"][name] = {
+            "shape": res.shape, "trace": res.axes.get("trace"),
+            "data": {f: np.asarray(v).ravel() for f, v in res.data.items()},
+            "fronts": {fn: np.asarray(pareto.pareto_front(
+                res, objectives=tuple(o), maximize=tuple(m)).indices)
+                for fn, (o, m) in fronts.items()}}
+    for name, (grid, spec, kw) in p.get("streams", {}).items():
+        res = stream.stream_grid(scenarios=scenario_set(SC, spec), **grid,
+                                 **kw)
+        out["streams"][name] = dict(_stream_summary(res),
+                                    json=stream.result_to_json(res))
+    for name, (spec, kw) in p.get("sims", {}).items():
+        out["sims"][name] = SC.simulate_session(
+            scenarios=scenario_set(SC, spec), **kw)
+    for name, (grid, spec, kw) in p.get("signatures", {}).items():
+        out["signatures"][name] = stream.plan_stream(
+            scenarios=scenario_set(SC, spec), **grid, **kw).signature
+    default = partition.STREAM_THRESHOLD
+    for name, (spec, kw, threshold) in p.get("optimal", {}).items():
+        partition.STREAM_THRESHOLD = threshold or default
+        out["optimal"][name] = point_summary(partition.optimal_partition(
+            scenarios=scenario_set(SC, spec), **kw))
+    calls = {"evaluate_grid": sweep.evaluate_grid,
+             "stream_grid": stream.stream_grid,
+             "optimal_partition": partition.optimal_partition,
+             "parse_constraints": sweep.parse_constraints,
+             "as_scenario_set": SC.as_scenario_set,
+             "only": lambda name, spec: scenario_set(SC, spec).only(name)}
+    for name, (fn, args, kw) in p.get("errors", {}).items():
+        if "scenarios" in kw and kw["scenarios"] is not None:
+            kw = dict(kw, scenarios=scenario_set(SC, kw["scenarios"]))
+        try:
+            calls[fn](*args, **kw)
+        except (ValueError, KeyError, TypeError) as e:
+            out["errors"][name] = (type(e).__name__, str(e))
+        else:
+            out["errors"][name] = None
+    return out
 
 
 # ---------------------------------------------------------------------------

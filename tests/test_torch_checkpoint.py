@@ -5,7 +5,9 @@ every step of one stream), aborted and resumed runs (an injected
 exception, a SIGKILLed child, a kill inside a fused step, a resume from
 a finished run) bitwise equal to the uninterrupted run, a stale
 signature refused, the manager's atomic save, retention and debris
-sweep, and ``optimal_partition``'s checkpoint plumbing."""
+sweep, and ``optimal_partition``'s checkpoint plumbing.  A scenario
+stream's job signature is the reference's digest, and each package
+resumes the other's scenario checkpoints."""
 
 import json
 import os
@@ -22,7 +24,8 @@ from _jax_reference import assert_close, run
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core import backend as B
 from repro_torch.core import partition, stream
-from repro_torch.core.grids import REFERENCE_GRID
+from repro_torch.core.grids import (REFERENCE_GRID, SCENARIO_OBJECTIVES,
+                                    SCENARIO_REF_GRID)
 
 SRC = pathlib.Path(__file__).resolve().parent.parent / "src"
 KW = dict(chunk_size=997, scan_chunks=3, prefetch=2, track="all")
@@ -112,6 +115,14 @@ def test_same_state_at_every_step(dirs):
         assert ours[step][1]["next_flat"] == theirs[step][1]["next_flat"]
 
 
+def test_plain_signature_equals_reference(dirs):
+    """The job signature is the reference's digest for a plain stream
+    too (the backend enters under its reference name)."""
+    kw = {k: v for k, v in KW.items() if k != "prefetch"}
+    assert stream.plan_stream(**REFERENCE_GRID, **kw, device="cpu"
+                              ).signature == dirs["ref"]["signature"]
+
+
 def test_checkpointed_run_equals_plain_run(dirs, whole):
     assert deliverables(dirs["res"]) == deliverables(whole)
     assert dirs["res"].stats["checkpoints_written"] > 2
@@ -133,7 +144,8 @@ def test_injected_exception_then_resume(tmp_path, whole):
 _KILL = """
 import sys
 from repro_torch.core import stream
-from repro_torch.core.grids import REFERENCE_GRID
+from repro_torch.core.grids import (REFERENCE_GRID, SCENARIO_OBJECTIVES,
+                                    SCENARIO_REF_GRID)
 from repro_torch.runtime import FaultInjector, FaultPlan
 stream.stream_grid(**REFERENCE_GRID, chunk_size=997, scan_chunks=3,
                    prefetch=2, track="all", device="cpu",
@@ -185,6 +197,125 @@ def test_ranged_checkpoints_do_not_cross_ranges(tmp_path):
     _stream(checkpoint_dir=str(tmp_path), flat_range=(0, 997 * 6))
     with pytest.raises(ValueError, match="different sweep job"):
         _stream(checkpoint_dir=str(tmp_path), flat_range=(997 * 6, n))
+
+
+# ---------------------------------------------------------------------------
+# Scenario streams across the two packages
+# ---------------------------------------------------------------------------
+
+SKW = dict(scenarios="all", objectives=SCENARIO_OBJECTIVES,
+           maximize=("time_to_empty_s",), chunk_size=16, scan_chunks=1,
+           track="all")
+EARLY = 48          # the flat index an interrupted run stopped after
+
+
+def _scen(**kw):
+    return stream.stream_grid(**SCENARIO_REF_GRID, **SKW, **kw,
+                              device="cpu")
+
+
+@pytest.fixture(scope="module")
+def scen(tmp_path_factory):
+    """A scenario stream's checkpoints written by each package (every
+    dispatch, all kept), each resumed by the other: from its finished
+    state and from a copy cut back to flat index ``EARLY``."""
+    root = tmp_path_factory.mktemp("scen")
+    ours = str(root / "port")
+    res = _scen(checkpoint_dir=ours, checkpoint_every_steps=1,
+                checkpoint_keep=10**6)
+    ref = run("checkpoint", grid=SCENARIO_REF_GRID, kw=SKW,
+              write=str(root / "reference"), read=ours,
+              resume={"finished": None, "early": EARLY})
+    return {"port": ours, "reference": str(root / "reference"),
+            "ref": ref, "res": res, "whole": _scen()}
+
+
+def _cut_copy(src, dst, upto):
+    import shutil
+    shutil.copytree(src, dst)
+    for d in pathlib.Path(dst).iterdir():
+        if d.name.startswith("step_") and int(d.name[5:]) > upto:
+            shutil.rmtree(d)
+    return str(dst)
+
+
+def _same_summary(got: dict, want: dict, exact: bool):
+    """Two ``_stream_summary`` dicts: indices and counts equal, values
+    bitwise (``exact``) or within 1e-12."""
+    for key in ("min_idx", "finite"):
+        assert got[key] == want[key], key
+    for key in ("topk_idx", "front_idx"):
+        assert np.array_equal(got[key], want[key]), key
+    for key in ("topk_val", "front_val"):
+        if exact:
+            assert np.asarray(got[key]).tobytes() == \
+                np.asarray(want[key]).tobytes(), key
+        else:
+            assert_close(got[key], want[key], what=key)
+    for f in want["min_val"]:
+        if exact:
+            assert got["min_val"][f] == want["min_val"][f], f
+        else:
+            assert_close(got["min_val"][f], want["min_val"][f], what=f)
+
+
+def _summary(res) -> dict:
+    fr = res.pareto_front()
+    return {"min_idx": dict(res.min_idx), "min_val": dict(res.min_val),
+            "finite": dict(res.finite_counts), "topk_idx": res.topk_idx,
+            "topk_val": res.topk_val, "front_idx": fr.indices,
+            "front_val": fr.values}
+
+
+def test_scenario_signature_equals_reference(scen):
+    sig = stream.plan_stream(**SCENARIO_REF_GRID, **SKW,
+                             device="cpu").signature
+    assert sig == scen["ref"]["signature"]
+    for root in (scen["port"], scen["reference"]):
+        mgr = CheckpointManager(root, keep=10**6)
+        assert {mgr.metadata(s)["signature"]
+                for s in mgr.all_steps()} == {sig}
+
+
+def test_scenario_checkpoints_hold_the_same_state(scen):
+    ours, theirs = _items(scen["port"]), _items(scen["reference"])
+    assert sorted(ours) == sorted(theirs) and len(ours) == 9
+    for step in ours:
+        a, b = ours[step][0], theirs[step][0]
+        assert list(a) == list(b)
+        for path in a:
+            if a[path].dtype.kind == "f":
+                assert_close(a[path], b[path], what=f"{step} {path}")
+            else:
+                assert np.array_equal(a[path], b[path]), (step, path)
+
+
+def test_reference_resumes_the_port_scenario_checkpoints(scen):
+    """From the port's finished state the reference returns the port's
+    deliverables bitwise (nothing is evaluated again); from the port's
+    state at ``EARLY`` it finishes the stream itself, to the port's
+    indices and values within 1e-12."""
+    done = scen["ref"]["resumed"]["finished"]
+    assert done["stats"]["resumed_from_step"] == 144 // 16
+    _same_summary(done, _summary(scen["res"]), exact=True)
+    early = scen["ref"]["resumed"]["early"]
+    assert early["stats"]["resumed_from_step"] == EARLY // 16
+    _same_summary(early, _summary(scen["whole"]), exact=False)
+
+
+def test_port_resumes_the_reference_scenario_checkpoints(scen, tmp_path):
+    """The reverse: the reference's finished state gives the reference's
+    deliverables bitwise; its state at ``EARLY``, finished here, the
+    port's own stream's indices and values within 1e-12."""
+    done = _scen(checkpoint_dir=_cut_copy(scen["reference"],
+                                          tmp_path / "done", 10**9))
+    assert done.stats["resumed_from_step"] == 144 // 16
+    _same_summary(_summary(done), scen["ref"]["summary"], exact=True)
+    early = _scen(checkpoint_dir=_cut_copy(scen["reference"],
+                                           tmp_path / "early", EARLY))
+    assert early.stats["resumed_from_step"] == EARLY // 16
+    _same_summary(_summary(early), _summary(scen["whole"]), exact=False)
+    assert deliverables(scen["res"]) == deliverables(scen["whole"])
 
 
 def test_manager_save_retention_and_debris(tmp_path):

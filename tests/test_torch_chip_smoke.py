@@ -4,19 +4,27 @@ the checks of a trace-timed reading, kernel E's bound, the
 kernels-vs-plain comparison, the ptxas report's registers, stack frames
 and spills (kernels B, C and E), the float64 count a configuration read
 from kernel B's SASS instances, kernel B's dense bound, the bitwise
-comparison, and the filter work that kernel A's bound counts.
+comparison, and the filter work that kernel A's bound counts; the
+provenance of ``ANCHOR_SCENARIO_1M`` (the JAX package's 1,018,368-pair
+run gives it), the port's CPU run against the JAX package on a cut of
+that grid, and the scenario phase's checks and JSON line, run on the CPU.
 Everything here runs on the CPU; the script's timings and kernel
 launches run only on the card."""
 
+import json
 import pathlib
 import sys
 
 import pytest
 import torch
 
+from _jax_reference import run
+
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 import chip_smoke as CS  # noqa: E402
 
+from repro_torch.core import grids as G  # noqa: E402
+from repro_torch.core import stream as ST  # noqa: E402
 from repro_torch.kernels import flash_attention as E  # noqa: E402
 from repro_torch.kernels import rmsnorm as D  # noqa: E402
 from repro_torch.models import flash, layers  # noqa: E402
@@ -309,3 +317,78 @@ def test_stream_split_and_deliverables_read_a_stream_result():
     assert split["n_configs"] == 10880.0 and split["graph_replays"] == 0.0
     assert CS.deliverables(res) == CS.deliverables(stream.merge_results(
         [res]))
+
+
+# ---------------------------------------------------------------------------
+# The scenario phase and its anchor
+# ---------------------------------------------------------------------------
+
+SCEN_KW = dict(objectives=list(G.SCENARIO_OBJECTIVES),
+               maximize=["time_to_empty_s"])
+#: The anchor's grid cut to its first six camera rates: 84,864 pairs.
+SCEN_CUT = dict(G.SCENARIO_BIG_GRID,
+                camera_fps=G.SCENARIO_BIG_GRID["camera_fps"][:6])
+
+
+@pytest.fixture(scope="module")
+def scen_ref():
+    return run("scenario", streams={
+        "big": (G.SCENARIO_BIG_GRID, "all", SCEN_KW),
+        "cut": (SCEN_CUT, "all", SCEN_KW)})
+
+
+def _from_reference(summary) -> dict:
+    return G.scenario_summary(ST.result_from_json(summary["json"]))
+
+
+def test_scenario_anchor_is_the_reference_run(scen_ref):
+    """ANCHOR_SCENARIO_1M is what the JAX package's stream of the
+    1,018,368 pairs returns, value for value."""
+    assert _from_reference(scen_ref["streams"]["big"]) == \
+        G.ANCHOR_SCENARIO_1M
+
+
+def test_port_reproduces_the_reference_on_a_cut_of_the_anchor_grid(
+        scen_ref):
+    got = G.scenario_summary(ST.stream_grid(
+        scenarios="all", **SCEN_CUT, **SCEN_KW, device="cpu"))
+    want = _from_reference(scen_ref["streams"]["cut"])
+    assert got["n_pairs"] == want["n_pairs"] == 84_864
+    for key in ("best_tte", "min_peak"):
+        assert got[key] == pytest.approx(want[key], rel=1e-12, abs=0)
+    assert {k: v for k, v in got.items() if k not in ("best_tte",
+                                                      "min_peak")} == \
+        {k: v for k, v in want.items() if k not in ("best_tte",
+                                                    "min_peak")}
+
+
+def test_scenario_phase_checks_and_prints_its_line(scen_ref, monkeypatch,
+                                                   capsys):
+    """The phase on the CPU, the cut grid held to the reference's cut
+    anchor: every check passes and the scenario line has its keys."""
+    monkeypatch.setattr(CS, "device_busy", lambda fn: (fn(), {"k": 0.5})[1])
+    out = CS.phase_scenario(torch.device("cpu"), "cpu, not a card",
+                            big_grid=SCEN_CUT,
+                            anchor=_from_reference(scen_ref["streams"]["cut"]))
+    line = [ln for ln in capsys.readouterr().out.splitlines()
+            if ln.startswith('{"scenario"')]
+    assert len(line) == 1 and json.loads(line[0])["scenario"] == out
+    assert set(out) >= {"wall_s", "pairs_per_s", "evals_per_s", "n_steps",
+                        "scan_chunks", "graph_replays", "host_merge_s",
+                        "fallback_s", "device_busy_share", "backend",
+                        "max_rel_err", "card"}
+    assert out["backend"] == "torch" and out["n_steps"] == 20
+    # the busy share divides the profiled run's device time by that
+    # run's own wall time
+    assert out["device_busy_share"] == 0.5 / out["profiled_total_s"]
+    assert out["launches"] == dict.fromkeys("ABCDE", 0)
+    assert out["max_rel_err"] <= CS.RTOL
+
+
+def test_scenario_phase_fails_on_a_wrong_anchor(scen_ref, monkeypatch):
+    monkeypatch.setattr(CS, "device_busy", lambda fn: (fn(), {"k": 0.5})[1])
+    anchor = dict(_from_reference(scen_ref["streams"]["cut"]))
+    anchor["front_idx"] = anchor["front_idx"] + (0,)
+    with pytest.raises(CS.SmokeFailure, match="front_idx"):
+        CS.phase_scenario(torch.device("cpu"), "cpu", big_grid=SCEN_CUT,
+                          anchor=anchor)

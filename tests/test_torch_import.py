@@ -126,16 +126,25 @@ def test_kernel_wrappers_take_the_plain_version_on_cpu():
             sweep_grid.sweep_grid_chunk.launches) == before
 
 
-@pytest.mark.parametrize("kw", [dict(devices=("cuda:0",)),
-                                dict(devices=("cuda:0", "cuda:1")),
-                                dict(devices=()),
-                                dict(scenarios="default"),
-                                dict(scenarios=("default",))])
-def test_unported_stream_features_raise(kw):
-    """Of the reference's stream_grid parameters only devices= and
-    scenarios= are still to port."""
-    with pytest.raises(NotImplementedError):
+@pytest.mark.parametrize("kw, exc, match", [
+    pytest.param(dict(devices=("cuda:0",)), NotImplementedError,
+                 "devices", id="kw0"),
+    pytest.param(dict(devices=("cuda:0", "cuda:1")), NotImplementedError,
+                 "devices", id="kw1"),
+    pytest.param(dict(devices=()), NotImplementedError, "devices",
+                 id="kw2"),
+    pytest.param(dict(scenarios="default"), ValueError,
+                 "unknown scenario profile 'default'", id="kw3"),
+    pytest.param(dict(scenarios=("default",)), ValueError,
+                 "unknown scenario profile 'default'", id="kw4"),
+])
+def test_unported_stream_features_raise(kw, exc, match):
+    """Of the reference's stream_grid parameters only devices= is still to
+    port; scenarios= is ported and refuses an unknown profile with the
+    reference's ValueError."""
+    with pytest.raises(exc, match=match):
         stream.stream_grid(cuts=(0, 1), device="cpu", **kw)
+    assert set(stream._NOT_PORTED) == {"devices"}
 
 
 def test_lm_kernel_wrappers_take_the_plain_version_on_cpu():

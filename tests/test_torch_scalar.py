@@ -181,13 +181,17 @@ def test_scalar_axes_maps_kwargs():
 
 
 @pytest.mark.parametrize("kw, match", [
-    pytest.param(dict(scenarios="all"), "scenario-engine slice",
+    pytest.param(dict(scenarios="default"),
+                 "unknown scenario profile 'default'",
                  id="kw0-scenario-engine slice"),
-    pytest.param(dict(objective="time_to_empty_s"), "session channel",
+    pytest.param(dict(objective="time_to_empty_s"),
+                 "is a session channel; pass scenarios=",
                  id="kw3-session channel"),
 ])
 def test_unported_options_raise(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
+    """scenarios= is ported: an unknown profile and a session objective
+    without scenarios= raise the reference's ValueError."""
+    with pytest.raises(ValueError, match=match):
         partition.optimal_partition(device="cpu", **kw)
 
 
