@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py
 
+Every phase runs on card 0; on a machine with several cards phase 4d
+also streams across all of them.
+
 Phases, each of which ends the run with a non-zero exit on any failure:
 
 1. Build: compile every kernel library of the port
@@ -65,6 +68,28 @@ Phases, each of which ends the run with a non-zero exit on any failure:
    CPU's winner.  Prints the ``scenario`` line (wall, pairs/s, steps/s,
    replays, host merge and fallback seconds, device busy share, backend,
    largest relative error, card).
+4c. Optimize (the fifth path): the knob optimizer at the reference's own
+   search (``examples/partition_study.py``: weighted power + 10 x
+   latency over DetNet 5-30 fps and camera 20-60 fps at cut 18 on a 16nm
+   sensor).  ``gradient`` at the default knobs (float64 autograd) on the
+   card equals the CPU's and ``ANCHOR_OPTIMIZE`` (frozen from the JAX
+   reference) within 1e-12 relative; ``optimize_knobs`` (200 steps)
+   holds knobs, objective and trajectory to the anchor within 1e-6 (the
+   CPU tests' tolerance: float32 Adam state); ``grid_argmin`` over the
+   41 x 41 grid, counts read around exactly that call: one launch of
+   kernel B, none of A; knobs exact, value within 1e-12.  Prints the
+   ``optimize`` line (wall, steps/s, the host CPU's wall beside it).
+4d. Stream devices (the sixth path): ``stream_grid(devices=...)`` on the
+   10,009,600-config grid with ``backend="torch"``: one shard, and two
+   shards of one card (``("cuda:0", "cuda:0")``: one chunk step, graph
+   and stream each), bitwise equal deliverables, both on ``ANCHOR_10M``;
+   two shards losing shard 1 mid-run with checkpoints: one elastic
+   replan, chunks re-issued, bitwise the uninterrupted run;
+   ``backend="cuda"`` refuses two explicit devices; ``devices=None``
+   gives one shard on the default ``"cuda"`` backend and every visible
+   card on ``"torch"``; with several cards, every card as a shard,
+   bitwise the same.  No kernel of A-E runs in the sharded streams.
+   Prints the ``stream_devices`` line (each run's wall and split).
 5. Kernel C vs plain on the card: ``rbe_matmul_raw`` against its plain
    version at KeyNet's three int8 shapes (1, 4 and 256 ROIs), the
    reference test's shapes, ragged shapes, the tensor-core route's edges
@@ -121,8 +146,8 @@ Phases, each of which ends the run with a non-zero exit on any failure:
    the library call's time where there is one; A's, B's and C's launch
    plans and ptxas registers and spills, which must be none, and B's
    stack frames, which must be empty; B's row holds its probe reading
-   and, under ``dense``, its 1,000,960-config one; A's its graph replays
-   and K), ``stream`` (the default path's wall, dispatch, wait, merge
+   and, under ``dense``, its 1,000,960-config one, and its launches in
+   ``grid_argmin``; A's its graph replays and K), ``stream`` (the default path's wall, dispatch, wait, merge
    and busy share, the synchronous path's beside it, the plain
    backend's), ``stream_resilience``,
    ``rbe_shapes`` (each layer at 4 and 256 ROIs with its tile),
@@ -771,6 +796,27 @@ def prepared_plan(dev, **kw):
     return plan, time.perf_counter() - t0
 
 
+def check_anchor_10m(res, anchor, what: str) -> float:
+    """``res`` (a stream of the 10,009,600-config grid at the default
+    objectives) against ``ANCHOR_10M``; returns the best power."""
+    from repro_torch.core.grids import index_hash
+
+    check(res.n_configs == anchor["n_configs"], f"{what}: grid size")
+    check(res.min_idx["avg_power"] == anchor["argmin_idx"],
+          f"{what}: argmin index differs from the JAX reference")
+    best = res.min_val["avg_power"]
+    check(abs(best - anchor["best_avg_power"])
+          <= RTOL * anchor["best_avg_power"], f"{what}: best power differs")
+    check(np.array_equal(res.topk_idx, np.asarray(anchor["topk_idx"])),
+          f"{what}: top-k differs from the JAX reference")
+    check(res.finite_counts["avg_power"] == anchor["finite"],
+          f"{what}: valid count differs")
+    check(res.front_indices.size == anchor["front_size"]
+          and index_hash(res.front_indices) == anchor["front_hash"],
+          f"{what}: front differs from the JAX reference")
+    return best
+
+
 def phase_stream(grid_big, grid_10m, anchor, dev) -> tuple:
     """The 100M stream at its defaults (auto scan fusion: K chunk steps a
     captured CUDA graph; prefetch 2), counts read around exactly that
@@ -778,7 +824,6 @@ def phase_stream(grid_big, grid_10m, anchor, dev) -> tuple:
     (K = 1, prefetch 0), the plain backend at the defaults and the 10M
     JAX anchors: the same deliverables, bitwise where the kernels run."""
     from repro_torch.core import stream as ST
-    from repro_torch.core.grids import index_hash
 
     plan, capture_s = prepared_plan(dev, **grid_big)
     check(plan.scan == 8, f"auto scan fusion gave K = {plan.scan}, not 8")
@@ -819,19 +864,7 @@ def phase_stream(grid_big, grid_10m, anchor, dev) -> tuple:
           f"({'bitwise' if bitwise else 'within 1e-12'})")
 
     r10 = ST.stream_grid(**grid_10m, device=dev)
-    check(r10.n_configs == anchor["n_configs"], "anchor grid size")
-    check(r10.min_idx["avg_power"] == anchor["argmin_idx"],
-          "anchor: argmin index differs from the JAX reference")
-    best = r10.min_val["avg_power"]
-    check(abs(best - anchor["best_avg_power"])
-          <= RTOL * anchor["best_avg_power"], "anchor: best power differs")
-    check(np.array_equal(r10.topk_idx, np.asarray(anchor["topk_idx"])),
-          "anchor: top-k differs from the JAX reference")
-    check(r10.finite_counts["avg_power"] == anchor["finite"],
-          "anchor: valid count differs")
-    check(r10.front_indices.size == anchor["front_size"]
-          and index_hash(r10.front_indices) == anchor["front_hash"],
-          "anchor: front differs from the JAX reference")
+    best = check_anchor_10m(r10, anchor, "anchor")
     print(f"stream {r10.n_configs} configs matches the JAX anchors "
           f"(best {best!r} W, front {r10.front_indices.size}, K "
           f"{r10.stats['scan_chunks']:.0f})")
@@ -1145,6 +1178,186 @@ def phase_stream_resilience(dev) -> dict:
     return out
 
 
+def phase_optimize(dev, smi: str) -> dict:
+    """The knob optimizer on the card (the fifth path), at the reference's
+    own search (``examples/partition_study.py``: ``OPTIMIZE_SEARCH``).
+    ``gradient`` at the default knobs (float64 autograd through the
+    plain Eq. 1-11) equals the port's CPU result and ``ANCHOR_OPTIMIZE``
+    (frozen from the JAX reference) within 1e-12 relative;
+    ``optimize_knobs`` (200 projected-Adam steps) holds its knobs,
+    objective and trajectory to the anchor within the CPU tests' 1e-6
+    (float32 Adam state); ``grid_argmin`` over the 41 x 41 grid, counts
+    read around exactly that call (one launch of kernel B, none of A),
+    gives the anchor's knobs exactly and its value within 1e-12.  Prints
+    the ``optimize`` line (wall times, steps/s, card)."""
+    from repro_torch.core import optimize as O
+    from repro_torch.core.grids import ANCHOR_OPTIMIZE, OPTIMIZE_SEARCH
+
+    s, a = OPTIMIZE_SEARCH, ANCHOR_OPTIMIZE
+    errs = []
+    v_card, g_card = O.gradient(s["objective"], device=dev, **s["config"])
+    v_cpu, g_cpu = O.gradient(s["objective"], device="cpu", **s["config"])
+    for what, got, cpu, want in [("value", v_card, v_cpu,
+                                  a["gradient_value"])] + [
+            (k, g_card[k], g_cpu[k], a["gradient"][k]) for k in O.KNOBS]:
+        errs += [rel_err(got, cpu), rel_err(got, want)]
+        check(max(errs[-2:]) <= RTOL, f"optimize gradient {what}: card "
+              f"{got!r}, cpu {cpu!r}, JAX anchor {want!r}")
+
+    def search():
+        sync(dev)
+        t0 = time.perf_counter()
+        res = O.optimize_knobs(s["bounds"], s["objective"],
+                               steps=s["steps"], device=dev, **s["config"])
+        sync(dev)
+        return res, time.perf_counter() - t0
+
+    cold, cold_s = search()
+    res, wall = search()
+    traj_err = rel_err(res.trajectory, a["trajectory"])
+    check(traj_err <= 1e-6 and np.array_equal(cold.trajectory,
+                                              res.trajectory),
+          f"optimize_knobs trajectory: {traj_err:.3e} from the JAX anchor")
+    for k, v in res.knobs.items():
+        check(rel_err(v, a["knobs"][k]) <= 1e-6,
+              f"optimize_knobs {k}: {v!r} vs the anchor {a['knobs'][k]!r}")
+    check(rel_err(res.objective, a["objective"]) <= 1e-6,
+          "optimize_knobs objective differs from the anchor")
+    t0 = time.perf_counter()
+    O.optimize_knobs(s["bounds"], s["objective"], steps=s["steps"],
+                     device="cpu", **s["config"])
+    cpu_s = time.perf_counter() - t0
+
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    knobs, value = O.grid_argmin(s["bounds"], s["objective"], n=s["n"],
+                                 device=dev, **s["config"])
+    grid_s = time.perf_counter() - t0
+    launches = read_counts()
+    check(launches == dict(A=0, B=1, C=0, D=0, E=0),
+          f"grid_argmin: launches {launches}, expected one of B only")
+    check(knobs == a["grid_knobs"], f"grid_argmin knobs {knobs}")
+    errs.append(rel_err(value, a["grid_value"]))
+    check(errs[-1] <= RTOL, f"grid_argmin value {value!r}")
+    out = {"steps": s["steps"], "wall_s": wall, "cold_wall_s": cold_s,
+           "steps_per_s": s["steps"] / wall, "host_cpu_wall_s": cpu_s,
+           "knobs": res.knobs, "objective": res.objective,
+           "trajectory_max_rel_err": traj_err,
+           "grid_n": s["n"] ** len(s["bounds"]), "grid_argmin_wall_s": grid_s,
+           "grid_knobs": knobs, "grid_value": value, "launches": launches,
+           "max_rel_err": max(errs), "card": smi}
+    print(f"optimize: gradient card == cpu == JAX anchor, {s['steps']} "
+          f"steps in {wall:.3f} s ({s['steps'] / wall:.1f} steps/s), "
+          f"knobs {res.knobs}, grid_argmin one launch of B")
+    print(json.dumps({"optimize": out}))
+    return out
+
+
+def phase_stream_devices(dev, smi: str, grid=None, anchor=None,
+                         **kw) -> dict:
+    """``stream_grid(devices=...)`` on the card: the 10,009,600-config
+    grid with ``backend="torch"`` (the reference's ``xla`` counterpart;
+    the ``"cuda"`` kernels take one card, as its Pallas backend does), on
+    one shard and on two shards of one card (each its own step, graph
+    and stream), bitwise equal and both held to ``ANCHOR_10M``; two
+    shards losing shard 1 mid-run (checkpointed): one elastic replan,
+    chunks re-issued, bitwise the uninterrupted run; ``backend="cuda"``
+    with two explicit devices refused; ``devices=None`` one shard on the
+    default backend and every visible card on ``"torch"``.  With more
+    than one card, every card as a shard, bitwise the same.  No kernel
+    of A-E runs in the sharded streams.  Prints the ``stream_devices``
+    line.  ``grid`` and ``anchor`` (``check_anchor_10m``'s keys) replace
+    the 10M grid and ``ANCHOR_10M``, and ``kw`` (e.g. ``chunk_size``)
+    goes to every stream, for a rehearsal on the CPU."""
+    import shutil
+
+    import torch
+
+    from repro_torch.core import stream as ST
+    from repro_torch.core.grids import ANCHOR_10M, stream_grid_axes
+    from repro_torch.runtime import FaultInjector, FaultPlan
+
+    grid = stream_grid_axes(10_000_000) if grid is None else grid
+    anchor = ANCHOR_10M if anchor is None else anchor
+    dev = torch.device(dev)
+    on_card = dev.type == "cuda"
+    card0 = f"cuda:{dev.index or 0}" if on_card else str(dev)
+    root = ROOT / "build" / "stream_devices"
+    shutil.rmtree(root, ignore_errors=True)
+    out: dict = {"n_configs": None, "card": smi}
+
+    def timed_run(devices):
+        ST.stream_grid(**grid, **kw, backend="torch", devices=devices)
+        sync(dev)
+        reset_counts()
+        res = ST.stream_grid(**grid, **kw, backend="torch", devices=devices)
+        launches = read_counts()
+        check(not any(launches.values()),
+              f"stream_devices {devices}: kernels launched {launches}")
+        return res
+
+    one = timed_run((card0,))
+    two = timed_run((card0, card0))
+    want = deliverables(one)
+    check(deliverables(two) == want,
+          "stream_devices: two shards differ from one shard")
+    for res, what in ((one, "one shard"), (two, "two shards")):
+        check_anchor_10m(res, anchor, f"stream_devices {what}")
+    check(two.n_devices == 2 and one.n_devices == 1, "n_devices")
+    out.update(n_configs=one.n_configs,
+               one_shard=stream_split(one), two_shards=stream_split(two))
+
+    per_step = two.chunk_size * int(two.stats["scan_chunks"]) * 2
+    lose_at = int(two.stats["n_chunks"]) // 2 * per_step // two.chunk_size
+    inj = FaultInjector(FaultPlan(lose_device=(lose_at, 1)))
+    lost = ST.stream_grid(**grid, **kw, backend="torch",
+                          devices=(card0, card0),
+                          fault_injector=inj, checkpoint_dir=str(root),
+                          checkpoint_every_steps=4)
+    check(lost.stats["elastic_replans"] == 1.0
+          and lost.stats["chunks_reissued"] > 0
+          and lost.stats["restarts"] == 0.0,
+          f"stream_devices lost shard: {lost.stats}")
+    check(deliverables(lost) == want,
+          "stream_devices: the replanned run differs")
+    out["lost_shard"] = {k: lost.stats[k] for k in (
+        "elastic_replans", "chunks_reissued", "checkpoints_written",
+        "total_s")}
+    out["lost_shard"]["lost_at_chunk"] = lose_at
+    shutil.rmtree(root, ignore_errors=True)
+
+    try:
+        ST.stream_grid(**grid, **kw, backend="cuda", devices=(card0, card0))
+    except ValueError as e:
+        check("multi-device" in str(e), f"unexpected refusal: {e}")
+    else:
+        raise SmokeFailure("backend='cuda' took two explicit devices")
+    default = ST.stream_grid(**grid, **kw, device=dev)
+    check(default.n_devices == 1
+          and default.backend == ("cuda" if on_card else "torch"),
+          f"devices=None on the default backend: {default.n_devices} "
+          f"shards of {default.backend}")
+    check_anchor_10m(default, anchor, "stream_devices default")
+    cards = torch.cuda.device_count() if on_card else 1
+    auto = ST.stream_grid(**grid, **kw, backend="torch", device=dev.type)
+    check(auto.n_devices == cards,
+          f"devices=None on torch: {auto.n_devices} shards, {cards} cards")
+    check(deliverables(auto) == want, "stream_devices: every card differs")
+    out["cards"] = cards
+    if cards > 1:
+        every = timed_run(tuple(f"cuda:{i}" for i in range(cards)))
+        check(deliverables(every) == want,
+              "stream_devices: the shards over every card differ")
+        out["every_card"] = stream_split(every)
+    print(f"stream_devices {one.n_configs} configs: 1 shard "
+          f"{one.stats['total_s']:.3f} s, 2 shards on one card "
+          f"{two.stats['total_s']:.3f} s, bitwise equal and on the JAX "
+          f"anchors; lost shard replanned bitwise; {cards} card(s)")
+    print(json.dumps({"stream_devices": out}))
+    return out
+
+
 def kernel_report(res, launches, err, grid_big, dense, dev) -> list:
     """Time both kernels and their plain versions at the main path's
     shapes: kernel A on a full chunk of the 100M plan with the final
@@ -1240,7 +1453,7 @@ def kernel_report(res, launches, err, grid_big, dense, dev) -> list:
              ops_a),
             ("sweep_grid_eval", "eval_kernel",
              "src/repro_torch/kernels/sweep_grid/csrc/sweep_grid.cu",
-             "src/repro/kernels/sweep_grid/kernel.py:226", "B", bytes_b,
+             "src/repro/kernels/sweep_grid/kernel.py:227", "B", bytes_b,
              ops_b)):
         b_ms, b_by = bound(nbytes, ops)
         rows.append({"name": name, "route": "cuda", "source": src,
@@ -2360,11 +2573,14 @@ def run(dev, grid_big, smi: str, lm_cfg, lm_seq: int = LM_SEQ,
         grid_big, stream_grid_axes(10_000_000), ANCHOR_10M, dev)
     resilience = phase_stream_resilience(dev)
     phase_scenario(dev, smi)
+    opt = phase_optimize(dev, smi)
+    phase_stream_devices(dev, smi)
     err["C"] = phase_rbe(dev)
     ht_launches, ht = phase_pipeline(dev, smi)
     err["D"] = phase_rmsnorm(dev)
     err["E"] = phase_flash(dev)
     rows, host = kernel_report(res, launches, err, grid_big, dense, dev)
+    rows[1]["launches_grid_argmin"] = opt["launches"]["B"]
     row_c, shapes = rbe_report(ht_launches, err["C"], dev, smi)
     rows.append(row_c)
     rows_de, lm_shapes = lm_kernel_report(err, dev)
@@ -2441,7 +2657,9 @@ def main() -> int:
     smi = card()
     print(f"card: {smi}")
     build(all_libraries())
-    run(torch.device("cuda"), stream_grid_axes(100_000_000), smi,
+    # Card 0 by index: a bare "cuda" would spread the "torch" backend's
+    # streams over every visible card (stream_devices runs that case).
+    run(torch.device("cuda", 0), stream_grid_axes(100_000_000), smi,
         get_config(LM_ARCH))
     print(smi)
     print(json.dumps({"ok": True, "device": {

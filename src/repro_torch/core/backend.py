@@ -27,6 +27,11 @@ engine runs through the same **chunk-evaluation contract**::
   scan fusion), over state kept on the device at fixed addresses.  On a
   CUDA device the ``K`` folds are one captured CUDA graph, replayed once
   a dispatch; on the CPU they run as a loop.
+* :class:`ShardedStep` — several shards, one :class:`ChunkStep` each
+  (the counterpart of the reference's ``pmap``-sharded step: one carry a
+  device, merged on the host by :func:`merge_device_carries`).  A device
+  may repeat in the shard list; on a card every shard owns its step, its
+  graph (and graph pool) and its stream.
 * The carry's serialization contract: :data:`CARRY_VERSION`,
   :func:`merge_device_carries`, :func:`stack_host_carries` and the
   content hash :func:`job_signature` that keys checkpoints.
@@ -38,6 +43,7 @@ from __future__ import annotations
 
 import collections.abc
 import dataclasses
+import contextlib
 import functools
 import hashlib
 import importlib
@@ -63,13 +69,17 @@ class EvalBackend:
 
     Both builders take the device the evaluation runs on; the model
     tables are packed onto it once per build (:func:`device_tables`).
-    ``supports_scenarios`` gates scenario-wrapped lowerings
+    ``supports_multi_device`` gates the several-shard step
+    (:class:`ShardedStep`, the reference's ``supports_pmap``), and
+    ``supports_scenarios`` scenario-wrapped lowerings
     (``scenario.ScenarioStack``, the session evaluation): a backend that
     re-implements the evaluation in a kernel of its own, like the
-    ``"cuda"`` one, opts out until its kernel runs the sessions too.
+    ``"cuda"`` one, opts out of both, as the reference's Pallas backend
+    does.
     """
 
     name: str = "?"
+    supports_multi_device: bool = True
     supports_scenarios: bool = True
 
     def build_dense_eval(self, S, shape: tuple[int, ...],
@@ -532,14 +542,20 @@ class ChunkStep:
 
     A step holds state between :meth:`load` and its last dispatch, so
     one run uses it at a time (:attr:`busy`, set by the executor).
+
+    ``own_stream`` (a shard of :class:`ShardedStep`): on a CUDA device
+    the step replays on a stream of its own (:attr:`stream`) instead of
+    the current one, so shards on one card run side by side.
     """
 
     def __init__(self, spec: ChunkSpec, backend: str | None, device,
-                 scan: int = 1):
+                 scan: int = 1, own_stream: bool = False):
         dev = torch.device(device)
         be = get_backend(backend, dev, is_scenario(spec.S))
         check_scenario_support(be, spec.S)
         self.spec, self.scan, self.device, self.backend = spec, scan, dev, be
+        self.stream = (torch.cuda.Stream(dev)
+                       if own_stream and dev.type == "cuda" else None)
         self._eval = be.build_chunk_eval(spec, dev)
         self.axvals = SW.axes_to_device(
             [np.zeros(n) for n in spec.shape], dev)
@@ -562,7 +578,8 @@ class ChunkStep:
         self.busy = False
         self._out = None
         if dev.type == "cuda":
-            self._capture()
+            with torch.cuda.device(dev):
+                self._capture()
 
     def _fold(self):
         spec, carry, survs = self.spec, self.carry, []
@@ -579,9 +596,10 @@ class ChunkStep:
     def _capture(self) -> None:
         # Warm up on a side stream (first launches set kernel attributes
         # and library workspaces, which a capture must not do), then
-        # capture the folds.  "thread_local": this thread's unsafe calls
-        # (a synchronisation, a pageable copy) fail the capture, while
-        # the caller's other threads may go on using the card.
+        # capture the folds, on the same side stream of the step's device.
+        # "thread_local": this thread's unsafe calls (a synchronisation, a
+        # pageable copy) fail the capture, while the caller's other
+        # threads may go on using the card.
         cur = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(cur)
@@ -589,7 +607,8 @@ class ChunkStep:
             self._fold()
         cur.wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+        with torch.cuda.graph(self.graph, stream=side,
+                              capture_error_mode="thread_local"):
             self._out = self._fold()
         self.load(carry=init_carry(self.spec))
 
@@ -612,20 +631,114 @@ class ChunkStep:
             _copy_in(self.aux["hist_edges"], hist_edges)
 
     def __call__(self, start: int):
-        self.base.fill_(int(start))
-        if self.graph is None:
-            return self._fold()
-        self.graph.replay()
+        with (torch.cuda.stream(self.stream) if self.stream is not None
+              else contextlib.nullcontext()):
+            self.base.fill_(int(start))
+            if self.graph is None:
+                return self._fold()
+            self.graph.replay()
         self.replays += 1
         self.backend.graph_replayed(self.scan)
         return self._out
 
+    def carry_to_host(self) -> dict:
+        """Owning numpy copy of the running carry."""
+        return carry_to_host(self.carry)
+
+
+class ShardedStep:
+    """One dispatch over several shards: ``steps[d]`` folds the ``scan``
+    chunks from ``start + d * chunk * scan`` into its own carry.
+
+    The counterpart of the reference's ``pmap``-sharded step.  Each
+    shard is a :class:`ChunkStep` of its own (its state, and on a card
+    its captured graph, graph pool and stream), so a replay on one shard
+    never touches another's buffers.  :meth:`load` puts a (merged) host
+    carry on shard 0 and fresh carries on the rest; the merge is exact
+    and associative, so a snapshot restores onto any shard count.  On a
+    card the shards' streams first wait for their devices' current
+    streams (the loads), then replay, and the current streams wait for
+    them in turn (the survivors' copies, the carry reads).
+    """
+
+    def __init__(self, steps: Sequence[ChunkStep]):
+        self.steps = tuple(steps)
+        self.spec, self.scan = steps[0].spec, steps[0].scan
+
+    @property
+    def busy(self) -> bool:
+        return any(st.busy for st in self.steps)
+
+    @busy.setter
+    def busy(self, value: bool) -> None:
+        for st in self.steps:
+            st.busy = value
+
+    @property
+    def replays(self) -> int:
+        return sum(st.replays for st in self.steps)
+
+    def load(self, carry=None, **kw) -> None:
+        """:meth:`ChunkStep.load` on every shard; ``carry`` goes to
+        shard 0, a fresh :func:`init_carry` to the others."""
+        for d, st in enumerate(self.steps):
+            st.load(carry=(None if carry is None else
+                           carry if d == 0 else init_carry(self.spec)), **kw)
+
+    def __call__(self, start: int) -> list:
+        """Dispatch every shard; their survivors, in shard order."""
+        span = self.spec.chunk * self.scan
+        on_card = [st for st in self.steps if st.stream is not None]
+        for st in on_card:
+            st.stream.wait_stream(torch.cuda.current_stream(st.device))
+        out = [st(start + d * span) for d, st in enumerate(self.steps)]
+        for st in on_card:
+            torch.cuda.current_stream(st.device).wait_stream(st.stream)
+        return out
+
+    def carry_to_host(self) -> dict:
+        """The shards' carries merged on the host (the device-count-
+        independent form a checkpoint holds)."""
+        return merge_device_carries(stack_host_carries(
+            [st.carry_to_host() for st in self.steps]), self.spec.k)
+
+
+def _shard_steps(spec: ChunkSpec, backend: str | None, device,
+                 scan_chunks: int, devices, make):
+    """The step over ``devices`` (``None``: ``device`` alone), shard
+    ``shard = (position, count)`` built by ``make(spec, name,
+    scan_chunks, dev, shard)``: one shard is its :class:`ChunkStep`,
+    several a :class:`ShardedStep`.  A backend without multi-device
+    support refuses several devices."""
+    dev = torch.device(device)
+    name = backend or default_backend(dev, is_scenario(spec.S))
+    devs = [torch.device(dv) for dv in devices] if devices else [dev]
+    if len(devs) > 1 and not get_backend(name).supports_multi_device:
+        raise ValueError(f"backend {name!r} does not support the "
+                         f"multi-device path (one chunk step a shard); "
+                         f"pass devices= with a single device")
+    steps = [make(spec, name, scan_chunks, dv, (d, len(devs)))
+             for d, dv in enumerate(devs)]
+    return steps[0] if len(steps) == 1 else ShardedStep(steps)
+
+
+def _new_step(spec: ChunkSpec, name: str, scan_chunks: int,
+              dev: torch.device, shard: tuple) -> ChunkStep:
+    """A fresh :class:`ChunkStep` for shard ``shard = (position,
+    count)`` on ``dev`` (its own stream when ``count > 1``)."""
+    return ChunkStep(spec, name, dev, max(1, int(scan_chunks)),
+                     own_stream=shard[1] > 1)
+
 
 def build_step(spec: ChunkSpec, backend: str | None, device,
-               scan_chunks: int = 1) -> ChunkStep:
-    """The chunk step of one backend on one device, folding
-    ``scan_chunks`` consecutive chunks a dispatch (:class:`ChunkStep`)."""
-    return ChunkStep(spec, backend, device, max(1, int(scan_chunks)))
+               scan_chunks: int = 1, devices=None):
+    """The chunk step of one backend, folding ``scan_chunks``
+    consecutive chunks a dispatch: a :class:`ChunkStep` on ``device``,
+    or with several ``devices`` (an entry may repeat) a
+    :class:`ShardedStep` of one step a entry.  A backend without
+    multi-device support refuses several devices."""
+    return _shard_steps(spec, backend, device, scan_chunks, devices,
+                        _new_step)
 
 
 _STEP_CACHE: "OrderedDict[tuple, ChunkStep]" = OrderedDict()
@@ -635,18 +748,27 @@ _STEP_CACHE_LOCK = threading.Lock()
 
 
 def cached_step(spec: ChunkSpec, backend: str | None, scan_chunks: int,
-                device) -> ChunkStep:
+                device, devices=None):
     """LRU-cached :func:`build_step`: repeated sweeps of one spec reuse
     its step (and on the card its captured graph).
 
     Keyed like the reference's (``spec`` hashes its model stack by
-    identity, so callers that want reuse keep the plan object).  A
-    cached step that another run holds (:attr:`ChunkStep.busy`) is not
-    shared: the caller gets a fresh, uncached one.
+    identity, so callers that want reuse keep the plan object).  With
+    several ``devices`` each shard's :class:`ChunkStep` is cached under
+    its position in the list as well as its device, so shards on one
+    device never share a graph or its buffers.  A cached step that
+    another run holds (:attr:`ChunkStep.busy`) is not shared: the caller
+    gets a fresh, uncached one.
     """
-    dev = torch.device(device)
-    key = (spec, backend or default_backend(dev, is_scenario(spec.S)),
-           int(scan_chunks), str(dev))
+    return _shard_steps(spec, backend, device, scan_chunks, devices,
+                        _cached_chunk_step)
+
+
+def _cached_chunk_step(spec: ChunkSpec, name: str, scan_chunks: int,
+                       dev: torch.device, shard: tuple) -> ChunkStep:
+    """:func:`_new_step`, cached under the shard's position as well as
+    its device."""
+    key = (spec, name, int(scan_chunks), str(dev), shard)
     with _STEP_CACHE_LOCK:
         fn = _STEP_CACHE.get(key)
         if fn is not None and not fn.busy:
@@ -655,7 +777,7 @@ def cached_step(spec: ChunkSpec, backend: str | None, scan_chunks: int,
             fn.busy = True
             return fn
         _STEP_CACHE_STATS["misses"] += 1
-    fn = build_step(spec, backend, dev, scan_chunks)
+    fn = _new_step(spec, name, scan_chunks, dev, shard)
     fn.busy = True
     with _STEP_CACHE_LOCK:
         if key not in _STEP_CACHE:

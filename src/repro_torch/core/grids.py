@@ -32,6 +32,18 @@ on the CPU (through the ``enable_x64`` shim of
 ``tests/_jax_reference.py``: ``run("scenario", streams=...)``; 7.9 s
 there) and re-derived from it by ``tests/test_torch_scenario.py``.
 
+``OPTIMIZE_SEARCH`` is the reference's own knob search
+(``examples/partition_study.py::knob_search``): the weighted objective
+``{"avg_power": 1, "latency": 10}`` over ``detnet_fps`` 5-30 and
+``camera_fps`` 20-60 at cut 18 (every DetNet layer on the sensor, the
+16nm sensor node), 200 projected-Adam steps, and the 41 x 41 grid.
+``ANCHOR_OPTIMIZE`` holds what the reference's ``repro.core.optimize``
+returns there: ``gradient`` at the default knobs, ``optimize_knobs``'s
+knobs, objective and trajectory, and ``grid_argmin``; copied from a run
+of the JAX package on the CPU (``run("optimize", ...)`` of
+``tests/_jax_reference.py``) and re-derived from it by
+``tests/test_torch_anchors.py``.
+
 ``PRICING_ANCHOR`` holds the reference's pricing of the hand-tracking
 pipeline (``examples/handtracking_pipeline.py``): the average power of
 ``build_centralized("7nm")`` and ``build_distributed("7nm", "7nm")`` in
@@ -192,6 +204,37 @@ ANCHOR_SCENARIO_1M = dict(
               (1010882, 1010886, 1011170, 1010890)),
     finite=771_264,
     front_idx=(1_010_882,),
+)
+
+OPTIMIZE_SEARCH = dict(
+    objective={"avg_power": 1.0, "latency": 10.0},
+    bounds={"detnet_fps": (5.0, 30.0), "camera_fps": (20.0, 60.0)},
+    config=dict(cut=18, sensor_node="16nm"),
+    steps=200,
+    n=41,
+)
+
+#: The search reaches the box corner (DetNet at 5 fps, the camera at 60)
+#: at step 12 and stays there: the trajectory is its first 13 values,
+#: then the optimum to the end.
+_OPT_BEST = 0.13647645291292973
+ANCHOR_OPTIMIZE = dict(
+    gradient_value=0.19659150768587508,
+    gradient={"detnet_fps": 0.009443142326788745,
+              "keynet_fps": 2.5466362898777594e-05,
+              "mipi_energy_scale": 0.000110848,
+              "camera_fps": -0.0026841421785335547},
+    knobs={"detnet_fps": 5.0, "camera_fps": 60.0},
+    objective=_OPT_BEST,
+    trajectory=(0.2311813030435378, 0.21760580187408327,
+                0.2053096776210636, 0.19413436545583576,
+                0.18393996996970416, 0.17460267216059117,
+                0.16601247511207556, 0.1580712290052028,
+                0.15069090084118708, 0.14379207310000022,
+                0.13730261221259196, 0.13651243489134693)
+    + (_OPT_BEST,) * 189,
+    grid_knobs={"detnet_fps": 5.0, "camera_fps": 60.0},
+    grid_value=_OPT_BEST,
 )
 
 PRICING_ANCHOR = dict(

@@ -1,7 +1,7 @@
 """Streaming sweep executor: memory-bounded giant design spaces.
 
-The PyTorch counterpart of the reference ``repro.core.stream`` on one
-device.  The grid is never materialized: each chunk of flat indices is
+The PyTorch counterpart of the reference ``repro.core.stream``.  The
+grid is never materialized: each chunk of flat indices is
 decoded on the device, evaluated, masked by the compiled constraint
 predicates and the Pareto dominance pre-filter, and folded into a
 running device carry (:func:`repro_torch.core.backend.fold_chunk`):
@@ -44,6 +44,15 @@ host.  Argmin, top-k and front are exactly the dense-path results
   (:mod:`repro_torch.core.scenario`) inside the same chunk contract; the
   four session channels (``sweep.SCENARIO_FIELDS``) work as objectives,
   constraints and tracked channels like the static fields.
+* **Devices** — ``devices=`` shards each dispatch: shard ``d`` folds the
+  ``scan`` chunks from ``start + d * chunk * scan`` into a carry of its
+  own (:class:`repro_torch.core.backend.ShardedStep`, one chunk step a
+  entry, each on its own stream; an entry may repeat, so one card or the
+  CPU can hold several shards), and the carries merge on the host
+  (:func:`repro_torch.core.backend.merge_device_carries`).  A lost
+  shard is dropped (:func:`repro_torch.runtime.elastic.drop_worker`)
+  and the survivors re-issue the chunks past the last snapshot.  One
+  process drives every shard, as the reference's ``pmap`` does.
 
 On a CUDA device the chunk step runs kernel A of
 :mod:`repro_torch.kernels.sweep_grid`, and the strided probe and the
@@ -51,9 +60,6 @@ survivor-overflow fallback run kernel B.  A scenario sweep runs the
 plain ``"torch"`` backend on the same device (its chunk step, session
 loop included, still one captured CUDA graph): the kernels do not run
 the session loop, as the reference's Pallas kernel does not.
-
-Not in this slice (raises ``NotImplementedError`` when passed):
-``devices=`` (several devices and the elastic replan).
 """
 
 from __future__ import annotations
@@ -68,6 +74,7 @@ import numpy as np
 import torch
 
 from ..checkpoint import CheckpointManager
+from ..runtime.elastic import drop_worker
 from ..runtime.fault_injection import DeviceLostError, TransientDeviceError
 from ..runtime.fault_tolerance import RetryPolicy, StragglerDetector
 from . import arrays as A
@@ -100,20 +107,6 @@ DEFAULT_CHECKPOINT_EVERY_S = 30.0
 #: Failures that restart the pipeline from the last consistent snapshot
 #: (after the in-place retries of pre-dispatch faults are spent).
 _RESTARTABLE: tuple = (TransientDeviceError,)
-
-#: Reference ``stream_grid`` parameters this port does not run yet.
-_NOT_PORTED = {"devices": "the multi-device slice (ROADMAP Queue 1 "
-                          "item 6)"}
-
-
-def _reject_not_ported(**kw) -> None:
-    for name, value in kw.items():
-        if value is not None:
-            raise NotImplementedError(
-                f"stream_grid({name}=...) is not ported yet: the PyTorch "
-                f"port streams on one device; {name} arrives with "
-                f"{_NOT_PORTED[name]}")
-
 
 # ---------------------------------------------------------------------------
 # Result container
@@ -547,10 +540,12 @@ def _resume_into(mgr: CheckpointManager, signature: str, state: dict,
 @dataclasses.dataclass(frozen=True, eq=False)
 class StreamPlan:
     """Resolved execution plan of one streamed sweep: model stack, axes,
-    tracked fields, constraints, chunk and scan geometry, backend,
-    device, the :class:`~repro_torch.core.backend.ChunkSpec` and its
-    content ``signature``.  Re-running the same plan object is what
-    keeps its chunk step (and on the card its captured graph) cached."""
+    tracked fields, constraints, chunk and scan geometry, backend, the
+    shards' devices (``devices``; ``device`` is the first, where the
+    probe runs), the :class:`~repro_torch.core.backend.ChunkSpec` and
+    its content ``signature``.  Re-running the same plan object is what
+    keeps its chunk steps (and on the card their captured graphs)
+    cached."""
 
     S: object
     axis_vals: tuple
@@ -568,6 +563,7 @@ class StreamPlan:
     scan: int                       # chunks folded per dispatch
     backend: str
     device: torch.device
+    devices: tuple                  # one entry a shard
     hist_bins: int
     hist_ranges: Optional[Mapping]
     spec: B.ChunkSpec
@@ -604,8 +600,6 @@ def plan_stream(cuts: Optional[Iterable[int]] = None,
                 device="cuda") -> StreamPlan:
     """Resolve a :func:`stream_grid` job into a :class:`StreamPlan`
     without running anything (same argument semantics)."""
-    _reject_not_ported(devices=devices)
-    dev = SW.resolve_device(device)
     S, axis_vals, axes = SW.build_axes(
         cuts, agg_nodes, sensor_nodes, weight_mems, detnet_fps, keynet_fps,
         num_cameras, mipi_energy_scale, camera_fps, detnet, keynet, model,
@@ -641,22 +635,39 @@ def plan_stream(cuts: Optional[Iterable[int]] = None,
 
     # fail fast on unknown backends; None -> the device's default, which
     # for a scenario sweep is "torch" on that device
-    be = B.get_backend(backend, dev, B.is_scenario(S))
+    if devices is None:
+        # Every visible card for a "cuda" device, one shard otherwise;
+        # an automatic list shrinks to one for a backend without
+        # multi-device support (an explicit one raises when its step is
+        # built).
+        dev = SW.resolve_device(device)
+        be = B.get_backend(backend, dev, B.is_scenario(S))
+        n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+        if dev.index is None and n_cards > 1 and be.supports_multi_device:
+            dev_list = tuple(torch.device("cuda", i) for i in range(n_cards))
+        else:
+            dev_list = (dev,)
+    else:
+        dev_list = (tuple(SW.resolve_device(dv) for dv in devices)
+                    or (SW.resolve_device(device),))
+        be = B.get_backend(backend, dev_list[0], B.is_scenario(S))
+    n_dev = len(dev_list)
     k = max(1, min(int(top_k), n_total))
-    # Clamp the chunk to the quantized grid size: a small grid must not
-    # pay for a mostly-padded default chunk.
+    # Clamp the chunk to the quantized need of a shard: a small grid must
+    # not pay for a mostly-padded default chunk.
     chunk = max(1, int(chunk_size), k)
-    chunk = min(chunk, -(-n_total // _CHUNK_QUANTUM) * _CHUNK_QUANTUM)
+    per_dev = -(-n_total // n_dev)
+    chunk = min(chunk, -(-per_dev // _CHUNK_QUANTUM) * _CHUNK_QUANTUM)
     # Scan fusion: K consecutive chunks a dispatch.  Auto mode scales K
     # with the raw step count (the reference's rule); small grids keep
     # K = 1 and a fine-grained filter refresh.
-    raw_steps = -(-n_total // chunk)
+    raw_steps = -(-per_dev // chunk)
     if scan_chunks is None:
         scan = max(1, min(_SCAN_MAX, raw_steps // _SCAN_PER))
     else:
         scan = max(1, int(scan_chunks))
     scan = min(scan, raw_steps)
-    per_step = chunk * scan
+    per_step = chunk * scan * n_dev
     spec = B.ChunkSpec(
         S=S, shape=full_shape, n_total=n_total, chunk=chunk,
         # np.float64 entries, as the reference's (the job signature
@@ -673,7 +684,8 @@ def plan_stream(cuts: Optional[Iterable[int]] = None,
         S=S, axis_vals=tuple(axis_vals), axes=axes, shape=full_shape,
         n_total=n_total, objectives=objectives, maximize=maximize,
         fields=fields, cons=cons, sign=tuple(sign), d=d, k=k, chunk=chunk,
-        scan=scan, backend=be.name, device=dev, hist_bins=hist_bins,
+        scan=scan, backend=be.name, device=dev_list[0], devices=dev_list,
+        hist_bins=hist_bins,
         hist_ranges=hist_ranges, spec=spec, signature=signature)
 
 
@@ -685,19 +697,21 @@ def plan_stream(cuts: Optional[Iterable[int]] = None,
 class _Fetch:
     """Survivor fetches in flight, oldest first.
 
-    On a CUDA device :meth:`put` copies a dispatch's survivors
+    A dispatch's survivors come as one part a shard, each ``(flat,
+    values, count)`` with a leading ``scan`` axis; a fetch joins them in
+    shard order.  On a CUDA device :meth:`put` copies them
     asynchronously into one of ``slots`` pinned host buffers, on the
-    stream that ran the step (so behind it, and ahead of the next replay,
-    which overwrites the graph's output buffers), and records an event;
-    :meth:`get` waits on the oldest event only.  On the CPU the survivors
-    are host tensors already.  :attr:`in_use` counts, over every
-    instance, the fetches put and not yet taken: it is back at zero once
-    a stream ends, whether it finished or raised (:meth:`close`)."""
+    current stream of each part's device (which waited for the step, and
+    which the next replay waits for, as it overwrites the graph's output
+    buffers), and records an event there; :meth:`get` waits on the
+    oldest fetch's events only.  On the CPU the survivors are host
+    tensors already.  :attr:`in_use` counts, over every instance, the
+    fetches put and not yet taken: it is back at zero once a stream
+    ends, whether it finished or raised (:meth:`close`)."""
 
     in_use = 0
 
     def __init__(self, slots: int, device: torch.device):
-        self.device = device
         self.cuda = device.type == "cuda"
         self.free = list(range(slots))
         self.bufs: list = [None] * slots
@@ -706,40 +720,53 @@ class _Fetch:
     def __len__(self) -> int:
         return len(self.queue)
 
-    def put(self, tag, surv) -> None:
+    def put(self, tag, parts: list) -> None:
         if not self.cuda:
-            self.queue.append((tag, surv, None))
+            surv = (parts[0] if len(parts) == 1
+                    else tuple(torch.cat(c) for c in zip(*parts)))
+            self.queue.append((tag, surv, ()))
         else:
             i = self.free.pop()
             if self.bufs[i] is None:
                 self.bufs[i] = tuple(
-                    torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                    for t in surv)
-            for b, t in zip(self.bufs[i], surv):
-                b.copy_(t, non_blocking=True)
-            ev = torch.cuda.Event()
-            ev.record(torch.cuda.current_stream(self.device))
-            self.queue.append((tag, i, ev))
+                    torch.empty((len(parts) * t.shape[0], *t.shape[1:]),
+                                dtype=t.dtype, pin_memory=True)
+                    for t in parts[0])
+            streams = {}
+            for d, surv in enumerate(parts):
+                for b, t in zip(self.bufs[i], surv):
+                    n = t.shape[0]
+                    b[d * n:(d + 1) * n].copy_(t, non_blocking=True)
+                    streams.setdefault(t.device,
+                                       torch.cuda.current_stream(t.device))
+            events = []
+            for st in streams.values():
+                ev = torch.cuda.Event()
+                ev.record(st)
+                events.append(ev)
+            self.queue.append((tag, i, events))
         _Fetch.in_use += 1
 
     def get(self):
-        """``(tag, (flat, values, count))`` of the oldest fetch, as numpy
-        views valid until the next :meth:`put`."""
-        tag, item, ev = self.queue.popleft()
+        """``(tag, (flat, values, count))`` of the oldest fetch, the
+        shards' parts joined, as numpy views valid until the next
+        :meth:`put`."""
+        tag, item, events = self.queue.popleft()
         _Fetch.in_use -= 1
-        if ev is None:
+        if not self.cuda:
             return tag, tuple(t.numpy() for t in item)
-        ev.synchronize()
+        for ev in events:
+            ev.synchronize()
         self.free.append(item)
         return tag, tuple(b.numpy() for b in self.bufs[item])
 
     def close(self) -> None:
-        """Drop every fetch still in flight, after its copy has landed
+        """Drop every fetch still in flight, after its copies have landed
         (so no copy writes into a buffer that is gone)."""
         while self.queue:
-            _, _, ev = self.queue.popleft()
+            _, _, events = self.queue.popleft()
             _Fetch.in_use -= 1
-            if ev is not None:
+            for ev in events:
                 ev.synchronize()
 
 
@@ -828,11 +855,27 @@ def stream_grid(cuts: Optional[Iterable[int]] = None,
     as ``injector(chunk_ordinal, flat_start)`` before every dispatch
     (:mod:`repro_torch.runtime.fault_injection`).
 
-    ``plan`` reuses a :func:`plan_stream` result (the axis, objective
-    and backend arguments are then ignored).  ``flat_range=(start,
+    ``devices`` lists the shards, one device each (an entry may repeat:
+    ``("cpu",) * 4``, or ``("cuda:0",) * 2`` on one card): each dispatch
+    folds ``chunk * scan_chunks`` consecutive indices on every shard,
+    shard ``d`` from ``start + d * chunk * scan_chunks``, into a carry of
+    its own, merged exactly on the host.  ``None``: every visible card
+    for a ``"cuda"`` ``device`` with a backend that supports several
+    (``"torch"``; the ``"cuda"`` kernels take one card, and refuse an
+    explicit list of several), one shard otherwise.  The chunk and scan
+    derive from the grid a shard holds, as the reference's do, so the
+    deliverables equal the one-shard run's bitwise, and a checkpoint
+    resumes onto any shard count.  A :class:`DeviceLostError` with
+    several shards drops the lost one (``stats["elastic_replans"]``) and
+    re-issues the chunks past the last snapshot on the survivors; on the
+    last shard it restarts, as on one device.  ``n_devices`` reports
+    the shards the run started with.
+
+    ``plan`` reuses a :func:`plan_stream` result (the axis, objective,
+    backend and device arguments are then ignored).  ``flat_range=(start,
     stop)`` reduces only that slice of the flat-index space: ``stop``
     must land on a dispatch boundary (``(stop - start) % (chunk *
-    scan_chunks) == 0``) unless it is the grid's end, and
+    scan_chunks * n_devices) == 0``) unless it is the grid's end, and
     :func:`merge_results` folds the results of a tiling back into the
     whole grid's, bitwise.  ``should_stop`` is polled before every
     dispatch: when it returns truthy the executor folds what it has
@@ -843,10 +886,7 @@ def stream_grid(cuts: Optional[Iterable[int]] = None,
     ``snapshot_every_s`` seconds) with a JSON-able progress snapshot
     (:func:`_progress_snapshot`); both only after any checkpoint due at
     that step is durably on disk.
-
-    ``devices=`` raises ``NotImplementedError``.
     """
-    _reject_not_ported(devices=devices)
     if plan is None:
         plan = plan_stream(
             cuts, agg_nodes, sensor_nodes, weight_mems, detnet_fps,
@@ -854,15 +894,17 @@ def stream_grid(cuts: Optional[Iterable[int]] = None,
             detnet, keynet, model, models, scenarios,
             chunk_size=chunk_size, top_k=top_k, objectives=objectives,
             maximize=maximize, track=track, constraints=constraints,
-            hist_bins=hist_bins, hist_ranges=hist_ranges, backend=backend,
-            scan_chunks=scan_chunks, device=device)
+            hist_bins=hist_bins, hist_ranges=hist_ranges, devices=devices,
+            backend=backend, scan_chunks=scan_chunks, device=device)
     dev = plan.device
+    dev_list = list(plan.devices)
+    n_dev = len(dev_list)
     objectives, fields, cons = plan.objectives, plan.fields, plan.cons
     sign = np.asarray(plan.sign)
     d, k, chunk, scan = plan.d, plan.k, plan.chunk, plan.scan
     n_total, spec = plan.n_total, plan.spec
     cap = spec.survivor_cap
-    per_step = chunk * scan
+    per_step = chunk * scan * n_dev
     if flat_range is None:
         start0, stop0 = 0, n_total
     else:
@@ -878,7 +920,7 @@ def stream_grid(cuts: Optional[Iterable[int]] = None,
             raise ValueError(
                 f"flat_range length {stop0 - start0} is not a multiple "
                 f"of the dispatch quantum {per_step} (chunk {chunk} x "
-                f"scan {scan} x 1 device(s)) and stop != n_total "
+                f"scan {scan} x {n_dev} device(s)) and stop != n_total "
                 f"({n_total}): pass chunk_size/scan_chunks explicitly "
                 f"and carve ranges on dispatch boundaries")
     span = stop0 - start0
@@ -958,16 +1000,21 @@ def stream_grid(cuts: Optional[Iterable[int]] = None,
 
     def drive():
         # One incarnation of the pipeline: load the snapshot into the
-        # step, run every remaining dispatch, then advance the snapshot
-        # to completion (or to the halt).  Raises on device loss or
-        # spent retries; the loop below decides whether to restart.
+        # step of the current shard list (the merged carry on shard 0),
+        # run every remaining dispatch, then advance the snapshot to
+        # completion (or to the halt).  Raises on device loss or spent
+        # retries; the loop below decides whether to replan or restart.
         nonlocal t_first, t_wait, t_host, t_dispatch, t_fallback
         nonlocal n_fallback, dispatched_flat, n_replays
         base = state["base"]
         if base >= stop0:           # resumed from a finished run
             return
+        n_shards = len(dev_list)
+        per_step = chunk * scan * n_shards
+        n_sub = n_shards * scan     # chunks folded a dispatch
         n_run = -(-(stop0 - base) // per_step)
-        step = B.cached_step(spec, plan.backend, scan, dev)
+        step = B.cached_step(spec, plan.backend, scan, dev_list[0],
+                             dev_list if n_shards > 1 else None)
         replays0 = step.replays
         fetch = _Fetch(max(1, prefetch), dev)
         try:
@@ -1043,12 +1090,14 @@ def stream_grid(cuts: Optional[Iterable[int]] = None,
 
             def process(start, surv, defer_snap):
                 # One dispatch's survivors, chunk by chunk in ascending
-                # order.  ``defer_snap``: a checkpoint is due at this
-                # step, and its snapshot waits until it is on disk.
+                # order (shard-major, scan-minor: shard d holds the scan
+                # chunks from start + d * scan * chunk).  ``defer_snap``:
+                # a checkpoint is due at this step, and its snapshot
+                # waits until it is on disk.
                 nonlocal buf_n, t_host, t_first, n_fallback, t_fallback
                 th = time.perf_counter()
                 flat_s, val_s, cnt_s = surv
-                for j in range(scan):
+                for j in range(n_sub):
                     dstart = start + chunk * j
                     vlen = min(chunk, n_total - dstart)
                     if vlen <= 0:
@@ -1099,7 +1148,7 @@ def stream_grid(cuts: Optional[Iterable[int]] = None,
                             backoff = min(backoff * 2.0,
                                           policy.backoff_max_s)
                 td = time.perf_counter()
-                surv = step(start)
+                out = step(start)
                 t_dispatch += time.perf_counter() - td
                 dur = time.perf_counter() - tstep
                 if detector.record(dur):
@@ -1107,7 +1156,7 @@ def stream_grid(cuts: Optional[Iterable[int]] = None,
                 if (policy.step_timeout_s is not None
                         and dur > policy.step_timeout_s):
                     counters["step_timeouts"] += 1.0
-                return surv
+                return out if isinstance(out, list) else [out]
 
             def ckpt_due(si):
                 # Snapshot cadence, decided at dispatch; the last step
@@ -1152,7 +1201,7 @@ def stream_grid(cuts: Optional[Iterable[int]] = None,
                     # Durability barrier: snapshot the carry right after
                     # step si, fold every survivor up to si, write the
                     # checkpoint, and only then dispatch further.
-                    carry_si = B.carry_to_host(step.carry)
+                    carry_si = step.carry_to_host()
                     while len(fetch):
                         consume()
                     merge()
@@ -1181,7 +1230,7 @@ def stream_grid(cuts: Optional[Iterable[int]] = None,
                     break
                 consume()
             merge(final=True)
-            state["carry"] = B.carry_to_host(step.carry)
+            state["carry"] = step.carry_to_host()
             state["front_vals"] = front_vals
             state["front_idx"] = front_idx
             # A halt finalizes at the dispatch high-water mark: every
@@ -1207,14 +1256,19 @@ def stream_grid(cuts: Optional[Iterable[int]] = None,
         try:
             drive()
             break
-        except DeviceLostError:
-            # One device: the last one "died" — restart it from the
-            # snapshot (the elastic replan needs several).
+        except DeviceLostError as e:
             counters["chunks_reissued"] += reissue_count()
-            if restarts_left <= 0:
+            if len(dev_list) > 1:
+                # Elastic replan: drop the lost shard and re-issue the
+                # chunks past the snapshot on the survivors.
+                counters["elastic_replans"] += 1.0
+                dev_list = list(drop_worker(dev_list, e.device_index))
+            elif restarts_left > 0:
+                # The last shard "died": restart it from the snapshot.
+                restarts_left -= 1
+                counters["restarts"] += 1.0
+            else:
                 raise
-            restarts_left -= 1
-            counters["restarts"] += 1.0
         except _RESTARTABLE:
             # In-place retries spent: restart from the last snapshot.
             counters["chunks_reissued"] += reissue_count()
@@ -1282,7 +1336,7 @@ def stream_grid(cuts: Optional[Iterable[int]] = None,
                           else axis_valid)     # drop hidden model axis
     return StreamResult(
         axes=axes, objectives=objectives, maximize=plan.maximize,
-        chunk_size=chunk, n_devices=1,
+        chunk_size=chunk, n_devices=n_dev,
         min_val={f: float(carry["min_val"][i]) for i, f in enumerate(fields)},
         min_idx={f: int(carry["min_idx"][i]) for i, f in enumerate(fields)},
         finite_counts={f: int(carry["finite"][i])

@@ -356,6 +356,36 @@ def config_eval(T, model_i, cut, agg_i, sen_i, wm_i, det_fps, key_fps, ncam,
     }
 
 
+def config_kernel(model: A.ModelArrays | None = None, device="cuda"):
+    """The unbatched, differentiable Eq. 1-11 kernel for one model.
+
+    Returns ``f(cut, agg_i, sen_i, wm_i, detnet_fps, keynet_fps,
+    num_cameras, mipi_energy_scale, camera_fps) -> {field: 0-d float64
+    tensor}`` on ``device``.  The integer arguments index the model's
+    tables (``ModelArrays.node_index`` / ``arrays.WEIGHT_MEM_KINDS``);
+    every float argument (a Python float or a tensor) is differentiable:
+    :mod:`repro_torch.core.optimize` drives ``torch.autograd`` through
+    it for the continuous-knob search.  It is :func:`config_eval` over
+    one lane with the model coordinate pinned to 0.
+    """
+    M = model if model is not None else A.model_arrays()
+    dev = resolve_device(device)
+    T = A.tables_to_device(A.stack_model_arrays((M,)), dev)
+
+    def lane(v, dtype):
+        return torch.as_tensor(v, dtype=dtype, device=dev).reshape(1)
+
+    def f(cut, agg_i, sen_i, wm_i, detnet_fps, keynet_fps, num_cameras,
+          mipi_energy_scale, camera_fps) -> dict:
+        idx = [lane(i, torch.int64) for i in (0, cut, agg_i, sen_i, wm_i)]
+        knobs = [lane(v, F64) for v in (detnet_fps, keynet_fps, num_cameras,
+                                        mipi_energy_scale, camera_fps)]
+        return {k: v.reshape(()) for k, v in config_eval(T, *idx,
+                                                         *knobs).items()}
+
+    return f
+
+
 # ---------------------------------------------------------------------------
 # Flat-index coordinate decoding
 # ---------------------------------------------------------------------------

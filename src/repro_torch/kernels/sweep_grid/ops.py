@@ -6,7 +6,10 @@ kernel A and dense evaluation (the dense engine, the stream probe and
 the survivor-overflow fallback) runs kernel B.  Neither kernel runs the
 session loop of a scenario sweep, so the backend refuses scenario stacks
 (``supports_scenarios = False``, as the reference's Pallas backend does);
-``backend=None`` sends those to ``"torch"`` on the same device.
+``backend=None`` sends those to ``"torch"`` on the same device.  It
+refuses several shards too (``supports_multi_device = False``, the
+reference Pallas backend's ``supports_pmap = False``): an automatic
+device list shrinks to one card for it, an explicit one raises.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ class CudaGridBackend(B.EvalBackend):
     tensors on the CPU)."""
 
     name = "cuda"
+    supports_multi_device = False
     supports_scenarios = False
 
     def build_chunk_eval(self, spec, device):

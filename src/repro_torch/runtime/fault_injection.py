@@ -20,8 +20,9 @@ injects the failure classes the recovery machinery must survive:
   that the executor's straggler detector
   (:class:`repro_torch.runtime.fault_tolerance.StragglerDetector`) must flag.
 * **device loss** (``lose_device=``) — a :class:`DeviceLostError` naming
-  a device shard; on one device the executor restarts from its last
-  snapshot (the elastic replan across devices is not ported yet).
+  a device shard; exercises the elastic replan path
+  (:func:`repro_torch.runtime.elastic.drop_worker` shrink + snapshot
+  restore), and on one device a restart from the last snapshot.
 * **SIGKILL** (``kill_at=``) — the injector kills its own process with
   an uncatchable signal, simulating preemption of a subprocess worker;
   exercises checkpoint/resume end-to-end (the kill-resume parity tests

@@ -33,9 +33,15 @@ import numpy as np
 SRC = pathlib.Path(__file__).resolve().parent.parent / "src"
 
 
-def run(task: str, timeout: float = 600, **params) -> dict:
-    """Run one reference task in a child process; returns its result."""
+def run(task: str, timeout: float = 600, host_devices: int | None = None,
+        **params) -> dict:
+    """Run one reference task in a child process; returns its result.
+    ``host_devices`` gives the child's JAX that many CPU devices (the
+    reference's multi-device path), in the child's environment only."""
     env = dict(os.environ, JAX_PLATFORMS="cpu")
+    if host_devices is not None:
+        env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "") + f" --xla_force_host_"
+                            f"platform_device_count={host_devices}").strip()
     env["PYTHONPATH"] = os.pathsep.join(
         [str(SRC)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
                       if p])
@@ -329,7 +335,11 @@ def task_checkpoint(p):
     """The reference writes the checkpoints of a stream run into
     ``p["write"]`` (a snapshot every dispatch, all kept) and reads every
     step of ``p["read"]`` (written by the port): each step's
-    ``restore_items`` and metadata, and the run's summary."""
+    ``restore_items`` and metadata, and the run's summary.  With
+    ``n_devices`` the runs shard over that many of the child's devices
+    (``run(..., host_devices=...)``)."""
+    import jax
+
     from repro.checkpoint import CheckpointManager
     from repro.core import stream
 
@@ -341,6 +351,8 @@ def task_checkpoint(p):
 
     from repro.core import scenario as SC
     kw = dict(p["kw"])
+    if p.get("n_devices"):
+        kw["devices"] = jax.devices()[:p["n_devices"]]
     if kw.get("scenarios") is not None:
         kw["scenarios"] = scenario_set(SC, kw["scenarios"])
     res = stream.stream_grid(**p["grid"], **kw,
@@ -369,6 +381,134 @@ def task_checkpoint(p):
                                        checkpoint_dir=str(root))
                 resumed[tag] = dict(_stream_summary(r), stats=dict(r.stats))
         out["resumed"] = resumed
+    return out
+
+
+def task_stream_devices(p):
+    """The reference's ``stream_grid`` sharded over the child's host
+    devices (``run(..., host_devices=4)``): each run of ``p["runs"]``
+    (``n_devices``: the first that many devices; ``lose_device``: an
+    injected device loss) with its summary, device count, chunk and
+    resilience counters; the dense path's deliverables over the same
+    grid; the geometry and signature of each plan of ``p["plans"]``
+    (``[name, device count, kw]``); and the ``flat_range`` quantum error
+    of a four-device run of ``p["quantum_kw"]``."""
+    import jax
+
+    from repro.core import pareto, stream, sweep
+    from repro.runtime import FaultInjector, FaultPlan
+    grid = p["grid"]
+    dense = sweep.evaluate_grid(**grid)
+    front = pareto.pareto_front(dense)
+    out = {"n_host_devices": len(jax.devices()), "runs": {}, "plans": {},
+           "dense": {"argmin": {f: dense.argmin(f) for f in sweep.FIELDS},
+                     "top_k": {f: dense.top_k(f, 4) for f in sweep.FIELDS},
+                     "finite": {f: int(np.isfinite(dense.data[f]).sum())
+                                for f in sweep.FIELDS},
+                     "front_idx": np.asarray(front.indices),
+                     "front_val": np.asarray(front.values)}}
+    for name, run_p in p["runs"].items():
+        kw = dict(run_p["kw"])
+        kw["devices"] = jax.devices()[:run_p["n_devices"]]
+        inj = None
+        if run_p.get("lose_device") is not None:
+            inj = FaultInjector(FaultPlan(
+                lose_device=tuple(run_p["lose_device"])))
+        res = stream.stream_grid(**grid, **kw, fault_injector=inj)
+        out["runs"][name] = dict(
+            _stream_summary(res), n_devices=res.n_devices,
+            chunk_size=res.chunk_size, stats=dict(res.stats),
+            device_lost=inj.injected["device_lost"] if inj else 0)
+    for name, n_dev, kw in p["plans"]:
+        plan = stream.plan_stream(**grid, **kw,
+                                  devices=jax.devices()[:n_dev])
+        out["plans"][name] = dict(chunk=plan.chunk, scan=plan.scan,
+                                  small_index=plan.spec.small_index,
+                                  signature=plan.signature)
+    try:
+        stream.stream_grid(**grid, **p["quantum_kw"], flat_range=(0, 1000),
+                           devices=jax.devices()[:4])
+        out["quantum_error"] = None
+    except ValueError as e:
+        out["quantum_error"] = str(e)
+    return out
+
+
+def task_optimize(p):
+    """The reference's knob optimizer: ``gradient`` at each point of
+    ``p["points"]`` (objective, knobs, config), ``evaluate_fields`` at
+    each, ``optimize_knobs`` and ``grid_argmin`` for each search, and the
+    messages of the refusals in ``p["errors"]``."""
+    from repro.core import optimize
+    out = {"points": [], "searches": {}, "grids": {}, "errors": {}}
+    for obj, knobs, cfg in p["points"]:
+        v, g = optimize.gradient(obj, knobs, **cfg)
+        out["points"].append({"value": v, "grad": g,
+                              "fields": optimize.evaluate_fields(knobs,
+                                                                 **cfg)})
+    for name, (bounds, obj, kw) in p["searches"].items():
+        bounds = {k: tuple(b) for k, b in bounds.items()}
+        res = optimize.optimize_knobs(bounds, obj, **kw)
+        out["searches"][name] = {
+            "knobs": res.knobs, "objective": res.objective,
+            "weights": res.weights, "fields": res.fields,
+            "trajectory": np.asarray(res.trajectory), "steps": res.steps}
+    for name, (bounds, obj, kw) in p["grids"].items():
+        bounds = {k: tuple(b) for k, b in bounds.items()}
+        out["grids"][name] = optimize.grid_argmin(bounds, obj, **kw)
+    for name, (fn, args, kw) in p["errors"].items():
+        try:
+            getattr(optimize, fn)(*args, **kw)
+            out["errors"][name] = None
+        except ValueError as e:
+            out["errors"][name] = str(e)
+    return out
+
+
+def task_adamw(p):
+    """The reference's ``repro.optim.adamw``, eagerly, on numpy trees:
+    ``cosine_lr`` at each step of each config, ``clip_by_global_norm`` of
+    each tree, and ``n_steps`` of ``apply`` from ``init`` with the given
+    gradients; every result with its dtype.  Trees arrive as
+    ``{name: (values, dtype)}``."""
+    import jax.numpy as jnp
+    from jax.experimental import enable_x64
+
+    from repro.optim import adamw
+
+    def tree(t):
+        return {k: jnp.asarray(np.asarray(v), jnp.dtype(dt))
+                for k, (v, dt) in t.items()}
+
+    def host(t):
+        return {k: (np.asarray(v.astype(jnp.float32)
+                               if v.dtype == jnp.bfloat16 else v),
+                    str(v.dtype)) for k, v in t.items()}
+
+    out = {"lr": [], "clip": [], "apply": []}
+    with enable_x64():
+        for cfg_kw, steps in p["lr"]:
+            cfg = adamw.AdamWConfig(**cfg_kw)
+            vals = [adamw.cosine_lr(cfg, jnp.asarray(s, jnp.int32))
+                    for s in steps]
+            out["lr"].append((np.asarray([float(v) for v in vals]),
+                              str(vals[0].dtype)))
+        for t, max_norm in p["clip"]:
+            clipped, norm = adamw.clip_by_global_norm(tree(t), max_norm)
+            out["clip"].append((host(clipped), float(norm), str(norm.dtype)))
+        for cfg_kw, params, grads in p["apply"]:
+            cfg = adamw.AdamWConfig(**cfg_kw)
+            x = tree(params)
+            st = adamw.init(cfg, x)
+            hist = []
+            for g in grads:
+                x, st, m = adamw.apply(cfg, x, tree(g), st)
+                hist.append({"params": host(x), "mu": host(st.mu),
+                             "nu": host(st.nu), "step": int(st.step),
+                             "step_dtype": str(st.step.dtype),
+                             "lr": float(m["lr"]),
+                             "grad_norm": float(m["grad_norm"])})
+            out["apply"].append(hist)
     return out
 
 

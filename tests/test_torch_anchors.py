@@ -1,17 +1,19 @@
 """The parity anchors frozen in ``repro_torch.core.grids`` are what the
 JAX reference computes, recomputed here on the CPU: its ``stream_grid``
 over the 10,009,600-config grid (default objectives, top-4), its dense
-``evaluate_grid`` over the 1,000,960-config grid (``ANCHOR_1M``), and its
-pricing of the hand-tracking pipeline (``PRICING_ANCHOR``).  The port's
-plain path on the CPU is held to ``ANCHOR_1M`` too (the card is, in
-``chip_smoke.py``)."""
+``evaluate_grid`` over the 1,000,960-config grid (``ANCHOR_1M``), its
+pricing of the hand-tracking pipeline (``PRICING_ANCHOR``) and its knob
+optimizer on ``examples/partition_study.py``'s search
+(``ANCHOR_OPTIMIZE``).  The port's plain path on the CPU is held to
+``ANCHOR_1M`` too (the card is, in ``chip_smoke.py``)."""
 
 import numpy as np
 import pytest
 
 from _jax_reference import assert_close, run
 from repro_torch.core import pareto, sweep
-from repro_torch.core.grids import (ANCHOR_1M, ANCHOR_10M, PRICING_ANCHOR,
+from repro_torch.core.grids import (ANCHOR_1M, ANCHOR_10M, ANCHOR_OPTIMIZE,
+                                    OPTIMIZE_SEARCH, PRICING_ANCHOR,
                                     dense_summary, index_hash,
                                     stream_grid_axes, top_k_flat)
 
@@ -31,6 +33,27 @@ def test_anchor_10m_matches_reference():
 def test_pricing_anchor_matches_reference():
     ref = run("scalar", systems={})
     assert ref["pricing"] == PRICING_ANCHOR
+
+
+def test_anchor_optimize_is_what_jax_computes():
+    s = OPTIMIZE_SEARCH
+    bounds = {k: list(b) for k, b in s["bounds"].items()}
+    ref = run("optimize",
+              points=[[s["objective"], None, s["config"]]],
+              searches={"s": [bounds, s["objective"],
+                              dict(s["config"], steps=s["steps"])]},
+              grids={"g": [bounds, s["objective"],
+                           dict(s["config"], n=s["n"])]},
+              errors={})
+    a = ANCHOR_OPTIMIZE
+    point = ref["points"][0]
+    assert point["value"] == a["gradient_value"]
+    assert point["grad"] == a["gradient"]
+    search = ref["searches"]["s"]
+    assert search["knobs"] == a["knobs"]
+    assert search["objective"] == a["objective"]
+    assert search["trajectory"].tolist() == list(a["trajectory"])
+    assert ref["grids"]["g"] == (a["grid_knobs"], a["grid_value"])
 
 
 @pytest.fixture(scope="module")

@@ -392,3 +392,75 @@ def test_scenario_phase_fails_on_a_wrong_anchor(scen_ref, monkeypatch):
     with pytest.raises(CS.SmokeFailure, match="front_idx"):
         CS.phase_scenario(torch.device("cpu"), "cpu", big_grid=SCEN_CUT,
                           anchor=anchor)
+
+
+# ---------------------------------------------------------------------------
+# The optimize and stream_devices phases, run on the CPU
+# ---------------------------------------------------------------------------
+
+
+def test_optimize_phase_checks_and_prints_its_line(monkeypatch, capsys):
+    """On the CPU the kernel wrappers count nothing, so the launch read
+    around ``grid_argmin`` is stubbed to the card's one launch of B; every
+    other check (gradient, search and grid against ``ANCHOR_OPTIMIZE``)
+    runs as on the card."""
+    monkeypatch.setattr(CS, "read_counts",
+                        lambda: dict(A=0, B=1, C=0, D=0, E=0))
+    out = CS.phase_optimize(torch.device("cpu"), "cpu, not a card")
+    line = [ln for ln in capsys.readouterr().out.splitlines()
+            if ln.startswith('{"optimize"')]
+    assert len(line) == 1 and json.loads(line[0])["optimize"] == out
+    assert out["knobs"] == G.ANCHOR_OPTIMIZE["knobs"]
+    assert out["grid_n"] == 41 * 41 and out["steps"] == 200
+    assert out["steps_per_s"] == 200 / out["wall_s"]
+    assert out["max_rel_err"] <= CS.RTOL
+    assert out["trajectory_max_rel_err"] <= 1e-6
+
+
+@pytest.mark.parametrize("launches", [dict(A=1, B=1, C=0, D=0, E=0),
+                                      dict(A=0, B=2, C=0, D=0, E=0),
+                                      dict(A=0, B=0, C=0, D=0, E=0)],
+                         ids=["A", "two_B", "none"])
+def test_optimize_phase_fails_on_other_launches(monkeypatch, launches):
+    monkeypatch.setattr(CS, "read_counts", lambda: launches)
+    with pytest.raises(CS.SmokeFailure, match="grid_argmin: launches"):
+        CS.phase_optimize(torch.device("cpu"), "cpu")
+
+
+def test_optimize_phase_fails_on_a_wrong_anchor(monkeypatch):
+    monkeypatch.setattr(CS, "read_counts",
+                        lambda: dict(A=0, B=1, C=0, D=0, E=0))
+    bad = dict(G.ANCHOR_OPTIMIZE, gradient=dict(
+        G.ANCHOR_OPTIMIZE["gradient"], camera_fps=-0.0026841421785))
+    monkeypatch.setattr(G, "ANCHOR_OPTIMIZE", bad)
+    with pytest.raises(CS.SmokeFailure, match="gradient camera_fps"):
+        CS.phase_optimize(torch.device("cpu"), "cpu")
+
+
+def _anchor_of(res) -> dict:
+    """``check_anchor_10m``'s keys read off one stream result."""
+    return dict(n_configs=res.n_configs,
+                argmin_idx=res.min_idx["avg_power"],
+                best_avg_power=res.min_val["avg_power"],
+                topk_idx=tuple(tuple(int(i) for i in row)
+                               for row in res.topk_idx),
+                finite=res.finite_counts["avg_power"],
+                front_size=res.front_indices.size,
+                front_hash=G.index_hash(res.front_indices))
+
+
+def test_stream_devices_phase_on_the_cpu(capsys):
+    """The phase on CPU shards over the reference grid in chunks of 512
+    (eleven dispatches of two shards), held to the one-shard run's
+    reductions: two shards, a lost shard replanned, the refusal and the
+    automatic list."""
+    one = ST.stream_grid(**G.REFERENCE_GRID, chunk_size=512, device="cpu")
+    out = CS.phase_stream_devices(torch.device("cpu"), "cpu, not a card",
+                                  grid=G.REFERENCE_GRID,
+                                  anchor=_anchor_of(one), chunk_size=512)
+    line = [ln for ln in capsys.readouterr().out.splitlines()
+            if ln.startswith('{"stream_devices"')]
+    assert len(line) == 1 and json.loads(line[0])["stream_devices"] == out
+    assert out["lost_shard"]["elastic_replans"] == 1.0
+    assert out["lost_shard"]["lost_at_chunk"] > 0
+    assert out["cards"] == 1 and "every_card" not in out

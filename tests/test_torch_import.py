@@ -127,24 +127,26 @@ def test_kernel_wrappers_take_the_plain_version_on_cpu():
 
 
 @pytest.mark.parametrize("kw, exc, match", [
-    pytest.param(dict(devices=("cuda:0",)), NotImplementedError,
-                 "devices", id="kw0"),
-    pytest.param(dict(devices=("cuda:0", "cuda:1")), NotImplementedError,
-                 "devices", id="kw1"),
-    pytest.param(dict(devices=()), NotImplementedError, "devices",
-                 id="kw2"),
+    pytest.param(dict(devices=("cuda:0",)), RuntimeError,
+                 "CUDA is not available", id="kw0"),
+    pytest.param(dict(devices=("cuda:0", "cuda:1")), RuntimeError,
+                 "CUDA is not available", id="kw1"),
+    pytest.param(dict(devices=("cpu", "cpu"), backend="cuda"), ValueError,
+                 "does not support the multi-device path", id="kw2"),
     pytest.param(dict(scenarios="default"), ValueError,
                  "unknown scenario profile 'default'", id="kw3"),
     pytest.param(dict(scenarios=("default",)), ValueError,
                  "unknown scenario profile 'default'", id="kw4"),
 ])
 def test_unported_stream_features_raise(kw, exc, match):
-    """Of the reference's stream_grid parameters only devices= is still to
-    port; scenarios= is ported and refuses an unknown profile with the
-    reference's ValueError."""
+    """Every reference stream_grid parameter is ported; what the port
+    refuses, it refuses as the reference does: a device that is not
+    there, several shards on the ``"cuda"`` kernels (the reference's
+    Pallas backend refuses its pmap path), an unknown scenario
+    profile."""
     with pytest.raises(exc, match=match):
         stream.stream_grid(cuts=(0, 1), device="cpu", **kw)
-    assert set(stream._NOT_PORTED) == {"devices"}
+    assert not hasattr(stream, "_NOT_PORTED")
 
 
 def test_lm_kernel_wrappers_take_the_plain_version_on_cpu():
