@@ -90,6 +90,28 @@ Phases, each of which ends the run with a non-zero exit on any failure:
    card on ``"torch"``; with several cards, every card as a shard,
    bitwise the same.  No kernel of A-E runs in the sharded streams.
    Prints the ``stream_devices`` line (each run's wall and split).
+4e. Service (the seventh path): the serving stack at the reference
+   service benchmark's workload (``benchmarks/service_bench.py``): the
+   10,009,600-config grid with ``track="all"``.  (a) ``SweepService``
+   on card 0 serves it, counts read around the request: bitwise the solo
+   ``stream_grid`` (itself on ``ANCHOR_10M``) with the same launches of
+   A and B; a resubmit hits the plan and step caches (no new capture);
+   the request on two services at once and a fused batch of three,
+   bitwise; a deadline lapsing mid-run (one chunk a dispatch, a 1 s
+   straggle injected) returns the prefix, bitwise its ``flat_range``
+   run.  (b) 8 tenants from 8 threads, each ``_grid_for(10**5)`` at
+   a private KeyNet rate, each bitwise its solo run; ticket p50/p95.
+   (c) Pools of 1 and 2 worker processes (``WorkerPool``: one CUDA
+   context each), warmed on the reference grid, then the 10M request:
+   bitwise the solo run, configs/s, parts, reissued leases, the tenants
+   again; with 2, a worker SIGKILLed mid-lease: its lease reissued, the
+   fold bitwise.  (d) ``python -m repro_torch.service --listen`` as a
+   child behind an auth token, driven by ``SweepClient``: the 10M
+   request watched, bitwise; a wrong token refused at the handshake;
+   the server SIGKILLed mid-request (the 100M grid at chunk 65,536, a
+   checkpoint a dispatch) and restarted over the same spool and port:
+   the client reconnects and dedupes, the resumed result bitwise its
+   solo run.  Prints the ``service`` line.
 5. Kernel C vs plain on the card: ``rbe_matmul_raw`` against its plain
    version at KeyNet's three int8 shapes (1, 4 and 256 ROIs), the
    reference test's shapes, ragged shapes, the tensor-core route's edges
@@ -147,7 +169,8 @@ Phases, each of which ends the run with a non-zero exit on any failure:
    plans and ptxas registers and spills, which must be none, and B's
    stack frames, which must be empty; B's row holds its probe reading
    and, under ``dense``, its 1,000,960-config one, and its launches in
-   ``grid_argmin``; A's its graph replays and K), ``stream`` (the default path's wall, dispatch, wait, merge
+   ``grid_argmin``, and A's and B's their launches in the served request
+   (``launches_service``); A's its graph replays and K), ``stream`` (the default path's wall, dispatch, wait, merge
    and busy share, the synchronous path's beside it, the plain
    backend's), ``stream_resilience``,
    ``rbe_shapes`` (each layer at 4 and 256 ROIs with its tile),
@@ -1355,6 +1378,479 @@ def phase_stream_devices(dev, smi: str, grid=None, anchor=None,
           f"{two.stats['total_s']:.3f} s, bitwise equal and on the JAX "
           f"anchors; lost shard replanned bitwise; {cards} card(s)")
     print(json.dumps({"stream_devices": out}))
+    return out
+
+
+#: The service phase's workload: the reference service benchmark's own
+#: (``benchmarks/service_bench.py``): the 10,009,600-config grid with
+#: ``track="all"``, 8 tenants each streaming ``_grid_for(10**5)`` (97,920
+#: configs) at a private KeyNet rate, pools of 1 and 2 worker processes
+#: warmed on the 10,880-config reference grid first.
+SERVICE_TENANTS = 8
+SERVICE_WORKERS = (1, 2)
+#: The pools' lease heartbeat TTL: a SIGKILLed worker's lease is
+#: reissued this long after its last heartbeat.
+SERVICE_TTL_S = 3.0
+#: The request the networked phase SIGKILLs its server under: long
+#: enough (191 dispatches, each checkpointed) that the kill at its first
+#: progress snapshot (0.5 s in) lands mid-run.
+SERVICE_KILL_N = 100_000_000
+SERVICE_KILL_KW = dict(chunk_size=65536)
+
+
+def service_workload() -> dict:
+    """The service phase's grids: the big request's (with its anchor),
+    the tenants' base, the pools' warm-up grid, and the networked kill's
+    grid and arguments."""
+    from repro_torch.core.grids import (ANCHOR_10M, REFERENCE_GRID,
+                                        stream_grid_axes)
+
+    return {"grid": stream_grid_axes(10**7), "anchor": ANCHOR_10M,
+            "tenant_base": stream_grid_axes(10**5),
+            "warm_grid": REFERENCE_GRID,
+            "kill_grid": stream_grid_axes(SERVICE_KILL_N),
+            "kill_kw": SERVICE_KILL_KW}
+
+
+def tenant_grids(base: dict) -> list:
+    """The service benchmark's tenant jobs over ``base``: one private
+    KeyNet rate each, so no two fuse and none dedupes."""
+    return [dict(base, keynet_fps=(15.0 + i, 30.0))
+            for i in range(SERVICE_TENANTS)]
+
+
+def same_result(got, want, what: str) -> None:
+    check(deliverables(got) == deliverables(want),
+          f"{what}: differs from the solo stream_grid run")
+
+
+def tenant_burst(svc, grids: list, solos: list) -> dict:
+    """Each tenant's job from its own thread, all at once; every result
+    bitwise its solo run.  Returns the submit-to-result percentiles."""
+    import threading
+
+    from repro_torch.core.service import SweepRequest
+
+    n = len(grids)
+    lat, res, errs = [0.0] * n, [None] * n, []
+
+    def one(i):
+        t0 = time.perf_counter()
+        try:
+            res[i] = svc.submit(SweepRequest(
+                grid=grids[i], tenant=f"tenant-{i}")).result(timeout=900)
+        except BaseException as e:      # re-raised below
+            errs.append(e)
+        lat[i] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(n)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=1200)
+    check(not any(th.is_alive() for th in threads), "tenants: hung")
+    if errs:
+        raise errs[0]
+    for i in range(n):
+        same_result(res[i], solos[i], f"tenant {i}")
+    return {"ticket_p50_s": float(np.percentile(lat, 50)),
+            "ticket_p95_s": float(np.percentile(lat, 95)),
+            "tickets_s": lat}
+
+
+def _leased(spool: pathlib.Path, signature: str) -> list:
+    """The leases of one job that are leased right now."""
+    try:
+        board = json.loads((spool / "jobs" / signature[:24]
+                            / "board.json").read_text())
+    except (OSError, ValueError):
+        return []
+    return [ls for ls in board["leases"] if ls["state"] == "leased"]
+
+
+def kill_worker(svc, spool: pathlib.Path, req, want) -> dict:
+    """Submit ``req`` to the pooled ``svc`` and SIGKILL a worker while it
+    holds one of the job's leases (again, should the lease have finished
+    in the race): the lease is reissued and the fold is still bitwise
+    ``want``."""
+    import signal
+
+    before = svc.counters["leases_reissued"]
+    t = svc.submit(req)
+    killed, confirmed = [], False
+    deadline = time.monotonic() + 300
+    while not confirmed and not t.done() and time.monotonic() < deadline:
+        if t.signature is not None and len(killed) < 4:
+            pids = svc._pool.pids()
+            for ls in _leased(spool, t.signature):
+                if ls["owner"] in pids and ls["owner"] not in killed:
+                    os.kill(ls["owner"], signal.SIGKILL)
+                    killed.append(ls["owner"])
+                    time.sleep(0.05)
+                    # Dead mid-lease iff its lease is still leased to it.
+                    confirmed = any(
+                        x["i"] == ls["i"] and x["owner"] == ls["owner"]
+                        for x in _leased(spool, t.signature))
+                    break
+        time.sleep(0.01)
+    res = t.result(timeout=900)
+    check(confirmed, f"pooled kill: no worker was killed mid-lease "
+                     f"(killed {killed})")
+    same_result(res, want, "pooled run with a SIGKILLed worker")
+    reissued = svc.counters["leases_reissued"] - before
+    check(reissued >= 1, f"pooled kill: {reissued} leases reissued")
+    return {"workers_killed": len(killed), "leases_reissued": reissued,
+            "n_parts": int(res.stats["n_parts"])}
+
+
+def pooled(dev, n_workers: int, grid: dict, warm_grid: dict, want,
+           tenants: list, solos: list, root: pathlib.Path,
+           kill=None) -> dict:
+    """``SweepService(workers=n)`` over its own spool: warmed on
+    ``warm_grid``, then the big request timed (bitwise ``want``), the
+    tenant burst, and with ``kill=(request, solo)`` a worker SIGKILLed
+    mid-lease."""
+    from repro_torch.core.service import SweepRequest, SweepService
+
+    spool = root / f"pool{n_workers}"
+    svc = SweepService(device=dev, workers=n_workers, capacity=64,
+                       snapshot_every_s=0.0, worker_ttl_s=SERVICE_TTL_S,
+                       spool_dir=str(spool))
+    try:
+        t0 = time.perf_counter()
+        svc.submit(SweepRequest(grid=warm_grid,
+                                track="all")).result(timeout=900)
+        warm_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = svc.submit(SweepRequest(grid=grid,
+                                      track="all")).result(timeout=900)
+        wall = time.perf_counter() - t0
+        same_result(res, want, f"pooled, {n_workers} worker(s)")
+        # The parts' own stream times (the slowest part's wall; the
+        # rest summed over the parts) beside the job's wall.
+        out = {"warm_s": warm_s, "wall_s": wall,
+               "configs_per_s": res.n_configs / wall,
+               "n_parts": int(res.stats["n_parts"]),
+               "leases_reissued": int(svc.counters["leases_reissued"]),
+               "parts": {k: res.stats[k] for k in (
+                   "total_s", "dispatch_s", "device_wait_s",
+                   "host_merge_s", "fallback_s", "merge_s")}}
+        check(svc.counters["pooled_executions"] == 2,
+              f"pooled: {svc.counters}")
+        out.update(tenant_burst(svc, tenants, solos))
+        if kill is not None:
+            out["kill"] = kill_worker(svc, spool, *kill)
+    finally:
+        svc.close()
+    return out
+
+
+def _server(argv: list, log: pathlib.Path):
+    """``python -m repro_torch.service`` as a child; returns it and the
+    address of its ready line."""
+    import select
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with open(log, "ab") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.service", *argv],
+            env=env, stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
+            stderr=err, text=True)
+    ready, _, _ = select.select([proc.stdout], [], [], 300)
+    line = proc.stdout.readline() if ready else ""
+    if not line:
+        proc.kill()
+        proc.wait(30)
+        raise SmokeFailure(f"service child not ready: "
+                           f"{log.read_text()[-2000:]}")
+    return proc, json.loads(line)["listening"]
+
+
+def _stop(proc) -> None:
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(30)
+
+
+def networked(dev, grid: dict, want, kill_req, kill_want,
+              root: pathlib.Path) -> dict:
+    """The service as ``python -m repro_torch.service --listen`` child on
+    the card behind a token, driven by ``SweepClient``: the big request
+    (watched, bitwise ``want``); a wrong token refused at the handshake;
+    the server SIGKILLed mid-``kill_req`` and restarted over the same
+    spool and port: the client reconnects, dedupes onto the recovered
+    ticket, and the resumed result is bitwise ``kill_want``."""
+    import secrets
+    import threading
+
+    from repro_torch.core.client import AuthenticationError, SweepClient
+    from repro_torch.core.service import SweepRequest
+
+    token = secrets.token_hex(16)
+    spool = root / "net"
+    log = root / "net_server.log"
+    argv = ["--auth-token", token, "--spool", str(spool),
+            "--checkpoint-every-steps", "1", "--device", str(dev)]
+    out: dict = {}
+    t0 = time.perf_counter()
+    proc, addr = _server(["--listen", "127.0.0.1:0", *argv], log)
+    out["server_start_s"] = time.perf_counter() - t0
+    try:
+        with SweepClient(addr, auth=token) as cli:
+            snaps: list = []
+            t0 = time.perf_counter()
+            res = cli.submit(SweepRequest(grid=grid, track="all")).result(
+                timeout=900, on_progress=snaps.append)
+            out.update(wall_s=time.perf_counter() - t0,
+                       snapshots=len(snaps),
+                       watch_wire_bytes=res.stats.get("watch_wire_bytes"))
+            same_result(res, want, "networked")
+        with SweepClient(addr, auth="wrong", reconnect_timeout_s=5.0) as bad:
+            try:
+                bad.ping()
+            except AuthenticationError as e:
+                check("rejected" in str(e), f"wrong token: {e}")
+            else:
+                raise SmokeFailure("networked: a wrong token was served")
+        with SweepClient(addr, auth=token) as cli:
+            tr = cli.health()["transport"]
+        check(tr["auth_failures"] >= 1, f"auth failures: {tr}")
+        out["auth_failures"] = tr["auth_failures"]
+
+        cli = SweepClient(addr, auth=token, reconnect_timeout_s=240.0,
+                          heartbeat_grace_s=8.0)
+        ticket = cli.submit(kill_req, client_id="chaos-1")
+        first_id, seen, box = ticket.id, {"frac": 0.0, "n": 0}, {}
+
+        def progress(snap):
+            seen.update(frac=snap["fraction_complete"], n=seen["n"] + 1)
+
+        def wait_result():
+            try:
+                box["res"] = ticket.result(timeout=900,
+                                           on_progress=progress)
+            except BaseException as e:      # checked below
+                box["err"] = e
+
+        th = threading.Thread(target=wait_result)
+        th.start()
+        deadline = time.monotonic() + 300
+        while seen["frac"] == 0.0 and th.is_alive() \
+                and time.monotonic() < deadline:
+            time.sleep(0.01)
+        check(seen["frac"] > 0.0, f"networked: no progress before the "
+                                  f"kill ({box.get('err')!r})")
+        proc.kill()
+        proc.wait(30)
+        out["killed_at_fraction"] = seen["frac"]
+        journal = [json.loads(p.read_text())
+                   for p in (spool / "requests").glob("*.json")]
+        check(any(j["client_id"] == "chaos-1" and j["state"] == "running"
+                  for j in journal), "networked: the kill missed the run")
+        t0 = time.perf_counter()
+        proc, _ = _server(["--listen", addr, *argv], log)
+        out["restart_s"] = time.perf_counter() - t0
+        th.join(900)
+        check(not th.is_alive(), "networked: the client hung")
+        check("err" not in box, f"networked resume: {box.get('err')!r}")
+        res = box["res"]
+        check(ticket.id == first_id, "networked: resubmit not deduped")
+        check(res.stats["resumed_from_step"] > 0,
+              f"networked: not resumed ({res.stats})")
+        same_result(res, kill_want, "networked after a server SIGKILL")
+        tr = cli.health()["transport"]
+        out.update(resumed_from_step=res.stats["resumed_from_step"],
+                   reconnects=cli.counters["reconnects"],
+                   kill_snapshots=seen["n"],
+                   restarted_watch_bytes={k: tr[k] for k in (
+                       "watch_snapshot_bytes", "watch_delta_bytes")})
+        check(cli.counters["reconnects"] >= 2, f"{cli.counters}")
+        cli.close()
+    finally:
+        _stop(proc)
+    return out
+
+
+def phase_service(dev, smi: str, **workload) -> dict:
+    """The serving stack on the card (card 0 by index) through kernels A
+    and B, at the reference service benchmark's workload:
+
+    (a) ``SweepService(device=dev)`` serves the 10M request, counts read
+        around it: bitwise the solo ``stream_grid`` (and on
+        ``ANCHOR_10M``), the same launches of A and B as the solo run; a
+        resubmit hits the plan and step caches (no new capture); the same
+        request on two services at once, and a fused batch of three,
+        bitwise; a deadline lapsing mid-run returns the prefix, bitwise
+        its ``flat_range`` run.
+    (b) The 8 tenants from 8 threads, each bitwise its solo run.
+    (c) Pools of 1 and 2 worker processes (one CUDA context each),
+        warmed, then the 10M request timed: bitwise the solo run; with 2,
+        a worker SIGKILLed mid-lease, its lease reissued.
+    (d) The networked service (:func:`networked`).
+
+    ``workload`` (:func:`service_workload`'s keys; ``anchor=None`` skips
+    the anchor check) replaces the workload for a rehearsal on the CPU.
+    Prints the ``service`` line."""
+    import shutil
+    import threading
+
+    import torch
+
+    from repro_torch.core import backend as B
+    from repro_torch.core import stream as ST
+    from repro_torch.core.service import SweepRequest, SweepService
+    from repro_torch.runtime import FaultInjector, FaultPlan
+
+    on_card = torch.device(dev).type == "cuda"
+    w = workload or service_workload()
+    grid, anchor, tenant_base = w["grid"], w["anchor"], w["tenant_base"]
+    warm_grid, kill_grid, kill_kw = (w["warm_grid"], w["kill_grid"],
+                                     w["kill_kw"])
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "service"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    req = SweepRequest(grid=grid, track="all")
+    out: dict = {"card": smi}
+
+    def solo_run(g, **kw):
+        sync(dev)
+        t0 = time.perf_counter()
+        res = ST.stream_grid(**g, **kw, device=dev)
+        sync(dev)
+        return res, time.perf_counter() - t0
+
+    # (a) In process.  The solo run twice (the first warms the caching
+    # allocator); each plans anew and captures its step, as the
+    # service's first request does.
+    solo_run(grid, track="all")
+    reset_counts()
+    solo, solo_s = solo_run(grid, track="all")
+    solo_launches = read_counts()
+    if anchor is not None:
+        check_anchor_10m(solo, anchor, "service solo")
+    with SweepService(device=dev, capacity=64,
+                      snapshot_every_s=0.0) as svc:
+        reset_counts()
+        t0 = time.perf_counter()
+        served = svc.submit(req).result(timeout=900)
+        served_s = time.perf_counter() - t0
+        launches = read_counts()
+        same_result(served, solo, "served in process")
+        check(launches == solo_launches
+              and (not on_card or launches["A"] > 0 and launches["B"] > 0),
+              f"service launches {launches}, solo {solo_launches}")
+        steps = B.step_cache_stats()
+        t0 = time.perf_counter()
+        again = svc.submit(req).result(timeout=900)
+        again_s = time.perf_counter() - t0
+        same_result(again, solo, "resubmitted")
+        h, steps2 = svc.health(), B.step_cache_stats()
+        check(h["plan_cache"]["hits"] == 1
+              and h["plan_cache"]["misses"] == 1
+              and steps2["hits"] > steps["hits"]
+              and steps2["misses"] == steps["misses"],
+              f"resubmit missed a cache: {h['plan_cache']}, steps "
+              f"{steps} -> {steps2}")
+
+        # The same request on a second service at once: each its own
+        # plan, step and graph.
+        with SweepService(device=dev, capacity=64,
+                          snapshot_every_s=0.0) as svc2:
+            box: dict = {}
+            th = threading.Thread(target=lambda: box.__setitem__(
+                "r", svc2.submit(req).result(timeout=900)))
+            th.start()
+            mine = svc.submit(req).result(timeout=900)
+            th.join(900)
+            check("r" in box, "second service: no result")
+            same_result(box["r"], solo, "second service")
+            same_result(mine, solo, "first service beside the second")
+
+        svc.pause()
+        head = svc.submit(req)
+        rest = [svc.submit(SweepRequest(grid=grid, track="all", top_k=2)),
+                svc.submit(SweepRequest(grid=grid, track=None,
+                                        objectives=("avg_power",),
+                                        need_front=False))]
+        execs = svc.counters["executions"]
+        svc.resume()
+        fused = [t.result(timeout=900) for t in [head, *rest]]
+        check(svc.counters["executions"] == execs + 1
+              and fused[0].stats["fused_members"] == 3.0,
+              f"fusion: {svc.counters}")
+        same_result(fused[0], solo, "fused head")
+        check(np.array_equal(fused[1].topk_idx, solo.topk_idx[:, :2])
+              and fused[2].min_idx == {"avg_power":
+                                       solo.min_idx["avg_power"]}
+              and fused[2].front_indices.size == 0,
+              "fused members differ from their slices of the solo run")
+
+        # (b) Tenants.
+        tenants = tenant_grids(tenant_base)
+        solos = [solo_run(g)[0] for g in tenants]
+        burst = tenant_burst(svc, tenants, solos)
+
+    # A deadline that lapses mid-run (a 1 s straggle injected before the
+    # second dispatch, one chunk a dispatch): the partial result is the
+    # flat_range run of the prefix it folded.
+    dkw = dict(track="all", chunk_size=4096, scan_chunks=1)
+    with SweepService(device=dev, fault_injector=FaultInjector(
+            FaultPlan(straggle={1: 1.0}))) as svc:
+        part = svc.submit(SweepRequest(grid=grid, deadline_s=0.5, **dkw)
+                          ).result(timeout=900)
+        expired = svc.counters["deadline_expired"]
+    frac = part.stats["fraction_complete"]
+    check(part.partial and 0.0 < frac < 1.0 and expired == 1,
+          f"deadline: partial {part.partial}, fraction {frac}")
+    base = round(frac * part.n_configs)
+    same_result(part, solo_run(grid, flat_range=(0, base), **dkw)[0],
+                "deadline prefix vs its flat_range run")
+    plan = ST.plan_stream(**grid, track="all", device=dev)
+    ST.stream_grid(plan=plan)
+    _, solo_warm_s = solo_run({}, plan=plan)
+    out["in_process"] = {
+        "n_configs": solo.n_configs, "served_s": served_s,
+        "solo_s": solo_s, "overhead_s": served_s - solo_s,
+        "resubmit_s": again_s, "solo_warm_s": solo_warm_s,
+        "warm_overhead_s": again_s - solo_warm_s, "launches": launches,
+        "plan_cache": h["plan_cache"],
+        "step_cache_hits": steps2["hits"] - steps["hits"]}
+    out["tenants"] = burst
+    out["deadline"] = {"fraction_complete": frac, "prefix_configs": base}
+
+    # (c) Pooled.
+    kill_req = SweepRequest(grid=grid, track="all", top_k=5)
+    kill_want, _ = solo_run(grid, track="all", top_k=5)
+    out["pooled"] = {}
+    for n in SERVICE_WORKERS:
+        out["pooled"][str(n)] = pooled(
+            dev, n, grid, warm_grid, solo, tenants, solos, root,
+            kill=((kill_req, kill_want) if n == max(SERVICE_WORKERS)
+                  else None))
+
+    # (d) Networked.
+    net_kill = SweepRequest(grid=kill_grid, track="all", **kill_kw)
+    net_want, _ = solo_run(kill_grid, track="all", **kill_kw)
+    out["networked"] = networked(dev, grid, solo, net_kill, net_want, root)
+    shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+
+    ip, pw = out["in_process"], out["pooled"]
+    print(f"service {solo.n_configs} configs on {smi}: served "
+          f"{served_s:.3f} s (solo {solo_s:.3f} s, overhead "
+          f"{served_s - solo_s:+.3f} s), resubmit {again_s:.3f} s (solo "
+          f"{solo_warm_s:.3f} s); tenants p50 {burst['ticket_p50_s']:.3f} "
+          f"s p95 {burst['ticket_p95_s']:.3f} s; pooled "
+          + ", ".join(f"{n} worker(s) {p['configs_per_s']:.4g} configs/s"
+                      for n, p in pw.items())
+          + f"; networked {out['networked']['wall_s']:.3f} s; all bitwise "
+          f"equal to the solo runs; launches {ip['launches']}")
+    print(json.dumps({"service": out, "card": smi}))
     return out
 
 
@@ -2575,12 +3071,15 @@ def run(dev, grid_big, smi: str, lm_cfg, lm_seq: int = LM_SEQ,
     phase_scenario(dev, smi)
     opt = phase_optimize(dev, smi)
     phase_stream_devices(dev, smi)
+    served = phase_service(dev, smi)
     err["C"] = phase_rbe(dev)
     ht_launches, ht = phase_pipeline(dev, smi)
     err["D"] = phase_rmsnorm(dev)
     err["E"] = phase_flash(dev)
     rows, host = kernel_report(res, launches, err, grid_big, dense, dev)
     rows[1]["launches_grid_argmin"] = opt["launches"]["B"]
+    for row, key in ((rows[0], "A"), (rows[1], "B")):
+        row["launches_service"] = served["in_process"]["launches"][key]
     row_c, shapes = rbe_report(ht_launches, err["C"], dev, smi)
     rows.append(row_c)
     rows_de, lm_shapes = lm_kernel_report(err, dev)

@@ -69,7 +69,8 @@ REFERENCE_GRID = dict(
 
 def stream_grid_axes(n: int) -> dict:
     """The reference grid widened along the rate axes to ~``n`` configs
-    (1,000,960 / 10,009,600 / 100,096,000 for n = 10^6 / 10^7 / 10^8)."""
+    (97,920 / 1,000,960 / 10,009,600 / 100,096,000 for n = 10^5 / 10^6 /
+    10^7 / 10^8; the reference stream benchmark's ``_grid_for``)."""
     g = dict(REFERENCE_GRID)
     if n >= 100_000_000:
         g["detnet_fps"] = tuple(np.linspace(5.0, 30.0, 50))
@@ -80,6 +81,8 @@ def stream_grid_axes(n: int) -> dict:
         g["camera_fps"] = tuple(np.linspace(20.0, 60.0, 92))
     elif n >= 1_000_000:
         g["camera_fps"] = tuple(np.linspace(20.0, 60.0, 92))
+    elif n >= 100_000:
+        g["camera_fps"] = tuple(np.linspace(20.0, 60.0, 9))
     return g
 
 

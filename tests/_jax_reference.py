@@ -67,6 +67,43 @@ def assert_close(a, b, rtol=1e-12, what=""):
                                err_msg=what)
 
 
+def deliverables(res) -> tuple:
+    """Everything a stream result reduces, as exact values (floats by
+    their bits): two results are bitwise equal iff these are."""
+    def bits(a):
+        return np.asarray(a, np.float64).tobytes()
+    hist = (tuple((f, c.tobytes(), e.tobytes())
+                  for f, (c, e) in sorted(res.hist.items()))
+            if res.hist else None)
+    return (tuple(sorted(res.min_idx.items())),
+            bits([res.min_val[f] for f in res.min_val]),
+            tuple(sorted(res.finite_counts.items())),
+            bits([res.channel_min[f] for f in res.channel_min]),
+            bits([res.channel_max[f] for f in res.channel_max]),
+            res.topk_idx.tobytes(), bits(res.topk_val),
+            res.front_indices.tobytes(), bits(res.front_values), hist)
+
+
+def assert_matches_reference(res, want) -> None:
+    """A port stream result against a reference summary (the child's
+    ``_stream_summary``): argmin indices, counts, top-k and front index
+    sets exactly, values within 1e-12 relative, NaN patterns equal."""
+    assert res.min_idx == want["min_idx"]
+    assert res.finite_counts == want["finite"]
+    for f in res.min_val:
+        assert_close(res.min_val[f], want["min_val"][f], what=f)
+        assert_close((res.channel_min[f], res.channel_max[f]),
+                     want["bounds"][f], what=f)
+    assert np.array_equal(res.topk_idx, want["topk_idx"])
+    assert_close(res.topk_val, want["topk_val"], what="topk")
+    front = res.pareto_front()
+    assert np.array_equal(front.indices, want["front_idx"])
+    assert_close(front.values, want["front_val"], what="front")
+    if want["hist"] is not None:
+        for f, (counts, _) in res.hist.items():
+            assert np.array_equal(counts, want["hist"][f]), f
+
+
 # ---------------------------------------------------------------------------
 # Child side
 # ---------------------------------------------------------------------------
@@ -857,6 +894,108 @@ def task_partition(p):
         out["optimal"][name] = point_summary(
             partition.optimal_partition(**kw))
     return out
+
+
+def task_service(p):
+    """The reference's ``SweepService`` in process: each request of
+    ``p["requests"]`` (``SweepRequest`` keyword dicts) served alone, its
+    summary and ``result_to_json``; the requests of ``p["fused"]``
+    submitted while the service is paused, so they fuse, with the
+    executions that took; and each request's ``to_json`` and plan
+    signature."""
+    from repro.core import stream
+    from repro.core.service import SweepRequest, SweepService, plan_kwargs
+    reqs = {n: SweepRequest(**kw) for n, kw in p["requests"].items()}
+    out = {"served": {}, "fused": {}, "json": {}, "signature": {}}
+    with SweepService(capacity=64) as svc:
+        for name, req in reqs.items():
+            res = svc.submit(req).result(timeout=600)
+            out["served"][name] = dict(_stream_summary(res),
+                                       json=stream.result_to_json(res))
+        if p.get("fused"):
+            svc.pause()
+            tickets = {n: svc.submit(SweepRequest(**kw))
+                       for n, kw in p["fused"].items()}
+            before = svc.counters["executions"]
+            svc.resume()
+            for n, t in tickets.items():
+                out["fused"][n] = _stream_summary(t.result(timeout=600))
+            out["fused_executions"] = svc.counters["executions"] - before
+    for name, req in reqs.items():
+        out["json"][name] = req.to_json()
+        out["signature"][name] = stream.plan_stream(
+            **plan_kwargs(req)).signature
+    return out
+
+
+def task_worker_drain(p):
+    """The reference's worker path in process: ``dispatch_job`` of
+    ``p["request"]`` into a fresh spool with ``p["n_leases"]`` leases,
+    drained by ``worker_loop(once=True)`` (``run_lease`` a lease); the
+    fold's summary, its part count, the lease ranges and the job's
+    signature."""
+    from repro.core.service import SweepRequest
+    from repro.runtime import workers as wk
+    with tempfile.TemporaryDirectory() as spool:
+        handle = wk.dispatch_job(spool, SweepRequest(**p["request"]),
+                                 n_leases=p["n_leases"])
+        rc = wk.worker_loop(spool, wid="w-ref", once=True)
+        res = handle.result()
+        leases = [(ls["start"], ls["stop"])
+                  for ls in handle.board.read()["leases"]]
+        job = handle.board.job()
+    return dict(_stream_summary(res), rc=rc, n_parts=res.stats["n_parts"],
+                leases=leases, signature=handle.signature,
+                chunk=job["chunk"], scan=job["scan"])
+
+
+def task_spool(p):
+    """The reference's ``SweepService`` journals two requests into the
+    spool ``p["spool"]``: ``p["done"]`` served to completion (its result
+    journaled), then ``p["queued"]`` submitted while paused and left
+    queued by a close.  Returns the served result, the solo
+    ``stream_grid`` of the queued request, and the queued request's
+    ``to_json`` and plan signature."""
+    from repro.core import stream
+    from repro.core.service import SweepRequest, SweepService, plan_kwargs
+    done, queued = SweepRequest(**p["done"]), SweepRequest(**p["queued"])
+    svc = SweepService(spool_dir=p["spool"], capacity=8)
+    res = svc.submit(done, client_id="ref-done").result(timeout=600)
+    svc.pause()
+    svc.submit(queued, client_id="ref-queued")
+    svc.close(drain=False)
+    kw = plan_kwargs(queued.normalized())
+    return {"done": _stream_summary(res),
+            "queued_solo": _stream_summary(stream.stream_grid(**kw)),
+            "queued_json": queued.to_json(),
+            "queued_signature": stream.plan_stream(**kw).signature}
+
+
+def task_service_bench(p):
+    """The reference service benchmark's workload
+    (``benchmarks/service_bench.py``): its big and warm-up grids, its
+    worker counts, and the tenant requests its ``_tenant_latencies``
+    submits (recorded by a stand-in service), each as ``(tenant, grid,
+    track)``."""
+    sys.path.insert(0, str(SRC.parent))
+    from benchmarks import service_bench as SB
+    from benchmarks.stream_bench import _grid_for
+
+    seen = []
+
+    class _Ticket:
+        def result(self, timeout=None):
+            return None
+
+    class _Service:
+        def submit(self, req):
+            seen.append((req.tenant, dict(req.grid), req.track))
+            return _Ticket()
+
+    SB._tenant_latencies(_Service(), _grid_for(100_000))
+    return {"big": _grid_for(SB.N_BIG), "warm": _grid_for(0),
+            "workers": tuple(SB.WORKER_COUNTS), "n_tenants": SB.N_TENANTS,
+            "tenants": sorted(seen, key=lambda x: x[0])}
 
 
 TASKS = {name[5:]: fn for name, fn in globals().items()

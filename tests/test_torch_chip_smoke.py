@@ -464,3 +464,68 @@ def test_stream_devices_phase_on_the_cpu(capsys):
     assert out["lost_shard"]["elastic_replans"] == 1.0
     assert out["lost_shard"]["lost_at_chunk"] > 0
     assert out["cards"] == 1 and "every_card" not in out
+
+
+# ---------------------------------------------------------------------------
+# The service phase
+# ---------------------------------------------------------------------------
+
+
+def test_service_phase_runs_the_service_benchmarks_workload():
+    """The phase's grids are the reference service benchmark's: the
+    10,009,600-config request, the 10,880-config warm-up, and the 8
+    tenants' requests over ``_grid_for(10**5)`` (read from what its
+    ``_tenant_latencies`` submits), each at the default track."""
+    want = run("service_bench")
+    w = CS.service_workload()
+    assert w["grid"] == want["big"] and w["warm_grid"] == want["warm"]
+    assert w["anchor"] is G.ANCHOR_10M
+    assert set(CS.SERVICE_WORKERS) <= set(want["workers"])
+    assert CS.SERVICE_TENANTS == want["n_tenants"]
+    tenants = CS.tenant_grids(w["tenant_base"])
+    assert [(f"tenant-{i}", g, None) for i, g in enumerate(tenants)] == \
+        want["tenants"]
+    assert ST.plan_stream(**tenants[0], device="cpu").n_total == 97_920
+
+
+def test_same_result_catches_one_bit_and_a_swapped_index():
+    import dataclasses
+
+    import numpy as np
+    res = ST.stream_grid(**G.REFERENCE_GRID, track="all", device="cpu")
+    CS.same_result(res, dataclasses.replace(res), "copy")
+    f = "avg_power"
+    one_bit = dataclasses.replace(res, min_val=dict(
+        res.min_val, **{f: float(np.nextafter(res.min_val[f], 1.0))}))
+    swapped = res.topk_idx.copy()
+    swapped[0, [0, 1]] = swapped[0, [1, 0]]
+    for other in (one_bit, dataclasses.replace(res, topk_idx=swapped)):
+        with pytest.raises(CS.SmokeFailure, match="differs"):
+            CS.same_result(other, res, "mutated")
+
+
+def test_service_phase_on_the_cpu(capsys):
+    """The whole phase on the CPU at small grids: in process (cold,
+    resubmitted, two services, a fused batch), tenants, pools of 1 and 2
+    workers (one SIGKILLed mid-lease), the networked service killed and
+    restarted; every result bitwise its solo run."""
+    one = ST.stream_grid(**G.REFERENCE_GRID, track="all", device="cpu")
+    out = CS.phase_service(
+        torch.device("cpu"), "cpu, not a card", grid=G.REFERENCE_GRID,
+        anchor=_anchor_of(one),
+        tenant_base=dict(G.REFERENCE_GRID, camera_fps=(30.0,)),
+        warm_grid=dict(G.REFERENCE_GRID, camera_fps=(30.0, 60.0)),
+        kill_grid=G.stream_grid_axes(10**6),
+        kill_kw=dict(chunk_size=16384))
+    line = [ln for ln in capsys.readouterr().out.splitlines()
+            if ln.startswith('{"service"')]
+    assert len(line) == 1 and json.loads(line[0])["service"] == out
+    ip = out["in_process"]
+    assert ip["plan_cache"]["hits"] == 1 and ip["step_cache_hits"] == 1
+    assert not any(ip["launches"].values())
+    assert len(out["tenants"]["tickets_s"]) == CS.SERVICE_TENANTS
+    assert set(out["pooled"]) == {str(n) for n in CS.SERVICE_WORKERS}
+    assert out["pooled"]["2"]["kill"]["leases_reissued"] >= 1
+    net = out["networked"]
+    assert net["auth_failures"] >= 1 and net["resumed_from_step"] > 0
+    assert not (CS.ROOT / "build" / "service").exists()

@@ -23,6 +23,8 @@ from repro_torch.models import attention, flash, layers
 from repro_torch.models import transformer as T
 from repro_torch.models.cnn import HandCNN
 from repro_torch.models.common import MoEConfig
+from repro_torch.core.service import SweepService
+from repro_torch.runtime import workers as WK
 
 PKG = pathlib.Path(__file__).resolve().parent.parent / "src" / "repro_torch"
 
@@ -78,9 +80,11 @@ def test_source_never_imports_jax_or_reference():
     lambda: token_serve.main(["--arch", "gemma2-2b", "--reduced"]),
     lambda: T.init_params(get_reduced_config("gemma2-2b")),
     lambda: T.init_cache(get_reduced_config("gemma2-2b"), 1, 4),
+    lambda: SweepService(),
+    lambda: WK.WorkerPool("unused-spool", 1),
 ], ids=["evaluate_grid", "stream_grid", "plan_stream", "evaluate_one",
         "optimal_partition", "HandCNN", "run_pipeline", "token_serve",
-        "init_params", "init_cache"])
+        "init_params", "init_cache", "SweepService", "WorkerPool"])
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -223,3 +227,102 @@ def test_every_cuda_source_belongs_to_a_registered_library():
         assert "sm_90a" in " ".join(lib.flags)
     on_disk = {p.resolve() for p in PKG.rglob("csrc/*.cu*")}
     assert on_disk == covered
+
+
+#: The serving modules (their source names neither JAX nor the
+#: reference package; the port keeps its own copy of each).
+SERVING = ("runtime/admission.py", "runtime/transport.py",
+           "runtime/workers.py", "core/service.py", "core/client.py",
+           "service.py")
+
+
+def test_serving_modules_import_with_jax_and_reference_unimportable():
+    code = """
+import importlib, sys
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"blocked: {name}")
+sys.meta_path.insert(0, Block())
+for m in ("runtime.admission", "runtime.transport", "runtime.workers",
+          "core.service", "core.client", "service", "runtime", "core"):
+    importlib.import_module("repro_torch." + m)
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=str(PKG.parent))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.split()[-1] == "ok", \
+        out.stderr[-2000:]
+
+
+@pytest.mark.parametrize("module", SERVING)
+def test_serving_source_names_neither_jax_nor_the_reference(module):
+    import re
+    text = (PKG / module).read_text()
+    assert not re.search(r"jax|xla", text, re.IGNORECASE), module
+    assert not re.search(r"\brepro(?!_torch)\b", text), module
+
+
+def test_service_cli_defaults_to_the_card_and_raises_without_it(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(PKG.parent),
+               CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.service", "--spool",
+         str(tmp_path / "spool")], env=env, capture_output=True,
+        text=True, timeout=300)
+    assert out.returncode != 0
+    assert "CUDA is not available" in out.stderr
+    assert not (tmp_path / "spool").exists()
+
+
+class _Spawned:
+    """Stands in for ``subprocess.Popen``: records each child's command
+    line and environment."""
+    calls: list = []
+
+    def __init__(self, argv, env, **kw):
+        self.args, self.env, self.pid = argv, env, 0
+        _Spawned.calls.append(self)
+
+    def poll(self):
+        return 0
+
+    def wait(self, timeout=None):
+        return 0
+
+
+@pytest.mark.parametrize("visible, count, want", [
+    ("3,5", 2, ["3", "5", "3"]),
+    (None, 2, ["0", "1", "0"]),
+    (None, 1, ["0", "0", "0"]),
+], ids=["visible_list", "two_cards", "one_card"])
+def test_worker_children_take_one_card_each(monkeypatch, tmp_path,
+                                            visible, count, want):
+    """On the card each child is ``python -m repro_torch.runtime.workers
+    --device cuda`` seeing one card, ``i % count`` of the pool's."""
+    monkeypatch.setattr(WK, "_one_device", lambda d: torch.device("cuda"))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
+    if visible is None:
+        monkeypatch.delenv("CUDA_VISIBLE_DEVICES", raising=False)
+    else:
+        monkeypatch.setenv("CUDA_VISIBLE_DEVICES", visible)
+    monkeypatch.setattr(WK.subprocess, "Popen", _Spawned)
+    _Spawned.calls = []
+    WK.WorkerPool(str(tmp_path), 3, respawn=False)
+    assert [c.env["CUDA_VISIBLE_DEVICES"] for c in _Spawned.calls] == want
+    for c in _Spawned.calls:
+        assert c.args[1:3] == ["-m", "repro_torch.runtime.workers"]
+        assert c.args[c.args.index("--device") + 1] == "cuda"
+
+
+def test_worker_children_on_the_cpu_get_device_cpu(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "7")
+    monkeypatch.setattr(WK.subprocess, "Popen", _Spawned)
+    _Spawned.calls = []
+    WK.WorkerPool(str(tmp_path), 2, respawn=False, device="cpu")
+    for i, c in enumerate(_Spawned.calls):
+        assert c.args[1:3] == ["-m", "repro_torch.runtime.workers"]
+        assert c.args[c.args.index("--device") + 1] == "cpu"
+        assert c.args[c.args.index("--wid") + 1].startswith(f"w{i}.")
+        assert c.env["CUDA_VISIBLE_DEVICES"] == "7"
