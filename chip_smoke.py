@@ -135,8 +135,12 @@ Phases, each of which ends the run with a non-zero exit on any failure:
    ``rmsnorm_ref`` at gemma2-2b's forward (8192 x 2304 bf16) and decode
    (4 x 2304) norms, the kernel_bench shape (4096 x 1024 f32), arctic's
    width 7168 (several warps a row), a misaligned x and a ragged 997 x
-   130 in both dtypes (the strided route): float32 within 16 ulp, bf16
-   within one bf16 ulp.
+   130 in both dtypes (the strided route) and qwen2-0.5b's training norm
+   (1024 x 896 bf16): float32 within 16 ulp, bf16 within one bf16 ulp.
+   Each case's gradient through kernel D's autograd Function (forward
+   on the card, backward torch ops) against autograd through
+   ``rmsnorm_ref``: float32 within 1e-5 relative + 1e-5 of the largest
+   magnitude, bf16 dx within one bf16 ulp + the same.
 8. Kernel E vs plain on the card: ``flash_attention_fwd`` against the
    full softmax ``flash_attention_ref`` at gemma2-2b's local and global
    layers (B 1, S 8192, 8/4 heads, d 256, softcap 50, window 4096 / 0,
@@ -144,9 +148,18 @@ Phases, each of which ends the run with a non-zero exit on any failure:
    qwen2's head dim 64 at 14/2 heads, non-causal, Sq 512 against Skv
    2048 with a window, the reduced configs' d 32, and the bf16
    tensor-core route's edges (d 32 and 128, a ragged Sq·g and Skv, Sq <
-   Skv with a window, non-causal): bf16 within one bf16 ulp (+1e-6),
-   float32 within 1e-5 absolute + 1e-5 relative.  Kernel E's SASS must
-   hold tensor-core (HMMA) and cp.async (LDGSTS) instructions.
+   Skv with a window, non-causal) and qwen2-0.5b's training shape (B 8,
+   S 128, 14/2 heads, d 64, both dtypes): bf16 within one bf16 ulp
+   (+1e-6), float32 within 1e-5 absolute + 1e-5 relative.  Every case
+   also with its softmax stats: the output bitwise the same, m and l
+   within 1e-5 + 1e-5 relative of the plain ``_fwd_pass``'s.  At the
+   gemma2-2b layers, qwen2's training shape and the f32 cases, (dq, dk,
+   dv) through kernel E's autograd Function (kernel E with stats, then
+   the recompute backward) against autograd through
+   ``flash_attention_ref``: float32 within 1e-5 + 1e-5 relative, bf16
+   within 1 % of the largest magnitude (the backward's delta comes from
+   the bf16 output, as in the reference).  Kernel E's SASS must hold
+   tensor-core (HMMA) and cp.async (LDGSTS) instructions.
 9. LM (the third path): gemma2-2b at full width (26 layers, d 2304,
    256,000 vocab, bf16, weights from a seeded generator on the card).
    (a) ``transformer.forward`` on an 8192-token prompt, counts read
@@ -163,21 +176,38 @@ Phases, each of which ends the run with a non-zero exit on any failure:
    numpy seed of ``repro_torch.models.anchors``) against the logits and
    greedy tokens frozen from the JAX reference: within 2e-5 absolute +
    1e-5 relative, tokens equal.
-10. Report: a ``kernels`` JSON line (launches, error, kernel and plain
+10. Training (the eighth path): (a) ``train.main`` at the reference
+   CLI's defaults (qwen2-0.5b at full width, bf16, 8 x 128 tokens, 100
+   steps, lr 3e-4, warmup 20, no remat), counts read around it (49
+   launches of D and 24 of E a step, none of A-C), its loss decreasing;
+   one step counted alone, TRAIN_TIMED_STEPS timed (median), one
+   profiled (busy share, top kernels).  (b) One step's loss and
+   gradients through kernels D and E against the same step on their
+   plain versions (``plain_kernels()``: autograd through the plain D and
+   E): loss within 1e-2, every leaf's cosine >= 0.99, the global norm
+   within 1 %.  (c) The reduced float32 qwen2-0.5b and gemma2-2b trained
+   five steps against ``TRAIN_ANCHORS`` (frozen from the JAX reference)
+   at the CPU tests' tolerances.  (d) Six steps with a checkpoint every
+   three, against a resume from step 3: losses and the final checkpoint
+   bitwise.  Prints the ``train`` line (step ms, tokens/s, busy share,
+   share of the matmul bound, peak memory).
+11. Report: a ``kernels`` JSON line (launches, error, kernel and plain
    time at the main paths' shapes, the card's bound for the same work,
    the library call's time where there is one; A's, B's and C's launch
    plans and ptxas registers and spills, which must be none, and B's
    stack frames, which must be empty; B's row holds its probe reading
    and, under ``dense``, its 1,000,960-config one, and its launches in
    ``grid_argmin``, and A's and B's their launches in the served request
-   (``launches_service``); A's its graph replays and K), ``stream`` (the default path's wall, dispatch, wait, merge
-   and busy share, the synchronous path's beside it, the plain
+   (``launches_service``), D's and E's in the training run and in one
+   step (``launches_train``, ``launches_train_step``); A's its graph
+   replays and K), ``stream`` (the default path's wall, dispatch, wait,
+   merge and busy share, the synchronous path's beside it, the plain
    backend's), ``stream_resilience``,
    ``rbe_shapes`` (each layer at 4 and 256 ROIs with its tile),
    ``handtracking``, ``rmsnorm_shapes``/``flash_shapes`` (each case's
    route; E's registers and spills from ptxas and its share of the
-   bound) and ``lm`` JSON lines, the card's name and power limit, and
-   last the ``ok`` line.  Kernel C's SASS must hold int8 tensor-core
+   bound), ``lm`` and ``train`` JSON lines, the card's name and power
+   limit, and last the ``ok`` line.  Kernel C's SASS must hold int8 tensor-core
    (IMMA) and cp.async (LDGSTS) instructions.
 
 Imports nothing of JAX or of the JAX reference package.
@@ -2405,6 +2435,22 @@ ULP_FLOOR = 1e-4
 #: float32 matmuls and reductions in another order (TF32 off), as the CPU
 #: tests hold the port to the reference.
 ANCHOR_TOL = dict(atol=2e-5, rtol=1e-5)
+#: Gradients through kernel D's and E's autograd Functions against
+#: autograd through their plain versions on the card.  float32: within
+#: 1e-5 absolute + 1e-5 relative of each element, the forward's bound for
+#: E (float32 sums in another order); as an absolute term 1e-5 of the
+#: tensor's largest magnitude for D's, whose dscale sums 8192 rows.  bf16
+#: (the LM's dtype): D's dx within one bf16 ulp plus 1e-5 of the largest
+#: magnitude (both round float32 values a few float32 ulps apart).  E's
+#: bf16 gradients within 1 % of the tensor's largest magnitude: the
+#: Function's backward takes delta = sum(dout * out) from the bf16 output
+#: (the reference's _bwd_pass does the same), where autograd through the
+#: plain version takes it from the float32 probabilities; that alone moves
+#: dq and dk by several bf16 ulps (0.46 % of the largest magnitude
+#: measured on the CPU at qwen2's training shape).
+GRAD_F32_TOL = dict(atol=1e-5, rtol=1e-5)
+GRAD_SCALE_ATOL = 1e-5
+FLASH_BF16_GRAD_SHARE = 1e-2
 
 #: gemma2-2b's prompt forward: one sequence of 8192 tokens; the serve run
 #: at the reference's CLI defaults.
@@ -2420,7 +2466,8 @@ RMSNORM_CASES = ((LM_SEQ, 2304, "bfloat16", "gemma2 forward"),
                  (2048, 7168, "bfloat16", "arctic width"),
                  (997, 2304, "bfloat16", "misaligned"),
                  (997, 130, "float32", "ragged"),
-                 (997, 130, "bfloat16", "ragged"))
+                 (997, 130, "bfloat16", "ragged"),
+                 (1024, 896, "bfloat16", "qwen2 train"))
 
 # Kernel E's cases: (name, b, sq, skv, h, kv, d, causal, window, softcap,
 # dtype).
@@ -2443,7 +2490,14 @@ FLASH_CASES = (
     ("bf16 sq<skv", 1, 512, 2048, 8, 4, 256, True, 1000, 0.0, "bfloat16"),
     ("bf16 non-causal", 2, 1024, 1024, 8, 2, 64, False, 0, 0.0,
      "bfloat16"),
+    # qwen2-0.5b's training step: global batch 8 of 128 tokens
+    ("qwen2 train", 8, 128, 128, 14, 2, 64, True, 0, 0.0, "bfloat16"),
+    ("qwen2 train f32", 8, 128, 128, 14, 2, 64, True, 0, 0.0, "float32"),
 )
+#: The cases whose gradient through kernel E's autograd Function is held
+#: against autograd through its plain version (phase 8).
+FLASH_GRAD_CASES = ("qwen2 train", "qwen2 train f32", "gemma2 local",
+                    "gemma2 global", "reduced d32", "kernel_bench")
 
 
 def ulps(got, want) -> int:
@@ -2513,9 +2567,66 @@ def phase_rmsnorm(dev) -> float:
               f"plain version (limit {limit})")
         route = D.plan(rows, d, x.element_size(), x.data_ptr(),
                        scale.data_ptr(), got.data_ptr()).route
+        gerr = rmsnorm_grad_check(x, scale, 60 + i, f"kernel D {what}")
         print(f"kernel D {rows}x{d} {dtype} ({what}, {route}): "
-              f"max_abs_err={e!r}, {u} ulp")
+              f"max_abs_err={e!r}, {u} ulp; backward {gerr}")
     return worst
+
+
+def grad_close(got, want, what: str, scale_atol: bool = False,
+               bf16_share: float | None = None) -> float:
+    """Check a gradient against its plain autograd twin and return the
+    largest difference over the largest magnitude.  float32: within
+    GRAD_F32_TOL of each element, the absolute term GRAD_SCALE_ATOL of
+    the largest magnitude with ``scale_atol``; bf16: within one bf16 ulp
+    plus GRAD_SCALE_ATOL of the largest magnitude, or within
+    ``bf16_share`` of the largest magnitude where given."""
+    import torch
+
+    g, w = got.float(), want.float()
+    check(got.dtype == want.dtype and got.shape == want.shape
+          and bool(torch.isfinite(g).all()), f"{what}: dtype, shape or "
+          f"non-finite values")
+    top = w.abs().max().item()
+    diff = (g - w).abs().max().item()
+    if got.dtype == torch.float32:
+        atol = GRAD_SCALE_ATOL * top if scale_atol else GRAD_F32_TOL["atol"]
+        close = bool(((g - w).abs() <= atol
+                      + GRAD_F32_TOL["rtol"] * w.abs()).all())
+    elif bf16_share is not None:
+        close = diff <= bf16_share * top
+    else:
+        close, _ = bf16_within_one_ulp(got, want, GRAD_SCALE_ATOL * top)
+    check(close, f"{what}: differs from autograd through the plain "
+          f"version by {diff!r} (largest magnitude {top!r})")
+    return diff / max(top, 1e-30)
+
+
+def rmsnorm_grad_check(x, scale, seed: int, what: str) -> dict:
+    """Kernel D's autograd Function, as the LM's ``layers.rmsnorm`` runs
+    it (forward on the card, backward torch ops), against autograd
+    through ``rmsnorm_ref`` at the same inputs and a seeded cotangent:
+    dx and dscale; the output carries a grad_fn."""
+    import torch
+
+    from repro_torch.kernels import rmsnorm as D
+    from repro_torch.models import layers
+
+    rng = np.random.default_rng(seed)
+    gy = torch.as_tensor(rng.standard_normal(tuple(x.shape))
+                         .astype(np.float32)).to(x.dtype).to(x.device)
+    xs, ss = x.detach().contiguous(), scale.detach()
+    out = {}
+    for name, fn in (("kernel", lambda a, s: layers.rmsnorm({"scale": s}, a)),
+                     ("plain", D.rmsnorm_ref)):
+        xa, sa = xs.clone().requires_grad_(), ss.clone().requires_grad_()
+        y = fn(xa, sa)
+        check(y.grad_fn is not None, f"{what}: {name} output has no grad_fn")
+        out[name] = torch.autograd.grad(y, (xa, sa), gy)
+    return {"dx": grad_close(out["kernel"][0], out["plain"][0], what + " dx",
+                             scale_atol=True),
+            "dscale": grad_close(out["kernel"][1], out["plain"][1],
+                                 what + " dscale", scale_atol=True)}
 
 
 def flash_inputs(b, sq, skv, h, kv, d, dtype, seed, dev) -> tuple:
@@ -2649,28 +2760,118 @@ def phase_flash(dev) -> float:
               f"max_abs_err={e!r} ({err})")
         check(close, f"kernel E {name}: differs from its plain version")
         check(bool(got.isfinite().all()), f"kernel E {name}: non-finite")
-        del q, k, v, got, want
+        del want
+        stats = flash_stats_check(q, k, v, got, kw, f"kernel E {name}")
+        if name in FLASH_GRAD_CASES:
+            stats["grad"] = flash_grad_check(q, k, v, kw, 70 + i,
+                                             f"kernel E {name}")
+        print(f"kernel E {name}: stats and gradient {stats}")
+        del q, k, v, got
     return worst
+
+
+def stats_blocks(n: int) -> int:
+    """The largest power of two up to 512 (the LM's block) that divides
+    ``n``: the plain ``_fwd_pass``'s block for a sequence of ``n``."""
+    blk = 512
+    while n % blk:
+        blk //= 2
+    return blk
+
+
+def flash_stats_check(q, k, v, out, kw, what: str) -> dict:
+    """Kernel E with ``return_stats``: its output bitwise the output
+    without them, and its per-row float32 (m, l), (B, Sq, KV, g), within
+    FLASH_F32_TOL of the plain ``_fwd_pass``'s (the LM's blockwise
+    online softmax) on the same inputs."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as E
+    from repro_torch.models import attention, flash
+
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    got, m, l = E.flash_attention_fwd(q, k, v, **kw, return_stats=True)
+    check(torch.equal(got, out), f"{what}: output with stats differs from "
+          f"the output without")
+    qb, kb = stats_blocks(sq), stats_blocks(skv)
+    pairs = attention._block_pairs(sq // qb, skv // kb, qb, kb, skv - sq,
+                                   kw["causal"], kw["window"])
+    with torch.no_grad():
+        _, pm, pl = flash._fwd_pass(q, k, v, pairs, q_block=qb, kv_block=kb,
+                                    scale=d ** -0.5, **kw)
+    res = {}
+    for name, a, w in (("m", m, pm), ("l", l, pl)):
+        check(a.shape == (b, sq, kvh, h // kvh) and a.dtype == torch.float32,
+              f"{what}: stats {name} {tuple(a.shape)} {a.dtype}")
+        close = bool(((a - w).abs() <= FLASH_F32_TOL["atol"]
+                      + FLASH_F32_TOL["rtol"] * w.abs()).all())
+        res[name] = (a - w).abs().max().item()
+        check(close, f"{what}: stats {name} differ from _fwd_pass's by "
+              f"{res[name]!r}")
+    return res
+
+
+def flash_grad_check(q, k, v, kw, seed: int, what: str) -> dict:
+    """(dq, dk, dv) through kernel E's autograd Function (the LM's
+    ``flash_attention`` where autograd records: kernel E with its stats,
+    then the recompute backward) against autograd through the plain
+    ``flash_attention_ref`` on the card, at a seeded cotangent."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as E
+    from repro_torch.models import flash
+
+    rng = np.random.default_rng(seed)
+    do = torch.as_tensor(rng.standard_normal(tuple(q.shape))
+                         .astype(np.float32)).to(q.dtype).to(q.device)
+    before = E.flash_attention_fwd.launches
+    out = {}
+    for name, fn in (("kernel", flash.flash_attention),
+                     ("plain", E.flash_attention_ref)):
+        args = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        y = fn(*args, **kw)
+        check(y.grad_fn is not None, f"{what}: {name} output has no grad_fn")
+        out[name] = torch.autograd.grad(y, args, do)
+        del y, args
+    check(q.device.type != "cuda"
+          or E.flash_attention_fwd.launches == before + 1,
+          f"{what}: the Function did not launch kernel E once")
+    share = FLASH_BF16_GRAD_SHARE if q.dtype == torch.bfloat16 else None
+    return {n: grad_close(a, b, f"{what} {n}", bf16_share=share)
+            for n, a, b in zip(("dq", "dk", "dv"), out["kernel"],
+                               out["plain"])}
 
 
 @contextlib.contextmanager
 def plain_kernels():
     """Inside the ``with``, the LM's norms and prompt attention run the
     plain versions of kernels D and E (on any device), so the same
-    forward can be held against itself on the card.  The launch counts
-    are set to 0 on entry, and the block fails if D or E was launched
-    inside it (the swap missed a route to the kernels)."""
+    forward, or training step, can be held against itself on the card:
+    with autograd the plain path is autograd through ``rmsnorm_ref`` and
+    ``flash_attention_ref``, not kernel D's and E's autograd Functions.
+    The launch counts are set to 0 on entry, and the block fails if D or
+    E was launched inside it (the swap missed a route to the kernels)."""
     from repro_torch.kernels.flash_attention import flash_attention_ref
     from repro_torch.kernels.rmsnorm import rmsnorm_ref
     from repro_torch.models import flash, layers
 
     check(hasattr(layers, "rmsnorm_op")
-          and hasattr(flash, "flash_attention_fwd"),
+          and hasattr(flash, "flash_attention_fwd")
+          and hasattr(flash, "flash_attention_vjp"),
           "plain_kernels: the LM no longer reaches D and E by the names "
           "it swaps")
-    saved = layers.rmsnorm_op, flash.flash_attention_fwd
+
+    def plain_vjp(q, k, v, *, causal, window, logit_softcap, scale,
+                  **blocks):
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   logit_softcap=logit_softcap, scale=scale)
+
+    saved = (layers.rmsnorm_op, flash.flash_attention_fwd,
+             flash.flash_attention_vjp)
     layers.rmsnorm_op = lambda x, scale, eps=1e-6: rmsnorm_ref(x, scale, eps)
     flash.flash_attention_fwd = flash_attention_ref
+    flash.flash_attention_vjp = plain_vjp
     reset_counts()
     try:
         yield
@@ -2678,7 +2879,8 @@ def plain_kernels():
         check(counts["D"] == counts["E"] == 0,
               f"the plain path launched kernels: {counts}")
     finally:
-        layers.rmsnorm_op, flash.flash_attention_fwd = saved
+        (layers.rmsnorm_op, flash.flash_attention_fwd,
+         flash.flash_attention_vjp) = saved
 
 
 def compare_logits(got, want, chunk: int = 512) -> dict:
@@ -2885,6 +3087,316 @@ def phase_anchor(arch: str, dev) -> dict:
     return {"max_abs_err": worst, "greedy_equal": True}
 
 
+# ---------------------------------------------------------------------------
+# LM training (the eighth path)
+# ---------------------------------------------------------------------------
+
+#: The training path: ``train.main`` at the reference CLI's defaults
+#: (qwen2-0.5b at full width, bf16, 128 tokens, global batch 8, 100
+#: steps, lr 3e-4, warmup 20, no remat).
+TRAIN_ARGV = ["--arch", "qwen2-0.5b"]
+#: Steps timed one by one after the counted step (the median is read).
+TRAIN_TIMED_STEPS = 20
+#: One step through kernels D and E against the same step on their
+#: plain versions (autograd through rmsnorm_ref and flash_attention_ref),
+#: bf16 at full width: bf16 roundings of one ulp in norms and attention
+#: move through 24 layers and their backward.  The loss within 1e-2
+#: absolute, each gradient leaf's cosine at least 0.99, the global
+#: gradient norm within 1 % (the readings are reported beside them).
+TRAIN_LOSS_ATOL, TRAIN_LEAF_COS, TRAIN_GNORM_RTOL = 1e-2, 0.99, 1e-2
+#: The reduced float32 models against ``TRAIN_ANCHORS``, the CPU tests'
+#: tolerances (tests/test_torch_train.py): the first loss as ANCHOR_TOL,
+#: the first step's leaf gradient norms within 1e-5 relative, then over
+#: five AdamW steps at lr 1e-2 losses within 1e-4 and global gradient
+#: norms within 1e-3 relative (the runs drift apart by the ulps an update
+#: divides by sqrt(v)).
+TRAIN_LEAF_RTOL, TRAJ_LOSS_RTOL, TRAJ_GNORM_RTOL = 1e-5, 1e-4, 1e-3
+#: The resume run: steps, and the checkpoint it resumes from.
+RESUME_STEPS, RESUME_AT = 6, 3
+
+
+def train_launches(cfg) -> dict:
+    """Kernel launches of one training step of a dense ``cfg`` (no
+    remat): kernel D at every norm of the forward (two a layer, four
+    with post-block norms, and the final one), kernel E at every layer's
+    attention; the backward launches neither."""
+    norms = (4 if cfg.post_block_norm else 2) * cfg.num_layers + 1
+    return {"D": norms, "E": cfg.num_layers}
+
+
+def train_step_flops(cfg, batch: int, seq: int) -> dict:
+    """Matmul operations of one training step: 6 a weight a token
+    (forward 2, backward 4) for every matmul weight (the q, k, v and o
+    projections, the FFN's, the unembedding, tied or not), plus
+    attention's q·k and p@v over the visible (query, key) pairs, 2·Dh
+    operations each a pair and head, three times over (the forward's
+    two products, the backward's four).  Norm scales, biases and the
+    embedding gather are no matmuls."""
+    d, h, kvh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    hd = cfg.resolved_head_dim
+    ffn = (3 if cfg.ffn_kind == "swiglu" else 2) * d * cfg.d_ff
+    weights = (cfg.num_layers * (2 * d * h * hd + 2 * d * kvh * hd + ffn)
+               + cfg.vocab_size * d)
+    tokens = batch * seq
+    attn = 0
+    for i in range(cfg.num_layers):
+        window = cfg.sliding_window if cfg.layer_kind(i) == "attn_local" \
+            else 0
+        attn += 3 * 2 * (2 * hd * h) * batch * visible_pairs(seq, seq, True,
+                                                              window)
+    ops = 6 * weights * tokens + attn
+    return {"weights": weights, "tokens": tokens, "ops": ops,
+            "bound_ms": ops / PEAK_BF16_OPS_PER_S * 1e3}
+
+
+def leaf_paths(tree) -> dict:
+    """``{path: tensor}`` of a parameter tree (the checkpoint's paths)."""
+    from repro_torch.checkpoint.manager import _flatten
+
+    return dict(_flatten(tree))
+
+
+def compare_grads(loss_a, grads_a, loss_b, grads_b) -> dict:
+    """Loss difference, the smallest cosine over the gradient leaves (and
+    its leaf), the global norms' relative difference."""
+    import torch
+
+    a, b = leaf_paths(grads_a), leaf_paths(grads_b)
+    check(sorted(a) == sorted(b), "gradient trees differ")
+    cos = {}
+    for k in a:
+        x, y = a[k].double().flatten(), b[k].double().flatten()
+        cos[k] = float(torch.dot(x, y) / (x.norm() * y.norm()).clamp_min(
+            1e-300))
+    na = float(torch.sqrt(sum(t.double().square().sum() for t in a.values())))
+    nb = float(torch.sqrt(sum(t.double().square().sum() for t in b.values())))
+    worst = min(cos, key=cos.get)
+    return {"loss_diff": abs(float(loss_a) - float(loss_b)),
+            "min_leaf_cos": cos[worst], "min_cos_leaf": worst,
+            "grad_norm": na, "grad_norm_plain": nb,
+            "grad_norm_rel_diff": abs(na - nb) / nb}
+
+
+def phase_train_anchor(arch: str, dev) -> dict:
+    """The reduced float32 ``arch`` trained on ``dev`` against
+    ``TRAIN_ANCHORS``, frozen from the JAX reference."""
+    import torch
+
+    from repro_torch.models import anchors as A
+
+    got, want = A.train_run(arch, dev), A.TRAIN_ANCHORS[arch]
+    del got["params"]
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    g0, w0 = got["losses"][0], want["losses"][0]
+    check(abs(g0 - w0) <= ANCHOR_TOL["atol"] + ANCHOR_TOL["rtol"] * abs(w0),
+          f"{arch}: first loss {g0!r} vs the JAX anchor {w0!r}")
+    rel = {}
+    for key, tol in (("losses", TRAJ_LOSS_RTOL),
+                     ("grad_norms", TRAJ_GNORM_RTOL)):
+        rel[key] = max(abs(g - w) / abs(w)
+                       for g, w in zip(got[key], want[key]))
+        check(len(got[key]) == len(want[key]) and rel[key] <= tol,
+              f"{arch}: {key} {got[key]} vs the JAX anchors {want[key]}")
+    check(sorted(got["leaf_grad_norms"]) == sorted(want["leaf_grad_norms"]),
+          f"{arch}: gradient leaves differ from the anchors'")
+    leaf = {k: abs(got["leaf_grad_norms"][k] - w) / max(w, 1e-30)
+            for k, w in want["leaf_grad_norms"].items()}
+    rel["leaf_grad_norms"] = max(leaf.values())
+    check(rel["leaf_grad_norms"] <= TRAIN_LEAF_RTOL,
+          f"{arch}: leaf gradient norm {max(leaf, key=leaf.get)} off by "
+          f"{rel['leaf_grad_norms']!r}")
+    print(f"train anchors {arch} (reduced, float32) on {dev}: losses "
+          f"{got['losses']}, largest relative errors {rel}")
+    return {"losses": got["losses"], "max_rel_err": rel}
+
+
+def resume_check(argv: list, dev, root: pathlib.Path) -> dict:
+    """``train.main`` for RESUME_STEPS steps with a checkpoint every
+    RESUME_AT (``root/whole``), then again from that run's step-RESUME_AT
+    checkpoint (``root/part``): the resumed losses and the final
+    checkpoint (parameters and AdamW state) against the uninterrupted
+    run's, bitwise.  The directories are removed afterwards."""
+    import shutil
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import train
+
+    shutil.rmtree(root, ignore_errors=True)
+    whole, part = root / "whole", root / "part"
+    args = argv + ["--device", str(dev), "--steps", str(RESUME_STEPS),
+                   "--ckpt-every", str(RESUME_AT)]
+    try:
+        t0 = time.perf_counter()
+        a = train.main(args + ["--ckpt-dir", str(whole)])
+        part.mkdir(parents=True)
+        shutil.copytree(whole / f"step_{RESUME_AT:09d}",
+                        part / f"step_{RESUME_AT:09d}")
+        b = train.main(args + ["--ckpt-dir", str(part), "--resume"])
+        wall = time.perf_counter() - t0
+        check(b["steps"] == RESUME_STEPS - RESUME_AT,
+              f"resume ran {b['steps']} steps")
+        got = CheckpointManager(str(part)).restore_items(RESUME_STEPS)
+        want = CheckpointManager(str(whole)).restore_items(RESUME_STEPS)
+        check(list(got) == list(want), "resumed checkpoint's leaves differ")
+        differing = [k for k in want if got[k].dtype != want[k].dtype
+                     or leaf_bytes(got[k]) != leaf_bytes(want[k])]
+        loss_gap = max(abs(x - y) for x, y in zip(b["losses"],
+                                                  a["losses"][RESUME_AT:]))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = {"steps": RESUME_STEPS, "resumed_at": RESUME_AT,
+           "losses": a["losses"], "resumed_losses": b["losses"],
+           "loss_gap": loss_gap, "leaves": len(want),
+           "leaves_differing": differing[:8], "wall_s": wall}
+    check(loss_gap == 0 and not differing,
+          f"resume is not bitwise the uninterrupted run: {out}")
+    return out
+
+
+def leaf_bytes(a) -> bytes:
+    """The raw bytes of a restored leaf (bf16 comes back as a tensor)."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return a.contiguous().view(torch.int16).numpy().tobytes()
+    return np.ascontiguousarray(a).tobytes()
+
+
+def phase_train(dev, smi: str, argv: list = TRAIN_ARGV,
+                work: pathlib.Path = ROOT / "build" / "train_resume"
+                ) -> tuple:
+    """LM training on ``dev``: (a) ``train.main(argv)`` (the reference
+    CLI's defaults: qwen2-0.5b at full width), its launch counts read
+    around it (D and E ``train_launches`` a step, A-C none) and its loss
+    decreasing, then one step counted alone and TRAIN_TIMED_STEPS timed;
+    (b) one step through kernels D and E against the same step on their
+    plain versions; (c) the reduced float32 qwen2-0.5b and gemma2-2b
+    against ``TRAIN_ANCHORS``; (d) a checkpointed run resumed bitwise
+    (its checkpoints under ``work``).  Returns main's and one step's
+    launch counts and the ``train`` report."""
+    import torch
+
+    from repro_torch.configs import get_config, get_reduced_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import steps as S
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+
+    args = train.build_argparser().parse_args(argv)
+    cfg = get_reduced_config(args.arch) if args.reduced \
+        else get_config(args.arch)
+    per_step = train_launches(cfg)
+    flops = train_step_flops(cfg, args.global_batch, args.seq_len)
+    report: dict = {"arch": cfg.name, "layers": cfg.num_layers,
+                    "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+                    "dtype": cfg.dtype, "global_batch": args.global_batch,
+                    "seq": args.seq_len, "steps": args.steps,
+                    "remat": args.remat, "matmul_bound": flops}
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    # (a) the training CLI at its defaults
+    sync(dev)
+    reset_counts()
+    res = train.main(argv + ["--device", str(dev)])
+    sync(dev)
+    launches = read_counts()
+    want = {"A": 0, "B": 0, "C": 0, "D": per_step["D"] * res["steps"],
+            "E": per_step["E"] * res["steps"]}
+    check(launches == want, f"train.main: expected launches {want}, got "
+          f"{launches}")
+    check(res["steps"] == args.steps and res["loss_decreased"]
+          and all(np.isfinite(res["losses"])),
+          f"train.main: {res['steps']} steps, loss {res['first_loss']} -> "
+          f"{res['last_loss']}")
+    report["main"] = {k: res[k] for k in ("first_loss", "last_loss",
+                                          "loss_decreased", "steps",
+                                          "mean_step_s", "wall_s")}
+    report["main"]["launches"] = launches
+    if cuda:
+        report["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+    params = S.trainable(T.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(args.seed), dev))
+    opt_cfg = adamw.AdamWConfig(lr=args.lr, warmup_steps=args.warmup,
+                                total_steps=args.steps)
+    opt = adamw.init(opt_cfg, params)
+    ds = SyntheticLM(cfg, DataConfig(seq_len=args.seq_len,
+                                     global_batch=args.global_batch,
+                                     seed=args.seed))
+    step = S.make_train_step(cfg, opt_cfg, remat=args.remat)
+    batch = train.device_batch(ds.batch_at(0), dev)
+
+    # (b) one step's gradients through the kernels and on the plain path
+    loss_k, g_k = S.value_and_grad(cfg, params, batch, args.remat)
+    with plain_kernels():
+        loss_p, g_p = S.value_and_grad(cfg, params, batch, args.remat)
+    vs = compare_grads(loss_k, g_k, loss_p, g_p)
+    del g_k, g_p
+    check(vs["loss_diff"] <= TRAIN_LOSS_ATOL
+          and vs["min_leaf_cos"] >= TRAIN_LEAF_COS
+          and vs["grad_norm_rel_diff"] <= TRAIN_GNORM_RTOL,
+          f"train step: kernels vs plain {vs}")
+    report["vs_plain"] = vs
+    print(f"train step {cfg.name}: kernels vs plain {vs}")
+
+    # one step counted alone, then steps timed one by one
+    sync(dev)
+    reset_counts()
+    params, opt, met = step(params, opt, batch)
+    float(met["loss"])
+    one = read_counts()
+    check(one == dict(want, D=per_step["D"], E=per_step["E"]),
+          f"one train step: expected {per_step} launches of D and E, got "
+          f"{one}")
+    times = []
+    for i in range(1, TRAIN_TIMED_STEPS + 1):
+        batch = train.device_batch(ds.batch_at(i), dev)
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, batch)
+        float(met["loss"])                # waits for the step
+        times.append(time.perf_counter() - t0)
+    step_ms = float(np.median(times[1:])) * 1e3
+    report["step"] = {"launches": one, "timed_steps": len(times),
+                      "median_ms_after_first": step_ms,
+                      "first_ms": times[0] * 1e3,
+                      "tokens_per_s": flops["tokens"] / step_ms * 1e3,
+                      "bound_share": flops["bound_ms"] / step_ms}
+    if cuda:
+        state = {"params": params, "opt": opt, "batch": batch}
+
+        def one_step():
+            state["params"], state["opt"], m = step(
+                state["params"], state["opt"], state["batch"])
+            float(m["loss"])
+
+        busy, by_kernel = busy_share(one_step)
+        report["step"]["busy_share"] = busy
+        report["step"]["device_s_by_kernel"] = dict(sorted(
+            by_kernel.items(), key=lambda kv: -kv[1])[:10])
+        del state
+    del params, opt, batch
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (c) the reduced float32 models against the JAX anchors
+    report["anchors"] = {arch: phase_train_anchor(arch, dev)
+                         for arch in ("qwen2-0.5b", "gemma2-2b")}
+    # (d) a checkpointed run, resumed
+    report["resume"] = resume_check(argv, dev, work)
+    report["card"] = smi
+    print(f"train {cfg.name}: step {step_ms:.3f} ms (median), "
+          f"{report['step']['tokens_per_s']:.0f} tokens/s, "
+          f"{report['step']['bound_share']:.3f} of the matmul bound "
+          f"{flops['bound_ms']:.3f} ms; loss {res['first_loss']:.4f} -> "
+          f"{res['last_loss']:.4f}; card {smi}")
+    return launches, one, report
+
+
 def busy_share(run) -> tuple:
     """The device's busy share of one profiled ``run()``: its device time
     over its own wall time, taken inside the trace (the profiler's host
@@ -3055,9 +3567,11 @@ def flex_library(row, qt, kt, vt, causal, window, cap, out, reps) -> None:
 
 
 def run(dev, grid_big, smi: str, lm_cfg, lm_seq: int = LM_SEQ,
-        serve_argv: list = SERVE_ARGV) -> None:
-    """Phases 2-10 on ``dev`` with ``grid_big`` as the stream's grid and
-    ``lm_cfg`` run at ``lm_seq`` tokens as the LM."""
+        serve_argv: list = SERVE_ARGV,
+        train_argv: list = TRAIN_ARGV) -> None:
+    """Phases 2-11 on ``dev`` with ``grid_big`` as the stream's grid,
+    ``lm_cfg`` run at ``lm_seq`` tokens as the LM and ``train.main(
+    train_argv)`` as the training path."""
     from repro_torch.core import stream as ST
     from repro_torch.core.grids import (ANCHOR_1M, ANCHOR_10M,
                                         REFERENCE_GRID, stream_grid_axes)
@@ -3105,17 +3619,22 @@ def run(dev, grid_big, smi: str, lm_cfg, lm_seq: int = LM_SEQ,
                 busy.items(), key=lambda kv: -kv[1])[:8]))
     stats = dict(paths["default"], synchronous=paths["synchronous"],
                  plain=paths["plain"], bitwise_plain=paths["bitwise_plain"])
+    train_main, train_step, trained = phase_train(dev, smi, train_argv)
     # The LM last: its serve run's trace (~85,000 kernels) is the largest
     # the script takes.
     lm_launches, lm = phase_lm(dev, lm_cfg, lm_seq, serve_argv, smi)
     for row in rows_de:
-        row["launches"] = lm_launches[row.pop("kernel")]
+        key = row.pop("kernel")
+        row["launches"] = lm_launches[key]
+        row["launches_train"] = train_main[key]
+        row["launches_train_step"] = train_step[key]
     print(json.dumps({"stream": stats, "card": smi}))
     print(json.dumps({"stream_resilience": resilience, "card": smi}))
     print(json.dumps(shapes))
     print(json.dumps({"handtracking": ht}))
     print(json.dumps(lm_shapes))
     print(json.dumps({"lm": lm}))
+    print(json.dumps({"train": trained}))
     print(json.dumps({"kernels": rows}))
 
 

@@ -12,7 +12,9 @@ per step, the reference's byte for byte):
   (numpy arrays, torch tensors, Python scalars).  Leaves are visited as
   JAX flattens such a tree: dict keys in sorted order, sequences in
   order, ``None`` an empty subtree; a leaf's path joins its keys and
-  indices with ``/`` (``carry/min_val``).  So a checkpoint the reference
+  indices with ``/`` (``carry/min_val``), a named tuple's fields by
+  name (``opt/step``, ``opt/mu/...`` for an ``AdamWState``), as the
+  reference's ``_path_str`` names them.  So a checkpoint the reference
   wrote restores here and the other way round.
 * **Atomicity** — a save lands in ``step_X.tmp`` and is renamed only
   after the arrays and the manifest are fsync'd; the parent directory
@@ -36,6 +38,10 @@ import numpy as np
 import torch
 
 
+def _is_namedtuple(tree) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
+
+
 def _flatten(tree, prefix=()) -> list:
     """``[(path, leaf), ...]`` in the reference's (JAX's) leaf order."""
     if tree is None:
@@ -43,6 +49,9 @@ def _flatten(tree, prefix=()) -> list:
     if isinstance(tree, dict):
         return [kv for k in sorted(tree)
                 for kv in _flatten(tree[k], prefix + (str(k),))]
+    if _is_namedtuple(tree):
+        return [kv for name, x in zip(tree._fields, tree)
+                for kv in _flatten(x, prefix + (name,))]
     if isinstance(tree, (list, tuple)):
         return [kv for i, x in enumerate(tree)
                 for kv in _flatten(x, prefix + (str(i),))]
@@ -56,6 +65,8 @@ def _unflatten(like, leaves):
         return None
     if isinstance(like, dict):
         return {k: _unflatten(like[k], leaves) for k in sorted(like)}
+    if _is_namedtuple(like):
+        return type(like)(*(_unflatten(x, leaves) for x in like))
     if isinstance(like, (list, tuple)):
         return type(like)(_unflatten(x, leaves) for x in like)
     return next(leaves)

@@ -14,7 +14,10 @@ float32 inputs the CUDA-core route.  :func:`plan` chooses the route and
 its tiling in plain Python.  Given CPU tensors the wrapper runs the
 plain version (:func:`.ref.flash_attention_ref`); given CUDA tensors it
 launches the kernel on the current stream or raises.  It counts its
-launches in its ``launches`` attribute.
+launches in its ``launches`` attribute.  With ``return_stats=True`` it
+also returns each row's softmax statistics (running max ``m`` and sum
+``l``, float32, (B, Sq, KV, g)), the residuals of the flash backward
+(:class:`repro_torch.models.flash.FlashAttentionFunction`).
 """
 
 from __future__ import annotations
@@ -104,7 +107,7 @@ def plan(b: int, sq: int, h: int, kvh: int, d: int,
 def _lib():
     lib = LIBRARY.load()
     lib.flash_attention_launch.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
         + [ctypes.c_float, ctypes.c_float]
         + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 2
         + [ctypes.c_int, ctypes.c_void_p])
@@ -140,10 +143,13 @@ def _check(q, k, v) -> None:
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
                         logit_softcap: float = 0.0,
-                        scale: float | None = None) -> torch.Tensor:
+                        scale: float | None = None,
+                        return_stats: bool = False):
     """q: (B, Sq, H, D); k/v: (B, Skv, KV, D), one dtype (float32 or
     bfloat16), contiguous, on one device.  Returns (B, Sq, H, D) in q's
-    dtype.  ``window`` 0 and ``logit_softcap`` 0 turn those off."""
+    dtype, and with ``return_stats`` ``(out, m, l)``, the float32 softmax
+    statistics of each row, (B, Sq, KV, g).  ``window`` 0 and
+    ``logit_softcap`` 0 turn those off."""
     _check(q, k, v)
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
@@ -152,16 +158,23 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dev.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        logit_softcap=logit_softcap,
-                                       scale=scale)
+                                       scale=scale, return_stats=return_stats)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention_fwd runs on cuda or cpu, not "
                          f"{dev}")
     p = plan(b, sq, h, kvh, d, q.dtype)
     out = torch.empty_like(q)
+    m = l = None
+    if return_stats:
+        m = torch.empty((b, sq, kvh, h // kvh), dtype=torch.float32,
+                        device=dev)
+        l = torch.empty_like(m)
     if b and sq and skv and h:
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _lib().flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            m.data_ptr() if return_stats else None,
+            l.data_ptr() if return_stats else None,
             b, sq, skv, h, kvh, d, int(bool(causal)), int(window),
             float(logit_softcap), scale, DTYPES[q.dtype], ROUTES[p.route],
             p.keys, p.stages, p.smem_bytes, p.grid[0],
@@ -171,7 +184,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise RuntimeError(f"flash_attention_launch failed: {msg} "
                                f"(code {rc})")
         flash_attention_fwd.launches += 1
-    return out
+    return (out, m, l) if return_stats else out
 
 
 flash_attention_fwd.launches = 0

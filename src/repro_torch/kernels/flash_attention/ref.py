@@ -29,9 +29,15 @@ def visible_mask(sq: int, skv: int, causal: bool, window: int,
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
                         logit_softcap: float = 0.0,
-                        scale: float | None = None) -> torch.Tensor:
+                        scale: float | None = None,
+                        return_stats: bool = False):
     """q: (B, Sq, H, D); k/v: (B, Skv, KV, D).  Full softmax attention in
-    float32, returned in q's dtype.  The scale multiplies the product."""
+    float32, returned in q's dtype.  The scale multiplies the product.
+    With ``return_stats`` also each row's float32 softmax statistics,
+    (B, Sq, KV, g): ``m`` the largest visible score (NEG_INF where none
+    is visible) and ``l`` the sum of ``exp(s - m)`` over the visible
+    scores (0 where none), as the reference's ``_fwd_pass`` returns
+    them."""
     b, sq, h, d = q.shape
     _, skv, kvh, _ = k.shape
     g = h // kvh
@@ -44,4 +50,11 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = s.masked_fill(~mask[None, :, None, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bqkgt,btkd->bqkgd", p, v.float())
-    return o.reshape(b, sq, h, d).to(q.dtype)
+    out = o.reshape(b, sq, h, d).to(q.dtype)
+    if not return_stats:
+        return out
+    m = s.amax(dim=-1)
+    m_safe = torch.where(m <= NEG_INF / 2, torch.zeros_like(m), m)
+    e = torch.exp(s - m_safe[..., None]).masked_fill(
+        ~mask[None, :, None, None, :], 0.0)
+    return out, m, e.sum(dim=-1)

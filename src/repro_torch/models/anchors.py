@@ -10,6 +10,10 @@ so the same arrays feed ``repro.models.transformer`` and, through
 CPU for the reduced float32 gemma2-2b and qwen2-0.5b: full-forward
 logits at fixed positions and greedy tokens after a prefill
 (``tests/test_torch_transformer.py`` recomputes them with JAX).
+``TRAIN_ANCHORS`` holds the reference's training run from the same
+weights: each step's loss and global gradient norm, and the first
+step's gradient norm of every leaf (``tests/test_torch_train.py``
+recomputes them with JAX); :func:`train_run` is the port's run of it.
 """
 
 from __future__ import annotations
@@ -78,6 +82,15 @@ def anchor_tokens(cfg: ModelConfig, seed: int = TOKEN_SEED) -> tuple:
     prompt = rng.integers(0, cfg.vocab_size, PROMPT_SHAPE).astype(np.int32)
     return fwd, prompt
 
+
+#: The training anchors' run: the reference train test's optimizer
+#: settings (lr 1e-2, warmup 2) over TRAIN_STEPS steps (the cosine
+#: schedule's total), SyntheticLM batches of TRAIN_SHAPE (global batch,
+#: sequence) from data seed TRAIN_DATA_SEED, no remat.
+TRAIN_STEPS = 5
+TRAIN_SHAPE = (4, 128)
+TRAIN_LR, TRAIN_WARMUP = 1e-2, 2
+TRAIN_DATA_SEED = 0
 
 #: Frozen JAX results (JAX 0.9 on the CPU), by arch id, for the reduced
 #: config in float32: ``logits`` the first ANCHOR_VOCAB logits of each
@@ -191,5 +204,148 @@ LM_ANCHORS: dict = {
             (223, 284, 340, 337, 337, 337, 337, 344),
         ),
         "min_top2_gap": 0.05159473419189453,
+    },
+}
+
+
+def train_run(arch: str, device="cuda") -> dict:
+    """The training run behind ``TRAIN_ANCHORS[arch]`` on ``device``: the
+    reduced float32 ``arch`` from :func:`jax_layout_params`, TRAIN_STEPS
+    train steps (no remat) on ``SyntheticLM`` batches.  Returns each
+    step's loss and global gradient norm, the first step's gradient norm
+    of every leaf (float64, by leaf path) and the final parameters."""
+    from repro_torch.checkpoint.manager import _flatten
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.core.sweep import resolve_device
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import steps, train
+    from repro_torch.optim import adamw
+
+    from . import transformer as T
+
+    dev = resolve_device(device)
+    cfg = get_reduced_config(arch, dtype="float32")
+    b, s = TRAIN_SHAPE
+    ds = SyntheticLM(cfg, DataConfig(seq_len=s, global_batch=b,
+                                     seed=TRAIN_DATA_SEED))
+    opt_cfg = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                                total_steps=TRAIN_STEPS)
+    params = steps.trainable(T.to_device(
+        T.params_from_jax(cfg, jax_layout_params(cfg)), dev))
+    _, g0 = steps.value_and_grad(cfg, params,
+                                 train.device_batch(ds.batch_at(0), dev))
+    leaf = {k: float(v.double().norm()) for k, v in _flatten(g0)}
+    step = steps.make_train_step(cfg, opt_cfg, remat=False)
+    opt, losses, norms = adamw.init(opt_cfg, params), [], []
+    for i in range(TRAIN_STEPS):
+        params, opt, met = step(params, opt,
+                                train.device_batch(ds.batch_at(i), dev))
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+    return {"losses": losses, "grad_norms": norms, "leaf_grad_norms": leaf,
+            "params": params}
+
+
+#: Frozen JAX results (JAX 0.9 on the CPU) of the training run above,
+#: by arch id, for the reduced config in float32 from the anchor
+#: weights: ``losses`` and ``grad_norms`` (global, before clipping)
+#: of each step, ``leaf_grad_norms`` the first step's gradient norm of
+#: each leaf by the port's leaf path (float64 norms).
+TRAIN_ANCHORS: dict = {
+    "qwen2-0.5b": {
+        "losses": (
+            6.4218430519104, 5.656156539916992, 4.568023681640625,
+            4.633533000946045, 4.615225791931152,
+        ),
+        "grad_norms": (
+            4.002308368682861, 3.335923433303833, 1.6981785297393799,
+            2.7400460243225098, 1.0282502174377441,
+        ),
+        "leaf_grad_norms": {
+            "embed/table": 2.106222512922615,
+            "final_norm/scale": 0.10672363011927187,
+            "layers/0/ffn/w_down": 1.3015783360771134,
+            "layers/0/ffn/w_gate": 0.9211741115754624,
+            "layers/0/ffn/w_up": 0.9028657099750501,
+            "layers/0/mixer/b_k": 0.017645383071591216,
+            "layers/0/mixer/b_q": 0.0669404900859079,
+            "layers/0/mixer/b_v": 0.47878464138228277,
+            "layers/0/mixer/w_k": 0.6766882153807973,
+            "layers/0/mixer/w_o": 1.5672677984292318,
+            "layers/0/mixer/w_q": 0.6460859251558816,
+            "layers/0/mixer/w_v": 1.3868188524059688,
+            "layers/0/norm1/scale": 0.16254538956642595,
+            "layers/0/norm2/scale": 0.1186689767318958,
+            "layers/1/ffn/w_down": 0.6973589077826373,
+            "layers/1/ffn/w_gate": 0.4467875315301981,
+            "layers/1/ffn/w_up": 0.5309440359436389,
+            "layers/1/mixer/b_k": 0.00604080794979756,
+            "layers/1/mixer/b_q": 0.020336226976594565,
+            "layers/1/mixer/b_v": 0.20114498963392405,
+            "layers/1/mixer/w_k": 0.17569359375561677,
+            "layers/1/mixer/w_o": 0.9011127116627368,
+            "layers/1/mixer/w_q": 0.17389573423211693,
+            "layers/1/mixer/w_v": 0.8901690417858141,
+            "layers/1/norm1/scale": 0.07340427541047065,
+            "layers/1/norm2/scale": 0.06305279948450904,
+        },
+    },
+    "gemma2-2b": {
+        "losses": (
+            5.613340377807617, 4.950395584106445, 4.325078010559082,
+            4.4615678787231445, 4.422127723693848,
+        ),
+        "grad_norms": (
+            3.1711528301239014, 2.042619466781616, 3.008746862411499,
+            4.305829048156738, 2.682541608810425,
+        ),
+        "leaf_grad_norms": {
+            "embed/table": 1.7592057262466956,
+            "final_norm/scale": 0.07975489083599899,
+            "layers/0/ffn/w_down": 0.7734208337778145,
+            "layers/0/ffn/w_gate": 0.5101420901169371,
+            "layers/0/ffn/w_up": 0.551796884770765,
+            "layers/0/mixer/w_k": 0.4201690135101985,
+            "layers/0/mixer/w_o": 1.073442967754556,
+            "layers/0/mixer/w_q": 0.4165524099784435,
+            "layers/0/mixer/w_v": 1.0229129400999328,
+            "layers/0/norm1/scale": 0.10710454633794796,
+            "layers/0/norm2/scale": 0.06887312398469593,
+            "layers/0/post_norm1/scale": 0.09408245842787831,
+            "layers/0/post_norm2/scale": 0.043009654404379385,
+            "layers/1/ffn/w_down": 0.5604492468656013,
+            "layers/1/ffn/w_gate": 0.34965098695245306,
+            "layers/1/ffn/w_up": 0.3558907203996045,
+            "layers/1/mixer/w_k": 0.16967866503602586,
+            "layers/1/mixer/w_o": 0.7057862185499661,
+            "layers/1/mixer/w_q": 0.17274340490256954,
+            "layers/1/mixer/w_v": 0.7464917106345319,
+            "layers/1/norm1/scale": 0.06568118665802249,
+            "layers/1/norm2/scale": 0.04067836828076089,
+            "layers/1/post_norm1/scale": 0.06118929063449079,
+            "layers/1/post_norm2/scale": 0.03186282464306315,
+            "layers/2/ffn/w_down": 0.4116071343809273,
+            "layers/2/ffn/w_gate": 0.26772591361136894,
+            "layers/2/ffn/w_up": 0.2846949513098666,
+            "layers/2/mixer/w_k": 0.0966226227516146,
+            "layers/2/mixer/w_o": 0.5074139946486274,
+            "layers/2/mixer/w_q": 0.10271262204716777,
+            "layers/2/mixer/w_v": 0.560803454100853,
+            "layers/2/norm1/scale": 0.04804781809115674,
+            "layers/2/norm2/scale": 0.03497619360268749,
+            "layers/2/post_norm1/scale": 0.04780504845863328,
+            "layers/2/post_norm2/scale": 0.029204816251767417,
+            "layers/3/ffn/w_down": 0.351677646467878,
+            "layers/3/ffn/w_gate": 0.26248730826862493,
+            "layers/3/ffn/w_up": 0.2606201281455926,
+            "layers/3/mixer/w_k": 0.07830575532567363,
+            "layers/3/mixer/w_o": 0.41509200897460224,
+            "layers/3/mixer/w_q": 0.07487049597900299,
+            "layers/3/mixer/w_v": 0.39893707183063853,
+            "layers/3/norm1/scale": 0.033224353432459164,
+            "layers/3/norm2/scale": 0.037005237593813495,
+            "layers/3/post_norm1/scale": 0.037589871986201874,
+            "layers/3/post_norm2/scale": 0.023045946673472668,
+        },
     },
 }

@@ -3,9 +3,11 @@
 
 Two paths, as in the reference:
 
-* **prompt forward** — :func:`gqa_forward` projects q, k and v and calls
-  :func:`repro_torch.models.flash.flash_attention`, which is kernel E on
-  the card;
+* **prompt forward and training** — :func:`gqa_forward` projects q, k
+  and v and calls :func:`repro_torch.models.flash.flash_attention`,
+  which is kernel E on the card (with a recompute backward in torch
+  ops); :func:`blockwise_attention` is the reference's plain online-
+  softmax twin, differentiable by autograd;
 * **decode** — :func:`gqa_decode` writes one token's k and v into a
   preallocated cache and attends over it with :func:`decode_attention`,
   plain tensor code that masks by ``cache_len`` over the whole cache and
@@ -53,6 +55,78 @@ def _block_pairs(n_q: int, n_kv: int, q_block: int, kv_block: int,
                 continue                        # fully below the window
             pairs.append((qi, kj))
     return pairs
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        logit_softcap: float = 0.0, q_block: int = 512,
+                        kv_block: int = 512,
+                        scale: float | None = None) -> torch.Tensor:
+    """q: (B, Sq, H, Dh); k/v: (B, Skv, KV, Dh) with H = G*KV.
+
+    Returns (B, Sq, H, Dv).  The flash-attention algorithm (online
+    softmax) over the statically enumerated block pairs, as plain tensor
+    code written out of place, so that autograd differentiates it as
+    ``jax.grad`` goes through the reference's scan: each q block's
+    (o, m, l) is a new tensor at every pair it meets.
+    """
+    b, sq, h, dh = q.shape
+    _, skv, kv_heads, dv = v.shape
+    g = h // kv_heads
+    q_block = min(q_block, sq)
+    kv_block = min(kv_block, skv)
+    if sq % q_block or skv % kv_block:
+        raise ValueError(f"blocks ({q_block}, {kv_block}) do not tile "
+                         f"(Sq, Skv) = ({sq}, {skv})")
+    n_q, n_kv = sq // q_block, skv // kv_block
+    scale = scale if scale is not None else dh ** -0.5
+    seq_offset = skv - sq
+    pairs = _block_pairs(n_q, n_kv, q_block, kv_block, seq_offset,
+                         causal, window)
+
+    qb = q.reshape(b, n_q, q_block, kv_heads, g, dh)
+    kb = k.reshape(b, n_kv, kv_block, kv_heads, dh)
+    vb = v.reshape(b, n_kv, kv_block, kv_heads, dv)
+    dev = q.device
+    o = [torch.zeros((b, q_block, kv_heads, g, dv), dtype=torch.float32,
+                     device=dev) for _ in range(n_q)]
+    m = [torch.full((b, q_block, kv_heads, g), NEG_INF, dtype=torch.float32,
+                    device=dev) for _ in range(n_q)]
+    l = [torch.zeros((b, q_block, kv_heads, g), dtype=torch.float32,
+                     device=dev) for _ in range(n_q)]
+    q_pos = torch.arange(q_block, device=dev)
+    k_pos = torch.arange(kv_block, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+
+    for qi, kj in pairs:
+        s = torch.einsum("bqkgd,btkd->bqkgt", qb[:, qi].float(),
+                         kb[:, kj].float()) * scale
+        if logit_softcap:
+            s = logit_softcap * torch.tanh(s / logit_softcap)
+        qpos = qi * q_block + q_pos + seq_offset
+        kpos = kj * kv_block + k_pos
+        mask = torch.ones((q_block, kv_block), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= kpos[None, :] <= qpos[:, None]
+        if window:
+            mask &= kpos[None, :] > qpos[:, None] - window
+        mask = mask[None, :, None, None, :]
+        s = torch.where(mask, s, NEG_INF)
+        m_old, l_old = m[qi], l[qi]
+        m_new = torch.maximum(m_old, s.amax(dim=-1))
+        # guard fully-masked rows (m_new == NEG_INF)
+        m_safe = torch.where(m_new <= NEG_INF / 2, zero, m_new)
+        p = torch.where(mask, torch.exp(s - m_safe[..., None]), zero)
+        alpha = torch.where(m_old <= NEG_INF / 2, zero,
+                            torch.exp(m_old - m_safe))
+        l[qi] = l_old * alpha + p.sum(dim=-1)
+        o[qi] = o[qi] * alpha[..., None] + torch.einsum(
+            "bqkgt,btkd->bqkgd", p, vb[:, kj].float())
+        m[qi] = m_new
+
+    out = torch.stack(o, dim=1) / torch.clamp_min(
+        torch.stack(l, dim=1)[..., None], 1e-30)
+    return out.reshape(b, sq, h, dv).to(q.dtype)
 
 
 #: The O(S^2)-memory oracle of the reference's tests (small shapes

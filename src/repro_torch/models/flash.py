@@ -1,16 +1,20 @@
-"""Flash attention of the port's LM, forward only (the reference's
-``repro/models/flash.py``).
+"""Flash attention of the port's LM with a recompute-based backward (the
+reference's ``repro/models/flash.py``).
 
-On CUDA tensors :func:`flash_attention` launches kernel E
+Forward: on CUDA tensors :func:`flash_attention` launches kernel E
 (:func:`repro_torch.kernels.flash_attention.flash_attention_fwd`); on CPU
 tensors it runs :func:`_fwd_pass`, the reference's blockwise online-
 softmax algorithm over the statically enumerated (q block, kv block)
 pairs, as plain tensor code.  The scale multiplies the q·k product, as
 here in the reference (its Pallas kernel scales q instead).
 
-The reference wraps this in a recompute-based custom VJP for training;
-the port's forward refuses a call that needs a gradient until the
-training slice brings the backward pass.
+Backward: where autograd records, the call goes through
+:class:`FlashAttentionFunction`, which takes the place of the
+reference's ``custom_vjp``: the forward keeps only (q, k, v, out, m, l),
+the per-row float32 softmax statistics coming from kernel E itself on
+the card, and the backward is :func:`_bwd_pass`, the reference's
+recompute over the same block pairs, as torch ops in float32 on every
+device (the reference has no Pallas backward either).
 """
 
 from __future__ import annotations
@@ -50,15 +54,8 @@ def _fwd_pass(q, k, v, pairs, *, causal, window, logit_softcap, q_block,
                          kb[:, kj].float()) * scale
         if logit_softcap:
             s = logit_softcap * torch.tanh(s / logit_softcap)
-        qp = qi * q_block + q_pos + seq_offset
-        kp = kj * kv_block + k_pos
-        mask = torch.ones((q_block, kv_block), dtype=torch.bool,
-                          device=q.device)
-        if causal:
-            mask &= kp[None, :] <= qp[:, None]
-        if window:
-            mask &= kp[None, :] > qp[:, None] - window
-        mask = mask[None, :, None, None, :]
+        mask = _mask(qi, kj, q_pos, k_pos, q_block, kv_block, seq_offset,
+                     causal, window)
         s = s.masked_fill(~mask, NEG_INF)
         m_old, l_old = m[:, qi], l[:, qi]
         m_new = torch.maximum(m_old, s.amax(dim=-1))
@@ -77,6 +74,121 @@ def _fwd_pass(q, k, v, pairs, *, causal, window, logit_softcap, q_block,
     return out, m.reshape(b, sq, kv_heads, g), l.reshape(b, sq, kv_heads, g)
 
 
+def _mask(qi, kj, q_pos, k_pos, q_block, kv_block, seq_offset, causal,
+          window):
+    """(1, q_block, 1, 1, kv_block) bool: which (query, key) pairs of
+    block pair (qi, kj) the mask leaves visible, in absolute positions."""
+    qp = qi * q_block + q_pos + seq_offset
+    kp = kj * kv_block + k_pos
+    mask = torch.ones((q_block, kv_block), dtype=torch.bool,
+                      device=q_pos.device)
+    if causal:
+        mask &= kp[None, :] <= qp[:, None]
+    if window:
+        mask &= kp[None, :] > qp[:, None] - window
+    return mask[None, :, None, None, :]
+
+
+def _bwd_pass(q, k, v, out, m, l, dout, pairs, *, causal, window,
+              logit_softcap, q_block, kv_block, scale):
+    """Gradients (dq, dk, dv) in q's, k's and v's dtypes: the scores and
+    probabilities recomputed a block pair at a time from q, k and the
+    saved statistics, in float32 (the reference's ``_bwd_pass``)."""
+    b, sq, h, dh = q.shape
+    _, skv, kv_heads, dv = v.shape
+    g = h // kv_heads
+    n_q = sq // q_block
+    n_kv = skv // kv_block
+    seq_offset = skv - sq
+
+    qb = q.reshape(b, n_q, q_block, kv_heads, g, dh).float()
+    kb = k.reshape(b, n_kv, kv_block, kv_heads, dh).float()
+    vb = v.reshape(b, n_kv, kv_block, kv_heads, dv).float()
+    do = dout.reshape(b, n_q, q_block, kv_heads, g, dv).float()
+    ob = out.reshape(b, n_q, q_block, kv_heads, g, dv).float()
+    mb = m.reshape(b, n_q, q_block, kv_heads, g)
+    lb = l.reshape(b, n_q, q_block, kv_heads, g)
+    # delta_i = sum_d do_i * o_i  (per row)
+    delta = (do * ob).sum(dim=-1)
+
+    dq = torch.zeros_like(qb)
+    dk = torch.zeros_like(kb)
+    dv_ = torch.zeros_like(vb)
+    q_pos = torch.arange(q_block, device=q.device)
+    k_pos = torch.arange(kv_block, device=q.device)
+    zero = torch.zeros((), dtype=torch.float32, device=q.device)
+
+    for qi, kj in pairs:
+        qblk, kblk, vblk, doblk = qb[:, qi], kb[:, kj], vb[:, kj], do[:, qi]
+        mblk, lblk = mb[:, qi], lb[:, qi]
+        s = torch.einsum("bqkgd,btkd->bqkgt", qblk, kblk) * scale
+        if logit_softcap:
+            t = torch.tanh(s / logit_softcap)
+            s = logit_softcap * t
+        mask = _mask(qi, kj, q_pos, k_pos, q_block, kv_block, seq_offset,
+                     causal, window)
+        m_safe = torch.where(mblk <= NEG_INF / 2, zero, mblk)
+        l_safe = torch.clamp_min(lblk, 1e-30)
+        p = torch.exp(s - m_safe[..., None]) / l_safe[..., None]
+        p = torch.where(mask, p, zero)
+        dp = torch.einsum("bqkgd,btkd->bqkgt", doblk, vblk)
+        ds = p * (dp - delta[:, qi][..., None])
+        if logit_softcap:
+            ds = ds * (1.0 - t.square())
+        ds = ds * scale
+        dq[:, qi] += torch.einsum("bqkgt,btkd->bqkgd", ds, kblk)
+        dk[:, kj] += torch.einsum("bqkgt,bqkgd->btkd", ds, qblk)
+        dv_[:, kj] += torch.einsum("bqkgt,bqkgd->btkd", p, doblk)
+
+    return (dq.reshape(b, sq, h, dh).to(q.dtype),
+            dk.reshape(b, skv, kv_heads, dh).to(k.dtype),
+            dv_.reshape(b, skv, kv_heads, dv).to(v.dtype))
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """The reference's flash ``custom_vjp`` (``_make_flash``): the
+    forward is kernel E with its softmax statistics on CUDA tensors and
+    :func:`_fwd_pass` on CPU tensors; it saves (q, k, v, out, m, l); the
+    backward is :func:`_bwd_pass` on the same block pairs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, pairs, kw):
+        if q.device.type == "cuda":
+            out, m, l = flash_attention_fwd(
+                q, k, v, causal=kw["causal"], window=kw["window"],
+                logit_softcap=kw["logit_softcap"], scale=kw["scale"],
+                return_stats=True)
+        elif q.device.type == "cpu":
+            out, m, l = _fwd_pass(q, k, v, pairs, **kw)
+        else:
+            raise ValueError(f"flash_attention runs on cuda or cpu, not "
+                             f"{q.device}")
+        ctx.save_for_backward(q, k, v, out, m, l)
+        ctx.pairs, ctx.kw = pairs, kw
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, m, l = ctx.saved_tensors
+        dq, dk, dv = _bwd_pass(q, k, v, out, m, l, dout.contiguous(),
+                               ctx.pairs, **ctx.kw)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_vjp(q, k, v, *, causal, window, logit_softcap, q_block,
+                        kv_block, scale) -> torch.Tensor:
+    """:func:`flash_attention` where autograd records: through
+    :class:`FlashAttentionFunction` over the statically enumerated block
+    pairs."""
+    sq, skv = q.shape[1], k.shape[1]
+    pairs = _block_pairs(sq // q_block, skv // kv_block, q_block, kv_block,
+                         skv - sq, bool(causal), int(window))
+    kw = dict(causal=bool(causal), window=int(window),
+              logit_softcap=float(logit_softcap), q_block=q_block,
+              kv_block=kv_block, scale=scale)
+    return FlashAttentionFunction.apply(q, k, v, pairs, kw)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     logit_softcap: float = 0.0, q_block: int = 512,
@@ -84,7 +196,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     p_bf16: bool = False) -> torch.Tensor:
     """q: (B, Sq, H, Dh); k/v: (B, Skv, KV, Dh) with H = g·KV.  Returns
     (B, Sq, H, Dv) in q's dtype.  Kernel E on the card, the blockwise
-    plain version on the CPU."""
+    plain version on the CPU; with a ``grad_fn`` (the recompute
+    backward) where autograd records."""
     b, sq, h, dh = q.shape
     skv = k.shape[1]
     q_block = min(q_block, sq)
@@ -95,19 +208,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if p_bf16:
         raise NotImplementedError(
             "p_bf16 (bf16 probabilities in the p@v product) comes with the "
-            "kernel-redesign queue (ROADMAP Queue 4), with tensor-core tiles")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "the flash-attention backward (the reference's custom VJP) "
-            "comes with the training slice of the LM port (ROADMAP Queue 1 "
-            "item 12); call the forward under torch.no_grad()")
+            "kernel-redesign queue (ROADMAP Queue 2), with tensor-core tiles")
     scale = float(scale if scale is not None else dh ** -0.5)
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"flash_attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return flash_attention_vjp(q, k, v, causal=causal, window=window,
+                                   logit_softcap=logit_softcap,
+                                   q_block=q_block, kv_block=kv_block,
+                                   scale=scale)
     if q.device.type == "cuda":
         return flash_attention_fwd(q, k, v, causal=causal, window=window,
                                    logit_softcap=logit_softcap, scale=scale)
-    if q.device.type != "cpu":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not "
-                         f"{q.device}")
     pairs = _block_pairs(sq // q_block, skv // kv_block, q_block, kv_block,
                          skv - sq, bool(causal), int(window))
     out, _, _ = _fwd_pass(q, k, v, pairs, causal=causal, window=window,

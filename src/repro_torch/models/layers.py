@@ -47,7 +47,8 @@ def rmsnorm_init(d: int, device) -> dict:
 
 def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """RMS norm with (1+scale) parameterization, through kernel D on the
-    card (its plain version on the CPU)."""
+    card (its plain version on the CPU); differentiable on both (kernel
+    D's autograd Function, whose backward is torch ops)."""
     return rmsnorm_op(x.contiguous(), params["scale"], eps=eps)
 
 
@@ -87,11 +88,16 @@ def apply_mrope(x, positions3, theta, sections):
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
-    """``cap * tanh(x / cap)`` in float32, cast back.  A float32 copy
-    is updated in place: on gemma2-2b's (1, 8192, 256000) logits it is
-    8.4 GB, and out-of-place ops would hold three of them at once."""
+    """``cap * tanh(x / cap)`` in float32, cast back.  Without autograd
+    a float32 copy is updated in place: on gemma2-2b's (1, 8192, 256000)
+    logits it is 8.4 GB, and out-of-place ops would hold three of them
+    at once.  Where autograd records, the same ops run out of place (the
+    tanh's backward reads its output, which the in-place product would
+    overwrite)."""
     if not cap:
         return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return (torch.tanh(x.float() / cap) * cap).to(x.dtype)
     y = x.to(torch.float32, copy=True)
     return y.div_(cap).tanh_().mul_(cap).to(x.dtype)
 

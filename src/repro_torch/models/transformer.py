@@ -11,14 +11,16 @@ pytree across.
 Public API:
     init_params(cfg, generator, device)     -> params
     forward(cfg, params, batch)             -> logits (B, S, V)
+    loss_fn(cfg, params, batch, remat)      -> scalar loss (chunked xent)
     init_cache(cfg, batch, max_len, dtype, device) -> decode cache
     decode_step(cfg, params, cache, batch, pos) -> (logits, cache)
 
 On the card every norm runs kernel D and every full-sequence attention
-kernel E; decode attention is plain tensor code, as in the reference.
-MoE, SSM and MLA blocks, the dense prologue (``first_k_dense``),
-sequence parallelism, frontend embeddings, rematerialization and the
-loss come with later slices and raise ``NotImplementedError``.
+kernel E, in training too (their autograd Functions' backwards are torch
+ops); decode attention is plain tensor code, as in the reference.  MoE,
+SSM and MLA blocks, the dense prologue (``first_k_dense``), sequence
+parallelism and frontend embeddings come with later slices and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.sweep import resolve_device
 
@@ -49,10 +52,9 @@ _LATER = {
               "modality-stub slice of the LM port",
     "sinusoidal": "sinusoidal position embeddings (use_rope=False) come "
                   "with the modality-stub slice of the LM port",
-    "remat": "rematerialization comes with the training slice of the LM "
-             "port",
-    "loss": "loss_fn comes with the training slice of the LM port",
 }
+
+LOSS_CHUNK = 256     # sequence-chunked cross entropy (bounds logits memory)
 
 
 def _later(what: str):
@@ -277,13 +279,26 @@ def _inputs_to_x(cfg: ModelConfig, params: dict,
 def hidden_states(cfg: ModelConfig, params: dict, batch: Batch,
                   remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Run the stack; returns (hidden (B,S,d) after the final norm,
-    aux_loss), aux_loss 0 for dense stacks."""
+    aux_loss), aux_loss 0 for dense stacks.
+
+    ``remat=True`` runs each layer under ``torch.utils.checkpoint``
+    (non-reentrant): the backward recomputes the whole layer, where the
+    reference's ``jax.checkpoint`` keeps the matmul outputs (its
+    dots-saveable policy).  Recomputation repeats the same operations on
+    the same inputs, so the numbers are the same either way, but for the
+    order in which a leaf used in several places (the tied embedding)
+    sums its gradient's parts; memory and time differ (and on the card
+    the recomputed layer launches kernels D and E again).
+    """
     check_supported(cfg)
-    if remat:
-        raise _later("remat")
     x, positions = _inputs_to_x(cfg, params, batch)
     for i, p in enumerate(params["layers"]):
-        x = _block_forward(cfg, cfg.layer_kind(i), p, x, positions)
+        kind = cfg.layer_kind(i)
+        if remat:
+            x = checkpoint(_block_forward, cfg, kind, p, x, positions,
+                           use_reentrant=False)
+        else:
+            x = _block_forward(cfg, kind, p, x, positions)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -299,8 +314,43 @@ def forward(cfg: ModelConfig, params: dict, batch: Batch) -> torch.Tensor:
     return _logits(cfg, params, h)
 
 
-def loss_fn(cfg, params, batch, remat=False):
-    raise _later("loss")
+def _chunk_loss(cfg: ModelConfig, params: dict, hb: torch.Tensor,
+                lb: torch.Tensor) -> torch.Tensor:
+    """Summed cross entropy of one sequence chunk: its logits in float32,
+    ``logsumexp`` minus the gold logit."""
+    logits = _logits(cfg, params, hb).float()
+    gold = logits.gather(-1, lb.long()[..., None])[..., 0]
+    return (torch.logsumexp(logits, dim=-1) - gold).sum()
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: Batch,
+            remat: bool = False) -> torch.Tensor:
+    """Sequence-chunked softmax cross entropy (float32 scalar).
+
+    Never holds (B, S, V) logits: chunks of ``LOSS_CHUNK`` positions (or
+    the largest power-of-two fraction of it that tiles S) each make
+    their logits and logsumexp; the sum over chunks is divided by B·S,
+    and the aux loss added.  With ``remat`` each chunk also runs under
+    ``torch.utils.checkpoint``, so its float32 logits are recomputed in
+    the backward instead of kept.
+    """
+    h, aux = hidden_states(cfg, params, batch, remat=remat)
+    labels = batch.labels
+    b, s, _ = h.shape
+    chunk = min(LOSS_CHUNK, s)
+    while s % chunk:
+        chunk //= 2
+    chunk = max(chunk, 1)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, s, chunk):
+        hb, lb = h[:, i:i + chunk], labels[:, i:i + chunk]
+        if remat:
+            part = checkpoint(_chunk_loss, cfg, params, hb, lb,
+                              use_reentrant=False)
+        else:
+            part = _chunk_loss(cfg, params, hb, lb)
+        total = total + part
+    return total / (b * s) + aux
 
 
 # ---------------------------------------------------------------------------

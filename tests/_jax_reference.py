@@ -549,6 +549,36 @@ def task_adamw(p):
     return out
 
 
+def task_adamw_checkpoint(p):
+    """The reference's ``CheckpointManager`` saves ``{"params": params,
+    "opt": adamw.init(cfg, params)}`` (the training driver's state) for
+    the numpy parameters ``p["params"]`` at step 1 into ``p["write"]``,
+    and restores ``p["read"]`` (the port's checkpoint of the same
+    structure, its step ``p["read_step"]``); returns the manifest
+    paths it wrote and what it restored, as numpy."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.checkpoint import CheckpointManager
+    from repro.optim import adamw
+
+    params = {k: jnp.asarray(np.asarray(v, np.float32))
+              for k, v in p["params"].items()}
+    state = {"params": params,
+             "opt": adamw.init(adamw.AdamWConfig(), params)}
+    CheckpointManager(p["write"]).save(1, state)
+    with open(pathlib.Path(p["write"]) / "step_000000001" /
+              "manifest.json") as f:
+        paths = [leaf["path"] for leaf in json.load(f)["leaves"]]
+    got = CheckpointManager(p["read"]).restore(p["read_step"], state)
+    return {"paths": paths,
+            "restored": {"params": {k: np.asarray(v) for k, v in
+                                    got["params"].items()},
+                         "step": np.asarray(got["opt"].step),
+                         "mu": jax.tree.map(np.asarray, got["opt"].mu),
+                         "nu": jax.tree.map(np.asarray, got["opt"].nu)}}
+
+
 def task_dense(p):
     """The reference's dense ``evaluate_grid`` over ``grid``: every
     channel (flat, C order) and its Pareto front's flat indices (default

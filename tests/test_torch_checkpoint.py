@@ -377,3 +377,86 @@ def test_step_cache_stats_shape():
     assert set(stats) == {"hits", "misses", "evictions", "size",
                           "capacity"}
     assert stats["size"] <= stats["capacity"]
+
+
+# ---------------------------------------------------------------------------
+# The training state: params and an AdamWState (a named tuple)
+# ---------------------------------------------------------------------------
+
+
+def _train_state(seed=0):
+    from repro_torch.optim import adamw
+    rng = np.random.default_rng(seed)
+    params = {"w": torch.as_tensor(rng.standard_normal((3, 4))
+                                   .astype(np.float32)),
+              "b": torch.as_tensor(rng.standard_normal(4)
+                                   .astype(np.float32)).bfloat16(),
+              "layers": [{"scale": torch.as_tensor(rng.standard_normal(5)
+                                                   .astype(np.float32))}]}
+    opt = adamw.init(adamw.AdamWConfig(), params)
+    opt = opt._replace(step=opt.step + 7,
+                       mu=adamw._map(lambda t: t + 0.5, opt.mu))
+    return {"params": params, "opt": opt}
+
+
+def _leaves(tree):
+    from repro_torch.checkpoint.manager import _flatten
+    return _flatten(tree)
+
+
+def test_adamw_state_saves_and_restores_bitwise(tmp_path):
+    """The training driver's state round-trips: the named tuple comes
+    back as an ``AdamWState``, every leaf bitwise with its dtype, as CPU
+    tensors."""
+    from repro_torch.optim import adamw
+    state = _train_state()
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(3, state)
+    got = mgr.restore(3, state)
+    assert isinstance(got["opt"], adamw.AdamWState)
+    assert [p for p, _ in _leaves(got)] == [p for p, _ in _leaves(state)]
+    for (path, a), (_, b) in zip(_leaves(got), _leaves(state)):
+        assert isinstance(a, torch.Tensor) and a.device.type == "cpu"
+        assert a.dtype == b.dtype and torch.equal(a, b), path
+
+
+def test_named_tuple_fields_are_named_in_the_manifest(tmp_path):
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, _train_state())
+    with open(tmp_path / "step_000000001" / "manifest.json") as f:
+        paths = [leaf["path"] for leaf in json.load(f)["leaves"]]
+    assert paths == ["opt/step", "opt/mu/b", "opt/mu/layers/0/scale",
+                     "opt/mu/w", "opt/nu/b", "opt/nu/layers/0/scale",
+                     "opt/nu/w", "params/b", "params/layers/0/scale",
+                     "params/w"]
+
+
+def test_adamw_checkpoints_cross_read_with_the_reference(tmp_path):
+    """The reference's manager writes the same state (its AdamWState
+    over numpy parameters) under the same manifest paths, the port
+    restores it, and the reference restores the port's."""
+    from repro_torch.optim import adamw
+    rng = np.random.default_rng(3)
+    arrays = {"w": rng.standard_normal((3, 4)).astype(np.float32),
+              "b": rng.standard_normal(4).astype(np.float32)}
+    params = {k: torch.as_tensor(v) for k, v in arrays.items()}
+    ours = {"params": params,
+            "opt": adamw.init(adamw.AdamWConfig(), params)}
+    CheckpointManager(str(tmp_path / "port")).save(2, ours)
+    ref = run("adamw_checkpoint",
+              params={k: v.tolist() for k, v in arrays.items()},
+              write=str(tmp_path / "reference"), read=str(tmp_path / "port"),
+              read_step=2)
+    with open(tmp_path / "port" / "step_000000002" / "manifest.json") as f:
+        port_paths = [leaf["path"] for leaf in json.load(f)["leaves"]]
+    assert ref["paths"] == port_paths
+    assert port_paths[:3] == ["opt/step", "opt/mu/b", "opt/mu/w"]
+    got = CheckpointManager(str(tmp_path / "reference")).restore(1, ours)
+    assert isinstance(got["opt"], adamw.AdamWState)
+    for k, v in arrays.items():
+        assert torch.equal(got["params"][k], torch.as_tensor(v))
+        assert torch.equal(got["opt"].mu[k], torch.zeros_like(params[k]))
+        assert np.array_equal(ref["restored"]["params"][k], v)
+        assert np.array_equal(ref["restored"]["nu"][k], np.zeros_like(v))
+    assert got["opt"].step.dtype == torch.int32 and int(got["opt"].step) == 0
+    assert int(ref["restored"]["step"]) == 0

@@ -36,6 +36,20 @@ FWD = {"void (anonymous namespace)::mma::flash_fwd_kernel<256>(...)": 26,
 MINE = {"::flash_fwd_kernel<": 26, "::rmsnorm_kernel<": 105}
 
 
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the phases rehearsed on the CPU: the
+    suite runs its files in parallel worker processes (``-n 6``) on a
+    shared machine, where torch's default of a thread a core makes
+    every parallel op wait on the others' (the train phase: 3 s alone,
+    157 s beside five busy processes, 19 s on one thread; the scenario
+    phase 2 s alone, 274-565 s in parallel runs of the suite)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _fake_traces(monkeypatch, traces):
     """``trace_events`` returns the given {name: records} traces in turn
     (1 µs a record)."""
@@ -349,7 +363,7 @@ def test_scenario_anchor_is_the_reference_run(scen_ref):
 
 
 def test_port_reproduces_the_reference_on_a_cut_of_the_anchor_grid(
-        scen_ref):
+        scen_ref, one_thread):
     got = G.scenario_summary(ST.stream_grid(
         scenarios="all", **SCEN_CUT, **SCEN_KW, device="cpu"))
     want = _from_reference(scen_ref["streams"]["cut"])
@@ -363,7 +377,7 @@ def test_port_reproduces_the_reference_on_a_cut_of_the_anchor_grid(
 
 
 def test_scenario_phase_checks_and_prints_its_line(scen_ref, monkeypatch,
-                                                   capsys):
+                                                   capsys, one_thread):
     """The phase on the CPU, the cut grid held to the reference's cut
     anchor: every check passes and the scenario line has its keys."""
     monkeypatch.setattr(CS, "device_busy", lambda fn: (fn(), {"k": 0.5})[1])
@@ -385,7 +399,8 @@ def test_scenario_phase_checks_and_prints_its_line(scen_ref, monkeypatch,
     assert out["max_rel_err"] <= CS.RTOL
 
 
-def test_scenario_phase_fails_on_a_wrong_anchor(scen_ref, monkeypatch):
+def test_scenario_phase_fails_on_a_wrong_anchor(scen_ref, monkeypatch,
+                                                one_thread):
     monkeypatch.setattr(CS, "device_busy", lambda fn: (fn(), {"k": 0.5})[1])
     anchor = dict(_from_reference(scen_ref["streams"]["cut"]))
     anchor["front_idx"] = anchor["front_idx"] + (0,)
@@ -529,3 +544,183 @@ def test_service_phase_on_the_cpu(capsys):
     net = out["networked"]
     assert net["auth_failures"] >= 1 and net["resumed_from_step"] > 0
     assert not (CS.ROOT / "build" / "service").exists()
+
+
+# ---------------------------------------------------------------------------
+# The training path (phase 11) and phases 7-8's gradient and stats checks
+# ---------------------------------------------------------------------------
+
+
+def test_train_launches_follow_the_config():
+    """qwen2-0.5b at full width: 49 launches of D (two norms a layer and
+    the final one) and 24 of E a step; gemma2-2b's post-block norms make
+    it four a layer (the forward's 105 and 26)."""
+    from repro_torch.configs import get_config
+    assert CS.train_launches(get_config("qwen2-0.5b")) == {"D": 49, "E": 24}
+    assert CS.train_launches(get_config("gemma2-2b")) == {"D": 105, "E": 26}
+
+
+def test_train_step_matmul_bound():
+    """qwen2-0.5b, 8 x 128 tokens: 6 x 493.9 M matmul weights x 1,024
+    tokens plus the causal attention products, 3.05 TFLOP, 3.09 ms at
+    989 TFLOP/s."""
+    from repro_torch.configs import get_config
+    f = CS.train_step_flops(get_config("qwen2-0.5b"), 8, 128)
+    assert f["tokens"] == 1024
+    assert f["weights"] == 24 * (2 * 896 * 14 * 64 + 2 * 896 * 2 * 64
+                                 + 3 * 896 * 4864) + 151936 * 896
+    attn = 24 * 3 * 2 * 2 * 64 * 14 * 8 * (128 * 129 // 2)
+    assert f["ops"] == 6 * f["weights"] * 1024 + attn
+    assert f["bound_ms"] == pytest.approx(3.086, abs=1e-3)
+
+
+def test_train_matmul_weights_are_the_params_but_norms_and_biases():
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import transformer as T
+    for arch in ("qwen2-0.5b", "gemma2-2b"):
+        cfg = get_reduced_config(arch)
+        params = T.init_params(cfg, device="cpu")
+        small = sum(t.numel() for path, t in CS.leaf_paths(params).items()
+                    if path.endswith("scale") or "/b_" in path)
+        assert CS.train_step_flops(cfg, 1, 8)["weights"] == \
+            T.param_count(params) - small
+
+
+def test_stats_blocks_tile_each_sequence():
+    assert [CS.stats_blocks(n) for n in (8192, 1000, 2048, 128, 96)] == \
+        [512, 8, 512, 128, 32]
+
+
+def test_grad_close_holds_each_dtype_to_its_bound():
+    g = torch.Generator().manual_seed(0)
+    w = torch.randn(64, 32, generator=g)
+    assert CS.grad_close(w + 1e-7, w, "f32") < 1e-6
+    with pytest.raises(CS.SmokeFailure, match="differs"):
+        CS.grad_close(w + 1e-3, w, "f32")
+    wb = w.bfloat16()
+    assert CS.grad_close(wb, wb, "bf16") == 0.0
+    off = wb.float().clone()
+    off[0, 0] += 0.05 * float(w.abs().max())
+    with pytest.raises(CS.SmokeFailure, match="differs"):
+        CS.grad_close(off.bfloat16(), wb, "bf16")
+    assert CS.grad_close(off.bfloat16(), wb, "bf16 share",
+                         bf16_share=0.1) < 0.1
+    with pytest.raises(CS.SmokeFailure, match="differs"):
+        CS.grad_close(off.bfloat16(), wb, "bf16 share", bf16_share=0.01)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_stats_and_grad_checks_pass_on_the_plain_versions(dtype,
+                                                             one_thread):
+    dev = torch.device("cpu")
+    q, k, v = CS.flash_inputs(2, 96, 96, 6, 2, 32, dtype, 3, dev)
+    kw = dict(causal=True, window=40, logit_softcap=50.0)
+    out = E.flash_attention_fwd(q, k, v, **kw)
+    stats = CS.flash_stats_check(q, k, v, out, kw, "cpu")
+    assert stats["m"] <= 1e-5 and stats["l"] <= 1e-4
+    grad = CS.flash_grad_check(q, k, v, kw, 7, "cpu")
+    assert set(grad) == {"dq", "dk", "dv"}
+    assert max(grad.values()) < (1e-2 if dtype == "bfloat16" else 1e-5)
+
+
+def test_flash_stats_check_catches_wrong_stats(monkeypatch, one_thread):
+    dev = torch.device("cpu")
+    q, k, v = CS.flash_inputs(1, 64, 64, 4, 2, 32, "float32", 4, dev)
+    kw = dict(causal=True, window=0, logit_softcap=0.0)
+    out = E.flash_attention_fwd(q, k, v, **kw)
+    real = E.flash_attention_fwd
+
+    def shifted(*a, return_stats=False, **k):
+        res = real(*a, return_stats=return_stats, **k)
+        return (res[0], res[1], res[2] * 1.001) if return_stats else res
+
+    monkeypatch.setattr(E, "flash_attention_fwd", shifted)
+    with pytest.raises(CS.SmokeFailure, match="stats l"):
+        CS.flash_stats_check(q, k, v, out, kw, "cpu")
+
+
+def test_rmsnorm_grad_check_passes_on_the_plain_version(one_thread):
+    dev = torch.device("cpu")
+    for dtype in ("float32", "bfloat16"):
+        x, scale = CS.rmsnorm_inputs(96, 896, dtype, 1, dev)
+        out = CS.rmsnorm_grad_check(x, scale, 2, dtype)
+        assert out["dx"] < 1e-2 and out["dscale"] < 1e-5
+
+
+def test_plain_kernels_swaps_the_flash_vjp_and_restores():
+    """Under ``plain_kernels`` a gradient runs autograd through the plain
+    versions (no Function in the graph), and the names come back."""
+    saved = flash.flash_attention_vjp
+    q, k, v = (t.requires_grad_() for t in CS.flash_inputs(
+        1, 32, 32, 2, 1, 32, "float32", 5, torch.device("cpu")))
+    with CS.plain_kernels():
+        out = flash.flash_attention(q, k, v)
+        assert "FlashAttention" not in type(out.grad_fn).__name__
+        y = layers.rmsnorm({"scale": torch.zeros(32, requires_grad=True)},
+                           q)
+        assert "RMSNorm" not in type(y.grad_fn).__name__
+    assert flash.flash_attention_vjp is saved
+    out = flash.flash_attention(q, k, v)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFunctionBackward"
+
+
+def test_compare_grads_reads_cosines_and_norms():
+    a = {"x": torch.tensor([1.0, 0.0]), "y": [torch.tensor([0.0, 2.0])]}
+    b = {"x": torch.tensor([1.0, 1.0]), "y": [torch.tensor([0.0, 2.0])]}
+    out = CS.compare_grads(1.0, a, 1.25, b)
+    assert out["loss_diff"] == 0.25 and out["min_cos_leaf"] == "x"
+    assert out["min_leaf_cos"] == pytest.approx(2 ** -0.5)
+    assert out["grad_norm"] == pytest.approx(5 ** 0.5)
+    assert out["grad_norm_rel_diff"] == pytest.approx(1 - (5 / 6) ** 0.5)
+
+
+TRAIN_ARGV = ["--arch", "qwen2-0.5b", "--reduced", "--steps", "12",
+              "--seq-len", "32", "--global-batch", "4", "--lr", "1e-2",
+              "--warmup", "2"]
+
+
+def _train_counts(monkeypatch, main_counts, step_counts):
+    """``read_counts`` as the card gives them around train.main, the
+    plain path and one step (on the CPU the wrappers count nothing)."""
+    seq = iter([main_counts, dict(A=0, B=0, C=0, D=0, E=0), step_counts])
+    monkeypatch.setattr(CS, "read_counts", lambda: next(seq))
+
+
+def test_train_phase_on_the_cpu(monkeypatch, tmp_path, capsys, one_thread):
+    """The whole phase at the reduced qwen2-0.5b: the training CLI's loss
+    decreases, one step against the plain path, the reduced float32
+    models on the training anchors, the resume bitwise."""
+    _train_counts(monkeypatch, dict(A=0, B=0, C=0, D=60, E=24),
+                  dict(A=0, B=0, C=0, D=5, E=2))
+    main, one, out = CS.phase_train(torch.device("cpu"), "cpu, not a card",
+                                    TRAIN_ARGV, tmp_path / "resume")
+    assert main["D"] == 60 and one == dict(A=0, B=0, C=0, D=5, E=2)
+    assert out["main"]["loss_decreased"] and out["main"]["steps"] == 12
+    assert out["vs_plain"]["min_leaf_cos"] >= CS.TRAIN_LEAF_COS
+    assert set(out["anchors"]) == {"qwen2-0.5b", "gemma2-2b"}
+    assert out["resume"]["loss_gap"] == 0
+    assert out["resume"]["leaves_differing"] == []
+    assert out["step"]["timed_steps"] == CS.TRAIN_TIMED_STEPS
+    assert not (tmp_path / "resume").exists()
+    assert "train qwen2-0.5b: step" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("main_counts", [dict(A=0, B=0, C=0, D=59, E=24),
+                                         dict(A=1, B=0, C=0, D=60, E=24)],
+                         ids=["short_D", "A"])
+def test_train_phase_fails_on_other_launches(monkeypatch, tmp_path,
+                                             main_counts, one_thread):
+    _train_counts(monkeypatch, main_counts, dict(A=0, B=0, C=0, D=5, E=2))
+    with pytest.raises(CS.SmokeFailure, match="expected launches"):
+        CS.phase_train(torch.device("cpu"), "cpu", TRAIN_ARGV,
+                       tmp_path / "resume")
+
+
+def test_train_phase_fails_on_a_wrong_anchor(monkeypatch, one_thread):
+    from repro_torch.models import anchors as A
+    bad = dict(A.TRAIN_ANCHORS["gemma2-2b"])
+    bad["losses"] = (bad["losses"][0],) + tuple(
+        x * 1.001 for x in bad["losses"][1:])
+    monkeypatch.setitem(A.TRAIN_ANCHORS, "gemma2-2b", bad)
+    with pytest.raises(CS.SmokeFailure, match="losses"):
+        CS.phase_train_anchor("gemma2-2b", torch.device("cpu"))

@@ -127,13 +127,18 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
 
 
 def test_gradient_and_p_bf16_are_refused():
+    """p_bf16 is still refused (it comes with the kernel-redesign queue);
+    a call that needs a gradient is no longer refused: it goes through
+    the recompute backward (``FlashAttentionFunction``)."""
     tq, tk, tv = (torch.as_tensor(a) for a in _qkv(1, 64, 64, 4, 2, 32, 8))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        TF.flash_attention(tq.requires_grad_(), tk, tv)
-    with pytest.raises(NotImplementedError, match="p_bf16"):
+    with pytest.raises(NotImplementedError, match="p_bf16.*Queue 2"):
         TF.flash_attention(tq.detach(), tk, tv, p_bf16=True)
+    with pytest.raises(NotImplementedError, match="p_bf16"):
+        TF.flash_attention(tq.requires_grad_(), tk, tv, p_bf16=True)
+    out = TF.flash_attention(tq, tk, tv)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFunctionBackward"
     with torch.no_grad():
-        TF.flash_attention(tq, tk, tv)
+        assert torch.equal(TF.flash_attention(tq, tk, tv), out.detach())
 
 
 def _t(shape, dtype=torch.float32, **kw):

@@ -18,7 +18,7 @@ from repro_torch.configs import get_reduced_config
 from repro_torch.core import backend as B
 from repro_torch.core import partition, stream, sweep
 from repro_torch.kernels import flash_attention, rmsnorm, sweep_grid
-from repro_torch.launch import token_serve
+from repro_torch.launch import token_serve, train
 from repro_torch.models import attention, flash, layers
 from repro_torch.models import transformer as T
 from repro_torch.models.cnn import HandCNN
@@ -78,13 +78,16 @@ def test_source_never_imports_jax_or_reference():
     lambda: handtracking_pipeline.run_pipeline(
         np.zeros((1, 240, 320, 1), np.float32), [], []),
     lambda: token_serve.main(["--arch", "gemma2-2b", "--reduced"]),
+    lambda: train.main(["--arch", "qwen2-0.5b", "--reduced", "--steps",
+                        "1"]),
     lambda: T.init_params(get_reduced_config("gemma2-2b")),
     lambda: T.init_cache(get_reduced_config("gemma2-2b"), 1, 4),
     lambda: SweepService(),
     lambda: WK.WorkerPool("unused-spool", 1),
 ], ids=["evaluate_grid", "stream_grid", "plan_stream", "evaluate_one",
         "optimal_partition", "HandCNN", "run_pipeline", "token_serve",
-        "init_params", "init_cache", "SweepService", "WorkerPool"])
+        "train", "init_params", "init_cache", "SweepService",
+        "WorkerPool"])
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -194,9 +197,11 @@ def test_later_slices_raise_not_implemented(cfg, slice_):
     (lambda p, c: T.forward(c, p, T.Batch(embeds=torch.zeros(1, 2, 128))),
      "modality-stub"),
     (lambda p, c: T.hidden_states(
-        c, p, T.Batch(tokens=torch.zeros(1, 2, dtype=torch.int64)),
-        remat=True), "training"),
-    (lambda p, c: T.loss_fn(c, p, T.Batch()), "training"),
+        c, p, T.Batch(embeds=torch.zeros(1, 2, 128)), remat=True),
+     "modality-stub"),
+    (lambda p, c: T.loss_fn(c, p, T.Batch(
+        embeds=torch.zeros(1, 2, 128),
+        labels=torch.zeros(1, 2, dtype=torch.int64))), "modality-stub"),
     (lambda p, c: layers.apply_mrope(torch.zeros(1, 2, 2, 8),
                                      torch.zeros(3, 1, 2), 1e4, (2, 1, 1)),
      "modality-stub"),
