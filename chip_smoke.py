@@ -136,7 +136,8 @@ Phases, each of which ends the run with a non-zero exit on any failure:
    (4 x 2304) norms, the kernel_bench shape (4096 x 1024 f32), arctic's
    width 7168 (several warps a row), a misaligned x and a ragged 997 x
    130 in both dtypes (the strided route) and qwen2-0.5b's training norm
-   (1024 x 896 bf16): float32 within 16 ulp, bf16 within one bf16 ulp.
+   (1024 x 896 bf16) and arctic-480b's forward norm (4096 x 7168 bf16):
+   float32 within 16 ulp, bf16 within one bf16 ulp.
    Each case's gradient through kernel D's autograd Function (forward
    on the card, backward torch ops) against autograd through
    ``rmsnorm_ref``: float32 within 1e-5 relative + 1e-5 of the largest
@@ -148,8 +149,9 @@ Phases, each of which ends the run with a non-zero exit on any failure:
    qwen2's head dim 64 at 14/2 heads, non-causal, Sq 512 against Skv
    2048 with a window, the reduced configs' d 32, and the bf16
    tensor-core route's edges (d 32 and 128, a ragged Sq·g and Skv, Sq <
-   Skv with a window, non-causal) and qwen2-0.5b's training shape (B 8,
-   S 128, 14/2 heads, d 64, both dtypes): bf16 within one bf16 ulp
+   Skv with a window, non-causal), qwen2-0.5b's training shape (B 8,
+   S 128, 14/2 heads, d 64, both dtypes) and arctic-480b's forward (B 1,
+   S 4096, 56/8 heads, d 128, causal, bf16): bf16 within one bf16 ulp
    (+1e-6), float32 within 1e-5 absolute + 1e-5 relative.  Every case
    also with its softmax stats: the output bitwise the same, m and l
    within 1e-5 + 1e-5 relative of the plain ``_fwd_pass``'s.  At the
@@ -191,6 +193,28 @@ Phases, each of which ends the run with a non-zero exit on any failure:
    three, against a resume from step 3: losses and the final checkpoint
    bitwise.  Prints the ``train`` line (step ms, tokens/s, busy share,
    share of the matmul bound, peak memory).
+9d. MoE (the ninth path), after every other phase (its weights fill
+   the card): arctic-480b at full width (d 7168, 56/8 heads, 128 experts
+   top-2 of d_ff 4864 at capacity factor 1.25 beside a dense residual
+   FFN, vocab 32,000, bf16, weights from a seeded generator on the card)
+   cut to 2 of its 35 layers (55.4 GB).  (a) ``transformer.forward`` on
+   a 4096-token prompt (the reference's ``prefill_32k`` cut so that the
+   plain comparison fits), counts read around exactly it (5 launches of
+   D, 2 of E, none of A-C), against the same forward on the plain D and
+   E (attention a kv head at a time): at least 97.5 % of each MoE layer's
+   (token, choice) routes equal, the logits within 0.25 at the tokens
+   whose routes agree in every layer and at least 95 % of the argmaxes
+   equal there and over all tokens (a bf16 ulp can flip a router's near
+   tie); each layer's share of picks dropped at capacity; the forward's
+   transient memory below one expert weight (no weight copied); its
+   device and wall time, busy share and byte/operation bound.  (b)
+   ``token_serve.generate`` at the reference CLI's defaults (batch 4,
+   prompt 32, gen 16, greedy), counts read around it (5 launches of D a
+   step, none of E), again timed (decode ms a step, tok/s, the static
+   buffer's 16.4 ms bound and the routed one), teacher-forced on both
+   paths as (a); one decode step's device time and busy share.  (c) The
+   reduced float32 arctic-480b against ``LM_ANCHORS`` (logits, greedy
+   tokens, the forward's routes by digest).  Prints the ``moe`` line.
 11. Report: a ``kernels`` JSON line (launches, error, kernel and plain
    time at the main paths' shapes, the card's bound for the same work,
    the library call's time where there is one; A's, B's and C's launch
@@ -199,16 +223,18 @@ Phases, each of which ends the run with a non-zero exit on any failure:
    and, under ``dense``, its 1,000,960-config one, and its launches in
    ``grid_argmin``, and A's and B's their launches in the served request
    (``launches_service``), D's and E's in the training run and in one
-   step (``launches_train``, ``launches_train_step``); A's its graph
-   replays and K), ``stream`` (the default path's wall, dispatch, wait,
-   merge and busy share, the synchronous path's beside it, the plain
-   backend's), ``stream_resilience``,
-   ``rbe_shapes`` (each layer at 4 and 256 ROIs with its tile),
-   ``handtracking``, ``rmsnorm_shapes``/``flash_shapes`` (each case's
-   route; E's registers and spills from ptxas and its share of the
-   bound), ``lm`` and ``train`` JSON lines, the card's name and power
-   limit, and last the ``ok`` line.  Kernel C's SASS must hold int8 tensor-core
-   (IMMA) and cp.async (LDGSTS) instructions.
+   step (``launches_train``, ``launches_train_step``), in arctic's
+   forward and decode step (``launches_moe``) and their time at
+   arctic's shapes (``moe_shape``: E's library call there is SDPA); A's
+   its graph replays and K), ``stream`` (the default path's wall,
+   dispatch, wait, merge and busy share, the synchronous path's beside
+   it, the plain backend's), ``stream_resilience``, ``rbe_shapes`` (each
+   layer at 4 and 256 ROIs with its tile), ``handtracking``,
+   ``rmsnorm_shapes``/``flash_shapes`` (each case's route; E's registers
+   and spills from ptxas and its share of the bound), ``lm``, ``train``
+   and ``moe`` JSON lines, the card's name and power limit, and last the
+   ``ok`` line.  Kernel C's SASS must hold int8 tensor-core (IMMA) and
+   cp.async (LDGSTS) instructions.
 
 Imports nothing of JAX or of the JAX reference package.
 """
@@ -2467,7 +2493,8 @@ RMSNORM_CASES = ((LM_SEQ, 2304, "bfloat16", "gemma2 forward"),
                  (997, 2304, "bfloat16", "misaligned"),
                  (997, 130, "float32", "ragged"),
                  (997, 130, "bfloat16", "ragged"),
-                 (1024, 896, "bfloat16", "qwen2 train"))
+                 (1024, 896, "bfloat16", "qwen2 train"),
+                 (4096, 7168, "bfloat16", "arctic forward"))
 
 # Kernel E's cases: (name, b, sq, skv, h, kv, d, causal, window, softcap,
 # dtype).
@@ -2493,6 +2520,8 @@ FLASH_CASES = (
     # qwen2-0.5b's training step: global batch 8 of 128 tokens
     ("qwen2 train", 8, 128, 128, 14, 2, 64, True, 0, 0.0, "bfloat16"),
     ("qwen2 train f32", 8, 128, 128, 14, 2, 64, True, 0, 0.0, "float32"),
+    # arctic-480b's prompt forward (phase 9d): 7 query heads a kv head
+    ("arctic", 1, 4096, 4096, 56, 8, 128, True, 0, 0.0, "bfloat16"),
 )
 #: The cases whose gradient through kernel E's autograd Function is held
 #: against autograd through its plain version (phase 8).
@@ -2843,6 +2872,24 @@ def flash_grad_check(q, k, v, kw, seed: int, what: str) -> dict:
                                out["plain"])}
 
 
+def flash_ref_by_kv_head(q, k, v, **kw):
+    """``flash_attention_ref`` one kv head (and its g query heads) at a
+    time, the plain forward of :func:`plain_kernels`: each head's
+    softmax is its own, so the same function, with a kv head's full
+    scores alive at once instead of all of them (arctic-480b's
+    4096-token prompt: 0.47 GB of float32 scores, not 3.76 GB, beside
+    55 GB of weights)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+
+    kvh = k.shape[2]
+    g = q.shape[2] // kvh
+    return torch.cat([flash_attention_ref(
+        q[:, :, j * g:(j + 1) * g], k[:, :, j:j + 1], v[:, :, j:j + 1],
+        **kw) for j in range(kvh)], dim=2)
+
+
 @contextlib.contextmanager
 def plain_kernels():
     """Inside the ``with``, the LM's norms and prompt attention run the
@@ -2850,8 +2897,10 @@ def plain_kernels():
     forward, or training step, can be held against itself on the card:
     with autograd the plain path is autograd through ``rmsnorm_ref`` and
     ``flash_attention_ref``, not kernel D's and E's autograd Functions.
-    The launch counts are set to 0 on entry, and the block fails if D or
-    E was launched inside it (the swap missed a route to the kernels)."""
+    The forward's plain attention runs a kv head at a time
+    (:func:`flash_ref_by_kv_head`).  The launch counts are set to 0
+    on entry, and the block fails if D or E was launched inside it (the
+    swap missed a route to the kernels)."""
     from repro_torch.kernels.flash_attention import flash_attention_ref
     from repro_torch.kernels.rmsnorm import rmsnorm_ref
     from repro_torch.models import flash, layers
@@ -2870,7 +2919,7 @@ def plain_kernels():
     saved = (layers.rmsnorm_op, flash.flash_attention_fwd,
              flash.flash_attention_vjp)
     layers.rmsnorm_op = lambda x, scale, eps=1e-6: rmsnorm_ref(x, scale, eps)
-    flash.flash_attention_fwd = flash_attention_ref
+    flash.flash_attention_fwd = flash_ref_by_kv_head
     flash.flash_attention_vjp = plain_vjp
     reset_counts()
     try:
@@ -3064,8 +3113,9 @@ def phase_anchor(arch: str, dev) -> dict:
                          dev)
     fwd_np, prompt_np = A.anchor_tokens(cfg)
     with torch.no_grad():
-        logits = T.forward(cfg, params, T.Batch(
-            tokens=torch.as_tensor(fwd_np, device=dev))).cpu().numpy()
+        with A.record_routes() as routes:
+            logits = T.forward(cfg, params, T.Batch(
+                tokens=torch.as_tensor(fwd_np, device=dev))).cpu().numpy()
         toks = token_serve.generate(
             cfg, params, torch.as_tensor(prompt_np, device=dev),
             A.GREEDY_STEPS)["tokens"].cpu().numpy()
@@ -3082,9 +3132,460 @@ def phase_anchor(arch: str, dev) -> dict:
     check(np.array_equal(toks, np.asarray(a["greedy"])),
           f"{arch}: greedy tokens {toks.tolist()} differ from the JAX "
           f"anchors {a['greedy']}")
+    out = {"max_abs_err": worst, "greedy_equal": True}
+    if "routes" in a:
+        got = A.routes_digest([r.top_e for r in routes],
+                              [r.keep for r in routes])
+        check(got == a["routes"], f"{arch}: forward routes {got} differ "
+              f"from the JAX anchors {a['routes']}")
+        out["routes_equal"], out["dropped"] = True, got["dropped"]
     print(f"lm anchors {arch} (reduced, float32) on {dev}: logits within "
-          f"{worst!r} of JAX, greedy tokens equal")
-    return {"max_abs_err": worst, "greedy_equal": True}
+          f"{worst!r} of JAX, greedy tokens equal"
+          + (", routes equal" if "routes" in a else ""))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# MoE serving (the ninth path)
+# ---------------------------------------------------------------------------
+
+#: arctic-480b at full width (d 7168, 56/8 heads of 128, 128 experts
+#: top-2 of d_ff 4864 at capacity factor 1.25 beside a dense residual FFN,
+#: vocab 32,000, bf16), cut to MOE_LAYERS of its 35 layers: 27.2 GB of
+#: weights a layer, so two and the embeddings (55.4 GB) fill one card.
+#: One MOE_SEQ-token prompt: the reference's prefill_32k cut so that the
+#: same forward on the plain versions of D and E fits beside the weights.
+MOE_ARCH, MOE_LAYERS, MOE_SEQ = "arctic-480b", 2, 4096
+#: Serving at the reference CLI's defaults: batch, prompt, generated.
+MOE_SERVE = (4, 32, 16)
+#: Kernels vs plain.  A bf16 ulp of a norm or attention output can flip
+#: a router's near tie, and the token then takes another expert (and the
+#: picks ranked after it in that expert may move past the capacity), so
+#: each MoE layer's (token, choice) routes are held to MOE_ROUTES_AGREE
+#: equal, the logits to LM_BF16_MAX_DIFF at the tokens whose routes agree
+#: in every layer (in decode, at that step and every earlier one: its
+#: cache holds them), and the argmaxes to MOE_ARGMAX over those tokens
+#: and over all.  With seeded random weights the routes are near ties
+#: often: the residual stream is mostly a direction every token shares
+#: (37-49 % of the prompt's picks are dropped at capacity), and arctic's
+#: logits (no softcap, vocab 32,000) have closer top-2 gaps than
+#: gemma2's.  Readings on the H100 (forward, prompts of seed 0 and 1):
+#: 99.74 / 99.63 % of layer 0's routes equal and 98.39 / 98.29 % of layer
+#: 1's, 0.078 / 0.063 apart where they agree (3.3 elsewhere), 98.05 /
+#: 97.90 % of the argmaxes equal there and 96.70 / 96.51 % over all
+#: tokens.  The witness, the plain path in float32 against the plain
+#: path (a sound change of rounding, larger than one ulp here and
+#: there), reads 98.61 / 98.40 % and 96.11 / 95.95 % of the routes and
+#: 93.48 / 92.94 % of the argmaxes: each limit lies between the two.
+MOE_ROUTES_AGREE = 0.975
+MOE_ARGMAX = 0.95
+#: The generator seed of the second prompt held to those limits (the
+#: first is drawn after the weights, from their generator).
+MOE_SECOND_PROMPT_SEED = 1
+#: The unit the report's byte and operation bounds divide by: HBM bytes
+#: a second and bf16 tensor-core operations a second (PEAK_BYTES_PER_S,
+#: NVIDIA's H100 SXM data sheet).
+BF16_PEAK_OPS = 989e12
+
+
+def moe_config(layers: int = MOE_LAYERS):
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(MOE_ARCH), num_layers=layers)
+
+
+def route_agreement(k_routes: list, p_routes: list) -> tuple:
+    """Two runs' routes, call for call: the share of (token, choice)
+    routes equal in each call, and each call's (tokens,) mask of the
+    tokens whose routes and keep flags are all equal."""
+    check(len(k_routes) == len(p_routes),
+          f"{len(k_routes)} routed calls against {len(p_routes)}")
+    shares, same = [], []
+    for a, b in zip(k_routes, p_routes):
+        eq = a.top_e == b.top_e
+        shares.append(eq.float().mean().item())
+        same.append((eq & (a.keep == b.keep)).reshape(-1, eq.shape[-1])
+                    .all(-1))
+    return shares, same
+
+
+def moe_bounds(cfg, params, tokens: int, kept: int, used: int,
+               ctx: int = 0) -> dict:
+    """The least time the card could take for one pass of ``tokens``
+    tokens (a prompt; with ``ctx``, one decode token of each of
+    ``tokens`` sequences over a cache of ``ctx`` positions) through
+    ``cfg``'s ``params``: the larger of the bytes it must move over
+    PEAK_BYTES_PER_S (every weight read once, of the experts only the
+    ``used`` (layer, expert) pairs', of the embedding the gathered rows;
+    the token ids, and each layer's k and v cache, read once; the logits
+    written once) and its operations over BF16_PEAK_OPS (2 a weight and
+    token of each product, the experts' for the ``kept`` picks only;
+    q·k and p@v over the visible pairs: causal for a prompt, ``ctx``
+    keys a decode token)."""
+    from repro_torch.models import transformer as T
+
+    m, d, V = cfg.moe, cfg.d_model, cfg.vocab_size
+    hd, h, kv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    table = params["embed"]["table"]
+    item = table.element_size()
+    n_layers, n_moe = len(params["layers"]), sum(T.layer_moe_flags(cfg))
+    per_expert = 3 * d * m.d_ff_expert * item
+    weights = (T.param_bytes(params) - table.numel() * item
+               - (n_moe * m.num_experts - used) * per_expert)
+    nbytes = (weights + tokens * (d * item + 8) + tokens * V * item
+              + 2 * n_layers * tokens * ctx * kv * hd * item)
+    pairs = tokens * ctx if ctx else tokens * (tokens + 1) // 2
+    per_token = 2 * (2 * d * h * hd + 2 * d * kv * hd + 3 * d * cfg.d_ff
+                     + d * m.num_experts)
+    ops = (n_layers * (tokens * per_token + 4 * hd * h * pairs)
+           + 6 * kept * d * m.d_ff_expert + 2 * tokens * d * V)
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / BF16_PEAK_OPS * 1e3
+    return {"bytes": nbytes, "ops": ops, "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def routed_work(routes: list) -> tuple:
+    """Kept picks and (layer, expert) pairs with a kept pick, summed over
+    ``routes`` (one call a layer)."""
+    kept = sum(int(r.keep.sum()) for r in routes)
+    used = sum(int(r.top_e[r.keep].unique().numel()) for r in routes)
+    return kept, used
+
+
+def masked_vs(got, want, ok) -> dict:
+    """:func:`compare_logits` of the rows of (..., V) logits where the
+    bool mask ``ok`` (their leading shape) holds."""
+    ok = ok.to(got.device)
+    return dict(compare_logits(got[ok], want[ok]),
+                rows=int(ok.sum()), of_rows=ok.numel())
+
+
+def float32_copy(params: dict) -> dict:
+    """``params`` with every floating leaf cast to float32 except the
+    MoE blocks' expert weights (``w_gate``, ``w_up``, ``w_down`` beside
+    a ``router``), which stay as they are: :func:`float32_experts` casts
+    them a slice at a time (at arctic-480b's width the rest is 3.6 GB of
+    float32, the experts would be 107 GB)."""
+    def walk(node, experts=False):
+        if isinstance(node, dict):
+            moe = "router" in node
+            return {k: walk(v, moe and k in ("w_gate", "w_up", "w_down"))
+                    for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return node if experts or not node.is_floating_point() \
+            else node.float()
+    return walk(params)
+
+
+#: Experts :func:`float32_experts` casts at once (at arctic-480b's width
+#: 2.2 GB of float32 a weight).
+F32_EXPERT_SLICE = 16
+
+
+@contextlib.contextmanager
+def float32_experts():
+    """Inside the ``with``, ``torch.bmm`` of a float32 batch by a batch
+    of another dtype (the MoE block's expert products on the weights
+    :func:`float32_copy` kept as they are) casts the second to float32
+    F32_EXPERT_SLICE matrices at a time: with :func:`float32_copy`, the
+    forward in float32 on the same weights."""
+    import torch
+
+    bmm = torch.bmm
+
+    def wide_bmm(a, b):
+        if a.dtype == b.dtype:
+            return bmm(a, b)
+        check(a.dtype == torch.float32,
+              f"float32_experts: a {a.dtype} batch by a {b.dtype} one")
+        n = F32_EXPERT_SLICE
+        return torch.cat([bmm(a[i:i + n], b[i:i + n].float())
+                          for i in range(0, b.shape[0], n)])
+
+    torch.bmm = wide_bmm
+    try:
+        yield
+    finally:
+        torch.bmm = bmm
+
+
+def moe_prompt(cfg, params, params32, tokens) -> tuple:
+    """One (1, S) prompt through ``transformer.forward`` on kernels D
+    and E, counts read around exactly it (2L + 1 launches of D, L of E,
+    none of A-C) and, on the card, its transient memory (less than one
+    expert weight: the expert products copy no weight); again on the
+    plain D and E; and on the plain path in float32 (``params32``, the
+    same weights; :func:`float32_experts`), the witness of how far a
+    sound change of rounding moves the routes.  Kernels vs plain: each
+    MoE layer's routes, the logits where the routes agree in every
+    layer, the argmaxes there and over all tokens, held to the limits;
+    the float32 plain path vs the plain path: the same readings, shown
+    beside them.  Returns the kernel path's routes and the report."""
+    import torch
+
+    from repro_torch.models import anchors as A
+    from repro_torch.models import transformer as T
+
+    dev, seq = tokens.device, tokens.shape[1]
+    cuda = dev.type == "cuda"
+    n_norms = 2 * cfg.num_layers + 1
+    batch = T.Batch(tokens=tokens)
+    if cuda:
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    sync(dev)
+    reset_counts()
+    with A.record_routes() as k_routes:
+        logits = T.forward(cfg, params, batch)
+    sync(dev)
+    launches = read_counts()
+    check(launches == {"A": 0, "B": 0, "C": 0, "D": n_norms,
+                       "E": cfg.num_layers},
+          f"moe forward: expected {n_norms} launches of D and "
+          f"{cfg.num_layers} of E, got {launches}")
+    check(tuple(logits.shape) == (1, seq, cfg.vocab_size),
+          f"moe forward logits {tuple(logits.shape)}")
+    rep: dict = {"batch": 1, "seq": seq, "launches": launches}
+    if cuda:
+        peak = torch.cuda.max_memory_allocated()
+        w_up = params["layers"][-1]["ffn"]["w_up"]
+        rep["peak_mem_gb"] = peak / 1e9
+        rep["transient_gb"] = (peak - base) / 1e9
+        check(peak - base < w_up.numel() * w_up.element_size(),
+              f"moe forward: {rep['transient_gb']:.2f} GB transient, "
+              f"more than one expert weight: a weight was copied")
+    with plain_kernels(), A.record_routes() as p_routes:
+        plain = T.forward(cfg, params, batch)
+    with plain_kernels(), float32_experts(), \
+            A.record_routes() as w_routes:
+        wide = T.forward(dataclasses.replace(cfg, dtype="float32"),
+                         params32, batch)
+    shares, same = route_agreement(k_routes, p_routes)
+    ok = torch.stack(same).all(0)
+    w_shares, w_same = route_agreement(w_routes, p_routes)
+    rep.update(routes_agree=shares,
+               tokens_routes_equal=ok.float().mean().item(),
+               dropped_share=[(~r.keep).float().mean().item()
+                              for r in k_routes],
+               vs_plain=masked_vs(logits[0], plain[0], ok),
+               vs_plain_all_tokens=compare_logits(logits, plain),
+               float32_witness={
+                   "routes_agree": w_shares,
+                   "tokens_routes_equal": torch.stack(w_same).all(0)
+                   .float().mean().item(),
+                   "vs_plain_all_tokens": compare_logits(wide, plain)})
+    del logits, plain, wide
+    check(len(shares) == sum(T.layer_moe_flags(cfg))
+          and min(shares) >= MOE_ROUTES_AGREE
+          and rep["vs_plain"]["max_abs_diff"] <= LM_BF16_MAX_DIFF
+          and min(rep["vs_plain"]["argmax_agree"],
+                  rep["vs_plain_all_tokens"]["argmax_agree"])
+          >= MOE_ARGMAX,
+          f"moe forward: kernels vs plain {rep}")
+    print(f"moe forward {cfg.name} ({cfg.num_layers} layers) B=1 "
+          f"S={seq}: launches {launches}, routes equal {shares}, "
+          f"dropped {rep['dropped_share']}, kernels vs plain where "
+          f"routes agree {rep['vs_plain']}, over all tokens "
+          f"{rep['vs_plain_all_tokens']}; plain float32 vs plain "
+          f"{rep['float32_witness']}")
+    return k_routes, rep
+
+
+def phase_moe(dev, smi: str, cfg=None, seq: int = MOE_SEQ,
+              serve: tuple = MOE_SERVE) -> tuple:
+    """arctic-480b at full width, MOE_LAYERS of its 35 layers, on
+    ``dev`` (``cfg``: another MoE config): (a) ``transformer.forward``
+    on a ``seq``-token prompt and on a second one (:func:`moe_prompt`:
+    counts, transient memory, routes and logits against the plain D and
+    E, and the plain path in float32 as a witness); each layer's share
+    of picks dropped at capacity; the first prompt's device and wall
+    time, busy share and bound.  (b) ``token_serve.generate`` at the reference CLI's defaults
+    (``serve``: batch, prompt, generated), counts read around it (2L + 1
+    of D a decode step, none of E), again timed; the served tokens
+    teacher-forced through both paths (the kernel path reproduces them,
+    the plain path stays within (a)'s bounds); one decode step's device
+    time, busy share and bounds.  (c) The reduced float32 arctic-480b
+    against ``LM_ANCHORS`` (logits, greedy tokens, routes).  Returns the
+    forward's and one decode step's launch counts and the ``moe``
+    report."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import token_serve
+    from repro_torch.models import anchors as A
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    cfg = cfg or moe_config()
+    m, cuda = cfg.moe, dev.type == "cuda"
+    n_norms = 2 * cfg.num_layers + 1
+    report: dict = {
+        "arch": cfg.name, "layers": cfg.num_layers,
+        "of_layers": get_config(cfg.name).num_layers,
+        "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads],
+        "experts": m.num_experts, "top_k": m.top_k,
+        "d_ff_expert": m.d_ff_expert, "capacity_factor": m.capacity_factor,
+        "dense_residual": m.dense_residual, "vocab": cfg.vocab_size,
+        "dtype": cfg.dtype,
+        "note": "depth cut: the host's and the idle shares are larger "
+                "than in a deployment of every layer"}
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        report["mem_before_gb"] = torch.cuda.memory_allocated() / 1e9
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        params = T.init_params(cfg, gen, dev)
+        sync(dev)
+        report["init_s"] = time.perf_counter() - t0
+        report["params"] = T.param_count(params)
+        report["param_gb"] = T.param_bytes(params) / 1e9
+        tokens = torch.randint(0, cfg.vocab_size, (1, seq), generator=gen,
+                               device=dev)
+        batch = T.Batch(tokens=tokens)
+        fwd = lambda: T.forward(cfg, params, batch)  # noqa: E731
+
+        # (a) the prompt forward, on a second prompt again, each against
+        # the plain path and the plain path in float32
+        params32 = float32_copy(params)
+        second = torch.randint(
+            0, cfg.vocab_size, (1, seq), device=dev,
+            generator=torch.Generator(device=dev).manual_seed(
+                MOE_SECOND_PROMPT_SEED))
+        k_routes, rep = moe_prompt(cfg, params, params32, tokens)
+        _, rep["second_prompt"] = moe_prompt(cfg, params, params32, second)
+        rep["second_prompt"]["seed"] = MOE_SECOND_PROMPT_SEED
+        launches = rep["launches"]
+        del params32, second
+        kept, used = routed_work(k_routes)
+        rep.update(kept_picks=kept, experts_used=used,
+                   bound=moe_bounds(cfg, params, seq, kept, used))
+        if cuda:
+            rep["wall_ms"] = host_ms(fwd, 2)
+            timed(rep, "device_ms", fwd, 2, "moe forward",
+                  {"::rmsnorm_kernel<": n_norms,
+                   "::flash_fwd_kernel<": cfg.num_layers})
+            rep["bound_share"] = rep["bound"]["bound_ms"] / rep["device_ms"]
+            busy, by_kernel = busy_share(fwd)
+            rep["busy_share"] = busy
+            rep["device_s_by_kernel"] = dict(sorted(
+                by_kernel.items(), key=lambda kv: -kv[1])[:8])
+        report["forward"] = rep
+        del batch, tokens
+
+        # (b) serving at the reference CLI's defaults
+        bsz, plen, gen_n = serve
+        steps = plen + gen_n - 1
+        prompts = torch.randint(0, cfg.vocab_size, (bsz, plen),
+                                generator=gen, device=dev)
+        sync(dev)
+        reset_counts()
+        out = token_serve.generate(cfg, params, prompts, gen_n)
+        sync(dev)
+        served = read_counts()
+        check(served == {"A": 0, "B": 0, "C": 0, "D": n_norms * steps,
+                         "E": 0},
+              f"moe serve: expected {n_norms * steps} launches of D and "
+              f"none of E, got {served}")
+        again = token_serve.generate(cfg, params, prompts, gen_n)
+        check(torch.equal(again["tokens"], out["tokens"]),
+              "moe serve: two runs served different tokens")
+        seq_toks = torch.cat([prompts, out["tokens"][:, :-1]], dim=1)
+        with A.record_routes() as k_routes:
+            k_logits = teacher_forced(cfg, params, seq_toks, dev)
+        with plain_kernels(), A.record_routes() as p_routes:
+            p_logits = teacher_forced(cfg, params, seq_toks, dev)
+        got = torch.stack(k_logits[plen - 1:], 1)
+        want = torch.stack(p_logits[plen - 1:], 1)
+        del k_logits, p_logits
+        check(torch.equal(got.argmax(-1), out["tokens"]),
+              "moe serve: the teacher-forced kernel path does not "
+              "reproduce the served tokens")
+        shares, same = route_agreement(k_routes, p_routes)
+        n_moe = len(k_routes) // steps
+        check(n_moe * steps == len(k_routes) and n_moe > 0,
+              f"moe serve: {len(k_routes)} routed calls in {steps} steps")
+        # a sequence agrees at a step if its routes agreed in every layer
+        # at that step and every earlier one (its cache holds them)
+        ok = torch.stack(same).reshape(steps, n_moe, bsz).all(1) \
+            .int().cumprod(0).bool()[plen - 1:].T
+        layer_shares = np.asarray(shares).reshape(steps, n_moe).mean(0)
+        srep: dict = {
+            "batch": bsz, "prompt": plen, "gen": gen_n,
+            "launches": served,
+            "launches_per_step": {k: v // steps for k, v in served.items()},
+            "routes_agree": layer_shares.tolist(),
+            "dropped_share": [
+                float(np.mean([(~r.keep).float().mean().item()
+                               for r in k_routes[i::n_moe]]))
+                for i in range(n_moe)],
+            "vs_plain": masked_vs(got, want, ok),
+            "vs_plain_all_tokens": compare_logits(got, want),
+            "prefill_s": again["prefill_s"], "decode_s": again["decode_s"],
+            "decode_ms_per_step": again["decode_s"] / (gen_n - 1) * 1e3,
+            "tok_per_s": bsz * (gen_n - 1) / again["decode_s"]}
+        del got, want
+        check(layer_shares.min() >= MOE_ROUTES_AGREE
+              and srep["vs_plain"]["max_abs_diff"] <= LM_BF16_MAX_DIFF
+              and min(srep["vs_plain"]["argmax_agree"],
+                      srep["vs_plain_all_tokens"]["argmax_agree"])
+              >= MOE_ARGMAX,
+              f"moe serve: kernels vs plain {srep}")
+        # bounds of the generated decode steps, averaged: the static
+        # buffer's (every expert's weights, as the reference computes
+        # it) and the routed one (the experts a step's kept picks use)
+        static, routed = [], []
+        for t in range(plen, steps):
+            kept, used = routed_work(k_routes[t * n_moe:(t + 1) * n_moe])
+            static.append(moe_bounds(cfg, params, bsz, kept,
+                                     n_moe * m.num_experts, ctx=t + 1))
+            routed.append(moe_bounds(cfg, params, bsz, kept, used,
+                                     ctx=t + 1))
+        srep["bound_ms"] = float(np.mean([b["bound_ms"] for b in static]))
+        srep["bound_by"] = static[0]["bound_by"]
+        srep["routed_bound_ms"] = float(np.mean([b["bound_ms"]
+                                                 for b in routed]))
+        if cuda:
+            srep["bound_share"] = srep["bound_ms"] / srep[
+                "decode_ms_per_step"]
+            srep["routed_bound_share"] = srep["routed_bound_ms"] / srep[
+                "decode_ms_per_step"]
+            cache = T.init_cache(cfg, bsz, plen + gen_n, device=dev)
+            tok = out["tokens"][:, :1]
+            step = lambda: T.decode_step(  # noqa: E731
+                cfg, params, cache, T.Batch(tokens=tok), plen)
+            timed(srep, "step_device_ms", step, 3, "moe decode step",
+                  {"::rmsnorm_kernel<": n_norms})
+            busy, by_kernel = busy_share(step)
+            srep["step_busy_share"] = busy
+            srep["step_device_s_by_kernel"] = dict(sorted(
+                by_kernel.items(), key=lambda kv: -kv[1])[:8])
+            del cache
+        report["serve"] = srep
+        print(f"moe serve {cfg.name} batch={bsz} prompt={plen} "
+              f"gen={gen_n}: launches {served}, routes equal "
+              f"{srep['routes_agree']}, kernels vs plain "
+              f"{srep['vs_plain']}, {srep['tok_per_s']:.1f} tok/s, "
+              f"{srep['decode_ms_per_step']:.2f} ms a step (bound "
+              f"{srep['bound_ms']:.2f}, routed {srep['routed_bound_ms']:.2f})")
+        del params, prompts, out, again
+    if cuda:
+        report["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.empty_cache()
+
+    # (c) the reduced float32 arctic-480b against the JAX anchors
+    report["anchors"] = phase_anchor(MOE_ARCH, dev)
+    report["wall_s"] = time.perf_counter() - t_phase
+    report["card"] = smi
+    print(f"moe phase: {report['wall_s']:.1f} s; card {smi}")
+    per_step = {k: v // steps for k, v in served.items()}
+    return launches, per_step, report
 
 
 # ---------------------------------------------------------------------------
@@ -3519,6 +4020,15 @@ def lm_kernel_report(err: dict, dev) -> tuple:
          "bound_ms": e_bound, "bound_by": e_by,
          "library_ms": None if None in e_lib else sum(e_lib),
          **methods(main_e, ("ms", "plain_ms", "library_ms"))}]
+    # arctic-480b's shapes (phase 9d): one norm of its 4096-token prompt,
+    # one layer's attention
+    for row, shape in ((rows[0], [r for r in norm_rows
+                                  if r["what"] == "arctic forward"]),
+                       (rows[1], [r for r in attn_rows
+                                  if r["name"] == "arctic"])):
+        row["moe_shape"] = {k: shape[0][k] for k in (
+            "ms", "ms_method", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_ms_method") if k in shape[0]}
     # kernel E's bf16 route runs on the tensor cores (HMMA) with K/V
     # staged by cp.async (LDGSTS), read by ldmatrix (LDSM)
     sass = sass_opcodes(LIBRARY.path(), ("HMMA", "LDGSTS", "LDSM"))
@@ -3570,8 +4080,9 @@ def run(dev, grid_big, smi: str, lm_cfg, lm_seq: int = LM_SEQ,
         serve_argv: list = SERVE_ARGV,
         train_argv: list = TRAIN_ARGV) -> None:
     """Phases 2-11 on ``dev`` with ``grid_big`` as the stream's grid,
-    ``lm_cfg`` run at ``lm_seq`` tokens as the LM and ``train.main(
-    train_argv)`` as the training path."""
+    ``lm_cfg`` run at ``lm_seq`` tokens as the LM, ``train.main(
+    train_argv)`` as the training path and arctic-480b at MOE_LAYERS
+    layers as the MoE path."""
     from repro_torch.core import stream as ST
     from repro_torch.core.grids import (ANCHOR_1M, ANCHOR_10M,
                                         REFERENCE_GRID, stream_grid_axes)
@@ -3623,11 +4134,15 @@ def run(dev, grid_big, smi: str, lm_cfg, lm_seq: int = LM_SEQ,
     # The LM last: its serve run's trace (~85,000 kernels) is the largest
     # the script takes.
     lm_launches, lm = phase_lm(dev, lm_cfg, lm_seq, serve_argv, smi)
+    # MoE after every other phase: its 55 GB of weights need the card
+    moe_fwd, moe_step, moe = phase_moe(dev, smi)
     for row in rows_de:
         key = row.pop("kernel")
         row["launches"] = lm_launches[key]
         row["launches_train"] = train_main[key]
         row["launches_train_step"] = train_step[key]
+        row["launches_moe"] = {"forward": moe_fwd[key],
+                               "decode_step": moe_step[key]}
     print(json.dumps({"stream": stats, "card": smi}))
     print(json.dumps({"stream_resilience": resilience, "card": smi}))
     print(json.dumps(shapes))
@@ -3635,6 +4150,7 @@ def run(dev, grid_big, smi: str, lm_cfg, lm_seq: int = LM_SEQ,
     print(json.dumps(lm_shapes))
     print(json.dumps({"lm": lm}))
     print(json.dumps({"train": trained}))
+    print(json.dumps({"moe": moe}))
     print(json.dumps({"kernels": rows}))
 
 

@@ -1,22 +1,29 @@
 """Weights, inputs and frozen results of the reference LM, for holding
 the port against JAX where JAX cannot run (the card).
 
-:func:`jax_layout_params` makes a dense GQA model's weights with numpy
-from a seed, in the reference's pytree layout (``params["blocks"]`` a
-tuple over pattern positions, each stacked along a leading repeat axis),
-so the same arrays feed ``repro.models.transformer`` and, through
-:func:`repro_torch.models.transformer.params_from_jax`, the port.
-``LM_ANCHORS`` holds what the JAX reference computed from them on the
-CPU for the reduced float32 gemma2-2b and qwen2-0.5b: full-forward
-logits at fixed positions and greedy tokens after a prefill
-(``tests/test_torch_transformer.py`` recomputes them with JAX).
-``TRAIN_ANCHORS`` holds the reference's training run from the same
-weights: each step's loss and global gradient norm, and the first
-step's gradient norm of every leaf (``tests/test_torch_train.py``
-recomputes them with JAX); :func:`train_run` is the port's run of it.
+:func:`jax_layout_params` makes a GQA model's weights (dense or MoE
+FFNs, a dense prologue) with numpy from a seed, in the reference's
+pytree layout (``params["blocks"]`` a tuple over pattern positions, each
+stacked along a leading repeat axis; the prologue's ``pre_{i}``
+unstacked), so the same arrays feed ``repro.models.transformer`` and,
+through :func:`repro_torch.models.transformer.params_from_jax`, the
+port.  ``LM_ANCHORS`` holds what the JAX reference computed from them on
+the CPU for the reduced float32 gemma2-2b, qwen2-0.5b and arctic-480b:
+full-forward logits at fixed positions and greedy tokens after a
+prefill, and for arctic the forward's MoE routes
+(``tests/test_torch_transformer.py`` recomputes them with JAX);
+:func:`record_routes` and :func:`routes_digest` read and condense the
+port's routes.  ``TRAIN_ANCHORS`` holds the reference's training run
+from the same weights: each step's loss and global gradient norm, and
+the first step's gradient norm of every leaf
+(``tests/test_torch_train.py`` recomputes them with JAX);
+:func:`train_run` is the port's run of it.
 """
 
 from __future__ import annotations
+
+import contextlib
+import zlib
 
 import numpy as np
 
@@ -35,43 +42,73 @@ ANCHOR_VOCAB = 16
 
 
 def jax_layout_params(cfg: ModelConfig, seed: int = WEIGHT_SEED) -> dict:
-    """float32 weights of a dense GQA ``cfg`` in the reference's layout:
-    normals at the reference's fan-in scales, and (unlike its init) norm
-    scales and biases drawn at 0.1, so that they are exercised."""
+    """float32 weights of a GQA ``cfg`` (dense or MoE FFNs, a dense
+    prologue) in the reference's layout: normals at the reference's
+    fan-in scales, and (unlike its init) norm scales and biases drawn at
+    0.1, so that they are exercised.  The prologue's ``pre_{i}`` blocks
+    are unstacked; an MoE block's ``ffn`` holds the router (d, E)
+    float32, ``w_gate``/``w_up`` (E, d, f), ``w_down`` (E, f, d) and the
+    ``shared``/``residual`` dense FFNs its config asks for."""
+    from .transformer import _pattern_moe_flags
+
     rng = np.random.default_rng(seed)
     d, h, kvh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
-    hd, r = cfg.resolved_head_dim, cfg.num_pattern_repeats
+    hd = cfg.resolved_head_dim
 
     def normal(shape, std):
         return (rng.standard_normal(shape) * std).astype(np.float32)
+
+    def dense_ffn(lead, f):
+        ffn = {"w_up": normal(lead + (d, f), d ** -0.5),
+               "w_down": normal(lead + (f, d), f ** -0.5)}
+        if cfg.ffn_kind == "swiglu":
+            ffn["w_gate"] = normal(lead + (d, f), d ** -0.5)
+        return ffn
+
+    def moe(lead):
+        m = cfg.moe
+        e, f = m.num_experts, m.d_ff_expert
+        ffn = {"router": normal(lead + (d, e), d ** -0.5),
+               "w_gate": normal(lead + (e, d, f), d ** -0.5),
+               "w_up": normal(lead + (e, d, f), d ** -0.5),
+               "w_down": normal(lead + (e, f, d), f ** -0.5)}
+        if m.num_shared_experts:
+            ffn["shared"] = dense_ffn(lead, f * m.num_shared_experts)
+        if m.dense_residual:
+            ffn["residual"] = dense_ffn(lead, cfg.d_ff)
+        return ffn
+
+    def block(lead, use_moe):
+        """One block's leaves, each with ``lead`` ((R,) stacked, () not)
+        in front."""
+        mixer = {"w_q": normal(lead + (d, h, hd), d ** -0.5),
+                 "w_k": normal(lead + (d, kvh, hd), d ** -0.5),
+                 "w_v": normal(lead + (d, kvh, hd), d ** -0.5),
+                 "w_o": normal(lead + (h, hd, d), (h * hd) ** -0.5)}
+        if cfg.qkv_bias:
+            mixer.update(b_q=normal(lead + (h, hd), 0.1),
+                         b_k=normal(lead + (kvh, hd), 0.1),
+                         b_v=normal(lead + (kvh, hd), 0.1))
+        p = {"norm1": {"scale": normal(lead + (d,), 0.1)}, "mixer": mixer}
+        has_ffn = use_moe or cfg.d_ff > 0
+        if has_ffn:
+            ffn = moe(lead) if use_moe else dense_ffn(lead, cfg.d_ff)
+            p.update(norm2={"scale": normal(lead + (d,), 0.1)}, ffn=ffn)
+        if cfg.post_block_norm:
+            p["post_norm1"] = {"scale": normal(lead + (d,), 0.1)}
+            if has_ffn:
+                p["post_norm2"] = {"scale": normal(lead + (d,), 0.1)}
+        return p
 
     params = {"embed": {"table": normal((cfg.vocab_size, d), d ** -0.5)},
               "final_norm": {"scale": normal((d,), 0.1)}}
     if not cfg.tie_embeddings:
         params["unembed"] = {"w": normal((d, cfg.vocab_size), d ** -0.5)}
-    blocks = []
-    for _ in cfg.block_pattern:
-        mixer = {"w_q": normal((r, d, h, hd), d ** -0.5),
-                 "w_k": normal((r, d, kvh, hd), d ** -0.5),
-                 "w_v": normal((r, d, kvh, hd), d ** -0.5),
-                 "w_o": normal((r, h, hd, d), (h * hd) ** -0.5)}
-        if cfg.qkv_bias:
-            mixer.update(b_q=normal((r, h, hd), 0.1),
-                         b_k=normal((r, kvh, hd), 0.1),
-                         b_v=normal((r, kvh, hd), 0.1))
-        p = {"norm1": {"scale": normal((r, d), 0.1)}, "mixer": mixer}
-        if cfg.d_ff:
-            ffn = {"w_up": normal((r, d, cfg.d_ff), d ** -0.5),
-                   "w_down": normal((r, cfg.d_ff, d), cfg.d_ff ** -0.5)}
-            if cfg.ffn_kind == "swiglu":
-                ffn["w_gate"] = normal((r, d, cfg.d_ff), d ** -0.5)
-            p.update(norm2={"scale": normal((r, d), 0.1)}, ffn=ffn)
-        if cfg.post_block_norm:
-            p["post_norm1"] = {"scale": normal((r, d), 0.1)}
-            if cfg.d_ff:
-                p["post_norm2"] = {"scale": normal((r, d), 0.1)}
-        blocks.append(p)
-    params["blocks"] = tuple(blocks)
+    lead = (cfg.num_pattern_repeats,)
+    params["blocks"] = tuple(block(lead, use_moe)
+                             for use_moe in _pattern_moe_flags(cfg))
+    for i in range(cfg.first_k_dense):
+        params[f"pre_{i}"] = block((), False)
     return params
 
 
@@ -81,6 +118,40 @@ def anchor_tokens(cfg: ModelConfig, seed: int = TOKEN_SEED) -> tuple:
     fwd = rng.integers(0, cfg.vocab_size, FORWARD_SHAPE).astype(np.int32)
     prompt = rng.integers(0, cfg.vocab_size, PROMPT_SHAPE).astype(np.int32)
     return fwd, prompt
+
+
+@contextlib.contextmanager
+def record_routes():
+    """Inside the ``with``, every MoE layer's routing
+    (:func:`repro_torch.models.moe.route`, as ``moe_apply`` calls it) is
+    also appended, in call order, to the list it yields: that call's
+    ``Routes`` with every tensor on the CPU."""
+    from . import moe
+
+    rec, route = [], moe.route
+
+    def recording(*args, **kw):
+        r = route(*args, **kw)
+        rec.append(type(r)(*(t.detach().cpu() for t in r)))
+        return r
+
+    moe.route = recording
+    try:
+        yield rec
+    finally:
+        moe.route = route
+
+
+def routes_digest(top_e: list, keep: list) -> dict:
+    """A run's routes, one (G, gs, k) array of experts and one of keep
+    flags an MoE layer in call order, as CRC-32s of their bytes (int32
+    and uint8, C order) and each layer's count of dropped picks."""
+    top_e = [np.asarray(t, dtype=np.int32) for t in top_e]
+    keep = [np.asarray(t, dtype=np.uint8) for t in keep]
+    return {"top_e_crc32": zlib.crc32(b"".join(t.tobytes() for t in top_e)),
+            "keep_crc32": zlib.crc32(b"".join(t.tobytes() for t in keep)),
+            "dropped": tuple(int(t.size - np.count_nonzero(t))
+                             for t in keep)}
 
 
 #: The training anchors' run: the reference train test's optimizer
@@ -97,7 +168,13 @@ TRAIN_DATA_SEED = 0
 #: ANCHOR_ROWS row of the forward, ``row_sums`` each such row summed over
 #: the vocabulary (float64), ``greedy`` the GREEDY_STEPS tokens after the
 #: prompt, ``min_top2_gap`` the smallest top-1/top-2 logit gap over the
-#: greedy steps (how far the tokens are from a tie).
+#: greedy steps (how far the tokens are from a tie).  MoE archs also
+#: hold ``routes``, the :func:`routes_digest` of the forward's routes,
+#: and ``min_router_gap``, the smallest gap between consecutive router
+#: probabilities among a token's k+1 largest over the forward and the
+#: greedy run (the gap between the k-th and the (k+1)-th sets which
+#: experts a token takes, the earlier gaps their order, which sets the
+#: capacity ranks: how far the routes are from a tie).
 LM_ANCHORS: dict = {
     "gemma2-2b": {
         "logits": (
@@ -204,6 +281,62 @@ LM_ANCHORS: dict = {
             (223, 284, 340, 337, 337, 337, 337, 344),
         ),
         "min_top2_gap": 0.05159473419189453,
+    },
+    "arctic-480b": {
+        "logits": (
+            (
+                2.1629040241241455, -0.1349015235900879, -0.19685451686382294,
+                1.345310091972351, 0.12206169217824936, 1.1032320261001587,
+                -0.888448178768158, -0.9779047966003418, -0.31686586141586304,
+                0.9764801859855652, 0.5271244049072266, 0.8908029794692993,
+                -0.4945211410522461, -0.9381948113441467, 0.6777616143226624,
+                0.9854943156242371,
+            ),
+            (
+                -0.9506109952926636, -0.6404778361320496, 1.7589112520217896,
+                -0.7980386018753052, 0.37365487217903137, 0.8271952867507935,
+                0.7228191494941711, -0.5523227453231812, -2.4738845825195312,
+                1.4373841285705566, -0.5971943140029907, 0.49536803364753723,
+                -0.3045083284378052, 0.7266222834587097, 0.09787053614854813,
+                0.28051236271858215,
+            ),
+            (
+                0.03892065957188606, 0.28279826045036316, -2.2622318267822266,
+                -1.0553730726242065, -0.12840038537979126, 1.4216541051864624,
+                1.642441987991333, -1.0370018482208252, 0.7179839015007019,
+                -1.096649169921875, 0.03162466362118721, -2.5192453861236572,
+                -1.0011112689971924, 0.9081714153289795, -0.03243251517415047,
+                -0.6583240628242493,
+            ),
+            (
+                -0.8748942613601685, 0.4688602387905121, 0.5378354787826538,
+                -1.2734543085098267, -1.7066659927368164, 0.35733097791671753,
+                -1.1084076166152954, -0.016520323231816292, 0.5139122605323792,
+                -1.3747867345809937, -0.40830156207084656, -0.4403914213180542,
+                -0.08923119306564331, 0.018350670114159584,
+                -0.02321569249033928, 0.323639452457428,
+            ),
+            (
+                -1.0907398462295532, -0.2672695517539978, -1.1416529417037964,
+                0.4326294958591461, -1.420135498046875, 0.44087666273117065,
+                0.059242431074380875, -0.08015534281730652, 1.1543241739273071,
+                0.03557506203651428, -0.02314831130206585, -1.5352717638015747,
+                0.1706317961215973, 0.5468906760215759, -0.9740517735481262,
+                -1.2633861303329468,
+            ),
+        ),
+        "row_sums": (
+            -8.22543491795659, 47.14419371006079, 56.61049977806397,
+            -23.8111996561056, -28.025449002627283,
+        ),
+        "greedy": (
+            (284, 81, 340, 312, 424, 366, 476, 159),
+            (38, 335, 251, 240, 9, 107, 251, 22),
+        ),
+        "min_top2_gap": 0.019951820373535156,
+        "routes": {"top_e_crc32": 4157929482, "keep_crc32": 1229334007,
+                   "dropped": (89, 62)},
+        "min_router_gap": 1.4185905456542969e-05,
     },
 }
 

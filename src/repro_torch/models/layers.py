@@ -30,10 +30,11 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def normal(shape, std: float, dtype, generator, device) -> torch.Tensor:
     """``N(0, 1) * std`` drawn in float32 from ``generator`` on
-    ``device``, cast to ``dtype`` (the reference's init idiom)."""
+    ``device``, cast to ``dtype`` (the reference's init idiom).  The
+    product is taken in place: one float32 temporary, not two."""
     x = torch.randn(shape, generator=generator, device=device,
                     dtype=torch.float32)
-    return (x * std).to(dtype)
+    return x.mul_(std).to(dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,26 +1,33 @@
-"""Transformer assembly of the port's LM: dense GQA stacks (the
-reference's ``repro/models/transformer.py``).
+"""Transformer assembly of the port's LM: GQA stacks with dense or MoE
+FFNs and the dense prologue (the reference's
+``repro/models/transformer.py``).
 
-The reference scans (``lax.scan``) over ``R`` repeats of the config's
-``block_pattern`` with per-position parameters stacked along a leading
-repeat axis; the port keeps one parameter dict a layer and loops over
-the layers in order (layer ``i`` is pattern position ``i % P`` of repeat
-``i // P``).  :func:`params_from_jax` carries the reference's stacked
-pytree across.
+The reference runs ``first_k_dense`` unscanned prologue layers
+(``params["pre_{i}"]``), then scans (``lax.scan``) over ``R`` repeats of
+the config's ``block_pattern`` with per-position parameters stacked
+along a leading repeat axis.  The port keeps one parameter dict a layer
+and loops over the layers in order: the first ``first_k_dense`` are the
+prologue's dense layers (of kind ``block_pattern[0]``), and layer ``i``
+after them is pattern position ``(i - first_k_dense) % P`` of repeat
+``(i - first_k_dense) // P``.  :func:`params_from_jax` carries the
+reference's pytree across.  Which pattern position runs MoE is the
+reference's :func:`_pattern_moe_flags`: by position, the same in every
+repeat.
 
 Public API:
     init_params(cfg, generator, device)     -> params
     forward(cfg, params, batch)             -> logits (B, S, V)
-    loss_fn(cfg, params, batch, remat)      -> scalar loss (chunked xent)
+    loss_fn(cfg, params, batch, remat)      -> scalar loss (chunked xent
+                                               + the MoE aux loss)
     init_cache(cfg, batch, max_len, dtype, device) -> decode cache
     decode_step(cfg, params, cache, batch, pos) -> (logits, cache)
 
 On the card every norm runs kernel D and every full-sequence attention
 kernel E, in training too (their autograd Functions' backwards are torch
-ops); decode attention is plain tensor code, as in the reference.  MoE,
-SSM and MLA blocks, the dense prologue (``first_k_dense``), sequence
-parallelism and frontend embeddings come with later slices and raise
-``NotImplementedError``.
+ops); decode attention and the MoE block (:mod:`.moe`) are plain tensor
+code, as in the reference.  SSM and MLA blocks, sequence parallelism,
+frontend embeddings and sinusoidal positions come with later slices and
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,18 +41,16 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.sweep import resolve_device
 
 from . import attention as attn
+from . import moe as moe_mod
 from .common import ModelConfig
 from .layers import (compute_dtype, dense_ffn, dense_ffn_init, embed,
                      embedding_init, rmsnorm, rmsnorm_init, unembed,
                      unembed_init)
 
 _LATER = {
-    "moe": "MoE blocks come with the MoE slice of the LM port",
     "ssm": "SSM blocks (mamba, mlstm, slstm) come with the SSM slice of "
            "the LM port",
     "mla": "MLA attention comes with the MLA slice of the LM port",
-    "first_k_dense": "the dense prologue (first_k_dense) comes with the "
-                     "MoE slice of the LM port",
     "seq_parallel": "sequence parallelism comes with the sharding slice "
                     "of the LM port",
     "embeds": "frontend embeddings (modality stubs) come with the "
@@ -63,14 +68,10 @@ def _later(what: str):
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what this slice does not run."""
-    if cfg.moe is not None:
-        raise _later("moe")
     if any(not kind.startswith("attn") for kind in cfg.block_pattern):
         raise _later("ssm")
     if cfg.attention_kind == "mla":
         raise _later("mla")
-    if cfg.first_k_dense:
-        raise _later("first_k_dense")
     if cfg.seq_parallel:
         raise _later("seq_parallel")
     if cfg.frontend_stub:
@@ -98,17 +99,21 @@ class Batch(NamedTuple):
 # ---------------------------------------------------------------------------
 
 
-def _block_init(cfg: ModelConfig, dtype, generator, device) -> dict:
+def _block_init(cfg: ModelConfig, use_moe: bool, dtype, generator,
+                device) -> dict:
     d = cfg.d_model
     p: dict = {"norm1": rmsnorm_init(d, device),
                "mixer": attn.gqa_init(cfg, dtype, generator, device)}
-    if cfg.d_ff > 0:
+    has_ffn = use_moe or cfg.d_ff > 0
+    if has_ffn:
         p["norm2"] = rmsnorm_init(d, device)
-        p["ffn"] = dense_ffn_init(d, cfg.d_ff, cfg.ffn_kind, dtype,
-                                  generator, device)
+        p["ffn"] = (moe_mod.moe_init(cfg, dtype, generator, device)
+                    if use_moe
+                    else dense_ffn_init(d, cfg.d_ff, cfg.ffn_kind, dtype,
+                                        generator, device))
     if cfg.post_block_norm:
         p["post_norm1"] = rmsnorm_init(d, device)
-        if cfg.d_ff > 0:
+        if has_ffn:
             p["post_norm2"] = rmsnorm_init(d, device)
     return p
 
@@ -117,28 +122,36 @@ def _window(cfg: ModelConfig, kind: str) -> int:
     return cfg.sliding_window if kind == "attn_local" else 0
 
 
-def _ffn_half(cfg: ModelConfig, params: dict,
-              x: torch.Tensor) -> torch.Tensor:
+def _ffn_half(cfg: ModelConfig, use_moe: bool, params: dict,
+              x: torch.Tensor, train: bool) -> tuple:
+    """The FFN half of a block: (x, aux), aux None without MoE (the
+    reference's zero)."""
     if "ffn" not in params:
-        return x
+        return x, None
+    aux = None
     h = rmsnorm(params["norm2"], x, cfg.norm_eps)
-    h = dense_ffn(params["ffn"], h, cfg.ffn_kind)
+    if use_moe:
+        h, aux = moe_mod.moe_apply(cfg, params["ffn"], h, train=train)
+    else:
+        h = dense_ffn(params["ffn"], h, cfg.ffn_kind)
     if cfg.post_block_norm:
         h = rmsnorm(params["post_norm2"], h, cfg.norm_eps)
-    return x + h
+    return x + h, aux
 
 
-def _block_forward(cfg: ModelConfig, kind: str, params: dict,
-                   x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+def _block_forward(cfg: ModelConfig, kind: str, use_moe: bool,
+                   params: dict, x: torch.Tensor,
+                   positions: torch.Tensor) -> tuple:
+    """Returns (x, aux_loss), aux_loss None for a block without MoE."""
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
     h = attn.gqa_forward(cfg, params["mixer"], h, positions,
                          window=_window(cfg, kind))
     if cfg.post_block_norm:
         h = rmsnorm(params["post_norm1"], h, cfg.norm_eps)
-    return _ffn_half(cfg, params, x + h)
+    return _ffn_half(cfg, use_moe, params, x + h, train=True)
 
 
-def _block_decode(cfg: ModelConfig, kind: str, params: dict,
+def _block_decode(cfg: ModelConfig, kind: str, use_moe: bool, params: dict,
                   x: torch.Tensor, cache: attn.KVCache,
                   pos: int) -> tuple[torch.Tensor, attn.KVCache]:
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
@@ -146,7 +159,30 @@ def _block_decode(cfg: ModelConfig, kind: str, params: dict,
                                window=_window(cfg, kind))
     if cfg.post_block_norm:
         h = rmsnorm(params["post_norm1"], h, cfg.norm_eps)
-    return _ffn_half(cfg, params, x + h), cache
+    x, _ = _ffn_half(cfg, use_moe, params, x + h, train=False)
+    return x, cache
+
+
+def _pattern_moe_flags(cfg: ModelConfig) -> list[bool]:
+    """Whether each pattern position uses MoE (consistent across repeats)."""
+    flags = []
+    for i, _ in enumerate(cfg.block_pattern):
+        gidx = cfg.first_k_dense + i
+        flags.append(cfg.layer_uses_moe(gidx))
+    if cfg.moe is not None:
+        # consistency across repeats requires pattern_len % every_k == 0
+        assert len(cfg.block_pattern) % cfg.moe.every_k_layers == 0 or \
+            cfg.moe.every_k_layers % len(cfg.block_pattern) == 0
+    return flags
+
+
+def layer_moe_flags(cfg: ModelConfig) -> list[bool]:
+    """Whether each layer the reference builds runs MoE: the
+    ``first_k_dense`` prologue layers never, then the ``R`` repeats of
+    :func:`_pattern_moe_flags` (the flag of a pattern position, not
+    ``cfg.layer_uses_moe`` of the layer)."""
+    return ([False] * cfg.first_k_dense
+             + _pattern_moe_flags(cfg) * cfg.num_pattern_repeats)
 
 
 # ---------------------------------------------------------------------------
@@ -172,8 +208,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     if not cfg.tie_embeddings:
         params["unembed"] = unembed_init(cfg.vocab_size, cfg.d_model, dtype,
                                          generator, dev)
-    params["layers"] = [_block_init(cfg, dtype, generator, dev)
-                        for _ in range(cfg.num_layers)]
+    params["layers"] = [_block_init(cfg, use_moe, dtype, generator, dev)
+                        for use_moe in layer_moe_flags(cfg)]
     return params
 
 
@@ -220,21 +256,24 @@ def _from_numpy(a) -> torch.Tensor:
 def params_from_jax(cfg: ModelConfig, params: dict) -> dict:
     """Carry the reference's parameters (``repro.models.transformer.
     init_params``'s pytree, as numpy arrays) into this model's layout, on
-    the CPU: ``params["blocks"]`` is a tuple over the P pattern positions,
-    each stacked along a leading repeat axis R; layer ``i`` is repeat
-    ``i // P`` at position ``i % P``.  Dtypes are kept (norm scales stay
-    float32 in a bf16 model)."""
+    the CPU: the prologue's ``params["pre_{i}"]`` are layers ``i <
+    first_k_dense``; ``params["blocks"]`` is a tuple over the P pattern
+    positions, each stacked along a leading repeat axis R, and layer
+    ``first_k_dense + j`` is repeat ``j // P`` at position ``j % P``.
+    Dtypes are kept (norm scales and the MoE router stay float32 in a
+    bf16 model)."""
     check_supported(cfg)
     blocks = params["blocks"]
     pat, r = len(cfg.block_pattern), cfg.num_pattern_repeats
     if len(blocks) != pat:
         raise ValueError(f"{len(blocks)} stacked positions, pattern has "
                          f"{pat}")
+    pre = [f"pre_{i}" for i in range(cfg.first_k_dense)]
     out = {k: _tree_map(_from_numpy, v) for k, v in params.items()
-           if k != "blocks"}
-    layers = []
-    for i in range(cfg.num_layers):
-        rep, posn = divmod(i, pat)
+           if k != "blocks" and k not in pre}
+    layers = [_tree_map(_from_numpy, params[k]) for k in pre]
+    for j in range(r * pat):
+        rep, posn = divmod(j, pat)
 
         def take(a, rep=rep):
             a = np.asarray(a)
@@ -279,7 +318,8 @@ def _inputs_to_x(cfg: ModelConfig, params: dict,
 def hidden_states(cfg: ModelConfig, params: dict, batch: Batch,
                   remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Run the stack; returns (hidden (B,S,d) after the final norm,
-    aux_loss), aux_loss 0 for dense stacks.
+    aux_loss), aux_loss the sum of the MoE layers' load-balancing losses
+    (float32; 0 for dense stacks).
 
     ``remat=True`` runs each layer under ``torch.utils.checkpoint``
     (non-reentrant): the backward recomputes the whole layer, where the
@@ -292,15 +332,19 @@ def hidden_states(cfg: ModelConfig, params: dict, batch: Batch,
     """
     check_supported(cfg)
     x, positions = _inputs_to_x(cfg, params, batch)
-    for i, p in enumerate(params["layers"]):
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, (p, use_moe) in enumerate(zip(params["layers"],
+                                         layer_moe_flags(cfg))):
         kind = cfg.layer_kind(i)
         if remat:
-            x = checkpoint(_block_forward, cfg, kind, p, x, positions,
-                           use_reentrant=False)
+            x, aux = checkpoint(_block_forward, cfg, kind, use_moe, p, x,
+                                positions, use_reentrant=False)
         else:
-            x = _block_forward(cfg, kind, p, x, positions)
+            x, aux = _block_forward(cfg, kind, use_moe, p, x, positions)
+        if aux is not None:
+            aux_total = aux_total + aux
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux_total
 
 
 def _logits(cfg: ModelConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
@@ -360,12 +404,13 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: Batch,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device="cuda") -> dict:
-    """One KV cache a layer, zeros, in the compute dtype by default."""
+    """One KV cache a layer (the prologue's ``pre_{i}`` first), zeros, in
+    the compute dtype by default."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = dtype or compute_dtype(cfg)
     return {"layers": [attn.gqa_init_cache(cfg, batch, max_len, dtype, dev)
-                       for _ in range(cfg.num_layers)]}
+                       for _ in layer_moe_flags(cfg)]}
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: Batch,
@@ -380,8 +425,10 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: Batch,
     check_supported(cfg)
     x, _ = _inputs_to_x(cfg, params, batch)
     pos = int(pos)
-    for i, p in enumerate(params["layers"]):
-        x, cache["layers"][i] = _block_decode(cfg, cfg.layer_kind(i), p, x,
+    for i, (p, use_moe) in enumerate(zip(params["layers"],
+                                         layer_moe_flags(cfg))):
+        x, cache["layers"][i] = _block_decode(cfg, cfg.layer_kind(i),
+                                              use_moe, p, x,
                                               cache["layers"][i], pos)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return _logits(cfg, params, x), cache

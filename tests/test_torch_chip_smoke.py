@@ -135,7 +135,7 @@ def test_plain_kernels_swaps_in_the_plain_versions_and_restores():
     x, scale = torch.randn(3, 16, generator=g), torch.randn(16, generator=g)
     saved = layers.rmsnorm_op, flash.flash_attention_fwd
     with CS.plain_kernels():
-        assert flash.flash_attention_fwd is E.flash_attention_ref
+        assert flash.flash_attention_fwd is CS.flash_ref_by_kv_head
         assert torch.equal(layers.rmsnorm_op(x, scale),
                            D.rmsnorm_ref(x, scale))
     assert (layers.rmsnorm_op, flash.flash_attention_fwd) == saved
@@ -724,3 +724,175 @@ def test_train_phase_fails_on_a_wrong_anchor(monkeypatch, one_thread):
     monkeypatch.setitem(A.TRAIN_ANCHORS, "gemma2-2b", bad)
     with pytest.raises(CS.SmokeFailure, match="losses"):
         CS.phase_train_anchor("gemma2-2b", torch.device("cpu"))
+
+
+# ---------------------------------------------------------------------------
+# Phase 9d: MoE serving (arctic-480b)
+# ---------------------------------------------------------------------------
+
+#: The rehearsal's serve run: batch, prompt, generated tokens.
+MOE_SERVE = (2, 8, 4)
+
+
+def _moe_counts(monkeypatch, fwd, serve):
+    """``read_counts`` as the card gives them around each prompt's
+    forward, its plain and float32 plain forwards, and the serve run (on
+    the CPU the wrappers count nothing)."""
+    zero = dict(A=0, B=0, C=0, D=0, E=0)
+    seq = iter([fwd, zero, zero] * 2 + [serve, zero])
+    monkeypatch.setattr(CS, "read_counts", lambda: next(seq))
+
+
+def _moe_phase(monkeypatch, fwd=None, serve=None):
+    from repro_torch.configs import get_reduced_config
+    b, p, g = MOE_SERVE
+    _moe_counts(monkeypatch, fwd or dict(A=0, B=0, C=0, D=5, E=2),
+                serve or dict(A=0, B=0, C=0, D=5 * (p + g - 1), E=0))
+    return CS.phase_moe(torch.device("cpu"), "cpu, not a card",
+                        get_reduced_config("arctic-480b"), 64, MOE_SERVE)
+
+
+def test_moe_phase_on_the_cpu(monkeypatch, capsys, one_thread):
+    """The whole phase at the reduced bf16 arctic-480b (2 MoE layers of
+    8 experts): the forward and the serve run against themselves on the
+    plain path, routes equal, drops counted, the bounds from this run's
+    routes, and the reduced float32 model on its JAX anchors (routes
+    included)."""
+    fwd, step, out = _moe_phase(monkeypatch)
+    assert fwd == dict(A=0, B=0, C=0, D=5, E=2)
+    assert step == dict(A=0, B=0, C=0, D=5, E=0)
+    f, s = out["forward"], out["serve"]
+    assert f["routes_agree"] == [1.0, 1.0] and s["routes_agree"] == [1, 1]
+    assert f["vs_plain"]["rows"] == f["vs_plain"]["of_rows"] == 64
+    second = f["second_prompt"]
+    assert second["seed"] == CS.MOE_SECOND_PROMPT_SEED
+    assert second["routes_agree"] == [1.0, 1.0]
+    for rep in (f, second):
+        wit = rep["float32_witness"]
+        assert len(wit["routes_agree"]) == 2
+        assert 0 < min(wit["routes_agree"]) <= 1
+        assert wit["vs_plain_all_tokens"]["max_abs_diff"] > 0
+    assert len(f["dropped_share"]) == 2 and 0 < f["kept_picks"] <= 256
+    assert f["bound"]["bound_by"] == "bytes" and s["bound_ms"] > 0
+    assert s["routed_bound_ms"] <= s["bound_ms"]
+    assert out["anchors"]["routes_equal"]
+    assert "bound_share" not in f and "busy_share" not in f  # no card
+    assert "moe forward arctic-480b" in capsys.readouterr().out
+
+
+def test_moe_phase_fails_on_other_launches(monkeypatch, one_thread):
+    with pytest.raises(CS.SmokeFailure, match="moe forward: expected"):
+        _moe_phase(monkeypatch, fwd=dict(A=0, B=0, C=0, D=4, E=2))
+
+
+def test_moe_phase_fails_on_a_wrong_route_anchor(monkeypatch, one_thread):
+    from repro_torch.models import anchors as A
+    bad = dict(A.LM_ANCHORS["arctic-480b"])
+    bad["routes"] = dict(bad["routes"], dropped=(89, 61))
+    monkeypatch.setitem(A.LM_ANCHORS, "arctic-480b", bad)
+    with pytest.raises(CS.SmokeFailure, match="routes"):
+        CS.phase_anchor("arctic-480b", torch.device("cpu"))
+
+
+def test_float32_experts_is_the_float32_product():
+    """Under ``float32_experts`` a float32 batch by a bf16 one is the
+    float32 product, a slice of experts at a time (20 experts: two
+    slices); same dtypes pass through, and ``torch.bmm`` comes back."""
+    g = torch.Generator().manual_seed(5)
+    a = torch.randn(20, 3, 8, generator=g)
+    b = torch.randn(20, 8, 4, generator=g).to(torch.bfloat16)
+    saved = torch.bmm
+    with CS.float32_experts():
+        got = torch.bmm(a, b)
+        same = torch.bmm(a, a.transpose(1, 2))
+    assert torch.bmm is saved
+    assert got.dtype == torch.float32
+    assert torch.equal(got, torch.bmm(a, b.float()))
+    assert torch.equal(same, torch.bmm(a, a.transpose(1, 2)))
+
+
+def test_float32_copy_keeps_only_the_expert_weights():
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_reduced_config("arctic-480b")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    wide = CS.float32_copy(params)
+    moe = wide["layers"][0]["ffn"]
+    for k in ("w_gate", "w_up", "w_down"):
+        assert moe[k] is params["layers"][0]["ffn"][k]
+        assert moe[k].dtype == torch.bfloat16
+    assert moe["router"].dtype == torch.float32
+    assert moe["residual"]["w_up"].dtype == torch.float32
+    assert wide["embed"]["table"].dtype == torch.float32
+    assert torch.equal(wide["unembed"]["w"], params["unembed"]["w"].float())
+
+
+def test_plain_attention_by_kv_head_is_the_plain_function():
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn(1, 40, 14, 32, generator=g)
+    k, v = torch.randn(2, 1, 40, 2, 32, generator=g)
+    want = E.flash_attention_ref(q, k, v, causal=True)
+    got = CS.flash_ref_by_kv_head(q, k, v, causal=True)
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+    with CS.plain_kernels():
+        assert flash.flash_attention_fwd is CS.flash_ref_by_kv_head
+    assert flash.flash_attention_fwd is E.flash_attention_fwd
+
+
+def _meta_params(cfg) -> dict:
+    """arctic's parameter tree on the meta device (shapes and dtypes,
+    no storage), for counting its bytes at full width."""
+    from repro_torch.models import transformer as T
+
+    d, m, bf = cfg.d_model, cfg.moe, torch.bfloat16
+    hd, h, kv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+
+    def t(*shape, dtype=bf):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    def dense(f):
+        return {"w_gate": t(d, f), "w_up": t(d, f), "w_down": t(f, d)}
+
+    layers = []
+    for use_moe in T.layer_moe_flags(cfg):
+        ffn = dict(router=t(d, m.num_experts, dtype=torch.float32),
+                   w_gate=t(m.num_experts, d, m.d_ff_expert),
+                   w_up=t(m.num_experts, d, m.d_ff_expert),
+                   w_down=t(m.num_experts, m.d_ff_expert, d),
+                   residual=dense(cfg.d_ff)) if use_moe else dense(cfg.d_ff)
+        layers.append({
+            "norm1": {"scale": t(d, dtype=torch.float32)},
+            "norm2": {"scale": t(d, dtype=torch.float32)},
+            "mixer": {"w_q": t(d, h, hd), "w_k": t(d, kv, hd),
+                      "w_v": t(d, kv, hd), "w_o": t(h, hd, d)},
+            "ffn": ffn})
+    return {"embed": {"table": t(cfg.vocab_size, d)},
+            "unembed": {"w": t(d, cfg.vocab_size)},
+            "final_norm": {"scale": t(d, dtype=torch.float32)},
+            "layers": layers}
+
+
+def test_moe_bounds_at_arctic_full_width():
+    """Two full-width layers hold 55.4 GB; a decode step of the static
+    buffer reads every expert's weights (54.9 GB: 16.4 ms at 3.35 TB/s),
+    the 4096-token prompt as much plus its logits, and its operations
+    (9.4 TFLOP with no pick dropped, at 989 TFLOP/s) take less: both
+    bound by bytes."""
+    from repro_torch.models import transformer as T
+
+    cfg = CS.moe_config()
+    assert (cfg.num_layers, cfg.d_model, cfg.moe.num_experts) == \
+        (2, 7168, 128)
+    params = _meta_params(cfg)
+    assert abs(T.param_bytes(params) / 1e9 - 55.37) < 0.01
+    e = 2 * cfg.moe.num_experts
+    step = CS.moe_bounds(cfg, params, 4, kept=16, used=e, ctx=48)
+    assert step["bound_by"] == "bytes"
+    assert abs(step["bound_ms"] - 16.39) < 0.01
+    routed = CS.moe_bounds(cfg, params, 4, kept=16, used=16, ctx=48)
+    assert routed["bound_ms"] < 0.1 * step["bound_ms"]
+    fwd = CS.moe_bounds(cfg, params, 4096, kept=2 * 8192, used=e)
+    assert fwd["bound_by"] == "bytes"
+    assert abs(fwd["bytes_ms"] - 16.49) < 0.01
+    assert abs(fwd["ops_ms"] - 9.55) < 0.01

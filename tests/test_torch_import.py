@@ -179,18 +179,40 @@ def _gemma(**kw):
 
 
 @pytest.mark.parametrize("cfg, slice_", [
-    (_gemma(moe=MoEConfig(num_experts=4, top_k=2, d_ff_expert=64)), "MoE"),
     (_gemma(block_pattern=("mamba", "attn")), "SSM"),
     (_gemma(attention_kind="mla"), "MLA"),
-    (_gemma(first_k_dense=2, num_layers=6), "MoE"),
     (_gemma(seq_parallel=True), "sharding"),
     (_gemma(frontend_stub=True), "modality-stub"),
     (_gemma(use_rope=False), "modality-stub"),
-], ids=["moe", "ssm", "mla", "first_k_dense", "seq_parallel",
-        "frontend_stub", "sinusoidal"])
+], ids=["ssm", "mla", "seq_parallel", "frontend_stub", "sinusoidal"])
 def test_later_slices_raise_not_implemented(cfg, slice_):
     with pytest.raises(NotImplementedError, match=f"{slice_} slice"):
         T.init_params(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("cfg, n_moe", [
+    (_gemma(moe=MoEConfig(num_experts=4, top_k=2, d_ff_expert=64)), 4),
+    (_gemma(first_k_dense=2, num_layers=6), 0),
+], ids=["moe", "first_k_dense"])
+def test_moe_and_prologue_configs_build_and_run(cfg, n_moe):
+    """MoE blocks and the dense prologue came with the MoE slice: the
+    configs that raised before it now build, run a forward, a decode
+    step and a loss on the CPU."""
+    T.check_supported(cfg)
+    params = T.init_params(cfg, device="cpu")
+    assert len(params["layers"]) == cfg.num_layers
+    assert sum("router" in p["ffn"] for p in params["layers"]) == n_moe
+    tokens = torch.randint(0, cfg.vocab_size, (2, 8),
+                           generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        logits = T.forward(cfg, params, T.Batch(tokens=tokens))
+        loss = T.loss_fn(cfg, params, T.Batch(tokens=tokens, labels=tokens))
+        cache = T.init_cache(cfg, 2, 4, device="cpu")
+        step, _ = T.decode_step(cfg, params, cache,
+                                T.Batch(tokens=tokens[:, :1]), 0)
+    assert logits.shape == (2, 8, cfg.vocab_size)
+    assert step.shape == (2, 1, cfg.vocab_size)
+    assert bool(logits.isfinite().all()) and bool(loss.isfinite())
 
 
 @pytest.mark.parametrize("call, slice_", [
