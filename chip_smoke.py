@@ -136,7 +136,8 @@ Phases, each of which ends the run with a non-zero exit on any failure:
    (4 x 2304) norms, the kernel_bench shape (4096 x 1024 f32), arctic's
    width 7168 (several warps a row), a misaligned x and a ragged 997 x
    130 in both dtypes (the strided route) and qwen2-0.5b's training norm
-   (1024 x 896 bf16) and arctic-480b's forward norm (4096 x 7168 bf16):
+   (1024 x 896 bf16), arctic-480b's forward norm (4096 x 7168 bf16) and
+   jamba's and xlstm-350m's (4096 x 4096 and 4096 x 1024 bf16):
    float32 within 16 ulp, bf16 within one bf16 ulp.
    Each case's gradient through kernel D's autograd Function (forward
    on the card, backward torch ops) against autograd through
@@ -150,14 +151,15 @@ Phases, each of which ends the run with a non-zero exit on any failure:
    2048 with a window, the reduced configs' d 32, and the bf16
    tensor-core route's edges (d 32 and 128, a ragged Sq·g and Skv, Sq <
    Skv with a window, non-causal), qwen2-0.5b's training shape (B 8,
-   S 128, 14/2 heads, d 64, both dtypes) and arctic-480b's forward (B 1,
-   S 4096, 56/8 heads, d 128, causal, bf16): bf16 within one bf16 ulp
-   (+1e-6), float32 within 1e-5 absolute + 1e-5 relative.  Every case
-   also with its softmax stats: the output bitwise the same, m and l
-   within 1e-5 + 1e-5 relative of the plain ``_fwd_pass``'s.  At the
-   gemma2-2b layers, qwen2's training shape and the f32 cases, (dq, dk,
-   dv) through kernel E's autograd Function (kernel E with stats, then
-   the recompute backward) against autograd through
+   S 128, 14/2 heads, d 64, both dtypes), arctic-480b's forward (B 1,
+   S 4096, 56/8 heads, d 128, causal, bf16) and jamba's (32/8 heads):
+   bf16 within one bf16 ulp (+1e-6), float32 within 1e-5 absolute +
+   1e-5 relative.  Every case also with its softmax stats: the output
+   bitwise the same, m and l within 1e-5 + 1e-5 relative of the plain
+   ``_fwd_pass``'s.  At the gemma2-2b layers, qwen2's training shape
+   and the f32 cases, (dq, dk, dv) through kernel E's autograd Function
+   (kernel E with stats, then the recompute backward) against autograd
+   through
    ``flash_attention_ref``: float32 within 1e-5 + 1e-5 relative, bf16
    within 1 % of the largest magnitude (the backward's delta comes from
    the bf16 output, as in the reference).  Kernel E's SASS must hold
@@ -193,6 +195,35 @@ Phases, each of which ends the run with a non-zero exit on any failure:
    three, against a resume from step 3: losses and the final checkpoint
    bitwise.  Prints the ``train`` line (step ms, tokens/s, busy share,
    share of the matmul bound, peak memory).
+9e. SSM (the tenth path), after phase 9 (its 52 GB are freed before
+   9d): xlstm-350m at full width and depth (24 mLSTM and sLSTM blocks,
+   d 1024, 4 heads, vocab 50,304, tied embeddings, bf16) and
+   jamba-v0.1-52b at full width (d 4096, 32/8 heads, Mamba N 16 and
+   d_inner 8192, 16 experts top-2 of d_ff 14,336 on every second layer,
+   sinusoidal positions, vocab 65,536, bf16) cut to 16 of its 32 layers
+   (52.1 GB), weights from a seeded generator on the card.  Each: (a)
+   ``transformer.forward`` on one prompt (jamba 4096 tokens, xlstm
+   2048: its sLSTM loops are host-bound), counts read around exactly it
+   (xlstm 25 launches of D, none of E; jamba 33 of D and 2 of E; none of
+   A-C), against the same forward on the plain D and E and beside the
+   plain path in float32 (the witness: each limit lies between the two
+   readings): in bf16 the first 16 positions' logits and argmaxes, the
+   argmaxes over all and jamba's routes a MoE layer (a bf16 ulp grows
+   through these recurrences with random weights until later logits are
+   unrelated, the witness's from the first tokens on); in float32 on the
+   kernels' float32 routes, every position; jamba's drops at capacity;
+   the forward's wall and device time (a profiled run's summed kernels),
+   busy share, the Mamba, sLSTM and mLSTM scans' share of the device
+   time, its bound (jamba: the MoE's static buffer and the routed one),
+   transient memory and peak.  (b) Serving at the reference CLI's
+   defaults (batch 4, prompt 32, gen 16; xlstm through
+   ``token_serve.main``, jamba ``token_serve.generate``), counts read
+   around it (25 and 33 launches of D a step, none of E), teacher-forced
+   on both paths: the kernel path reproduces the served tokens, the plain
+   path within the limits; decode ms a step, tok/s, its bound.  (c)
+   The reduced float32 xlstm-350m and jamba against ``LM_ANCHORS``
+   (logits within 2e-5 + 1e-5 relative, tokens, jamba's routes).  Prints
+   the ``ssm`` line.
 9d. MoE (the ninth path), after every other phase (its weights fill
    the card): arctic-480b at full width (d 7168, 56/8 heads, 128 experts
    top-2 of d_ff 4864 at capacity factor 1.25 beside a dense residual
@@ -223,16 +254,18 @@ Phases, each of which ends the run with a non-zero exit on any failure:
    and, under ``dense``, its 1,000,960-config one, and its launches in
    ``grid_argmin``, and A's and B's their launches in the served request
    (``launches_service``), D's and E's in the training run and in one
-   step (``launches_train``, ``launches_train_step``), in arctic's
+   step (``launches_train``, ``launches_train_step``), in the SSM
+   models' forwards and decode steps (``launches_ssm``), in arctic's
    forward and decode step (``launches_moe``) and their time at
-   arctic's shapes (``moe_shape``: E's library call there is SDPA); A's
+   arctic's shapes (``moe_shape``: E's library call there is SDPA) and
+   at jamba's and xlstm's (``ssm_shape``); A's
    its graph replays and K), ``stream`` (the default path's wall,
    dispatch, wait, merge and busy share, the synchronous path's beside
    it, the plain backend's), ``stream_resilience``, ``rbe_shapes`` (each
    layer at 4 and 256 ROIs with its tile), ``handtracking``,
    ``rmsnorm_shapes``/``flash_shapes`` (each case's route; E's registers
-   and spills from ptxas and its share of the bound), ``lm``, ``train``
-   and ``moe`` JSON lines, the card's name and power limit, and last the
+   and spills from ptxas and its share of the bound), ``lm``, ``train``,
+   ``ssm`` and ``moe`` JSON lines, the card's name and power limit, and last the
    ``ok`` line.  Kernel C's SASS must hold int8 tensor-core (IMMA) and
    cp.async (LDGSTS) instructions.
 
@@ -2494,7 +2527,9 @@ RMSNORM_CASES = ((LM_SEQ, 2304, "bfloat16", "gemma2 forward"),
                  (997, 130, "float32", "ragged"),
                  (997, 130, "bfloat16", "ragged"),
                  (1024, 896, "bfloat16", "qwen2 train"),
-                 (4096, 7168, "bfloat16", "arctic forward"))
+                 (4096, 7168, "bfloat16", "arctic forward"),
+                 (4096, 4096, "bfloat16", "jamba forward"),
+                 (4096, 1024, "bfloat16", "xlstm forward"))
 
 # Kernel E's cases: (name, b, sq, skv, h, kv, d, causal, window, softcap,
 # dtype).
@@ -2522,6 +2557,8 @@ FLASH_CASES = (
     ("qwen2 train f32", 8, 128, 128, 14, 2, 64, True, 0, 0.0, "float32"),
     # arctic-480b's prompt forward (phase 9d): 7 query heads a kv head
     ("arctic", 1, 4096, 4096, 56, 8, 128, True, 0, 0.0, "bfloat16"),
+    # jamba-v0.1-52b's prompt forward (phase 9e): 4 query heads a kv head
+    ("jamba", 1, 4096, 4096, 32, 8, 128, True, 0, 0.0, "bfloat16"),
 )
 #: The cases whose gradient through kernel E's autograd Function is held
 #: against autograd through its plain version (phase 8).
@@ -2992,14 +3029,11 @@ def phase_lm(dev, cfg, seq: int, serve_argv: list, smi: str) -> tuple:
         logits = T.forward(cfg, params, batch)
         sync(dev)
         fwd_launches = read_counts()
-        n_norms = 4 * cfg.num_layers + 1 if cfg.post_block_norm \
-            else 2 * cfg.num_layers + 1
-        check(fwd_launches["D"] == n_norms
-              and fwd_launches["E"] == cfg.num_layers
-              and fwd_launches["A"] == fwd_launches["B"]
-              == fwd_launches["C"] == 0,
+        expect = lm_launches(cfg, params)
+        n_norms = expect["D"]
+        check(fwd_launches == expect,
               f"forward: expected {n_norms} launches of D and "
-              f"{cfg.num_layers} of E, got {fwd_launches}")
+              f"{expect['E']} of E, got {fwd_launches}")
         check(tuple(logits.shape) == (1, seq, cfg.vocab_size),
               f"forward logits {tuple(logits.shape)}")
         with plain_kernels():
@@ -3019,7 +3053,7 @@ def phase_lm(dev, cfg, seq: int, serve_argv: list, smi: str) -> tuple:
         # the card, so it may be timed from a trace: that trace must hold
         # every launch of D and E (and none on the plain path).
         mine = {"::rmsnorm_kernel<": n_norms,
-                "::flash_fwd_kernel<": cfg.num_layers}
+                "::flash_fwd_kernel<": expect["E"]}
         timed(report["forward"], "device_ms", fwd, 2, "lm forward", mine)
         with plain_kernels():
             timed(report["forward"], "plain_device_ms", fwd, 2,
@@ -3099,7 +3133,8 @@ def teacher_forced(cfg, params, seq_toks, dev) -> list:
 def phase_anchor(arch: str, dev) -> dict:
     """The reduced float32 ``arch`` on ``dev`` (weights from the numpy
     seed of ``repro_torch.models.anchors``) against the logits and greedy
-    tokens frozen from the JAX reference."""
+    tokens frozen from the JAX reference (and an MoE arch's routes), at
+    ANCHOR_TOL."""
     import torch
 
     from repro_torch.configs import get_reduced_config
@@ -3209,40 +3244,85 @@ def route_agreement(k_routes: list, p_routes: list) -> tuple:
     return shares, same
 
 
-def moe_bounds(cfg, params, tokens: int, kept: int, used: int,
-               ctx: int = 0) -> dict:
+def lm_bounds(cfg, params, tokens: int, kept: int = 0, used: int = 0,
+              ctx: int = 0) -> dict:
     """The least time the card could take for one pass of ``tokens``
-    tokens (a prompt; with ``ctx``, one decode token of each of
-    ``tokens`` sequences over a cache of ``ctx`` positions) through
-    ``cfg``'s ``params``: the larger of the bytes it must move over
-    PEAK_BYTES_PER_S (every weight read once, of the experts only the
-    ``used`` (layer, expert) pairs', of the embedding the gathered rows;
-    the token ids, and each layer's k and v cache, read once; the logits
-    written once) and its operations over BF16_PEAK_OPS (2 a weight and
-    token of each product, the experts' for the ``kept`` picks only;
-    q·k and p@v over the visible pairs: causal for a prompt, ``ctx``
-    keys a decode token)."""
+    tokens (a prompt of one sequence; with ``ctx``, one decode token of
+    each of ``tokens`` sequences over a cache of ``ctx`` positions)
+    through ``cfg``'s ``params``, counted from the code's own shapes: the
+    larger of the bytes it must move over PEAK_BYTES_PER_S (every weight
+    read once, of the experts only the ``used`` (layer, expert) pairs',
+    of the embedding the gathered rows; the token ids, each attention
+    layer's k and v cache and, in decode, each SSM layer's state read
+    once, the new states and the logits written once) and its operations:
+    the bf16 ones (2 a weight and token of each product, the experts' for
+    ``kept`` picks or slots summed over the MoE layers; q·k and p@v over
+    the visible pairs, causal for a prompt, ``ctx`` keys a decode token)
+    over BF16_PEAK_OPS plus the float32 ones over PEAK_F32_OPS_PER_S
+    (Mamba's dt projection, conv and scan, the mLSTM gates, its parallel
+    form's q·k and weighted sum over the visible pairs or its decode's
+    memory update, the sLSTM cell)."""
     from repro_torch.models import transformer as T
 
     m, d, V = cfg.moe, cfg.d_model, cfg.vocab_size
     hd, h, kv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
     table = params["embed"]["table"]
     item = table.element_size()
-    n_layers, n_moe = len(params["layers"]), sum(T.layer_moe_flags(cfg))
-    per_expert = 3 * d * m.d_ff_expert * item
-    weights = (T.param_bytes(params) - table.numel() * item
-               - (n_moe * m.num_experts - used) * per_expert)
-    nbytes = (weights + tokens * (d * item + 8) + tokens * V * item
-              + 2 * n_layers * tokens * ctx * kv * hd * item)
+    flags = T.layer_moe_flags(cfg)
+    unused = 0 if m is None else \
+        (sum(flags) * m.num_experts - used) * 3 * d * m.d_ff_expert * item
+    nbytes = (T.param_bytes(params) - table.numel() * item - unused
+              + tokens * (d * item + 8) + tokens * V * item)
     pairs = tokens * ctx if ctx else tokens * (tokens + 1) // 2
-    per_token = 2 * (2 * d * h * hd + 2 * d * kv * hd + 3 * d * cfg.d_ff
-                     + d * m.num_experts)
-    ops = (n_layers * (tokens * per_token + 4 * hd * h * pairs)
-           + 6 * kept * d * m.d_ff_expert + 2 * tokens * d * V)
+    bf16, f32 = 2 * tokens * d * V, 0
+    if m is not None:
+        bf16 += 6 * kept * d * m.d_ff_expert
+    for i, (layer, use_moe) in enumerate(zip(params["layers"], flags)):
+        kind = cfg.layer_kind(i)
+        if kind.startswith("attn"):
+            bf16 += (tokens * 2 * (2 * d * h * hd + 2 * d * kv * hd)
+                     + 4 * hd * h * pairs)
+            nbytes += 2 * tokens * ctx * kv * hd * item
+        elif kind == "mamba":
+            di, n = cfg.ssm_expand * d, cfg.ssm_state_dim
+            w, r = cfg.ssm_conv_width, max(1, d // 16)
+            bf16 += tokens * 2 * (2 * d * di + di * (2 * n + r) + di * d)
+            # dt projection, conv taps, and a step's exp(dt·A), dt·x·B,
+            # da·h + dbx and C·h
+            f32 += tokens * (2 * r * di + 2 * w * di + 7 * di * n)
+            if ctx:
+                nbytes += 2 * tokens * ((w - 1) * di * item + di * n * 4)
+        elif kind == "mlstm":
+            di, hdm = 2 * d, 2 * d // h
+            bf16 += tokens * 2 * (2 * d * di + 3 * di * di + di * d)
+            f32 += tokens * 4 * di * h
+            if ctx:
+                f32 += tokens * 6 * h * hdm * hdm
+                nbytes += 2 * tokens * h * (hdm * hdm + hdm + 1) * 4
+            else:
+                f32 += 4 * di * pairs
+        elif kind == "slstm":
+            bf16 += tokens * 2 * (4 * d * d + 4 * d * (d // h) + d * d)
+            f32 += tokens * 15 * d
+            if ctx:
+                nbytes += 2 * tokens * 4 * d * 4
+        ffn = layer.get("ffn")
+        if ffn is None:
+            continue
+        dense = 3 if cfg.ffn_kind == "swiglu" else 2
+        if not use_moe:
+            bf16 += tokens * 2 * dense * d * cfg.d_ff
+            continue
+        bf16 += tokens * 2 * d * m.num_experts
+        if m.num_shared_experts:
+            bf16 += tokens * 2 * 3 * d * m.d_ff_expert * m.num_shared_experts
+        if m.dense_residual:
+            bf16 += tokens * 2 * dense * d * cfg.d_ff
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = ops / BF16_PEAK_OPS * 1e3
-    return {"bytes": nbytes, "ops": ops, "bytes_ms": bytes_ms,
-            "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+    ops_ms = (bf16 / BF16_PEAK_OPS + f32 / PEAK_F32_OPS_PER_S) * 1e3
+    return {"bytes": nbytes, "ops": bf16 + f32, "f32_ops": f32,
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
@@ -3252,6 +3332,20 @@ def routed_work(routes: list) -> tuple:
     kept = sum(int(r.keep.sum()) for r in routes)
     used = sum(int(r.top_e[r.keep].unique().numel()) for r in routes)
     return kept, used
+
+
+#: Position bins of :func:`by_position`: the first token, then the
+#: ranges a perturbation has had more steps to grow over.
+POSITION_EDGES = (0, 1, 16, 256, 1024)
+
+
+def by_position(got, want) -> list:
+    """:func:`compare_logits` of (1, S, V) logits over the position bins
+    of POSITION_EDGES (the last bin runs to S)."""
+    s = got.shape[1]
+    edges = [e for e in POSITION_EDGES if e < s] + [s]
+    return [dict(compare_logits(got[:, a:b], want[:, a:b]), positions=[a, b])
+            for a, b in zip(edges, edges[1:])]
 
 
 def masked_vs(got, want, ok) -> dict:
@@ -3286,12 +3380,12 @@ F32_EXPERT_SLICE = 16
 
 
 @contextlib.contextmanager
-def float32_experts():
+def float32_experts(n: int = F32_EXPERT_SLICE):
     """Inside the ``with``, ``torch.bmm`` of a float32 batch by a batch
     of another dtype (the MoE block's expert products on the weights
     :func:`float32_copy` kept as they are) casts the second to float32
-    F32_EXPERT_SLICE matrices at a time: with :func:`float32_copy`, the
-    forward in float32 on the same weights."""
+    ``n`` matrices at a time: with :func:`float32_copy`, the forward in
+    float32 on the same weights."""
     import torch
 
     bmm = torch.bmm
@@ -3301,7 +3395,6 @@ def float32_experts():
             return bmm(a, b)
         check(a.dtype == torch.float32,
               f"float32_experts: a {a.dtype} batch by a {b.dtype} one")
-        n = F32_EXPERT_SLICE
         return torch.cat([bmm(a[i:i + n], b[i:i + n].float())
                           for i in range(0, b.shape[0], n)])
 
@@ -3312,18 +3405,46 @@ def float32_experts():
         torch.bmm = bmm
 
 
-def moe_prompt(cfg, params, params32, tokens) -> tuple:
+def lm_launches(cfg, params) -> dict:
+    """The launches of each kernel one forward of ``cfg`` makes: kernel D
+    once a norm (``norm1``, ``norm2``, the post norms a layer has, and the
+    final norm), kernel E once an attention layer, A-C none.  A decode
+    step makes as many of D and none of E."""
+    n_norms = 1 + sum(k in layer for layer in params["layers"]
+                      for k in ("norm1", "norm2", "post_norm1",
+                                "post_norm2"))
+    n_attn = sum(cfg.layer_kind(i).startswith("attn")
+                 for i in range(len(params["layers"])))
+    return {"A": 0, "B": 0, "C": 0, "D": n_norms, "E": n_attn}
+
+
+#: The kernels-vs-plain limits of an MoE prompt (phase 9d): each MoE
+#: layer's routes, the logits where the routes agree in every layer, the
+#: argmaxes there and over all tokens.
+MOE_LIMITS = {"routes": MOE_ROUTES_AGREE, "max_diff": LM_BF16_MAX_DIFF,
+              "argmax": MOE_ARGMAX}
+
+
+def moe_prompt(cfg, params, params32, tokens, limits: dict = MOE_LIMITS,
+               f32_slice: int = F32_EXPERT_SLICE) -> tuple:
     """One (1, S) prompt through ``transformer.forward`` on kernels D
-    and E, counts read around exactly it (2L + 1 launches of D, L of E,
-    none of A-C) and, on the card, its transient memory (less than one
-    expert weight: the expert products copy no weight); again on the
-    plain D and E; and on the plain path in float32 (``params32``, the
-    same weights; :func:`float32_experts`), the witness of how far a
-    sound change of rounding moves the routes.  Kernels vs plain: each
-    MoE layer's routes, the logits where the routes agree in every
-    layer, the argmaxes there and over all tokens, held to the limits;
-    the float32 plain path vs the plain path: the same readings, shown
-    beside them.  Returns the kernel path's routes and the report."""
+    and E, counts read around exactly it (:func:`lm_launches`: for
+    arctic 2L + 1 of D and L of E, none of A-C) and, on the card, its
+    transient memory and peak (with MoE, the transient below one expert
+    weight: the expert products copy no weight); again
+    on the plain D and E; and on the plain path in float32
+    (``params32``, the same weights; :func:`float32_experts` with
+    ``f32_slice``), the witness of how far a sound change of rounding
+    moves the routes and logits.  Kernels vs plain: each MoE layer's
+    routes, the logits where the routes agree in every layer (every
+    token in a model without MoE), the argmaxes there and over all
+    tokens, by position bins and, with ``limits["prefix"]``, over the
+    first positions, printed and then held to ``limits``
+    (:func:`within`); the float32 plain path vs the plain path: the same
+    readings, printed beside them.  With ``limits["float32"]`` the
+    forward also runs in float32 on the kernels (their float32 routes),
+    held against the plain path in float32 over every position.  Returns
+    the kernel path's routes and the report."""
     import torch
 
     from repro_torch.models import anchors as A
@@ -3331,7 +3452,7 @@ def moe_prompt(cfg, params, params32, tokens) -> tuple:
 
     dev, seq = tokens.device, tokens.shape[1]
     cuda = dev.type == "cuda"
-    n_norms = 2 * cfg.num_layers + 1
+    expect = lm_launches(cfg, params)
     batch = T.Batch(tokens=tokens)
     if cuda:
         base = torch.cuda.memory_allocated()
@@ -3342,56 +3463,232 @@ def moe_prompt(cfg, params, params32, tokens) -> tuple:
         logits = T.forward(cfg, params, batch)
     sync(dev)
     launches = read_counts()
-    check(launches == {"A": 0, "B": 0, "C": 0, "D": n_norms,
-                       "E": cfg.num_layers},
-          f"moe forward: expected {n_norms} launches of D and "
-          f"{cfg.num_layers} of E, got {launches}")
+    check(launches == expect,
+          f"{cfg.name} forward: expected {expect['D']} launches of D and "
+          f"{expect['E']} of E, got {launches}")
     check(tuple(logits.shape) == (1, seq, cfg.vocab_size),
-          f"moe forward logits {tuple(logits.shape)}")
+          f"{cfg.name} forward logits {tuple(logits.shape)}")
     rep: dict = {"batch": 1, "seq": seq, "launches": launches}
     if cuda:
         peak = torch.cuda.max_memory_allocated()
-        w_up = params["layers"][-1]["ffn"]["w_up"]
         rep["peak_mem_gb"] = peak / 1e9
         rep["transient_gb"] = (peak - base) / 1e9
-        check(peak - base < w_up.numel() * w_up.element_size(),
-              f"moe forward: {rep['transient_gb']:.2f} GB transient, "
-              f"more than one expert weight: a weight was copied")
+        if cfg.moe:
+            w_up = next(p["ffn"]["w_up"] for p in params["layers"]
+                        if "router" in p.get("ffn", {}))
+            check(peak - base < w_up.numel() * w_up.element_size(),
+                  f"{cfg.name} forward: {rep['transient_gb']:.2f} GB "
+                  f"transient, more than one expert weight: a weight was "
+                  f"copied")
     with plain_kernels(), A.record_routes() as p_routes:
         plain = T.forward(cfg, params, batch)
-    with plain_kernels(), float32_experts(), \
+    with plain_kernels(), float32_experts(f32_slice), \
             A.record_routes() as w_routes:
         wide = T.forward(dataclasses.replace(cfg, dtype="float32"),
                          params32, batch)
     shares, same = route_agreement(k_routes, p_routes)
-    ok = torch.stack(same).all(0)
     w_shares, w_same = route_agreement(w_routes, p_routes)
+    everyone = torch.ones(seq, dtype=torch.bool, device=dev)
+    ok = torch.stack(same).all(0) if same else everyone
+    w_ok = torch.stack(w_same).all(0) if w_same else everyone
     rep.update(routes_agree=shares,
                tokens_routes_equal=ok.float().mean().item(),
                dropped_share=[(~r.keep).float().mean().item()
                               for r in k_routes],
                vs_plain=masked_vs(logits[0], plain[0], ok),
                vs_plain_all_tokens=compare_logits(logits, plain),
+               vs_plain_by_position=by_position(logits, plain),
                float32_witness={
                    "routes_agree": w_shares,
-                   "tokens_routes_equal": torch.stack(w_same).all(0)
-                   .float().mean().item(),
-                   "vs_plain_all_tokens": compare_logits(wide, plain)})
+                   "tokens_routes_equal": w_ok.float().mean().item(),
+                   "vs_plain": masked_vs(wide[0], plain[0], w_ok),
+                   "vs_plain_all_tokens": compare_logits(wide, plain),
+                   "vs_plain_by_position": by_position(wide, plain)})
+    if "prefix" in limits:
+        n = limits["prefix"]
+        rep["vs_plain_prefix"] = dict(
+            compare_logits(logits[:, :n], plain[:, :n]), positions=n)
+        rep["float32_witness"]["vs_plain_prefix"] = dict(
+            compare_logits(wide[:, :n], plain[:, :n]), positions=n)
+    if "float32" in limits:
+        # the kernel path in float32 against the plain path in float32
+        # (the witness's forward): D's and E's float32 routes
+        with float32_experts(f32_slice), A.record_routes() as f_routes:
+            narrow = T.forward(dataclasses.replace(cfg, dtype="float32"),
+                               params32, batch)
+        f_shares, f_same = route_agreement(f_routes, w_routes)
+        f_ok = torch.stack(f_same).all(0) if f_same else everyone
+        rep["float32"] = {
+            "routes_agree": f_shares,
+            "vs_plain": masked_vs(narrow[0], wide[0], f_ok),
+            "vs_plain_all_tokens": compare_logits(narrow, wide),
+            "vs_plain_by_position": by_position(narrow, wide)}
+        del narrow
     del logits, plain, wide
-    check(len(shares) == sum(T.layer_moe_flags(cfg))
-          and min(shares) >= MOE_ROUTES_AGREE
-          and rep["vs_plain"]["max_abs_diff"] <= LM_BF16_MAX_DIFF
-          and min(rep["vs_plain"]["argmax_agree"],
-                  rep["vs_plain_all_tokens"]["argmax_agree"])
-          >= MOE_ARGMAX,
-          f"moe forward: kernels vs plain {rep}")
-    print(f"moe forward {cfg.name} ({cfg.num_layers} layers) B=1 "
+    print(f"{cfg.name} forward ({cfg.num_layers} layers) B=1 "
           f"S={seq}: launches {launches}, routes equal {shares}, "
           f"dropped {rep['dropped_share']}, kernels vs plain where "
           f"routes agree {rep['vs_plain']}, over all tokens "
-          f"{rep['vs_plain_all_tokens']}; plain float32 vs plain "
-          f"{rep['float32_witness']}")
+          f"{rep['vs_plain_all_tokens']}, first positions "
+          f"{rep.get('vs_plain_prefix')}, by position "
+          f"{rep['vs_plain_by_position']}; plain float32 vs plain "
+          f"{rep['float32_witness']}; in float32 {rep.get('float32')}")
+    check(len(shares) == sum(T.layer_moe_flags(cfg))
+          and within(shares, rep, limits),
+          f"{cfg.name} forward: kernels vs plain {rep}, limits {limits}")
+    if "float32" in limits:
+        f32 = rep["float32"]
+        check(within(f32["routes_agree"], f32, limits["float32"]),
+              f"{cfg.name} forward in float32: kernels vs plain {f32}, "
+              f"limits {limits['float32']}")
     return k_routes, rep
+
+
+def within(shares: list, rep: dict, limits: dict) -> bool:
+    """Whether a kernels-vs-plain reading holds its ``limits``: each MoE
+    layer's routes; the logits where the routes agree, the argmaxes there
+    and over all tokens; or, with ``prefix``, the logits and argmaxes of
+    the first ``prefix`` positions and the argmaxes over all
+    (``argmax_all``)."""
+    if min(shares, default=1.0) < limits["routes"]:
+        return False
+    if "prefix" in limits:
+        head = rep["vs_plain_prefix"]
+        return (head["max_abs_diff"] <= limits["max_diff"]
+                and head["argmax_agree"] >= limits["argmax"]
+                and rep["vs_plain_all_tokens"]["argmax_agree"]
+                >= limits["argmax_all"])
+    return (rep["vs_plain"]["max_abs_diff"] <= limits["max_diff"]
+            and min(rep["vs_plain"]["argmax_agree"],
+                    rep["vs_plain_all_tokens"]["argmax_agree"])
+            >= limits["argmax"])
+
+
+def serve_vs_plain(cfg, params, prompts, gen_n: int,
+                   limits: dict = MOE_LIMITS, argv: list | None = None
+                   ) -> tuple:
+    """Serving ``cfg`` on ``params``: ``token_serve.generate`` of
+    ``prompts`` (B, P) for ``gen_n`` tokens, or, with ``argv``,
+    ``token_serve.main(argv)`` (which must rebuild these weights and
+    draw these prompts), counts read around it (the norms' launches of
+    D a decode step, none of E or A-C); served again (the same tokens;
+    its host times are read); the served tokens teacher-forced through
+    kernels D and E (which reproduce them) and through their plain
+    versions: each MoE layer's routes, the logits where a sequence's
+    routes agreed in every layer at that step and every earlier one
+    (its state holds them; every step without MoE), the argmaxes there
+    and over all, printed and then held to ``limits``.  The bounds of the
+    generated steps, averaged: the static buffer's (every expert's
+    weights, as the reference computes it) and, with MoE, the routed
+    one (the experts a step's kept picks use); on the card one decode
+    step's device time, busy share and top kernels.  Returns the launch
+    counts a step and the report."""
+    import torch
+
+    from repro_torch.launch import token_serve
+    from repro_torch.models import anchors as A
+    from repro_torch.models import transformer as T
+
+    dev, m = prompts.device, cfg.moe
+    bsz, plen = prompts.shape
+    steps = plen + gen_n - 1
+    n_norms = lm_launches(cfg, params)["D"]
+    sync(dev)
+    reset_counts()
+    if argv is None:
+        tokens = token_serve.generate(cfg, params, prompts, gen_n)["tokens"]
+    else:
+        out = token_serve.main(argv + ["--device", str(dev)])
+        check(np.array_equal(out["prompts"], prompts.cpu().numpy()),
+              f"{cfg.name} serve: main drew other prompts")
+        tokens = torch.as_tensor(out["tokens"], device=dev)
+    sync(dev)
+    served = read_counts()
+    check(served == {"A": 0, "B": 0, "C": 0, "D": n_norms * steps,
+                     "E": 0},
+          f"{cfg.name} serve: expected {n_norms * steps} launches of D and "
+          f"none of E, got {served}")
+    again = token_serve.generate(cfg, params, prompts, gen_n)
+    check(torch.equal(again["tokens"], tokens),
+          f"{cfg.name} serve: two runs served different tokens")
+    seq_toks = torch.cat([prompts, tokens[:, :-1]], dim=1)
+    with A.record_routes() as k_routes:
+        k_logits = teacher_forced(cfg, params, seq_toks, dev)
+    with plain_kernels(), A.record_routes() as p_routes:
+        p_logits = teacher_forced(cfg, params, seq_toks, dev)
+    got = torch.stack(k_logits[plen - 1:], 1)
+    want = torch.stack(p_logits[plen - 1:], 1)
+    del k_logits, p_logits
+    check(torch.equal(got.argmax(-1), tokens),
+          f"{cfg.name} serve: the teacher-forced kernel path does not "
+          f"reproduce the served tokens")
+    shares, same = route_agreement(k_routes, p_routes)
+    n_moe = len(k_routes) // steps
+    check(n_moe * steps == len(k_routes)
+          and n_moe == sum(T.layer_moe_flags(cfg)),
+          f"{cfg.name} serve: {len(k_routes)} routed calls in {steps} steps")
+    ok = torch.ones((bsz, gen_n), dtype=torch.bool, device=dev)
+    layer_shares = np.ones(0)
+    if n_moe:
+        # a sequence agrees at a step if its routes agreed in every layer
+        # at that step and every earlier one (its cache holds them)
+        ok = torch.stack(same).reshape(steps, n_moe, bsz).all(1) \
+            .int().cumprod(0).bool()[plen - 1:].T
+        layer_shares = np.asarray(shares).reshape(steps, n_moe).mean(0)
+    srep: dict = {
+        "batch": bsz, "prompt": plen, "gen": gen_n,
+        "launches": served,
+        "launches_per_step": {k: v // steps for k, v in served.items()},
+        "routes_agree": layer_shares.tolist(),
+        "dropped_share": [
+            float(np.mean([(~r.keep).float().mean().item()
+                           for r in k_routes[i::n_moe]]))
+            for i in range(n_moe)],
+        "vs_plain": masked_vs(got, want, ok),
+        "vs_plain_all_tokens": compare_logits(got, want),
+        "prefill_s": again["prefill_s"], "decode_s": again["decode_s"],
+        "decode_ms_per_step": again["decode_s"] / (gen_n - 1) * 1e3,
+        "tok_per_s": bsz * (gen_n - 1) / again["decode_s"]}
+    del got, want
+    # bounds of the generated decode steps, averaged: the static
+    # buffer's (every expert's weights, as the reference computes it)
+    # and the routed one (the experts a step's kept picks use)
+    static, routed = [], []
+    for t in range(plen, steps):
+        kept, used = routed_work(k_routes[t * n_moe:(t + 1) * n_moe])
+        every = n_moe * m.num_experts if m else 0
+        static.append(lm_bounds(cfg, params, bsz, kept, every, ctx=t + 1))
+        routed.append(lm_bounds(cfg, params, bsz, kept, used, ctx=t + 1))
+    srep["bound_ms"] = float(np.mean([b["bound_ms"] for b in static]))
+    srep["bound_by"] = static[0]["bound_by"]
+    if n_moe:
+        srep["routed_bound_ms"] = float(np.mean([b["bound_ms"]
+                                                 for b in routed]))
+    if dev.type == "cuda":
+        srep["bound_share"] = srep["bound_ms"] / srep["decode_ms_per_step"]
+        if n_moe:
+            srep["routed_bound_share"] = srep["routed_bound_ms"] / srep[
+                "decode_ms_per_step"]
+        cache = T.init_cache(cfg, bsz, plen + gen_n, device=dev)
+        tok = tokens[:, :1]
+        step = lambda: T.decode_step(  # noqa: E731
+            cfg, params, cache, T.Batch(tokens=tok), plen)
+        timed(srep, "step_device_ms", step, 3, f"{cfg.name} decode step",
+              {"::rmsnorm_kernel<": n_norms})
+        busy, by_kernel = busy_share(step)
+        srep["step_busy_share"] = busy
+        srep["step_device_s_by_kernel"] = dict(sorted(
+            by_kernel.items(), key=lambda kv: -kv[1])[:8])
+        del cache
+    print(f"{cfg.name} serve batch={bsz} prompt={plen} gen={gen_n}: "
+          f"launches {served}, routes equal {srep['routes_agree']}, "
+          f"kernels vs plain {srep['vs_plain']}, over all "
+          f"{srep['vs_plain_all_tokens']}, {srep['tok_per_s']:.1f} tok/s, "
+          f"{srep['decode_ms_per_step']:.2f} ms a step (bound "
+          f"{srep['bound_ms']:.3f}, routed {srep.get('routed_bound_ms')})")
+    check(within(srep["routes_agree"], srep, limits),
+          f"{cfg.name} serve: kernels vs plain {srep}, limits {limits}")
+    return srep["launches_per_step"], srep
 
 
 def phase_moe(dev, smi: str, cfg=None, seq: int = MOE_SEQ,
@@ -3416,14 +3713,11 @@ def phase_moe(dev, smi: str, cfg=None, seq: int = MOE_SEQ,
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.launch import token_serve
-    from repro_torch.models import anchors as A
     from repro_torch.models import transformer as T
 
     t_phase = time.perf_counter()
     cfg = cfg or moe_config()
     m, cuda = cfg.moe, dev.type == "cuda"
-    n_norms = 2 * cfg.num_layers + 1
     report: dict = {
         "arch": cfg.name, "layers": cfg.num_layers,
         "of_layers": get_config(cfg.name).num_layers,
@@ -3465,12 +3759,12 @@ def phase_moe(dev, smi: str, cfg=None, seq: int = MOE_SEQ,
         del params32, second
         kept, used = routed_work(k_routes)
         rep.update(kept_picks=kept, experts_used=used,
-                   bound=moe_bounds(cfg, params, seq, kept, used))
+                   bound=lm_bounds(cfg, params, seq, kept, used))
         if cuda:
             rep["wall_ms"] = host_ms(fwd, 2)
             timed(rep, "device_ms", fwd, 2, "moe forward",
-                  {"::rmsnorm_kernel<": n_norms,
-                   "::flash_fwd_kernel<": cfg.num_layers})
+                  {"::rmsnorm_kernel<": launches["D"],
+                   "::flash_fwd_kernel<": launches["E"]})
             rep["bound_share"] = rep["bound"]["bound_ms"] / rep["device_ms"]
             busy, by_kernel = busy_share(fwd)
             rep["busy_share"] = busy
@@ -3481,100 +3775,11 @@ def phase_moe(dev, smi: str, cfg=None, seq: int = MOE_SEQ,
 
         # (b) serving at the reference CLI's defaults
         bsz, plen, gen_n = serve
-        steps = plen + gen_n - 1
         prompts = torch.randint(0, cfg.vocab_size, (bsz, plen),
                                 generator=gen, device=dev)
-        sync(dev)
-        reset_counts()
-        out = token_serve.generate(cfg, params, prompts, gen_n)
-        sync(dev)
-        served = read_counts()
-        check(served == {"A": 0, "B": 0, "C": 0, "D": n_norms * steps,
-                         "E": 0},
-              f"moe serve: expected {n_norms * steps} launches of D and "
-              f"none of E, got {served}")
-        again = token_serve.generate(cfg, params, prompts, gen_n)
-        check(torch.equal(again["tokens"], out["tokens"]),
-              "moe serve: two runs served different tokens")
-        seq_toks = torch.cat([prompts, out["tokens"][:, :-1]], dim=1)
-        with A.record_routes() as k_routes:
-            k_logits = teacher_forced(cfg, params, seq_toks, dev)
-        with plain_kernels(), A.record_routes() as p_routes:
-            p_logits = teacher_forced(cfg, params, seq_toks, dev)
-        got = torch.stack(k_logits[plen - 1:], 1)
-        want = torch.stack(p_logits[plen - 1:], 1)
-        del k_logits, p_logits
-        check(torch.equal(got.argmax(-1), out["tokens"]),
-              "moe serve: the teacher-forced kernel path does not "
-              "reproduce the served tokens")
-        shares, same = route_agreement(k_routes, p_routes)
-        n_moe = len(k_routes) // steps
-        check(n_moe * steps == len(k_routes) and n_moe > 0,
-              f"moe serve: {len(k_routes)} routed calls in {steps} steps")
-        # a sequence agrees at a step if its routes agreed in every layer
-        # at that step and every earlier one (its cache holds them)
-        ok = torch.stack(same).reshape(steps, n_moe, bsz).all(1) \
-            .int().cumprod(0).bool()[plen - 1:].T
-        layer_shares = np.asarray(shares).reshape(steps, n_moe).mean(0)
-        srep: dict = {
-            "batch": bsz, "prompt": plen, "gen": gen_n,
-            "launches": served,
-            "launches_per_step": {k: v // steps for k, v in served.items()},
-            "routes_agree": layer_shares.tolist(),
-            "dropped_share": [
-                float(np.mean([(~r.keep).float().mean().item()
-                               for r in k_routes[i::n_moe]]))
-                for i in range(n_moe)],
-            "vs_plain": masked_vs(got, want, ok),
-            "vs_plain_all_tokens": compare_logits(got, want),
-            "prefill_s": again["prefill_s"], "decode_s": again["decode_s"],
-            "decode_ms_per_step": again["decode_s"] / (gen_n - 1) * 1e3,
-            "tok_per_s": bsz * (gen_n - 1) / again["decode_s"]}
-        del got, want
-        check(layer_shares.min() >= MOE_ROUTES_AGREE
-              and srep["vs_plain"]["max_abs_diff"] <= LM_BF16_MAX_DIFF
-              and min(srep["vs_plain"]["argmax_agree"],
-                      srep["vs_plain_all_tokens"]["argmax_agree"])
-              >= MOE_ARGMAX,
-              f"moe serve: kernels vs plain {srep}")
-        # bounds of the generated decode steps, averaged: the static
-        # buffer's (every expert's weights, as the reference computes
-        # it) and the routed one (the experts a step's kept picks use)
-        static, routed = [], []
-        for t in range(plen, steps):
-            kept, used = routed_work(k_routes[t * n_moe:(t + 1) * n_moe])
-            static.append(moe_bounds(cfg, params, bsz, kept,
-                                     n_moe * m.num_experts, ctx=t + 1))
-            routed.append(moe_bounds(cfg, params, bsz, kept, used,
-                                     ctx=t + 1))
-        srep["bound_ms"] = float(np.mean([b["bound_ms"] for b in static]))
-        srep["bound_by"] = static[0]["bound_by"]
-        srep["routed_bound_ms"] = float(np.mean([b["bound_ms"]
-                                                 for b in routed]))
-        if cuda:
-            srep["bound_share"] = srep["bound_ms"] / srep[
-                "decode_ms_per_step"]
-            srep["routed_bound_share"] = srep["routed_bound_ms"] / srep[
-                "decode_ms_per_step"]
-            cache = T.init_cache(cfg, bsz, plen + gen_n, device=dev)
-            tok = out["tokens"][:, :1]
-            step = lambda: T.decode_step(  # noqa: E731
-                cfg, params, cache, T.Batch(tokens=tok), plen)
-            timed(srep, "step_device_ms", step, 3, "moe decode step",
-                  {"::rmsnorm_kernel<": n_norms})
-            busy, by_kernel = busy_share(step)
-            srep["step_busy_share"] = busy
-            srep["step_device_s_by_kernel"] = dict(sorted(
-                by_kernel.items(), key=lambda kv: -kv[1])[:8])
-            del cache
-        report["serve"] = srep
-        print(f"moe serve {cfg.name} batch={bsz} prompt={plen} "
-              f"gen={gen_n}: launches {served}, routes equal "
-              f"{srep['routes_agree']}, kernels vs plain "
-              f"{srep['vs_plain']}, {srep['tok_per_s']:.1f} tok/s, "
-              f"{srep['decode_ms_per_step']:.2f} ms a step (bound "
-              f"{srep['bound_ms']:.2f}, routed {srep['routed_bound_ms']:.2f})")
-        del params, prompts, out, again
+        per_step, report["serve"] = serve_vs_plain(cfg, params, prompts,
+                                                   gen_n)
+        del params, prompts
     if cuda:
         report["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
         torch.cuda.empty_cache()
@@ -3584,8 +3789,339 @@ def phase_moe(dev, smi: str, cfg=None, seq: int = MOE_SEQ,
     report["wall_s"] = time.perf_counter() - t_phase
     report["card"] = smi
     print(f"moe phase: {report['wall_s']:.1f} s; card {smi}")
-    per_step = {k: v // steps for k, v in served.items()}
     return launches, per_step, report
+
+
+# ---------------------------------------------------------------------------
+# SSM serving (the tenth path)
+# ---------------------------------------------------------------------------
+
+#: The SSM path's models: xlstm-350m at full width and depth (24 mLSTM
+#: and sLSTM blocks, d 1024, 4 heads, vocab 50,304, tied embeddings) and
+#: jamba-v0.1-52b at full width (d 4096, 32/8 heads, Mamba N 16 and
+#: d_inner 8192, 16 experts top-2 of d_ff 14,336 on every second layer,
+#: vocab 65,536) cut to SSM_JAMBA_LAYERS of its 32 layers (two
+#: super-blocks, 52.1 GB): with its float32 witness (the experts stay
+#: bf16) the card holds ~70 GB.  jamba's prompt has SSM_SEQ tokens (the
+#: reference's prefill_32k cut, as arctic's), xlstm's SSM_XLSTM_SEQ;
+#: serving at the reference CLI's defaults (MOE_SERVE), xlstm-350m
+#: through ``token_serve.main``.
+SSM_XLSTM, SSM_JAMBA = "xlstm-350m", "jamba-v0.1-52b"
+SSM_JAMBA_LAYERS, SSM_SEQ = 16, 4096
+SSM_SERVE_ARGV = ["--arch", SSM_XLSTM]
+#: The generator seed of the forward's prompt (the weights and the served
+#: prompts come from seed 0's generator, as ``token_serve.main`` draws
+#: them).
+SSM_PROMPT_SEED = 1
+#: Experts :func:`float32_experts` casts at once for jamba's witness (a
+#: float32 expert weight is 235 MB at its width).
+SSM_F32_EXPERT_SLICE = 4
+#: The xlstm-350m forward's prompt: its sLSTM loops are host-bound
+#: (~0.98 M launches a 4096-token forward, 10.9 s on the card), and the
+#: phase runs the forward six times (counted, plain, the float32 witness,
+#: float32 on the kernels, timed, profiled, the profile's ~4 M records
+#: read): 168 s for xlstm alone at 4096 tokens (measured on one H100), over
+#: the phase's 150 s.  Cut to 2048.
+SSM_XLSTM_SEQ = 2048
+#: Kernels vs plain.  In bf16 a flip of one ulp grows through these
+#: recurrences with random weights until the logits are unrelated (the
+#: mLSTM normalizer divides by a sum of signed terms; in jamba a flipped
+#: route reaches every later token through the Mamba state), and the
+#: witness, the plain path in float32 against the plain path, diverges
+#: from the first tokens.  So the bf16 forward is held over its first
+#: ``prefix`` positions (logits within ``max_diff``, argmaxes at least
+#: ``argmax``), over all of them by the share of equal argmaxes
+#: (``argmax_all``) and by each MoE layer's routes; the same forward in
+#: float32 on the kernels' float32 routes against the plain path in
+#: float32 is held over every position (``float32``: routes, the logits
+#: where they agree, argmaxes there and over all); the served tokens'
+#: teacher-forced logits by ``serve``.  Readings measured on one H100,
+#: kernels vs plain [witness]: xlstm bf16 at 2048 tokens,
+#: positions 0-15 0.0 apart, 100 % of the argmaxes [4.57, 19 %], over
+#: all 16.9 % [2.3 %]; float32 0.478 apart, 98.5 % [6.81, 2.3 %]; served
+#: 0.146, 100 %.  jamba bf16 routes 99.9 % falling to 88.9 % a layer
+#: [98.2 % to 67.8 %], positions 0-15 0.29 apart, 100 % [2.44, 62 %],
+#: over all 83.7 % [55.2 %]; float32 routes >= 99.98 % [67.8 %], 0.106
+#: apart where they agree [1.79], argmaxes 99.95 % [55.2 %]; served:
+#: routes 100 % falling to 92.6 %, 0.031 apart where they agree, 84.4 %
+#: of the argmaxes.  Each limit lies between the two readings.
+SSM_LIMITS = {
+    SSM_XLSTM: {"routes": 1.0, "prefix": 16, "max_diff": 0.5,
+                "argmax": 0.98, "argmax_all": 0.05,
+                "float32": {"routes": 1.0, "max_diff": 2.0, "argmax": 0.95},
+                "serve": {"routes": 1.0, "max_diff": LM_BF16_MAX_DIFF,
+                          "argmax": 0.98}},
+    SSM_JAMBA: {"routes": 0.8, "prefix": 16, "max_diff": 0.5,
+                "argmax": 0.98, "argmax_all": 0.7,
+                "float32": {"routes": 0.99, "max_diff": 0.5,
+                            "argmax": 0.98},
+                "serve": {"routes": 0.85, "max_diff": LM_BF16_MAX_DIFF,
+                          "argmax": 0.8}},
+}
+#: Prefix of the profiler's ranges around the SSM scans.
+SCAN_TAG = "ssm_scan:"
+#: The scans :func:`scan_ranges` wraps: Mamba's selective scan, the
+#: sLSTM recurrence and the mLSTM parallel form.
+SCANS = ("_mamba_scan", "_slstm_scan", "mlstm_parallel")
+
+
+def ssm_jamba_config(layers: int = SSM_JAMBA_LAYERS):
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(SSM_JAMBA), num_layers=layers)
+
+
+@contextlib.contextmanager
+def scan_ranges():
+    """Inside the ``with``, each call of the SSM module's scans (SCANS)
+    runs inside a ``torch.profiler.record_function`` range named
+    SCAN_TAG + its name, so a trace can tell the kernels it launches."""
+    from torch.profiler import record_function
+
+    from repro_torch.models import ssm
+
+    saved = {name: getattr(ssm, name) for name in SCANS}
+
+    def ranged(name, fn):
+        def call(*args, **kw):
+            with record_function(SCAN_TAG + name):
+                return fn(*args, **kw)
+        return call
+
+    for name, fn in saved.items():
+        setattr(ssm, name, ranged(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(ssm, name, fn)
+
+
+def device_split(run) -> dict:
+    """One ``run()`` under torch.profiler (CPU and CUDA activity) with
+    :func:`scan_ranges`, read by :func:`split_trace` from the trace's raw
+    records (a forward of a million kernels: no FunctionEvent is
+    built), with the run's wall seconds and the read's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof, scan_ranges():
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = split_trace(prof.profiler.kineto_results.events())
+    out.update(profiled_wall_s=wall, parse_s=time.perf_counter() - t0)
+    return out
+
+
+def split_trace(events) -> dict:
+    """The summed device time of a trace's kernels (and copies and
+    fills; not the device's mirror of the scan or step ranges), of those
+    launched inside each :func:`scan_ranges` range (a kernel counts where
+    the CUDA runtime or driver call that launched it, matched by
+    correlation id, starts inside a range), the top kernels, and the
+    share of kernels matched to a launch.  ``events``: the profiler's raw
+    records (``_KinetoEvent``s), read by name, device, correlation id
+    and times only (the methods every torch 2.x has)."""
+    import bisect
+
+    from torch.autograd import DeviceType
+
+    ranges, launch, kernels = [], {}, []
+    for ev in events:
+        name = ev.name()
+        if ev.device_type() == DeviceType.CPU:
+            if name.startswith(SCAN_TAG):
+                ranges.append((ev.start_ns(),
+                               ev.start_ns() + ev.duration_ns(),
+                               name[len(SCAN_TAG):]))
+            elif name.startswith(("cuda", "cu")):   # runtime, driver calls
+                launch[ev.correlation_id()] = ev.start_ns()
+        elif ev.device_type() == DeviceType.CUDA \
+                and not name.startswith((SCAN_TAG, "ProfilerStep")):
+            kernels.append((ev.correlation_id(), ev.duration_ns(), name))
+    check(kernels, "profiler trace holds no device events")
+    ranges.sort()
+    starts = [r[0] for r in ranges]
+    by_scan, by_kernel, matched, total = {}, {}, 0, 0
+    for corr, dur, name in kernels:
+        total += dur
+        by_kernel[name] = by_kernel.get(name, 0) + dur
+        t = launch.get(corr)
+        if t is None:
+            continue
+        matched += 1
+        i = bisect.bisect_right(starts, t) - 1
+        if i >= 0 and t <= ranges[i][1]:
+            by_scan[ranges[i][2]] = by_scan.get(ranges[i][2], 0) + dur
+    return {"device_s": total / 1e9, "kernels": len(kernels),
+            "launches_matched": matched / len(kernels),
+            "scan_device_s": {k: v / 1e9 for k, v in by_scan.items()},
+            "scan_calls": {n: sum(r[2] == n for r in ranges) for n in SCANS},
+            "device_s_by_kernel": {k: v / 1e9 for k, v in sorted(
+                by_kernel.items(), key=lambda kv: -kv[1])[:8]}}
+
+
+def forward_timing(run, rep: dict) -> None:
+    """``rep`` gains ``wall_ms`` (one unprofiled ``run()``, synchronised),
+    ``span_ms`` (CUDA events around it: the device's first kernel to its
+    last, idle gaps included) and, from one profiled run
+    (:func:`device_split`), ``device_ms`` (its kernels' summed time),
+    ``busy_share`` (device_ms over wall_ms), each scan's share of
+    device_ms (``scan_share``) and the trace's readings (``profile``).
+    A forward queues more kernels than the launch queue holds, so
+    :func:`device_ms`'s held events do not apply."""
+    import torch
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev[0].record()
+    run()
+    ev[1].record()
+    torch.cuda.synchronize()
+    rep["wall_ms"] = (time.perf_counter() - t0) * 1e3
+    rep["span_ms"] = ev[0].elapsed_time(ev[1])
+    split = device_split(run)
+    rep["device_ms"] = split["device_s"] * 1e3
+    rep["device_ms_method"] = "trace_sum"
+    rep["busy_share"] = rep["device_ms"] / rep["wall_ms"]
+    rep["scan_share"] = {k: v / split["device_s"]
+                         for k, v in split["scan_device_s"].items()}
+    rep["profile"] = split
+
+
+def static_slots(routes: list, m) -> int:
+    """Slots of the MoE buffers of ``routes`` (one call a layer): G
+    groups x the capacity of a group x the experts, summed; the expert
+    products run on every slot, kept or not."""
+    from repro_torch.models.moe import _capacity
+
+    return sum(r.top_e.shape[0] * _capacity(r.top_e.shape[1], m)
+               * m.num_experts for r in routes)
+
+
+def ssm_model(cfg, dev, seq: int, serve: tuple, argv: list | None,
+              limits: dict, f32_slice: int) -> tuple:
+    """One SSM model of phase 9e at ``cfg`` on ``dev``: weights and the
+    served prompts from seed 0's generator (as ``token_serve.main``
+    draws them), the ``seq``-token prompt from SSM_PROMPT_SEED's.  (a)
+    :func:`moe_prompt` (counts: :func:`lm_launches`; against the plain
+    D and E and beside the float32 witness, held to ``limits``), the
+    bounds (with MoE: the static buffer's and the routed one), and on the
+    card :func:`forward_timing`.  (b) :func:`serve_vs_plain` at
+    ``serve`` (batch, prompt, generated), through ``token_serve.main(
+    argv)`` where given.  Returns the forward's and a decode step's
+    launch counts and the model's report."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cuda = dev.type == "cuda"
+    full = get_config(cfg.name)
+    report: dict = {
+        "arch": cfg.name, "layers": cfg.num_layers,
+        "of_layers": full.num_layers, "d_model": cfg.d_model,
+        "heads": [cfg.num_heads, cfg.num_kv_heads],
+        "block_pattern": list(cfg.block_pattern), "vocab": cfg.vocab_size,
+        "dtype": cfg.dtype}
+    if cfg.moe:
+        report.update(experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
+                      d_ff_expert=cfg.moe.d_ff_expert)
+    if cfg.num_layers < full.num_layers:
+        report["note"] = ("depth cut: the host's and the idle shares are "
+                          "larger than in a deployment of every layer")
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        report["mem_before_gb"] = torch.cuda.memory_allocated() / 1e9
+    bsz, plen, gen_n = serve
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        params = T.init_params(cfg, gen, dev)
+        sync(dev)
+        report["init_s"] = time.perf_counter() - t0
+        report["params"] = T.param_count(params)
+        report["param_gb"] = T.param_bytes(params) / 1e9
+        prompts = torch.randint(0, cfg.vocab_size, (bsz, plen),
+                                generator=gen, device=dev)
+        tokens = torch.randint(
+            0, cfg.vocab_size, (1, seq), device=dev,
+            generator=torch.Generator(device=dev).manual_seed(
+                SSM_PROMPT_SEED))
+
+        # (a) the prompt forward against the plain path and beside the
+        # plain path in float32
+        params32 = float32_copy(params)
+        k_routes, rep = moe_prompt(cfg, params, params32, tokens, limits,
+                                   f32_slice)
+        del params32
+        if cfg.moe:
+            kept, used = routed_work(k_routes)
+            every = sum(T.layer_moe_flags(cfg)) * cfg.moe.num_experts
+            rep.update(kept_picks=kept, experts_used=used,
+                       slots=static_slots(k_routes, cfg.moe),
+                       routed_bound=lm_bounds(cfg, params, seq, kept, used))
+            rep["bound"] = lm_bounds(cfg, params, seq, rep["slots"], every)
+        else:
+            rep["bound"] = lm_bounds(cfg, params, seq)
+        if cuda:
+            batch = T.Batch(tokens=tokens)
+            forward_timing(lambda: T.forward(cfg, params, batch), rep)
+            rep["bound_share"] = rep["bound"]["bound_ms"] / rep["device_ms"]
+        report["forward"] = rep
+        del tokens
+
+        # (b) serving at the reference CLI's defaults
+        per_step, report["serve"] = serve_vs_plain(
+            cfg, params, prompts, gen_n, limits["serve"], argv)
+        del params, prompts
+    if cuda:
+        report["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.empty_cache()
+    return rep["launches"], per_step, report
+
+
+def phase_ssm(dev, smi: str, xlstm=None, jamba=None,
+              seqs: tuple = (SSM_XLSTM_SEQ, SSM_SEQ),
+              serve: tuple = MOE_SERVE,
+              argv: list = SSM_SERVE_ARGV) -> tuple:
+    """The SSM path: xlstm-350m at full width and depth and jamba at
+    full width, SSM_JAMBA_LAYERS of its 32 layers (``xlstm``, ``jamba``:
+    other configs of the two; ``seqs``: their prompts' lengths), each
+    through :func:`ssm_model` (xlstm served by ``token_serve.main(
+    argv)``, jamba by ``token_serve.generate``); then the reduced
+    float32 models against ``LM_ANCHORS``.  Returns each model's
+    forward and decode-step launch counts and the ``ssm`` report."""
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    launches, report = {}, {}
+    for cfg, seq, run_argv, f32_slice in (
+            (xlstm or get_config(SSM_XLSTM), seqs[0], argv,
+             F32_EXPERT_SLICE),
+            (jamba or ssm_jamba_config(), seqs[1], None,
+             SSM_F32_EXPERT_SLICE)):
+        t0 = time.perf_counter()
+        fwd, step, report[cfg.name] = ssm_model(
+            cfg, dev, seq, serve, run_argv, SSM_LIMITS[cfg.name], f32_slice)
+        report[cfg.name]["wall_s"] = time.perf_counter() - t0
+        launches[cfg.name] = {"forward": fwd, "decode_step": step}
+    report["anchors"] = {arch: phase_anchor(arch, dev)
+                         for arch in (SSM_XLSTM, SSM_JAMBA)}
+    report["wall_s"] = time.perf_counter() - t_phase
+    report["card"] = smi
+    print(f"ssm phase: {report['wall_s']:.1f} s; card {smi}")
+    return launches, report
 
 
 # ---------------------------------------------------------------------------
@@ -4026,9 +4562,15 @@ def lm_kernel_report(err: dict, dev) -> tuple:
                                   if r["what"] == "arctic forward"]),
                        (rows[1], [r for r in attn_rows
                                   if r["name"] == "arctic"])):
-        row["moe_shape"] = {k: shape[0][k] for k in (
-            "ms", "ms_method", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "library_ms_method") if k in shape[0]}
+        row["moe_shape"] = shape_readings(shape[0])
+    # the SSM path's shapes (phase 9e): a norm of jamba's and of xlstm's
+    # 4096-token prompt; one jamba attention layer
+    rows[0]["ssm_shape"] = {
+        arch: shape_readings(next(r for r in norm_rows if r["what"] == what))
+        for arch, what in (("jamba-v0.1-52b", "jamba forward"),
+                           ("xlstm-350m", "xlstm forward"))}
+    rows[1]["ssm_shape"] = {"jamba-v0.1-52b": shape_readings(
+        next(r for r in attn_rows if r["name"] == "jamba"))}
     # kernel E's bf16 route runs on the tensor cores (HMMA) with K/V
     # staged by cp.async (LDGSTS), read by ldmatrix (LDSM)
     sass = sass_opcodes(LIBRARY.path(), ("HMMA", "LDGSTS", "LDSM"))
@@ -4037,6 +4579,14 @@ def lm_kernel_report(err: dict, dev) -> tuple:
           f"{sass}")
     return rows, {"rmsnorm_shapes": norm_rows, "flash_shapes": attn_rows,
                   "flash_sass": sass}
+
+
+def shape_readings(row: dict) -> dict:
+    """A kernel case's readings for a main path's row: its time, plain
+    time, bound and library time, each with how it was taken."""
+    return {k: row[k] for k in (
+        "ms", "ms_method", "plain_ms", "bound_ms", "bound_by",
+        "library_ms", "library_ms_method") if k in row}
 
 
 def flex_library(row, qt, kt, vt, causal, window, cap, out, reps) -> None:
@@ -4081,7 +4631,8 @@ def run(dev, grid_big, smi: str, lm_cfg, lm_seq: int = LM_SEQ,
         train_argv: list = TRAIN_ARGV) -> None:
     """Phases 2-11 on ``dev`` with ``grid_big`` as the stream's grid,
     ``lm_cfg`` run at ``lm_seq`` tokens as the LM, ``train.main(
-    train_argv)`` as the training path and arctic-480b at MOE_LAYERS
+    train_argv)`` as the training path, xlstm-350m and jamba at
+    SSM_JAMBA_LAYERS layers as the SSM path and arctic-480b at MOE_LAYERS
     layers as the MoE path."""
     from repro_torch.core import stream as ST
     from repro_torch.core.grids import (ANCHOR_1M, ANCHOR_10M,
@@ -4134,6 +4685,8 @@ def run(dev, grid_big, smi: str, lm_cfg, lm_seq: int = LM_SEQ,
     # The LM last: its serve run's trace (~85,000 kernels) is the largest
     # the script takes.
     lm_launches, lm = phase_lm(dev, lm_cfg, lm_seq, serve_argv, smi)
+    # the SSM path before MoE: jamba's 52 GB, freed before arctic's
+    ssm_launches, ssm = phase_ssm(dev, smi)
     # MoE after every other phase: its 55 GB of weights need the card
     moe_fwd, moe_step, moe = phase_moe(dev, smi)
     for row in rows_de:
@@ -4141,6 +4694,9 @@ def run(dev, grid_big, smi: str, lm_cfg, lm_seq: int = LM_SEQ,
         row["launches"] = lm_launches[key]
         row["launches_train"] = train_main[key]
         row["launches_train_step"] = train_step[key]
+        row["launches_ssm"] = {
+            arch: {k: counts[key] for k, counts in runs.items()}
+            for arch, runs in ssm_launches.items()}
         row["launches_moe"] = {"forward": moe_fwd[key],
                                "decode_step": moe_step[key]}
     print(json.dumps({"stream": stats, "card": smi}))
@@ -4150,6 +4706,7 @@ def run(dev, grid_big, smi: str, lm_cfg, lm_seq: int = LM_SEQ,
     print(json.dumps(lm_shapes))
     print(json.dumps({"lm": lm}))
     print(json.dumps({"train": trained}))
+    print(json.dumps({"ssm": ssm}))
     print(json.dumps({"moe": moe}))
     print(json.dumps({"kernels": rows}))
 

@@ -1,17 +1,20 @@
 """Weights, inputs and frozen results of the reference LM, for holding
 the port against JAX where JAX cannot run (the card).
 
-:func:`jax_layout_params` makes a GQA model's weights (dense or MoE
-FFNs, a dense prologue) with numpy from a seed, in the reference's
+:func:`jax_layout_params` makes a model's weights (GQA, Mamba, mLSTM
+and sLSTM blocks, dense or MoE FFNs, a dense prologue) with numpy from
+a seed, in the reference's
 pytree layout (``params["blocks"]`` a tuple over pattern positions, each
 stacked along a leading repeat axis; the prologue's ``pre_{i}``
 unstacked), so the same arrays feed ``repro.models.transformer`` and,
 through :func:`repro_torch.models.transformer.params_from_jax`, the
 port.  ``LM_ANCHORS`` holds what the JAX reference computed from them on
-the CPU for the reduced float32 gemma2-2b, qwen2-0.5b and arctic-480b:
-full-forward logits at fixed positions and greedy tokens after a
-prefill, and for arctic the forward's MoE routes
-(``tests/test_torch_transformer.py`` recomputes them with JAX);
+the CPU for the reduced float32 gemma2-2b, qwen2-0.5b, arctic-480b,
+xlstm-350m and jamba-v0.1-52b: full-forward logits at fixed positions
+and greedy tokens after a prefill, and for arctic and jamba the
+forward's MoE routes (``tests/test_torch_transformer.py`` and, for
+the SSM archs, ``tests/test_torch_ssm_models.py`` recompute them with
+JAX);
 :func:`record_routes` and :func:`routes_digest` read and condense the
 port's routes.  ``TRAIN_ANCHORS`` holds the reference's training run
 from the same weights: each step's loss and global gradient norm, and
@@ -23,6 +26,7 @@ the first step's gradient norm of every leaf
 from __future__ import annotations
 
 import contextlib
+import math
 import zlib
 
 import numpy as np
@@ -42,13 +46,19 @@ ANCHOR_VOCAB = 16
 
 
 def jax_layout_params(cfg: ModelConfig, seed: int = WEIGHT_SEED) -> dict:
-    """float32 weights of a GQA ``cfg`` (dense or MoE FFNs, a dense
-    prologue) in the reference's layout: normals at the reference's
-    fan-in scales, and (unlike its init) norm scales and biases drawn at
-    0.1, so that they are exercised.  The prologue's ``pre_{i}`` blocks
-    are unstacked; an MoE block's ``ffn`` holds the router (d, E)
-    float32, ``w_gate``/``w_up`` (E, d, f), ``w_down`` (E, f, d) and the
-    ``shared``/``residual`` dense FFNs its config asks for."""
+    """float32 weights of ``cfg`` (GQA, Mamba, mLSTM and sLSTM blocks;
+    dense or MoE FFNs; a dense prologue) in the reference's layout:
+    matrices as normals at the reference's fan-in scales, and (unlike
+    its init) norm scales and GQA biases drawn at 0.1, and every other
+    leaf of an SSM block as the reference's init value plus a
+    0.1-scaled normal (``A_log`` = log(1..N), ``dt_bias`` = log(e - 1),
+    ``D`` = 1, ``b_fg`` = 3, the sLSTM ``b_f`` = 1, the rest 0), so that
+    each is exercised while the model stays in the reference's regime.
+    The prologue's ``pre_{i}`` blocks are unstacked; an MoE block's
+    ``ffn`` holds the router (d, E) float32, ``w_gate``/``w_up`` (E, d,
+    f), ``w_down`` (E, f, d) and the ``shared``/``residual`` dense FFNs
+    its config asks for.  The draws of GQA stacks are those of the
+    anchors frozen before SSM blocks came."""
     from .transformer import _pattern_moe_flags
 
     rng = np.random.default_rng(seed)
@@ -57,6 +67,10 @@ def jax_layout_params(cfg: ModelConfig, seed: int = WEIGHT_SEED) -> dict:
 
     def normal(shape, std):
         return (rng.standard_normal(shape) * std).astype(np.float32)
+
+    def near(shape, value):
+        """The reference's init ``value`` plus a 0.1-scaled normal."""
+        return (value + rng.standard_normal(shape) * 0.1).astype(np.float32)
 
     def dense_ffn(lead, f):
         ffn = {"w_up": normal(lead + (d, f), d ** -0.5),
@@ -78,9 +92,7 @@ def jax_layout_params(cfg: ModelConfig, seed: int = WEIGHT_SEED) -> dict:
             ffn["residual"] = dense_ffn(lead, cfg.d_ff)
         return ffn
 
-    def block(lead, use_moe):
-        """One block's leaves, each with ``lead`` ((R,) stacked, () not)
-        in front."""
+    def gqa(lead):
         mixer = {"w_q": normal(lead + (d, h, hd), d ** -0.5),
                  "w_k": normal(lead + (d, kvh, hd), d ** -0.5),
                  "w_v": normal(lead + (d, kvh, hd), d ** -0.5),
@@ -89,8 +101,52 @@ def jax_layout_params(cfg: ModelConfig, seed: int = WEIGHT_SEED) -> dict:
             mixer.update(b_q=normal(lead + (h, hd), 0.1),
                          b_k=normal(lead + (kvh, hd), 0.1),
                          b_v=normal(lead + (kvh, hd), 0.1))
+        return mixer
+
+    def mamba(lead):
+        di, n, w = cfg.ssm_expand * d, cfg.ssm_state_dim, cfg.ssm_conv_width
+        r = max(1, d // 16)
+        return {"in_proj": normal(lead + (d, 2 * di), d ** -0.5),
+                "conv_w": normal(lead + (w, di), w ** -0.5),
+                "conv_b": near(lead + (di,), 0.0),
+                "w_bcdt": normal(lead + (di, 2 * n + r), di ** -0.5),
+                "dt_proj": normal(lead + (r, di), r ** -0.5),
+                "dt_bias": near(lead + (di,), math.log(math.e - 1)),
+                "A_log": near(lead + (di, n),
+                              np.log(np.arange(1, n + 1, dtype=np.float64))),
+                "D": near(lead + (di,), 1.0),
+                "out_proj": normal(lead + (di, d), di ** -0.5)}
+
+    def mlstm(lead):
+        di = 2 * d
+        return {"w_up": normal(lead + (d, 2 * di), d ** -0.5),
+                "w_q": normal(lead + (di, di), di ** -0.5),
+                "w_k": normal(lead + (di, di), di ** -0.5),
+                "w_v": normal(lead + (di, di), di ** -0.5),
+                "w_ig": normal(lead + (di, h), di ** -0.5),
+                "b_ig": near(lead + (h,), 0.0),
+                "w_fg": normal(lead + (di, h), di ** -0.5),
+                "b_fg": near(lead + (h,), 3.0),
+                "w_down": normal(lead + (di, d), di ** -0.5)}
+
+    def slstm(lead):
+        p = {}
+        for g in ("z", "i", "f", "o"):
+            p[f"w_{g}"] = normal(lead + (d, d), d ** -0.5)
+            p[f"r_{g}"] = normal(lead + (h, d // h, d // h), (d // h) ** -0.5)
+            p[f"b_{g}"] = near(lead + (d,), 1.0 if g == "f" else 0.0)
+        p["w_out"] = normal(lead + (d, d), d ** -0.5)
+        return p
+
+    mixers = {"mamba": mamba, "mlstm": mlstm, "slstm": slstm}
+
+    def block(lead, kind, use_moe):
+        """One block's leaves, each with ``lead`` ((R,) stacked, () not)
+        in front."""
+        mixer = gqa(lead) if kind.startswith("attn") else mixers[kind](lead)
         p = {"norm1": {"scale": normal(lead + (d,), 0.1)}, "mixer": mixer}
-        has_ffn = use_moe or cfg.d_ff > 0
+        has_ffn = use_moe or (cfg.d_ff > 0
+                              and kind not in ("mlstm", "slstm"))
         if has_ffn:
             ffn = moe(lead) if use_moe else dense_ffn(lead, cfg.d_ff)
             p.update(norm2={"scale": normal(lead + (d,), 0.1)}, ffn=ffn)
@@ -105,10 +161,11 @@ def jax_layout_params(cfg: ModelConfig, seed: int = WEIGHT_SEED) -> dict:
     if not cfg.tie_embeddings:
         params["unembed"] = {"w": normal((d, cfg.vocab_size), d ** -0.5)}
     lead = (cfg.num_pattern_repeats,)
-    params["blocks"] = tuple(block(lead, use_moe)
-                             for use_moe in _pattern_moe_flags(cfg))
+    params["blocks"] = tuple(
+        block(lead, kind, use_moe)
+        for kind, use_moe in zip(cfg.block_pattern, _pattern_moe_flags(cfg)))
     for i in range(cfg.first_k_dense):
-        params[f"pre_{i}"] = block((), False)
+        params[f"pre_{i}"] = block((), cfg.layer_kind(i), False)
     return params
 
 
@@ -337,6 +394,115 @@ LM_ANCHORS: dict = {
         "routes": {"top_e_crc32": 4157929482, "keep_crc32": 1229334007,
                    "dropped": (89, 62)},
         "min_router_gap": 1.4185905456542969e-05,
+    },
+    "xlstm-350m": {
+        "logits": (
+            (
+                0.08039860427379608, -0.14982807636260986,
+                -0.42218706011772156, -0.11725253611803055,
+                -1.0850844383239746, 0.07804380357265472, -2.600151538848877,
+                -1.662168025970459, -0.9310680627822876, 1.435336709022522,
+                -1.978020429611206, 0.24042655527591705, 1.4247814416885376,
+                0.4470435082912445, 0.3584800958633423, -0.8014637231826782,
+            ),
+            (
+                -0.433256596326828, -0.42994415760040283, 1.0832918882369995,
+                -0.6530484557151794, -0.45395955443382263, 0.787944495677948,
+                0.014957700856029987, 0.43746066093444824, -1.1120071411132812,
+                -0.5756264925003052, 0.6527352929115295, 0.8481848835945129,
+                -0.32086145877838135, -0.12498282641172409, 0.3090960383415222,
+                -2.868784189224243,
+            ),
+            (
+                1.2101410627365112, -0.14954011142253876, -2.6938223838806152,
+                0.6155507564544678, 0.1269616037607193, -0.7368388175964355,
+                -1.0012867450714111, -1.352657675743103, -1.8943204879760742,
+                -0.8201658129692078, -1.0532114505767822, -0.37537050247192383,
+                -0.7188064455986023, -0.7716509103775024, -0.2535419464111328,
+                0.4985203742980957,
+            ),
+            (
+                -0.437237948179245, 1.7500685453414917, -1.414875864982605,
+                0.09449228644371033, -0.6026197075843811, -1.510638952255249,
+                1.6062471866607666, 0.23768733441829681, -1.5083796977996826,
+                0.14809490740299225, -2.404463052749634, 1.5818088054656982,
+                1.1495814323425293, 0.3680840730667114, -1.4962612390518188,
+                -0.4128663241863251,
+            ),
+            (
+                -0.4954891502857208, 1.0795398950576782, -0.7192461490631104,
+                0.8896871209144592, 0.07945743948221207, 0.6969123482704163,
+                -1.7024364471435547, 1.29616379737854, 2.0994608402252197,
+                -0.7935486435890198, -0.5815390348434448, -0.0996699184179306,
+                1.2014509439468384, 2.1067466735839844, -1.9902020692825317,
+                -0.655558705329895,
+            ),
+        ),
+        "row_sums": (
+            -11.49403761792928, -5.529567928984761, -18.46375501481816,
+            -10.135545266792178, -13.215889357496053,
+        ),
+        "greedy": (
+            (278, 97, 408, 79, 142, 357, 330, 497),
+            (320, 170, 192, 425, 25, 37, 479, 301),
+        ),
+        "min_top2_gap": 0.006448984146118164,
+    },
+    "jamba-v0.1-52b": {
+        "logits": (
+            (
+                0.6944634318351746, -1.9813324213027954, 0.82293301820755,
+                -0.574669599533081, 0.26646608114242554, 0.34925204515457153,
+                -0.06097187474370003, 0.10220200568437576, -1.1361970901489258,
+                -0.9792371988296509, -1.538264513015747, -2.770343542098999,
+                1.8206212520599365, 0.3055424392223358, 0.10766877233982086,
+                -0.16444888710975647,
+            ),
+            (
+                -0.25584495067596436, -0.5064696073532104, -0.5168206691741943,
+                0.5598534345626831, 0.7533002495765686, 1.8860485553741455,
+                -0.8726992607116699, 0.23870933055877686, -1.1882734298706055,
+                0.495685875415802, -0.4051576256752014, 1.39858078956604,
+                0.13837504386901855, 0.0699097216129303, 2.4606099128723145,
+                1.7304819822311401,
+            ),
+            (
+                -0.3112870752811432, -0.9859935641288757, 0.4073054790496826,
+                -0.38847970962524414, -0.4006657302379608, 0.4137333631515503,
+                -0.14769861102104187, 1.159359335899353, -0.43011292815208435,
+                0.9925343990325928, -0.37406855821609497, 2.990440845489502,
+                -0.7645488381385803, 0.9980841279029846, 0.7612782716751099,
+                1.2807270288467407,
+            ),
+            (
+                -1.4659395217895508, -1.478812336921692, 1.1276788711547852,
+                0.7631884813308716, -0.43427741527557373, -0.9342519640922546,
+                -1.1121225357055664, 0.04990792274475098, 0.14302724599838257,
+                -0.5071366429328918, -0.8352523446083069, -2.11557936668396,
+                -0.08914441615343094, -0.524178683757782, 1.336144208908081,
+                -0.3268577456474304,
+            ),
+            (
+                -0.19286562502384186, 0.5802532434463501, 0.5273578763008118,
+                0.12803520262241364, 0.39672452211380005, -1.0343453884124756,
+                -0.2379869967699051, -1.4974414110183716, -2.6847665309906006,
+                0.14576034247875214, 1.273730993270874, 0.09518236666917801,
+                0.2752247452735901, -0.9302874207496643, -0.66072016954422,
+                0.6703047156333923,
+            ),
+        ),
+        "row_sums": (
+            -29.46827564481646, 8.780671501997858, 16.04352737031877,
+            8.086631895857863, 33.30093710892834,
+        ),
+        "greedy": (
+            (151, 82, 139, 81, 36, 435, 169, 124),
+            (382, 289, 443, 93, 210, 305, 247, 247),
+        ),
+        "min_top2_gap": 0.024606943130493164,
+        "routes": {"top_e_crc32": 16891054, "keep_crc32": 892294608,
+                   "dropped": (35, 89, 109, 64, 101, 42, 88, 16)},
+        "min_router_gap": 4.112720489501953e-06,
     },
 }
 

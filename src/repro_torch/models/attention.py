@@ -265,7 +265,7 @@ def gqa_decode(cfg: ModelConfig, params: dict, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 _MLA = ("MLA attention (deepseek-v2) comes with the MLA slice of the LM "
-        "port (ROADMAP Queue 1 item 12)")
+        "port (ROADMAP Queue 1 item 12d)")
 
 
 def mla_init(*args, **kwargs):

@@ -80,7 +80,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 def apply_mrope(x, positions3, theta, sections):
     raise NotImplementedError(
         "M-RoPE (qwen2-vl) comes with the modality-stub slice of the LM "
-        "port (ROADMAP Queue 1 item 12)")
+        "port (ROADMAP Queue 1 item 12e)")
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
-"""Transformer assembly of the port's LM: GQA stacks with dense or MoE
-FFNs and the dense prologue (the reference's
-``repro/models/transformer.py``).
+"""Transformer assembly of the port's LM: stacks of GQA, Mamba, mLSTM
+and sLSTM blocks with dense or MoE FFNs and the dense prologue (the
+reference's ``repro/models/transformer.py``).
 
 The reference runs ``first_k_dense`` unscanned prologue layers
 (``params["pre_{i}"]``), then scans (``lax.scan``) over ``R`` repeats of
@@ -24,10 +24,11 @@ Public API:
 
 On the card every norm runs kernel D and every full-sequence attention
 kernel E, in training too (their autograd Functions' backwards are torch
-ops); decode attention and the MoE block (:mod:`.moe`) are plain tensor
-code, as in the reference.  SSM and MLA blocks, sequence parallelism,
-frontend embeddings and sinusoidal positions come with later slices and
-raise ``NotImplementedError``.
+ops); decode attention, the MoE block (:mod:`.moe`) and the SSM blocks
+(:mod:`.ssm`) are plain tensor code, as in the reference.  Without RoPE
+(``use_rope=False``, Jamba) sinusoidal positions are added to the
+embeddings.  MLA blocks, sequence parallelism and frontend embeddings
+come with later slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -42,42 +43,37 @@ from repro_torch.core.sweep import resolve_device
 
 from . import attention as attn
 from . import moe as moe_mod
+from . import ssm
 from .common import ModelConfig
 from .layers import (compute_dtype, dense_ffn, dense_ffn_init, embed,
                      embedding_init, rmsnorm, rmsnorm_init, unembed,
                      unembed_init)
 
+#: What later slices bring: (message, ROADMAP Queue 1 item).
 _LATER = {
-    "ssm": "SSM blocks (mamba, mlstm, slstm) come with the SSM slice of "
-           "the LM port",
-    "mla": "MLA attention comes with the MLA slice of the LM port",
-    "seq_parallel": "sequence parallelism comes with the sharding slice "
-                    "of the LM port",
-    "embeds": "frontend embeddings (modality stubs) come with the "
-              "modality-stub slice of the LM port",
-    "sinusoidal": "sinusoidal position embeddings (use_rope=False) come "
-                  "with the modality-stub slice of the LM port",
+    "mla": ("MLA attention comes with the MLA slice of the LM port", "12d"),
+    "seq_parallel": ("sequence parallelism comes with the sharding slice "
+                     "of the LM port", "12g"),
+    "embeds": ("frontend embeddings (modality stubs) come with the "
+               "modality-stub slice of the LM port", "12e"),
 }
 
 LOSS_CHUNK = 256     # sequence-chunked cross entropy (bounds logits memory)
 
 
 def _later(what: str):
-    return NotImplementedError(f"{_LATER[what]} (ROADMAP Queue 1 item 12)")
+    msg, item = _LATER[what]
+    return NotImplementedError(f"{msg} (ROADMAP Queue 1 item {item})")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what this slice does not run."""
-    if any(not kind.startswith("attn") for kind in cfg.block_pattern):
-        raise _later("ssm")
     if cfg.attention_kind == "mla":
         raise _later("mla")
     if cfg.seq_parallel:
         raise _later("seq_parallel")
     if cfg.frontend_stub:
         raise _later("embeds")
-    if not cfg.use_rope:
-        raise _later("sinusoidal")
 
 
 class Batch(NamedTuple):
@@ -99,12 +95,22 @@ class Batch(NamedTuple):
 # ---------------------------------------------------------------------------
 
 
-def _block_init(cfg: ModelConfig, use_moe: bool, dtype, generator,
-                device) -> dict:
+def _block_init(cfg: ModelConfig, kind: str, use_moe: bool, dtype,
+                generator, device) -> dict:
     d = cfg.d_model
-    p: dict = {"norm1": rmsnorm_init(d, device),
-               "mixer": attn.gqa_init(cfg, dtype, generator, device)}
-    has_ffn = use_moe or cfg.d_ff > 0
+    p: dict = {"norm1": rmsnorm_init(d, device)}
+    if kind.startswith("attn"):
+        p["mixer"] = attn.gqa_init(cfg, dtype, generator, device)
+    elif kind == "mamba":
+        p["mixer"] = ssm.mamba_init(cfg, dtype, generator, device)
+    elif kind == "mlstm":
+        p["mixer"] = ssm.mlstm_init(cfg, dtype, generator, device)
+    elif kind == "slstm":
+        p["mixer"] = ssm.slstm_init(cfg, dtype, generator, device)
+    else:
+        raise ValueError(kind)
+    # the xLSTM blocks hold their projections: no FFN beside them
+    has_ffn = use_moe or (cfg.d_ff > 0 and kind not in ("mlstm", "slstm"))
     if has_ffn:
         p["norm2"] = rmsnorm_init(d, device)
         p["ffn"] = (moe_mod.moe_init(cfg, dtype, generator, device)
@@ -139,24 +145,62 @@ def _ffn_half(cfg: ModelConfig, use_moe: bool, params: dict,
     return x + h, aux
 
 
+def _mixer_forward(cfg: ModelConfig, kind: str, params: dict,
+                   x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    if kind.startswith("attn"):
+        return attn.gqa_forward(cfg, params, x, positions,
+                                window=_window(cfg, kind))
+    if kind == "mamba":
+        return ssm.mamba_forward(cfg, params, x)
+    if kind == "mlstm":
+        return ssm.mlstm_block_forward(cfg, params, x)
+    if kind == "slstm":
+        return ssm.slstm_block_forward(cfg, params, x)
+    raise ValueError(kind)
+
+
 def _block_forward(cfg: ModelConfig, kind: str, use_moe: bool,
                    params: dict, x: torch.Tensor,
                    positions: torch.Tensor) -> tuple:
     """Returns (x, aux_loss), aux_loss None for a block without MoE."""
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
-    h = attn.gqa_forward(cfg, params["mixer"], h, positions,
-                         window=_window(cfg, kind))
+    h = _mixer_forward(cfg, kind, params["mixer"], h, positions)
     if cfg.post_block_norm:
         h = rmsnorm(params["post_norm1"], h, cfg.norm_eps)
     return _ffn_half(cfg, use_moe, params, x + h, train=True)
 
 
+def _block_init_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                      dtype, device):
+    """A layer's decode state: a KV cache for attention, the O(1) state
+    of an SSM block."""
+    if kind.startswith("attn"):
+        return attn.gqa_init_cache(cfg, batch, max_len, dtype, device)
+    if kind == "mamba":
+        return ssm.mamba_init_state(cfg, batch, dtype, device)
+    if kind == "mlstm":
+        return ssm.mlstm_init_state(cfg, batch, device)
+    if kind == "slstm":
+        return ssm.slstm_init_state(cfg, batch, device)
+    raise ValueError(kind)
+
+
 def _block_decode(cfg: ModelConfig, kind: str, use_moe: bool, params: dict,
-                  x: torch.Tensor, cache: attn.KVCache,
-                  pos: int) -> tuple[torch.Tensor, attn.KVCache]:
+                  x: torch.Tensor, cache, pos: int) -> tuple:
+    """Returns (x, the layer's cache): a KV cache written in place, or
+    an SSM block's new state."""
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
-    h, cache = attn.gqa_decode(cfg, params["mixer"], h, cache, pos,
-                               window=_window(cfg, kind))
+    if kind.startswith("attn"):
+        h, cache = attn.gqa_decode(cfg, params["mixer"], h, cache, pos,
+                                   window=_window(cfg, kind))
+    elif kind == "mamba":
+        h, cache = ssm.mamba_decode(cfg, params["mixer"], h, cache)
+    elif kind == "mlstm":
+        h, cache = ssm.mlstm_block_decode(cfg, params["mixer"], h, cache)
+    elif kind == "slstm":
+        h, cache = ssm.slstm_block_decode(cfg, params["mixer"], h, cache)
+    else:
+        raise ValueError(kind)
     if cfg.post_block_norm:
         h = rmsnorm(params["post_norm1"], h, cfg.norm_eps)
     x, _ = _ffn_half(cfg, use_moe, params, x + h, train=False)
@@ -208,8 +252,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     if not cfg.tie_embeddings:
         params["unembed"] = unembed_init(cfg.vocab_size, cfg.d_model, dtype,
                                          generator, dev)
-    params["layers"] = [_block_init(cfg, use_moe, dtype, generator, dev)
-                        for use_moe in layer_moe_flags(cfg)]
+    params["layers"] = [_block_init(cfg, cfg.layer_kind(i), use_moe, dtype,
+                                    generator, dev)
+                        for i, use_moe in enumerate(layer_moe_flags(cfg))]
     return params
 
 
@@ -260,8 +305,8 @@ def params_from_jax(cfg: ModelConfig, params: dict) -> dict:
     first_k_dense``; ``params["blocks"]`` is a tuple over the P pattern
     positions, each stacked along a leading repeat axis R, and layer
     ``first_k_dense + j`` is repeat ``j // P`` at position ``j % P``.
-    Dtypes are kept (norm scales and the MoE router stay float32 in a
-    bf16 model)."""
+    Dtypes are kept (norm scales, the MoE router and the SSM blocks'
+    gate, decay and skip leaves stay float32 in a bf16 model)."""
     check_supported(cfg)
     blocks = params["blocks"]
     pat, r = len(cfg.block_pattern), cfg.num_pattern_repeats
@@ -296,8 +341,15 @@ def _default_positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
 
 
-def _sinusoidal(positions, d):
-    raise _later("sinusoidal")
+def _sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Absolute sinusoidal position embedding (B, S) -> (B, S, d),
+    float32: the sines of the first d/2 frequencies, then their
+    cosines."""
+    half = d // 2
+    freqs = 1.0 / (10000.0 ** (torch.arange(half, dtype=torch.float32,
+                                            device=positions.device) / half))
+    ang = positions.float()[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def _inputs_to_x(cfg: ModelConfig, params: dict,
@@ -311,7 +363,7 @@ def _inputs_to_x(cfg: ModelConfig, params: dict,
     if pos is None:
         pos = _default_positions(b, s, x.device)
     if not cfg.use_rope:
-        x = x + _sinusoidal(pos, cfg.d_model)
+        x = x + _sinusoidal(pos, cfg.d_model).to(x.dtype)
     return x, pos
 
 
@@ -404,13 +456,15 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: Batch,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device="cuda") -> dict:
-    """One KV cache a layer (the prologue's ``pre_{i}`` first), zeros, in
-    the compute dtype by default."""
+    """One decode state a layer (the prologue's ``pre_{i}`` first): a KV
+    cache (zeros, in the compute dtype by default) for attention, a
+    ``MambaState``, ``MLSTMState`` or ``SLSTMState`` for an SSM block."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = dtype or compute_dtype(cfg)
-    return {"layers": [attn.gqa_init_cache(cfg, batch, max_len, dtype, dev)
-                       for _ in layer_moe_flags(cfg)]}
+    return {"layers": [_block_init_cache(cfg, cfg.layer_kind(i), batch,
+                                         max_len, dtype, dev)
+                       for i in range(len(layer_moe_flags(cfg)))]}
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: Batch,
@@ -419,12 +473,17 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: Batch,
     """One-token step. batch.tokens: (B, 1).
 
     ``pos`` is the cache position to write (== number of tokens already in
-    the cache).  Returns (logits (B, 1, V), cache); the cache is updated
-    in place.
+    the cache).  Returns (logits (B, 1, V), cache): KV caches are updated
+    in place, an SSM layer's entry replaced by its new state.  Without
+    RoPE and without ``batch.positions`` the token sits at ``pos``.
     """
     check_supported(cfg)
-    x, _ = _inputs_to_x(cfg, params, batch)
     pos = int(pos)
+    if batch.positions is None and not cfg.use_rope:
+        batch = batch._replace(positions=torch.full(
+            (batch.tokens.shape[0], 1), pos, dtype=torch.int32,
+            device=batch.tokens.device))
+    x, _ = _inputs_to_x(cfg, params, batch)
     for i, (p, use_moe) in enumerate(zip(params["layers"],
                                          layer_moe_flags(cfg))):
         x, cache["layers"][i] = _block_decode(cfg, cfg.layer_kind(i),

@@ -777,11 +777,12 @@ def test_moe_phase_on_the_cpu(monkeypatch, capsys, one_thread):
     assert s["routed_bound_ms"] <= s["bound_ms"]
     assert out["anchors"]["routes_equal"]
     assert "bound_share" not in f and "busy_share" not in f  # no card
-    assert "moe forward arctic-480b" in capsys.readouterr().out
+    assert "arctic-480b forward (2 layers)" in capsys.readouterr().out
 
 
 def test_moe_phase_fails_on_other_launches(monkeypatch, one_thread):
-    with pytest.raises(CS.SmokeFailure, match="moe forward: expected"):
+    with pytest.raises(CS.SmokeFailure,
+                       match="arctic-480b forward: expected"):
         _moe_phase(monkeypatch, fwd=dict(A=0, B=0, C=0, D=4, E=2))
 
 
@@ -887,12 +888,212 @@ def test_moe_bounds_at_arctic_full_width():
     params = _meta_params(cfg)
     assert abs(T.param_bytes(params) / 1e9 - 55.37) < 0.01
     e = 2 * cfg.moe.num_experts
-    step = CS.moe_bounds(cfg, params, 4, kept=16, used=e, ctx=48)
+    step = CS.lm_bounds(cfg, params, 4, kept=16, used=e, ctx=48)
     assert step["bound_by"] == "bytes"
     assert abs(step["bound_ms"] - 16.39) < 0.01
-    routed = CS.moe_bounds(cfg, params, 4, kept=16, used=16, ctx=48)
+    routed = CS.lm_bounds(cfg, params, 4, kept=16, used=16, ctx=48)
     assert routed["bound_ms"] < 0.1 * step["bound_ms"]
-    fwd = CS.moe_bounds(cfg, params, 4096, kept=2 * 8192, used=e)
+    fwd = CS.lm_bounds(cfg, params, 4096, kept=2 * 8192, used=e)
     assert fwd["bound_by"] == "bytes"
     assert abs(fwd["bytes_ms"] - 16.49) < 0.01
     assert abs(fwd["ops_ms"] - 9.55) < 0.01
+
+
+# ---------------------------------------------------------------------------
+# Phase 9e: SSM serving (xlstm-350m, jamba-v0.1-52b)
+# ---------------------------------------------------------------------------
+
+#: The rehearsal's serve run (batch, prompt, generated) and the xlstm
+#: CLI line that serves it.
+SSM_SERVE = (2, 8, 4)
+SSM_ARGV = ["--arch", "xlstm-350m", "--reduced", "--batch", "2",
+            "--prompt-len", "8", "--gen", "4"]
+ZERO = dict(A=0, B=0, C=0, D=0, E=0)
+
+
+def _ssm_phase(monkeypatch, xl_fwd=None, jb_fwd=None):
+    """Phase 9e at the reduced bf16 xlstm-350m (4 layers) and jamba (one
+    super-block of 8 layers, 8 experts), a 64-token prompt;
+    ``read_counts`` as the card gives them around each model's forward,
+    its plain and float32 plain forwards, the serve run and its plain
+    teacher-forced run."""
+    from repro_torch.configs import get_reduced_config
+
+    steps = SSM_SERVE[1] + SSM_SERVE[2] - 1
+    seq = iter([xl_fwd or dict(ZERO, D=5), ZERO, ZERO,
+                dict(ZERO, D=5 * steps), ZERO,
+                jb_fwd or dict(ZERO, D=17, E=1), ZERO, ZERO,
+                dict(ZERO, D=17 * steps), ZERO])
+    monkeypatch.setattr(CS, "read_counts", lambda: next(seq))
+    return CS.phase_ssm(torch.device("cpu"), "cpu, not a card",
+                        get_reduced_config("xlstm-350m"),
+                        get_reduced_config("jamba-v0.1-52b", num_layers=8),
+                        (64, 64), SSM_SERVE, SSM_ARGV)
+
+
+def test_ssm_phase_on_the_cpu(monkeypatch, capsys, one_thread):
+    """The whole phase at the reduced bf16 models: each forward and
+    serve run against itself on the plain path (equal), beside the
+    float32 witness (not equal), jamba's routes and drops, the bounds,
+    and the reduced float32 models on their JAX anchors."""
+    launches, out = _ssm_phase(monkeypatch)
+    assert launches == {
+        "xlstm-350m": {"forward": dict(ZERO, D=5),
+                       "decode_step": dict(ZERO, D=5)},
+        "jamba-v0.1-52b": {"forward": dict(ZERO, D=17, E=1),
+                           "decode_step": dict(ZERO, D=17)}}
+    xl, jb = out["xlstm-350m"], out["jamba-v0.1-52b"]
+    for rep in (xl, jb):
+        f, s = rep["forward"], rep["serve"]
+        assert f["vs_plain_all_tokens"]["max_abs_diff"] == 0.0
+        assert s["vs_plain_all_tokens"]["max_abs_diff"] == 0.0
+        assert f["float32_witness"]["vs_plain_all_tokens"][
+            "max_abs_diff"] > 0
+        assert f["float32"]["vs_plain_all_tokens"]["max_abs_diff"] == 0.0
+        assert [b["positions"] for b in f["vs_plain_by_position"]] == [
+            [0, 1], [1, 16], [16, 64]]
+        assert f["bound"]["bound_ms"] > 0 and s["bound_ms"] > 0
+        assert "device_ms" not in f and "bound_share" not in s  # no card
+    assert xl["forward"]["routes_agree"] == [] and "experts" not in xl
+    f = jb["forward"]
+    assert f["routes_agree"] == [1.0] * 4 and len(f["dropped_share"]) == 4
+    assert f["kept_picks"] <= f["slots"] == 4 * 8 * 20
+    assert f["routed_bound"]["ops"] < f["bound"]["ops"]
+    assert jb["serve"]["routes_agree"] == [1.0] * 4
+    assert out["anchors"]["jamba-v0.1-52b"]["routes_equal"]
+    assert out["anchors"]["xlstm-350m"]["greedy_equal"]
+    printed = capsys.readouterr().out
+    assert "xlstm-350m forward (4 layers)" in printed
+    assert "jamba-v0.1-52b serve batch=2" in printed
+
+
+def test_ssm_phase_fails_on_other_launches(monkeypatch, one_thread):
+    with pytest.raises(CS.SmokeFailure,
+                       match="xlstm-350m forward: expected 5 launches"):
+        _ssm_phase(monkeypatch, xl_fwd=dict(ZERO, D=4))
+
+
+def test_ssm_anchors_fail_on_a_wrong_route_digest(monkeypatch, one_thread):
+    from repro_torch.models import anchors as A
+    bad = dict(A.LM_ANCHORS["jamba-v0.1-52b"])
+    bad["routes"] = dict(bad["routes"], keep_crc32=1)
+    monkeypatch.setitem(A.LM_ANCHORS, "jamba-v0.1-52b", bad)
+    with pytest.raises(CS.SmokeFailure, match="routes"):
+        CS.phase_anchor("jamba-v0.1-52b", torch.device("cpu"))
+
+
+@pytest.mark.parametrize("arch, want", [
+    ("gemma2-2b", dict(ZERO, D=17, E=4)),
+    ("arctic-480b", dict(ZERO, D=5, E=2)),
+    ("xlstm-350m", dict(ZERO, D=5)),
+    ("jamba-v0.1-52b", dict(ZERO, D=33, E=2)),
+])
+def test_lm_launches_count_the_norms_and_attention_layers(arch, want):
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_reduced_config(arch)
+    params = T.init_params(cfg, torch.Generator(), "meta")
+    assert CS.lm_launches(cfg, params) == want
+
+
+def test_lm_bounds_at_the_ssm_cells():
+    """jamba at 16 of 32 layers holds 52.1 GB; a decode step of the
+    static buffer reads every weight but the embedding table, of which
+    it gathers four rows (51.6 GB: 15.4 ms at 3.35 TB/s); its
+    4096-token prompt's operations with every slot of the buffer
+    (16 experts x 80 slots x 8 groups a MoE layer) take ~56 ms at
+    989 TFLOP/s, and the float32 ones (the dt projection, the conv and
+    the scan: 0.30 TFLOP) 4.4 ms more at 67 TFLOP/s.  xlstm-350m's forward is set by its mLSTM parallel form
+    in float32 (~12 ms at 67 TFLOP/s); its decode step by bytes."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = CS.ssm_jamba_config()
+    params = T.init_params(cfg, torch.Generator(), "meta")
+    assert abs(T.param_bytes(params) / 1e9 - 52.11) < 0.01
+    every = 8 * 16
+    step = CS.lm_bounds(cfg, params, 4, kept=8 * 16, used=every, ctx=48)
+    assert step["bound_by"] == "bytes"
+    assert abs(step["bound_ms"] - 15.42) < 0.01
+    fwd = CS.lm_bounds(cfg, params, 4096, kept=8 * 16 * 80 * 8, used=every)
+    assert fwd["bound_by"] == "operations"
+    bf16_ms = (fwd["ops"] - fwd["f32_ops"]) / CS.BF16_PEAK_OPS * 1e3
+    assert 55 < bf16_ms < 57
+    assert abs(fwd["ops_ms"] - bf16_ms - 4.4) < 0.1
+    xl = get_config("xlstm-350m")
+    xp = T.init_params(xl, torch.Generator(), "meta")
+    xf = CS.lm_bounds(xl, xp, 4096)
+    assert xf["bound_by"] == "operations"
+    assert xf["f32_ops"] / CS.PEAK_F32_OPS_PER_S * 1e3 > 10
+    assert CS.lm_bounds(xl, xp, 4, ctx=48)["bound_by"] == "bytes"
+
+
+class _Ev:
+    """A raw profiler record as :func:`chip_smoke.split_trace` reads it:
+    its device, name, correlation id and times (ns)."""
+
+    def __init__(self, dev, name, corr, start, end):
+        self._v = (dev, name, corr, start, end)
+
+    def device_type(self):
+        return self._v[0]
+
+    def name(self):
+        return self._v[1]
+
+    def correlation_id(self):
+        return self._v[2]
+
+    def start_ns(self):
+        return self._v[3]
+
+    def duration_ns(self):
+        return self._v[4] - self._v[3]
+
+
+def test_split_trace_attributes_kernels_to_the_scan_ranges():
+    """A kernel counts in a scan where the runtime or driver call that
+    launched it starts inside the scan's host range; the device's mirror
+    of a range or of the profiler step is not a kernel; a kernel without
+    a launch record counts in the total only."""
+    from torch.autograd import DeviceType as Dt
+    cpu, gpu = Dt.CPU, Dt.CUDA
+    tag = CS.SCAN_TAG
+    events = [
+        _Ev(cpu, tag + "_mamba_scan", 0, 100, 200),
+        _Ev(cpu, tag + "_slstm_scan", 0, 300, 400),
+        _Ev(cpu, "cudaLaunchKernel", 1, 50, 51),
+        _Ev(cpu, "cudaLaunchKernel", 2, 150, 151),
+        _Ev(cpu, "cuLaunchKernelEx", 3, 350, 351),
+        _Ev(cpu, "aten::add", 9, 140, 160),
+        _Ev(gpu, "gemm", 1, 1000, 1010),
+        _Ev(gpu, "addcmul", 2, 1010, 1013),
+        _Ev(gpu, "tanh", 3, 1013, 1017),
+        _Ev(gpu, "orphan", 7, 1017, 1018),
+        _Ev(gpu, tag + "_mamba_scan", 0, 1010, 1013),
+        _Ev(gpu, "ProfilerStep#1", 0, 990, 1020),
+    ]
+    got = CS.split_trace(events)
+    assert got["kernels"] == 4 and got["device_s"] == 18e-9
+    assert got["scan_device_s"] == {"_mamba_scan": 3e-9,
+                                    "_slstm_scan": 4e-9}
+    assert got["launches_matched"] == 0.75
+    assert got["scan_calls"] == {"_mamba_scan": 1, "_slstm_scan": 1,
+                                 "mlstm_parallel": 0}
+    assert list(got["device_s_by_kernel"])[0] == "gemm"
+    with pytest.raises(CS.SmokeFailure, match="no device events"):
+        CS.split_trace(events[:6])
+
+
+def test_scan_ranges_wrap_the_scans_and_restore():
+    from repro_torch.models import ssm
+
+    saved = {n: getattr(ssm, n) for n in CS.SCANS}
+    with CS.scan_ranges():
+        assert all(getattr(ssm, n) is not saved[n] for n in CS.SCANS)
+        x = torch.zeros(1, 4, 2)
+        out = ssm._mamba_scan(torch.zeros(2, 3), torch.zeros(1, 4, 3),
+                              torch.zeros(1, 4, 3), x, x)
+        assert out.shape == (1, 4, 2)
+    assert all(getattr(ssm, n) is saved[n] for n in CS.SCANS)

@@ -179,12 +179,10 @@ def _gemma(**kw):
 
 
 @pytest.mark.parametrize("cfg, slice_", [
-    (_gemma(block_pattern=("mamba", "attn")), "SSM"),
     (_gemma(attention_kind="mla"), "MLA"),
     (_gemma(seq_parallel=True), "sharding"),
     (_gemma(frontend_stub=True), "modality-stub"),
-    (_gemma(use_rope=False), "modality-stub"),
-], ids=["ssm", "mla", "seq_parallel", "frontend_stub", "sinusoidal"])
+], ids=["mla", "seq_parallel", "frontend_stub"])
 def test_later_slices_raise_not_implemented(cfg, slice_):
     with pytest.raises(NotImplementedError, match=f"{slice_} slice"):
         T.init_params(cfg, device="cpu")
@@ -193,11 +191,14 @@ def test_later_slices_raise_not_implemented(cfg, slice_):
 @pytest.mark.parametrize("cfg, n_moe", [
     (_gemma(moe=MoEConfig(num_experts=4, top_k=2, d_ff_expert=64)), 4),
     (_gemma(first_k_dense=2, num_layers=6), 0),
-], ids=["moe", "first_k_dense"])
+    (_gemma(block_pattern=("mamba", "attn")), 0),
+    (_gemma(use_rope=False), 0),
+], ids=["moe", "first_k_dense", "ssm", "sinusoidal"])
 def test_moe_and_prologue_configs_build_and_run(cfg, n_moe):
-    """MoE blocks and the dense prologue came with the MoE slice: the
-    configs that raised before it now build, run a forward, a decode
-    step and a loss on the CPU."""
+    """MoE blocks and the dense prologue came with the MoE slice, SSM
+    blocks and sinusoidal positions with the SSM slice: the configs
+    that raised before them now build, run a forward, a decode step and
+    a loss on the CPU."""
     T.check_supported(cfg)
     params = T.init_params(cfg, device="cpu")
     assert len(params["layers"]) == cfg.num_layers
