@@ -137,8 +137,9 @@ Phases, each of which ends the run with a non-zero exit on any failure:
    width 7168 (several warps a row), a misaligned x and a ragged 997 x
    130 in both dtypes (the strided route) and qwen2-0.5b's training norm
    (1024 x 896 bf16), arctic-480b's forward norm (4096 x 7168 bf16) and
-   jamba's and xlstm-350m's (4096 x 4096 and 4096 x 1024 bf16):
-   float32 within 16 ulp, bf16 within one bf16 ulp.
+   jamba's and xlstm-350m's (4096 x 4096 and 4096 x 1024 bf16) and
+   deepseek-v2-236b's q_norm and kv_norm (4096 x 1536 and 4096 x 512
+   bf16): float32 within 16 ulp, bf16 within one bf16 ulp.
    Each case's gradient through kernel D's autograd Function (forward
    on the card, backward torch ops) against autograd through
    ``rmsnorm_ref``: float32 within 1e-5 relative + 1e-5 of the largest
@@ -152,12 +153,17 @@ Phases, each of which ends the run with a non-zero exit on any failure:
    tensor-core route's edges (d 32 and 128, a ragged Sq·g and Skv, Sq <
    Skv with a window, non-causal), qwen2-0.5b's training shape (B 8,
    S 128, 14/2 heads, d 64, both dtypes), arctic-480b's forward (B 1,
-   S 4096, 56/8 heads, d 128, causal, bf16) and jamba's (32/8 heads):
+   S 4096, 56/8 heads, d 128, causal, bf16) and jamba's (32/8 heads),
+   and MLA's head dims apart (q·k, v): deepseek-v2-236b's forward (B 1,
+   S 4096, 128 heads, (192, 128), causal, bf16 and f32; its plain
+   version a kv head at a time), the reduced config's (48, 32) in both
+   dtypes, a ragged (192, 128) and one at S 512:
    bf16 within one bf16 ulp (+1e-6), float32 within 1e-5 absolute +
    1e-5 relative.  Every case also with its softmax stats: the output
    bitwise the same, m and l within 1e-5 + 1e-5 relative of the plain
    ``_fwd_pass``'s.  At the gemma2-2b layers, qwen2's training shape
-   and the f32 cases, (dq, dk, dv) through kernel E's autograd Function
+   and the f32 cases and MLA's S 512 and reduced ones, (dq, dk, dv)
+   through kernel E's autograd Function
    (kernel E with stats, then the recompute backward) against autograd
    through
    ``flash_attention_ref``: float32 within 1e-5 + 1e-5 relative, bf16
@@ -246,6 +252,30 @@ Phases, each of which ends the run with a non-zero exit on any failure:
    paths as (a); one decode step's device time and busy share.  (c) The
    reduced float32 arctic-480b against ``LM_ANCHORS`` (logits, greedy
    tokens, the forward's routes by digest).  Prints the ``moe`` line.
+9f. MLA (the eleventh path), last, after arctic's weights are freed:
+   deepseek-v2-236b at full width (d 5120, 128 heads, q LoRA 1536, kv
+   LoRA 512, q·k 128 + 64, v 128, 160 experts top-6 of d_ff 1536 at
+   capacity factor 1.25 beside 2 shared experts, the first layer dense,
+   vocab 102,400, bf16, weights from a seeded generator on the card) cut
+   to 7 of its 60 layers (50.1 GB).  (a) ``transformer.forward`` on a
+   4096-token prompt, counts read around exactly it (29 launches of D:
+   norm1, norm2, q_norm and kv_norm a layer and the final norm; 7 of E,
+   q·k 192 beside v 128; none of A-C), against the plain D and E on two
+   prompts and beside the float32 witness (routes, logits where routes
+   agree, argmaxes; MLA_LIMITS), and in float32 on D's and E's float32
+   routes against the plain path in float32; drops; device and wall
+   time, busy share, peak, the bound with every slot of the MoE buffer
+   and with the routed picks.  (b) One decode step at position
+   4095 of a 4096-token cache (batch 4, the cache seeded), naive and
+   absorbed (``decode_step(mla_absorb=...)``, 29 launches of D each,
+   none of E): their logits within 1e-4 of the largest in float32, and
+   in bf16 within 1.25 times the witness (the naive step in float32
+   against it in bf16); each step's device time and bound.  (c) ``token_serve.generate`` at batch 4,
+   prompt 32, gen 16 (naive decode, 29 launches of D a step, none of
+   E), teacher-forced on both paths; decode ms a step, tok/s, the
+   static buffer's bound and the routed one.  (d) The reduced float32
+   deepseek-v2 against ``LM_ANCHORS`` (E's f32 route at (48, 32);
+   logits, greedy tokens, routes).  Prints the ``mla`` line.
 11. Report: a ``kernels`` JSON line (launches, error, kernel and plain
    time at the main paths' shapes, the card's bound for the same work,
    the library call's time where there is one; A's, B's and C's launch
@@ -256,16 +286,18 @@ Phases, each of which ends the run with a non-zero exit on any failure:
    (``launches_service``), D's and E's in the training run and in one
    step (``launches_train``, ``launches_train_step``), in the SSM
    models' forwards and decode steps (``launches_ssm``), in arctic's
-   forward and decode step (``launches_moe``) and their time at
-   arctic's shapes (``moe_shape``: E's library call there is SDPA) and
-   at jamba's and xlstm's (``ssm_shape``); A's
+   forward and decode step (``launches_moe``), in deepseek-v2's
+   (``launches_mla``) and their time at arctic's shapes (``moe_shape``:
+   E's library call there is SDPA), at jamba's and xlstm's
+   (``ssm_shape``) and at deepseek-v2's (``mla_shape``: SDPA with q·k
+   and v apart, and the kernels its backend launched); A's
    its graph replays and K), ``stream`` (the default path's wall,
    dispatch, wait, merge and busy share, the synchronous path's beside
    it, the plain backend's), ``stream_resilience``, ``rbe_shapes`` (each
    layer at 4 and 256 ROIs with its tile), ``handtracking``,
    ``rmsnorm_shapes``/``flash_shapes`` (each case's route; E's registers
    and spills from ptxas and its share of the bound), ``lm``, ``train``,
-   ``ssm`` and ``moe`` JSON lines, the card's name and power limit, and last the
+   ``ssm``, ``moe`` and ``mla`` JSON lines, the card's name and power limit, and last the
    ``ok`` line.  Kernel C's SASS must hold int8 tensor-core (IMMA) and
    cp.async (LDGSTS) instructions.
 
@@ -2529,10 +2561,13 @@ RMSNORM_CASES = ((LM_SEQ, 2304, "bfloat16", "gemma2 forward"),
                  (1024, 896, "bfloat16", "qwen2 train"),
                  (4096, 7168, "bfloat16", "arctic forward"),
                  (4096, 4096, "bfloat16", "jamba forward"),
-                 (4096, 1024, "bfloat16", "xlstm forward"))
+                 (4096, 1024, "bfloat16", "xlstm forward"),
+                 (4096, 1536, "bfloat16", "deepseek q_norm"),
+                 (4096, 512, "bfloat16", "deepseek kv_norm"))
 
 # Kernel E's cases: (name, b, sq, skv, h, kv, d, causal, window, softcap,
-# dtype).
+# dtype); d is q's and k's head dim and v's, or a pair (q·k, v) where
+# they differ (MLA).
 FLASH_CASES = (
     ("gemma2 local", 1, LM_SEQ, LM_SEQ, 8, 4, 256, True, 4096, 50.0,
      "bfloat16"),
@@ -2559,11 +2594,28 @@ FLASH_CASES = (
     ("arctic", 1, 4096, 4096, 56, 8, 128, True, 0, 0.0, "bfloat16"),
     # jamba-v0.1-52b's prompt forward (phase 9e): 4 query heads a kv head
     ("jamba", 1, 4096, 4096, 32, 8, 128, True, 0, 0.0, "bfloat16"),
+    # deepseek-v2-236b's MLA prompt forward (phase 9f): q·k over 128 + 64,
+    # v over 128, every head its own k (the shared rope key broadcast)
+    ("deepseek mla", 1, 4096, 4096, 128, 128, (192, 128), True, 0, 0.0,
+     "bfloat16"),
+    ("deepseek mla f32", 1, 4096, 4096, 128, 128, (192, 128), True, 0, 0.0,
+     "float32"),
+    # the reduced deepseek-v2 (its LM_ANCHORS run on the f32 route), a
+    # ragged (192, 128) (Sq·g = 3000 rows, not a multiple of 64) and a
+    # training-sized one whose stats and gradient are held
+    ("reduced mla", 2, 256, 256, 4, 4, (48, 32), True, 0, 0.0, "float32"),
+    ("reduced mla bf16", 2, 256, 256, 4, 4, (48, 32), True, 0, 0.0,
+     "bfloat16"),
+    ("mla ragged", 1, 1000, 1000, 6, 2, (192, 128), True, 0, 0.0,
+     "bfloat16"),
+    ("mla s512", 1, 512, 512, 16, 16, (192, 128), True, 0, 0.0,
+     "bfloat16"),
 )
 #: The cases whose gradient through kernel E's autograd Function is held
 #: against autograd through its plain version (phase 8).
 FLASH_GRAD_CASES = ("qwen2 train", "qwen2 train f32", "gemma2 local",
-                    "gemma2 global", "reduced d32", "kernel_bench")
+                    "gemma2 global", "reduced d32", "kernel_bench",
+                    "mla s512", "reduced mla")
 
 
 def ulps(got, want) -> int:
@@ -2695,16 +2747,24 @@ def rmsnorm_grad_check(x, scale, seed: int, what: str) -> dict:
                                  what + " dscale", scale_atol=True)}
 
 
-def flash_inputs(b, sq, skv, h, kv, d, dtype, seed, dev) -> tuple:
-    """q, k, v on ``dev``: normals made on the CPU from a numpy seed."""
+def head_dims(d) -> tuple:
+    """A case's (q·k, v) head dims: ``d`` itself where it is a pair."""
+    return tuple(d) if isinstance(d, (tuple, list)) else (d, d)
+
+
+def flash_inputs(b, sq, skv, h, kv, d, dtype, seed, dev,
+                 dv: int | None = None) -> tuple:
+    """q, k, v on ``dev``: normals made on the CPU from a numpy seed; v's
+    head dim ``dv`` (``d`` by default)."""
     import torch
 
     rng = np.random.default_rng(seed)
     dt = getattr(torch, dtype)
+    dv = d if dv is None else dv
     return tuple(
         torch.as_tensor(rng.standard_normal(shape).astype(np.float32))
         .to(dt).to(dev)
-        for shape in ((b, sq, h, d), (b, skv, kv, d), (b, skv, kv, d)))
+        for shape in ((b, sq, h, d), (b, skv, kv, d), (b, skv, kv, dv)))
 
 
 def visible_pairs(sq, skv, causal, window) -> int:
@@ -2715,12 +2775,15 @@ def visible_pairs(sq, skv, causal, window) -> int:
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
-def flash_work(b, sq, skv, h, kv, d, causal, window, itemsize) -> tuple:
+def flash_work(b, sq, skv, h, kv, d, causal, window, itemsize,
+               dv: int | None = None) -> tuple:
     """Bytes (q, k, v read once, out written once) and the operations of
-    q.k and of p@v over the visible pairs (an FMA as two)."""
-    nbytes = itemsize * d * (2 * b * sq * h + 2 * b * skv * kv)
-    half = 2 * d * h * b * visible_pairs(sq, skv, causal, window)
-    return nbytes, half, half
+    q.k (over d) and of p@v (over v's ``dv``, ``d`` by default) over the
+    visible pairs (an FMA as two)."""
+    dv = d if dv is None else dv
+    nbytes = itemsize * (d + dv) * (b * sq * h + b * skv * kv)
+    pairs = h * b * visible_pairs(sq, skv, causal, window)
+    return nbytes, 2 * d * pairs, 2 * dv * pairs
 
 
 def flash_bound(nbytes, qk_ops, pv_ops, bf16: bool) -> tuple:
@@ -2776,15 +2839,19 @@ def ptxas_usage(text: str) -> dict:
     return out
 
 
-def flash_kernel_usage(usage: dict, route: str, d: int) -> dict:
+def flash_kernel_usage(usage: dict, route: str, d: int,
+                       dv: int | None = None) -> dict:
     """The ``ptxas_usage`` entry of kernel E's kernel for ``route`` at
-    head dim ``d``: ``mma::flash_fwd_kernel<D>`` (bf16) or
-    ``flash_fwd_kernel<float, D>`` (f32), by their mangled names; None
-    for each where this process did not build the library (no report)."""
+    head dims (``d``, ``dv``; ``dv`` = ``d`` by default):
+    ``mma::flash_fwd_kernel<DK, DV>`` (bf16) or ``flash_fwd_kernel<float,
+    DK, DV>`` (f32), by their mangled names; None for each where this
+    process did not build the library (no report)."""
     if not usage:
         return dict.fromkeys(PTXAS_KEYS)
-    want = (f"3mma16flash_fwd_kernelILi{d}E" if route == "mma"
-            else f"16flash_fwd_kernelIfLi{d}E")
+    dv = d if dv is None else dv
+    args = f"Li{d}ELi{dv}EE"
+    want = (f"3mma16flash_fwd_kernelI{args}" if route == "mma"
+            else f"16flash_fwd_kernelIf{args}")
     hits = [u for name, u in usage.items() if want in name]
     check(len(hits) == 1, f"ptxas report: {len(hits)} kernels match "
           f"{want}")
@@ -2805,12 +2872,19 @@ def phase_flash(dev) -> float:
     from repro_torch.kernels import flash_attention as E
 
     worst = 0.0
-    for i, (name, b, sq, skv, h, kv, d, causal, window, cap,
+    for i, (name, b, sq, skv, h, kv, dims, causal, window, cap,
             dtype) in enumerate(FLASH_CASES):
-        q, k, v = flash_inputs(b, sq, skv, h, kv, d, dtype, 50 + i, dev)
+        d, dv = head_dims(dims)
+        q, k, v = flash_inputs(b, sq, skv, h, kv, d, dtype, 50 + i, dev, dv)
         kw = dict(causal=causal, window=window, logit_softcap=cap)
         got = E.flash_attention_fwd(q, k, v, **kw)
-        want = E.flash_attention_ref(q, k, v, **kw)
+        check(tuple(got.shape) == (b, sq, h, dv),
+              f"kernel E {name}: output {tuple(got.shape)}")
+        # a kv head at a time where the whole score tensor is large (at
+        # deepseek's 128 heads 8.6 GB of float32 a copy): the same function
+        plain = (flash_ref_by_kv_head if h * sq * skv >= 2**31
+                 else E.flash_attention_ref)
+        want = plain(q, k, v, **kw)
         sync(dev)
         e = (got.float() - want.float()).abs().max().item()
         worst = max(worst, e)
@@ -2821,7 +2895,7 @@ def phase_flash(dev) -> float:
             close = bool(((got - want).abs() <= FLASH_F32_TOL["atol"]
                           + FLASH_F32_TOL["rtol"] * want.abs()).all())
             err = f"tolerance {FLASH_F32_TOL}"
-        print(f"kernel E {name} ({b},{sq},{skv},{h}/{kv},{d}) {dtype} "
+        print(f"kernel E {name} ({b},{sq},{skv},{h}/{kv},{dims}) {dtype} "
               f"causal={causal} window={window} softcap={cap}: "
               f"max_abs_err={e!r} ({err})")
         check(close, f"kernel E {name}: differs from its plain version")
@@ -2889,7 +2963,7 @@ def flash_grad_check(q, k, v, kw, seed: int, what: str) -> dict:
     from repro_torch.models import flash
 
     rng = np.random.default_rng(seed)
-    do = torch.as_tensor(rng.standard_normal(tuple(q.shape))
+    do = torch.as_tensor(rng.standard_normal((*q.shape[:3], v.shape[3]))
                          .astype(np.float32)).to(q.dtype).to(q.device)
     before = E.flash_attention_fwd.launches
     out = {}
@@ -3245,7 +3319,7 @@ def route_agreement(k_routes: list, p_routes: list) -> tuple:
 
 
 def lm_bounds(cfg, params, tokens: int, kept: int = 0, used: int = 0,
-              ctx: int = 0) -> dict:
+              ctx: int = 0, absorb: bool = False) -> dict:
     """The least time the card could take for one pass of ``tokens``
     tokens (a prompt of one sequence; with ``ctx``, one decode token of
     each of ``tokens`` sequences over a cache of ``ctx`` positions)
@@ -3261,7 +3335,13 @@ def lm_bounds(cfg, params, tokens: int, kept: int = 0, used: int = 0,
     over BF16_PEAK_OPS plus the float32 ones over PEAK_F32_OPS_PER_S
     (Mamba's dt projection, conv and scan, the mLSTM gates, its parallel
     form's q·k and weighted sum over the visible pairs or its decode's
-    memory update, the sLSTM cell)."""
+    memory update, the sLSTM cell).  An MLA layer reads its compressed
+    cache (``c_kv`` and ``k_pe``) once; its products are its weights'
+    a token in a prompt (q·k over nope + rope, p@v over v, bf16), and in
+    decode the formulation's own (``absorb``): naive expands ``k_nope``
+    and v over the cache (bf16) and scores and sums in float32; absorbed
+    folds ``w_uk`` into q and ``w_uv`` after the latent context (bf16),
+    scoring and summing in the latent space in float32."""
     from repro_torch.models import transformer as T
 
     m, d, V = cfg.moe, cfg.d_model, cfg.vocab_size
@@ -3279,7 +3359,11 @@ def lm_bounds(cfg, params, tokens: int, kept: int = 0, used: int = 0,
         bf16 += 6 * kept * d * m.d_ff_expert
     for i, (layer, use_moe) in enumerate(zip(params["layers"], flags)):
         kind = cfg.layer_kind(i)
-        if kind.startswith("attn"):
+        if kind.startswith("attn") and cfg.attention_kind == "mla":
+            b16, b32, cache = mla_work(cfg, tokens, pairs, ctx, absorb)
+            bf16, f32 = bf16 + b16, f32 + b32
+            nbytes += cache * item
+        elif kind.startswith("attn"):
             bf16 += (tokens * 2 * (2 * d * h * hd + 2 * d * kv * hd)
                      + 4 * hd * h * pairs)
             nbytes += 2 * tokens * ctx * kv * hd * item
@@ -3324,6 +3408,32 @@ def lm_bounds(cfg, params, tokens: int, kept: int = 0, used: int = 0,
             "bytes_ms": bytes_ms, "ops_ms": ops_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def mla_work(cfg, tokens: int, pairs: int, ctx: int = 0,
+             absorb: bool = False) -> tuple:
+    """One MLA layer's bf16 and float32 operations and the cache elements
+    it reads, for ``tokens`` tokens over ``pairs`` visible (query, key)
+    pairs: a prompt (``ctx`` 0) or one decode token of each of ``tokens``
+    sequences over ``ctx`` cached positions, naive or ``absorb``ed (see
+    :func:`lm_bounds`)."""
+    d, h = cfg.d_model, cfg.num_heads
+    nope, rope, r = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.kv_lora_rank
+    vd, ql = cfg.v_head_dim, cfg.q_lora_rank
+    qk = nope + rope
+    w_q = d * ql + ql * h * qk if ql else d * h * qk
+    # the weights every token goes through: q, the latent, the rope key,
+    # the output
+    own = w_q + d * r + d * rope + h * vd * d
+    if not ctx:
+        return (tokens * 2 * (own + r * h * (nope + vd))
+                + 2 * h * (qk + vd) * pairs, 0, 0)
+    cache = tokens * ctx * (r + rope)
+    if absorb:
+        return (tokens * 2 * (own + h * nope * r + h * r * vd),
+                2 * h * (r + rope + r) * pairs, cache)
+    return (tokens * 2 * own + 2 * pairs * r * h * (nope + vd),
+            2 * h * (qk + vd) * pairs, cache)
 
 
 def routed_work(routes: list) -> tuple:
@@ -3407,12 +3517,15 @@ def float32_experts(n: int = F32_EXPERT_SLICE):
 
 def lm_launches(cfg, params) -> dict:
     """The launches of each kernel one forward of ``cfg`` makes: kernel D
-    once a norm (``norm1``, ``norm2``, the post norms a layer has, and the
-    final norm), kernel E once an attention layer, A-C none.  A decode
-    step makes as many of D and none of E."""
+    once a norm (``norm1``, ``norm2``, the post norms a layer has, MLA's
+    ``q_norm`` and ``kv_norm``, and the final norm), kernel E once an
+    attention layer, A-C none.  A decode step makes as many of D and none
+    of E."""
     n_norms = 1 + sum(k in layer for layer in params["layers"]
                       for k in ("norm1", "norm2", "post_norm1",
-                                "post_norm2"))
+                                "post_norm2")) \
+        + sum(k in layer["mixer"] for layer in params["layers"]
+              for k in ("q_norm", "kv_norm"))
     n_attn = sum(cfg.layer_kind(i).startswith("attn")
                  for i in range(len(params["layers"])))
     return {"A": 0, "B": 0, "C": 0, "D": n_norms, "E": n_attn}
@@ -3789,6 +3902,276 @@ def phase_moe(dev, smi: str, cfg=None, seq: int = MOE_SEQ,
     report["wall_s"] = time.perf_counter() - t_phase
     report["card"] = smi
     print(f"moe phase: {report['wall_s']:.1f} s; card {smi}")
+    return launches, per_step, report
+
+
+# ---------------------------------------------------------------------------
+# MLA serving (the eleventh path)
+# ---------------------------------------------------------------------------
+
+#: deepseek-v2-236b at full width (d 5120, 128 heads, q LoRA 1536, kv LoRA
+#: 512, q·k 128 + 64, v 128, 160 experts top-6 of d_ff 1536 at capacity
+#: factor 1.25 beside 2 shared experts, the first layer dense, vocab
+#: 102,400, bf16) cut to MLA_LAYERS of its 60 layers: an MoE layer is 7.95
+#: GB of weights, so the dense prologue and six MoE layers (50.1 GB) and
+#: the float32 witness's ~9.5 GB fill one card.  One MLA_SEQ-token prompt
+#: (the reference's prefill_32k cut, as arctic's); serving at the
+#: reference CLI's defaults (MOE_SERVE, naive decode, the reference's
+#: default); the absorbed step against the naive one at an MLA_CTX-token
+#: cache.
+MLA_ARCH, MLA_LAYERS, MLA_SEQ, MLA_CTX = "deepseek-v2-236b", 7, 4096, 4096
+#: Kernels vs plain (the forward on two prompts, the served tokens
+#: teacher-forced), as arctic's (MOE_LIMITS): each MoE layer's routes, the
+#: logits where the routes agree in every layer, the argmaxes there and
+#: over all.  With 160 experts top-6 and random weights a bf16 ulp of a
+#: norm or attention output flips a router's near tie far more often than
+#: in arctic, and a flip in one layer moves the picks of every later one:
+#: the routes' agreement falls layer by layer.  Readings on the H100
+#: (prompts of seed 0 and 1), kernels vs plain [the float32 witness]:
+#: routes 96.2 falling to 76.9 % and 95.6 to 75.2 % a layer [93.0 to
+#: 71.0 %, 93.3 to 71.2 %]; logits where routes agree 0.094 and 0.111
+#: apart [0.112, 0.140]; argmaxes over all 88.3 and 86.2 % [84.2, 83.8
+#: %], where routes agree 96.7 and 95.4 % [96.7, 96.0 %].  The routes
+#: and argmax limits lie between the two readings; the logits' 0.125
+#: lies between them on the second prompt, and above the witness's 0.112
+#: on the first: there the logits alone do not tell a kernel fault from a
+#: change of rounding, and the float32 run does.  ``float32``: the same
+#: forward in float32 on D's and E's float32 routes against the plain
+#: path in float32: routes >= 99.955 %, 6.4e-4 and 4.5e-5 apart where
+#: they agree, every argmax equal [the witness: 71.0 %, 0.112, 83.8 %].
+MLA_LIMITS = {"routes": 0.73, "max_diff": 0.125, "argmax": 0.85,
+              "float32": {"routes": 0.99, "max_diff": 0.01, "argmax": 0.98}}
+#: The absorbed step against the naive one at MLA_CTX.  In float32 the
+#: same function: within 1e-4 of the largest logit (the reference test's
+#: 1e-4; read 2.6e-5 of 4.72).  In bf16 the two round apart (the
+#: absorbed step casts its latent context to bf16 before w_uv, the naive
+#: one keeps p@v in float32) and a router's near tie can flip: their
+#: logits no farther apart than MLA_ABSORB_WITNESS_RATIO times the
+#: witness measured in the same run, the naive step in float32 against
+#: it in bf16 (read 0.109 apart against the witness's 0.116).
+MLA_ABSORB_F32_REL = 1e-4
+MLA_ABSORB_WITNESS_RATIO = 1.25
+#: Seed of the absorbed step's cache and tokens.
+MLA_CACHE_SEED = 2
+
+
+def mla_config(layers: int = MLA_LAYERS):
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(MLA_ARCH), num_layers=layers)
+
+
+def fill_mla_cache(cache: dict, upto: int, seed: int) -> None:
+    """Positions 0..``upto``-1 of every MLA layer's cache, in place, in
+    the cache's dtype: ``c_kv`` standard normals (unit RMS, as
+    ``kv_norm`` leaves it) and ``k_pe`` standard normals (the scale of
+    ``x @ w_kr`` for a unit-RMS x and fan-in weights; RoPE keeps it),
+    drawn in float32 from a generator seeded ``seed`` + the layer."""
+    import torch
+
+    for i, c in enumerate(cache["layers"]):
+        gen = torch.Generator(device=c.c_kv.device).manual_seed(seed + i)
+        for t in (c.c_kv, c.k_pe):
+            t[:, :upto] = torch.randn(t[:, :upto].shape, generator=gen,
+                                      device=t.device).to(t.dtype)
+
+
+def absorbed_vs_naive(cfg, params, params32, ctx: int, bsz: int) -> dict:
+    """One decode step of ``bsz`` tokens at position ``ctx`` - 1 of a
+    ``ctx``-token cache (its other positions :func:`fill_mla_cache`'s),
+    naive and absorbed (``decode_step(mla_absorb=...)``), each on its
+    own copy of the cache, counts read around each (the norms' launches
+    of D, none of E); their logits against each other in bf16 and, on
+    ``params32`` (:func:`float32_experts`), in float32, beside the
+    witness (the naive step in float32 against it in bf16), held to
+    MLA_ABSORB_F32_REL and MLA_ABSORB_WITNESS_RATIO; each step's device
+    time and bound on the card."""
+    import torch
+
+    from repro_torch.models import anchors as A
+    from repro_torch.models import transformer as T
+
+    dev = params["embed"]["table"].device
+    gen = torch.Generator(device=dev).manual_seed(MLA_CACHE_SEED)
+    tok = torch.randint(0, cfg.vocab_size, (bsz, 1), generator=gen,
+                        device=dev)
+    pos = ctx - 1
+    n_norms = lm_launches(cfg, params)["D"]
+    base = T.init_cache(cfg, bsz, ctx, device=dev)
+    fill_mla_cache(base, pos, MLA_CACHE_SEED)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+
+    def copy(cache, dtype=None):
+        return {"layers": [type(c)(*(t.to(dtype or t.dtype, copy=True)
+                                      for t in c))
+                           for c in cache["layers"]]}
+
+    rep: dict = {"batch": bsz, "ctx": ctx}
+    logits, wide, steps = {}, {}, {}
+    for absorb in (False, True):
+        name = "absorbed" if absorb else "naive"
+        cache = copy(base)
+        steps[name] = (lambda c=cache, a=absorb: T.decode_step(
+            cfg, params, c, T.Batch(tokens=tok), pos, mla_absorb=a)[0])
+        sync(dev)
+        reset_counts()
+        with A.record_routes() as routes:
+            logits[name] = steps[name]()
+        sync(dev)
+        launches = read_counts()
+        check(launches == {"A": 0, "B": 0, "C": 0, "D": n_norms, "E": 0},
+              f"{cfg.name} {name} step: expected {n_norms} launches of D "
+              f"and none of E, got {launches}")
+        rep[f"launches_{name}"] = launches
+        with float32_experts():
+            wide[name] = T.decode_step(cfg32, params32, copy(base,
+                                                             torch.float32),
+                                       T.Batch(tokens=tok), pos,
+                                       mla_absorb=absorb)[0]
+        every = sum(T.layer_moe_flags(cfg)) * cfg.moe.num_experts
+        rep[f"{name}_bound"] = lm_bounds(cfg, params, bsz,
+                                         static_slots(routes, cfg.moe),
+                                         every, ctx=ctx, absorb=absorb)
+    rep["absorbed_vs_naive"] = compare_logits(logits["absorbed"],
+                                              logits["naive"])
+    rep["float32"] = compare_logits(wide["absorbed"], wide["naive"])
+    rep["float32_witness"] = compare_logits(wide["naive"], logits["naive"])
+    del wide, logits
+    if dev.type == "cuda":
+        for name, step in steps.items():
+            timed(rep, f"{name}_ms", step, 3, f"{cfg.name} {name} step",
+                  {"::rmsnorm_kernel<": n_norms})
+            rep[f"{name}_bound_share"] = rep[f"{name}_bound"]["bound_ms"] \
+                / rep[f"{name}_ms"]
+    print(f"{cfg.name} decode step at position {pos}, batch {bsz}: "
+          f"absorbed vs naive {rep['absorbed_vs_naive']}, in float32 "
+          f"{rep['float32']}; float32 naive vs bf16 naive (witness) "
+          f"{rep['float32_witness']}; naive {rep.get('naive_ms')} ms, "
+          f"absorbed {rep.get('absorbed_ms')} ms")
+    f32 = rep["float32"]
+    check(f32["max_abs_diff"] <= MLA_ABSORB_F32_REL * f32["max_abs"],
+          f"{cfg.name}: absorbed and naive steps in float32 differ by "
+          f"{f32['max_abs_diff']!r}")
+    limit = MLA_ABSORB_WITNESS_RATIO \
+        * rep["float32_witness"]["max_abs_diff"]
+    check(rep["absorbed_vs_naive"]["max_abs_diff"] <= limit,
+          f"{cfg.name}: absorbed and naive steps in bf16 differ by "
+          f"{rep['absorbed_vs_naive']}, limit {limit!r} (the witness "
+          f"{rep['float32_witness']})")
+    return rep
+
+
+def phase_mla(dev, smi: str, cfg=None, seq: int = MLA_SEQ,
+              serve: tuple = MOE_SERVE, ctx: int = MLA_CTX) -> tuple:
+    """deepseek-v2-236b at full width, MLA_LAYERS of its 60 layers, on
+    ``dev`` (``cfg``: another MLA config): (a) ``transformer.forward`` on
+    a ``seq``-token prompt and on a second one (:func:`moe_prompt`:
+    counts, transient memory, routes and logits against the plain D and
+    E, beside the plain path in float32), each MoE layer's share of picks
+    dropped; the first prompt's device and wall time, busy share and
+    bounds (the MoE buffer's every slot, and the routed picks).  (b)
+    :func:`absorbed_vs_naive` at a ``ctx``-token cache.  (c)
+    ``token_serve.generate`` at ``serve`` (batch, prompt, generated),
+    naive decode (:func:`serve_vs_plain`).  (d) The reduced float32
+    deepseek-v2 against ``LM_ANCHORS``.  Returns the forward's and one
+    decode step's launch counts and the ``mla`` report."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    cfg = cfg or mla_config()
+    m, cuda = cfg.moe, dev.type == "cuda"
+    full = get_config(cfg.name)
+    report: dict = {
+        "arch": cfg.name, "layers": cfg.num_layers,
+        "of_layers": full.num_layers, "d_model": cfg.d_model,
+        "heads": cfg.num_heads, "q_lora_rank": cfg.q_lora_rank,
+        "kv_lora_rank": cfg.kv_lora_rank,
+        "qk_dims": [cfg.qk_nope_dim, cfg.qk_rope_dim],
+        "v_head_dim": cfg.v_head_dim, "experts": m.num_experts,
+        "top_k": m.top_k, "d_ff_expert": m.d_ff_expert,
+        "shared_experts": m.num_shared_experts,
+        "capacity_factor": m.capacity_factor,
+        "first_k_dense": cfg.first_k_dense, "vocab": cfg.vocab_size,
+        "dtype": cfg.dtype}
+    if cfg.num_layers < full.num_layers:
+        report["note"] = ("depth cut: the host's and the idle shares are "
+                          "larger than in a deployment of every layer")
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        report["mem_before_gb"] = torch.cuda.memory_allocated() / 1e9
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        params = T.init_params(cfg, gen, dev)
+        sync(dev)
+        report["init_s"] = time.perf_counter() - t0
+        report["params"] = T.param_count(params)
+        report["param_gb"] = T.param_bytes(params) / 1e9
+        tokens = torch.randint(0, cfg.vocab_size, (1, seq), generator=gen,
+                               device=dev)
+        batch = T.Batch(tokens=tokens)
+        fwd = lambda: T.forward(cfg, params, batch)  # noqa: E731
+
+        # (a) the prompt forward, on a second prompt again, each against
+        # the plain path and the plain path in float32
+        params32 = float32_copy(params)
+        second = torch.randint(
+            0, cfg.vocab_size, (1, seq), device=dev,
+            generator=torch.Generator(device=dev).manual_seed(
+                MOE_SECOND_PROMPT_SEED))
+        k_routes, rep = moe_prompt(cfg, params, params32, tokens, MLA_LIMITS)
+        _, rep["second_prompt"] = moe_prompt(cfg, params, params32, second,
+                                             MLA_LIMITS)
+        rep["second_prompt"]["seed"] = MOE_SECOND_PROMPT_SEED
+        launches = rep["launches"]
+        kept, used = routed_work(k_routes)
+        every = sum(T.layer_moe_flags(cfg)) * m.num_experts
+        rep.update(kept_picks=kept, experts_used=used,
+                   slots=static_slots(k_routes, m),
+                   routed_bound=lm_bounds(cfg, params, seq, kept, used))
+        rep["bound"] = lm_bounds(cfg, params, seq, rep["slots"], every)
+        del second, k_routes
+        if cuda:
+            rep["wall_ms"] = host_ms(fwd, 2)
+            timed(rep, "device_ms", fwd, 2, "mla forward",
+                  {"::rmsnorm_kernel<": launches["D"],
+                   "::flash_fwd_kernel<": launches["E"]})
+            rep["bound_share"] = rep["bound"]["bound_ms"] / rep["device_ms"]
+            busy, by_kernel = busy_share(fwd)
+            rep["busy_share"] = busy
+            rep["device_s_by_kernel"] = dict(sorted(
+                by_kernel.items(), key=lambda kv: -kv[1])[:8])
+        report["forward"] = rep
+        del batch, tokens
+
+        # (b) the absorbed step against the naive one at a long cache
+        report["absorb"] = absorbed_vs_naive(cfg, params, params32, ctx,
+                                             serve[0])
+        del params32
+
+        # (c) serving at the reference CLI's defaults (naive decode)
+        bsz, plen, gen_n = serve
+        prompts = torch.randint(0, cfg.vocab_size, (bsz, plen),
+                                generator=gen, device=dev)
+        per_step, report["serve"] = serve_vs_plain(cfg, params, prompts,
+                                                   gen_n, MLA_LIMITS)
+        del params, prompts
+    if cuda:
+        report["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.empty_cache()
+
+    # (d) the reduced float32 deepseek-v2 against the JAX anchors
+    report["anchors"] = phase_anchor(MLA_ARCH, dev)
+    report["wall_s"] = time.perf_counter() - t_phase
+    report["card"] = smi
+    print(f"mla phase: {report['wall_s']:.1f} s; card {smi}")
     return launches, per_step, report
 
 
@@ -4493,25 +4876,27 @@ def lm_kernel_report(err: dict, dev) -> tuple:
         timed(row, "copy_ms", lambda: y.copy_(x), 50, "copy_")
         norm_rows.append(row)
     attn_rows = []
-    for i, (name, b, sq, skv, h, kv, d, causal, window, cap,
+    for i, (name, b, sq, skv, h, kv, dims, causal, window, cap,
             dtype) in enumerate(FLASH_CASES):
-        q, k, v = flash_inputs(b, sq, skv, h, kv, d, dtype, 50 + i, dev)
+        d, dv = head_dims(dims)
+        q, k, v = flash_inputs(b, sq, skv, h, kv, d, dtype, 50 + i, dev, dv)
         kw = dict(causal=causal, window=window, logit_softcap=cap)
         nbytes, qk_ops, pv_ops = flash_work(b, sq, skv, h, kv, d, causal,
-                                            window, q.element_size())
+                                            window, q.element_size(), dv)
         bf16 = dtype == "bfloat16"
         b_ms, b_by = flash_bound(nbytes, qk_ops, pv_ops, bf16)
         reps = 3 if sq * skv >= 2**24 else 20
         run = lambda: E.flash_attention_fwd(q, k, v, **kw)  # noqa: E731
-        plan = E.plan(b, sq, h, kv, d, q.dtype)
+        plan = E.plan(b, sq, h, kv, d, q.dtype, dv)
         row = {"name": name, "b": b, "sq": sq, "skv": skv, "h": h, "kv": kv,
-               "d": d, "causal": causal, "window": window, "softcap": cap,
+               "d": d, "dv": dv, "causal": causal, "window": window,
+               "softcap": cap,
                "dtype": dtype, "route": plan.route, "keys": plan.keys,
                "stages": plan.stages, "smem_bytes": plan.smem_bytes,
                "bytes": nbytes, "ops": qk_ops + pv_ops,
                "qk_ops": qk_ops, "pv_ops": pv_ops, "bf16": bf16,
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-               **flash_kernel_usage(usage, plan.route, d)}
+               **flash_kernel_usage(usage, plan.route, d, dv)}
         timed(row, "ms", run, reps, f"kernel E {name}")
         timed(row, "plain_ms", lambda: E.flash_attention_ref(q, k, v, **kw),
               reps, f"kernel E {name}, plain")
@@ -4524,10 +4909,21 @@ def lm_kernel_report(err: dict, dev) -> tuple:
             flex_library(row, qt, kt, vt, causal, window, cap, run(), reps)
         elif not cap and not window and (not causal or sq == skv):
             row["library"] = "scaled_dot_product_attention"
-            timed(row, "library_ms",
-                  lambda: F.scaled_dot_product_attention(
-                      qt, kt, vt, is_causal=causal, enable_gqa=True),
-                  reps, "F.scaled_dot_product_attention")
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=causal, scale=d ** -0.5,
+                enable_gqa=True)
+            timed(row, "library_ms", sdpa, reps,
+                  "F.scaled_dot_product_attention")
+            if d != dv:
+                # which of SDPA's backends takes q·k and v apart: the
+                # kernels its calls launch, where the trace holds them
+                # (some machines' traces lose every record of a short
+                # run; the name is a note, not a check)
+                try:
+                    row["library_kernels"] = sorted(device_busy(
+                        lambda: [sdpa() for _ in range(5)]))
+                except SmokeFailure as e:
+                    row["library_kernels"] = f"not read: {e}"
         attn_rows.append(row)
         del q, k, v, qt, kt, vt
 
@@ -4571,6 +4967,15 @@ def lm_kernel_report(err: dict, dev) -> tuple:
                            ("xlstm-350m", "xlstm forward"))}
     rows[1]["ssm_shape"] = {"jamba-v0.1-52b": shape_readings(
         next(r for r in attn_rows if r["name"] == "jamba"))}
+    # deepseek-v2's shapes (phase 9f): its q_norm and kv_norm on the
+    # 4096-token prompt; one MLA layer's attention, q·k 192 and v 128
+    rows[0]["mla_shape"] = {
+        what: shape_readings(next(r for r in norm_rows if r["what"] == what))
+        for what in ("deepseek q_norm", "deepseek kv_norm")}
+    mla_row = next(r for r in attn_rows if r["name"] == "deepseek mla")
+    rows[1]["mla_shape"] = dict(shape_readings(mla_row),
+                                library_kernels=mla_row.get(
+                                    "library_kernels"))
     # kernel E's bf16 route runs on the tensor cores (HMMA) with K/V
     # staged by cp.async (LDGSTS), read by ldmatrix (LDSM)
     sass = sass_opcodes(LIBRARY.path(), ("HMMA", "LDGSTS", "LDSM"))
@@ -4632,8 +5037,9 @@ def run(dev, grid_big, smi: str, lm_cfg, lm_seq: int = LM_SEQ,
     """Phases 2-11 on ``dev`` with ``grid_big`` as the stream's grid,
     ``lm_cfg`` run at ``lm_seq`` tokens as the LM, ``train.main(
     train_argv)`` as the training path, xlstm-350m and jamba at
-    SSM_JAMBA_LAYERS layers as the SSM path and arctic-480b at MOE_LAYERS
-    layers as the MoE path."""
+    SSM_JAMBA_LAYERS layers as the SSM path, arctic-480b at MOE_LAYERS
+    layers as the MoE path and deepseek-v2-236b at MLA_LAYERS layers as
+    the MLA path."""
     from repro_torch.core import stream as ST
     from repro_torch.core.grids import (ANCHOR_1M, ANCHOR_10M,
                                         REFERENCE_GRID, stream_grid_axes)
@@ -4689,6 +5095,9 @@ def run(dev, grid_big, smi: str, lm_cfg, lm_seq: int = LM_SEQ,
     ssm_launches, ssm = phase_ssm(dev, smi)
     # MoE after every other phase: its 55 GB of weights need the card
     moe_fwd, moe_step, moe = phase_moe(dev, smi)
+    # MLA last, after arctic's weights are freed: its 50 GB and the
+    # witness's float32 copies need the card
+    mla_fwd, mla_step, mla = phase_mla(dev, smi)
     for row in rows_de:
         key = row.pop("kernel")
         row["launches"] = lm_launches[key]
@@ -4699,6 +5108,8 @@ def run(dev, grid_big, smi: str, lm_cfg, lm_seq: int = LM_SEQ,
             for arch, runs in ssm_launches.items()}
         row["launches_moe"] = {"forward": moe_fwd[key],
                                "decode_step": moe_step[key]}
+        row["launches_mla"] = {"forward": mla_fwd[key],
+                               "decode_step": mla_step[key]}
     print(json.dumps({"stream": stats, "card": smi}))
     print(json.dumps({"stream_resilience": resilience, "card": smi}))
     print(json.dumps(shapes))
@@ -4708,6 +5119,7 @@ def run(dev, grid_big, smi: str, lm_cfg, lm_seq: int = LM_SEQ,
     print(json.dumps({"train": trained}))
     print(json.dumps({"ssm": ssm}))
     print(json.dumps({"moe": moe}))
+    print(json.dumps({"mla": mla}))
     print(json.dumps({"kernels": rows}))
 
 

@@ -5,7 +5,9 @@ wrapper.
 ``repro/kernels/flash_attention/kernel.py::_flash_fwd_kernel`` (through
 ``flash_attention_fwd``): GQA attention with a causal mask at absolute
 positions, an optional sliding window and an optional tanh logit
-softcap, online softmax with float32 statistics.  The kernels are CUDA
+softcap, online softmax with float32 statistics.  The head dim of q and
+k may differ from v's (MLA: q·k over 192, v 128), as the reference's
+``models/flash.py`` allows; the output takes v's.  The kernels are CUDA
 C++ (``csrc/flash_attention.cu``, whose note gives their design and what
 bounds them), built with ``nvcc`` for ``sm_90a`` at first use into
 ``build/`` and loaded with ``ctypes``: bf16 inputs take the tensor-core
@@ -41,9 +43,12 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 LIBRARY = Library("flash_attention", CSRC, "flash_attention.cu",
                   ("flash_attention.cu",), BASE_FLAGS)
 
-#: dtype codes of the C interface, and the head dims it is built for.
+#: dtype codes of the C interface, and the (q·k, v) head-dim pairs it is
+#: built for: equal dims (GQA), and MLA's (192, 128) for deepseek-v2 and
+#: (48, 32) for its reduced config.
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (256, 256), (192, 128),
+             (48, 32))
 #: route codes of the C interface.
 ROUTES = {"simt": 0, "mma": 1}
 
@@ -78,25 +83,28 @@ class Plan:
         return SMEM_PER_SM // (self.smem_bytes + SMEM_RESERVED)
 
 
-def plan(b: int, sq: int, h: int, kvh: int, d: int,
-         dtype: torch.dtype) -> Plan:
+def plan(b: int, sq: int, h: int, kvh: int, d: int, dtype: torch.dtype,
+         dv: int | None = None) -> Plan:
     """The route and tiling of kernel E for q (b, sq, h, d) on kvh kv
-    heads.  bf16 takes the tensor cores: 64-key tiles (32 at d 256, where
-    the f32 O accumulator takes half the registers), rows padded by 16
-    bytes, and as many stages (2 or 3) as leave room for two blocks an
-    SM.  float32 keeps the CUDA-core kernel's tiling."""
+    heads, v's head dim ``dv`` (``d`` by default).  bf16 takes the tensor
+    cores: 64-key tiles (32 at d 256, where the f32 O accumulator takes
+    half the registers), q and K rows of d and V rows of dv each padded
+    by 16 bytes, and as many stages (2 or 3) as leave room for two blocks
+    an SM.  float32 keeps the CUDA-core kernel's tiling (q and K of d, V
+    of dv, staged as float32)."""
+    dv = d if dv is None else dv
     if dtype not in DTYPES:
         raise TypeError(f"dtype {dtype}: expected float32 or bfloat16")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d}: the kernel is built for "
-                         f"{HEAD_DIMS}")
+    if (d, dv) not in HEAD_DIMS:
+        raise ValueError(f"head dims (q·k, v) = ({d}, {dv}): the kernel is "
+                         f"built for {HEAD_DIMS}")
     grid = (-(-sq * (h // kvh) // ROWS), kvh, b)
     if dtype == torch.float32:
-        smem = 4 * (ROWS * d + 32 * (d + 4) + 32 * d)
+        smem = 4 * (ROWS * d + 32 * (d + 4) + 32 * dv)
         return Plan("simt", ROWS, 32, 1, smem, grid)
     keys = 32 if d == 256 else 64
-    row_bytes = 2 * (d + 8)
-    q_bytes, stage_bytes = ROWS * row_bytes, 2 * keys * row_bytes
+    qk_row, v_row = 2 * (d + 8), 2 * (dv + 8)
+    q_bytes, stage_bytes = ROWS * qk_row, keys * (qk_row + v_row)
     room = SMEM_PER_SM // 2 - SMEM_RESERVED - q_bytes
     stages = max(2, min(3, room // stage_bytes))
     return Plan("mma", ROWS, keys, stages, q_bytes + stages * stage_bytes,
@@ -107,7 +115,7 @@ def plan(b: int, sq: int, h: int, kvh: int, d: int,
 def _lib():
     lib = LIBRARY.load()
     lib.flash_attention_launch.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
         + [ctypes.c_float, ctypes.c_float]
         + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 2
         + [ctypes.c_int, ctypes.c_void_p])
@@ -132,9 +140,10 @@ def _check(q, k, v) -> None:
     if q.dtype not in DTYPES:
         raise TypeError(f"dtype {q.dtype}: expected float32 or bfloat16")
     b, sq, h, d = q.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} must "
-                         f"be (B, Skv, KV, D) with q {tuple(q.shape)}")
+                         f"be (B, Skv, KV, D) and (B, Skv, KV, Dv) with q "
+                         f"{tuple(q.shape)}")
     if h % k.shape[2]:
         raise ValueError(f"{h} q heads are not a multiple of "
                          f"{k.shape[2]} kv heads")
@@ -145,13 +154,15 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         logit_softcap: float = 0.0,
                         scale: float | None = None,
                         return_stats: bool = False):
-    """q: (B, Sq, H, D); k/v: (B, Skv, KV, D), one dtype (float32 or
-    bfloat16), contiguous, on one device.  Returns (B, Sq, H, D) in q's
-    dtype, and with ``return_stats`` ``(out, m, l)``, the float32 softmax
-    statistics of each row, (B, Sq, KV, g).  ``window`` 0 and
-    ``logit_softcap`` 0 turn those off."""
+    """q: (B, Sq, H, D); k: (B, Skv, KV, D); v: (B, Skv, KV, Dv), one
+    dtype (float32 or bfloat16), contiguous, on one device.  Returns (B,
+    Sq, H, Dv) in q's dtype, and with ``return_stats`` ``(out, m, l)``,
+    the float32 softmax statistics of each row, (B, Sq, KV, g).
+    ``window`` 0 and ``logit_softcap`` 0 turn those off.  The scale
+    defaults to D^-0.5."""
     _check(q, k, v)
     b, sq, h, d = q.shape
+    dv = v.shape[3]
     skv, kvh = k.shape[1], k.shape[2]
     scale = float(scale if scale is not None else d ** -0.5)
     dev = q.device
@@ -162,8 +173,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"flash_attention_fwd runs on cuda or cpu, not "
                          f"{dev}")
-    p = plan(b, sq, h, kvh, d, q.dtype)
-    out = torch.empty_like(q)
+    p = plan(b, sq, h, kvh, d, q.dtype, dv)
+    out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=dev)
     m = l = None
     if return_stats:
         m = torch.empty((b, sq, kvh, h // kvh), dtype=torch.float32,
@@ -175,7 +186,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             m.data_ptr() if return_stats else None,
             l.data_ptr() if return_stats else None,
-            b, sq, skv, h, kvh, d, int(bool(causal)), int(window),
+            b, sq, skv, h, kvh, d, dv, int(bool(causal)), int(window),
             float(logit_softcap), scale, DTYPES[q.dtype], ROUTES[p.route],
             p.keys, p.stages, p.smem_bytes, p.grid[0],
             dev.index if dev.index is not None else 0, stream)

@@ -14,8 +14,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     logit_softcap: float = 0.0, block_q: int = 256,
                     block_kv: int = 512,
                     scale: float | None = None) -> torch.Tensor:
-    """Fused attention, q (B, Sq, H, D) and k/v (B, Skv, KV, D); the
-    reference's arguments but ``interpret``, which has no meaning here.
+    """Fused attention, q (B, Sq, H, D), k (B, Skv, KV, D) and v (B, Skv,
+    KV, Dv), out (B, Sq, H, Dv); the reference's arguments but
+    ``interpret``, which has no meaning here.
     ``block_q`` and ``block_kv`` must tile the sequences, as the
     reference requires; kernel E chooses its own tiles
     (:func:`.kernel.plan`), so they change nothing else."""

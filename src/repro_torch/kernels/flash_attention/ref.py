@@ -31,8 +31,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         logit_softcap: float = 0.0,
                         scale: float | None = None,
                         return_stats: bool = False):
-    """q: (B, Sq, H, D); k/v: (B, Skv, KV, D).  Full softmax attention in
-    float32, returned in q's dtype.  The scale multiplies the product.
+    """q: (B, Sq, H, D); k: (B, Skv, KV, D); v: (B, Skv, KV, Dv).  Full
+    softmax attention in float32, returned (B, Sq, H, Dv) in q's dtype.  The scale multiplies the product.
     With ``return_stats`` also each row's float32 softmax statistics,
     (B, Sq, KV, g): ``m`` the largest visible score (NEG_INF where none
     is visible) and ``l`` the sum of ``exp(s - m)`` over the visible
@@ -50,7 +50,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = s.masked_fill(~mask[None, :, None, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bqkgt,btkd->bqkgd", p, v.float())
-    out = o.reshape(b, sq, h, d).to(q.dtype)
+    out = o.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
     if not return_stats:
         return out
     m = s.amax(dim=-1)

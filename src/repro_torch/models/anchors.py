@@ -10,11 +10,11 @@ unstacked), so the same arrays feed ``repro.models.transformer`` and,
 through :func:`repro_torch.models.transformer.params_from_jax`, the
 port.  ``LM_ANCHORS`` holds what the JAX reference computed from them on
 the CPU for the reduced float32 gemma2-2b, qwen2-0.5b, arctic-480b,
-xlstm-350m and jamba-v0.1-52b: full-forward logits at fixed positions
-and greedy tokens after a prefill, and for arctic and jamba the
-forward's MoE routes (``tests/test_torch_transformer.py`` and, for
-the SSM archs, ``tests/test_torch_ssm_models.py`` recompute them with
-JAX);
+xlstm-350m, jamba-v0.1-52b and deepseek-v2-236b: full-forward logits at
+fixed positions and greedy tokens after a prefill, and for the MoE archs
+the forward's routes (``tests/test_torch_transformer.py`` and, for the
+SSM archs, ``tests/test_torch_ssm_models.py``, for deepseek-v2
+``tests/test_torch_mla_models.py`` recompute them with JAX);
 :func:`record_routes` and :func:`routes_digest` read and condense the
 port's routes.  ``TRAIN_ANCHORS`` holds the reference's training run
 from the same weights: each step's loss and global gradient norm, and
@@ -46,10 +46,11 @@ ANCHOR_VOCAB = 16
 
 
 def jax_layout_params(cfg: ModelConfig, seed: int = WEIGHT_SEED) -> dict:
-    """float32 weights of ``cfg`` (GQA, Mamba, mLSTM and sLSTM blocks;
-    dense or MoE FFNs; a dense prologue) in the reference's layout:
-    matrices as normals at the reference's fan-in scales, and (unlike
-    its init) norm scales and GQA biases drawn at 0.1, and every other
+    """float32 weights of ``cfg`` (GQA, MLA, Mamba, mLSTM and sLSTM
+    blocks; dense or MoE FFNs; a dense prologue) in the reference's
+    layout: matrices as normals at the reference's fan-in scales, and
+    (unlike its init) norm scales (MLA's ``q_norm`` and ``kv_norm``
+    among them) and GQA biases drawn at 0.1, and every other
     leaf of an SSM block as the reference's init value plus a
     0.1-scaled normal (``A_log`` = log(1..N), ``dt_bias`` = log(e - 1),
     ``D`` = 1, ``b_fg`` = 3, the sLSTM ``b_f`` = 1, the rest 0), so that
@@ -103,6 +104,27 @@ def jax_layout_params(cfg: ModelConfig, seed: int = WEIGHT_SEED) -> dict:
                          b_v=normal(lead + (kvh, hd), 0.1))
         return mixer
 
+    def mla(lead):
+        """MLA's leaves in the reference's ``mla_init`` layout: the q LoRA
+        (``w_dq``, ``q_norm``, ``w_uq``) or ``w_q``, then ``w_dkv``,
+        ``kv_norm``, ``w_kr``, ``w_uk``, ``w_uv``, ``w_o``."""
+        nope, rope, r = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.kv_lora_rank
+        vd, ql = cfg.v_head_dim, cfg.q_lora_rank
+        mixer = {}
+        if ql:
+            mixer.update(w_dq=normal(lead + (d, ql), d ** -0.5),
+                         q_norm={"scale": near(lead + (ql,), 0.0)},
+                         w_uq=normal(lead + (ql, h, nope + rope), ql ** -0.5))
+        else:
+            mixer["w_q"] = normal(lead + (d, h, nope + rope), d ** -0.5)
+        mixer.update(w_dkv=normal(lead + (d, r), d ** -0.5),
+                     kv_norm={"scale": near(lead + (r,), 0.0)},
+                     w_kr=normal(lead + (d, rope), d ** -0.5),
+                     w_uk=normal(lead + (r, h, nope), r ** -0.5),
+                     w_uv=normal(lead + (r, h, vd), r ** -0.5),
+                     w_o=normal(lead + (h, vd, d), (h * vd) ** -0.5))
+        return mixer
+
     def mamba(lead):
         di, n, w = cfg.ssm_expand * d, cfg.ssm_state_dim, cfg.ssm_conv_width
         r = max(1, d // 16)
@@ -143,7 +165,10 @@ def jax_layout_params(cfg: ModelConfig, seed: int = WEIGHT_SEED) -> dict:
     def block(lead, kind, use_moe):
         """One block's leaves, each with ``lead`` ((R,) stacked, () not)
         in front."""
-        mixer = gqa(lead) if kind.startswith("attn") else mixers[kind](lead)
+        if kind.startswith("attn"):
+            mixer = mla(lead) if cfg.attention_kind == "mla" else gqa(lead)
+        else:
+            mixer = mixers[kind](lead)
         p = {"norm1": {"scale": normal(lead + (d,), 0.1)}, "mixer": mixer}
         has_ffn = use_moe or (cfg.d_ff > 0
                               and kind not in ("mlstm", "slstm"))
@@ -503,6 +528,73 @@ LM_ANCHORS: dict = {
         "routes": {"top_e_crc32": 16891054, "keep_crc32": 892294608,
                    "dropped": (35, 89, 109, 64, 101, 42, 88, 16)},
         "min_router_gap": 4.112720489501953e-06,
+    },
+    "deepseek-v2-236b": {
+        "logits": (
+            (
+                -0.3950040638446808, 1.1350476741790771,
+                2.1169626712799072, -0.9651669859886169,
+                0.5834409594535828, 0.3983478248119354,
+                -0.5033479332923889, 0.23734165728092194,
+                -1.2856565713882446, 0.38134655356407166,
+                -0.370696097612381, 0.8459689021110535,
+                1.1383801698684692, -0.16742776334285736,
+                1.3502346277236938, 0.6351705193519592,
+            ),
+            (
+                -0.3429378867149353, 0.9101924896240234,
+                0.3028276562690735, -1.3171409368515015,
+                0.7485150098800659, -0.1477939784526825,
+                0.5914686918258667, -2.065798759460449,
+                -0.1917155385017395, 2.589674472808838,
+                0.4415253698825836, 0.37682977318763733,
+                -0.6291587352752686, 1.4025681018829346,
+                -0.37333571910858154, -0.05068036913871765,
+            ),
+            (
+                -0.3452988862991333, -0.6765566468238831,
+                1.1533218622207642, 0.7452966570854187,
+                0.4904203414916992, -0.12983685731887817,
+                0.8185197114944458, 1.39131760597229,
+                1.5537831783294678, 2.2711963653564453,
+                0.22312067449092865, -0.14303156733512878,
+                0.5056459307670593, -0.3779924511909485,
+                0.638672411441803, -0.7307015657424927,
+            ),
+            (
+                0.660905122756958, -1.3793748617172241,
+                -0.33405736088752747, -0.6575854420661926,
+                -1.1169949769973755, 0.8553796410560608,
+                0.8290801644325256, 1.4292010068893433,
+                -1.759846568107605, 2.189646005630493,
+                -1.7327101230621338, -0.6757285594940186,
+                -1.071197509765625, 1.2562236785888672,
+                0.26948875188827515, -0.9197391867637634,
+            ),
+            (
+                0.017713163048028946, -0.48298826813697815,
+                -0.46185746788978577, -0.06574515253305435,
+                -0.6934379935264587, 1.0401278734207153,
+                -0.9511673450469971, -1.266342282295227,
+                -0.5081443190574646, -0.7629849910736084,
+                -0.5705536603927612, -1.4625812768936157,
+                -0.8173599243164062, -0.6885048747062683,
+                -0.29457440972328186, -1.4061061143875122,
+            ),
+        ),
+        "row_sums": (
+            -9.030687343445607, 26.525001682690345,
+            -5.961330897989683, -13.271974252536893,
+            -16.86681791394949,
+        ),
+        "greedy": (
+            (38, 226, 419, 448, 50, 448, 7, 489),
+            (495, 373, 419, 107, 189, 280, 336, 302),
+        ),
+        "min_top2_gap": 0.008789539337158203,
+        "routes": {"top_e_crc32": 3946592666, "keep_crc32": 3818974591,
+                   "dropped": (107, 158)},
+        "min_router_gap": 2.483278512954712e-05,
     },
 }
 

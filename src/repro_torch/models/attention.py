@@ -1,5 +1,6 @@
-"""Attention of the port's LM: the GQA half of the reference's
-``repro/models/attention.py`` (RoPE, sliding windows, logit softcap).
+"""Attention of the port's LM: the reference's
+``repro/models/attention.py``, GQA (RoPE, sliding windows, logit
+softcap) and MLA (DeepSeek-V2's multi-head latent attention).
 
 Two paths, as in the reference:
 
@@ -14,9 +15,20 @@ Two paths, as in the reference:
   takes a full softmax, as the reference computes it outside any Pallas
   kernel.
 
+MLA (:func:`mla_forward`, :func:`mla_decode`) projects q through a
+low-rank ``w_dq`` / ``q_norm`` / ``w_uq`` (or one ``w_q``), and k and v
+from a compressed latent ``c_kv`` (``w_dkv`` then ``kv_norm``) beside
+one rope key ``k_pe`` shared by every head.  Its prompt attention is the
+same :func:`repro_torch.models.flash.flash_attention` (kernel E on the
+card) with q·k over ``qk_nope + qk_rope`` and v over ``v_head_dim``;
+its norms are :func:`.layers.rmsnorm` (kernel D on the card).  The
+decode cache (:class:`MLACache`) holds ``c_kv`` and ``k_pe`` only; a
+step either expands them into k and v for the whole cache (naive) or
+folds ``w_uk`` into q and attends in the latent space (absorbed), with
+the reference's casts at each point.
+
 Weights keep the reference's einsum layouts (``w_q`` (d, H, Dh),
-``w_o`` (H, Dh, d)); attention tensors are (B, S, H, Dh).  MLA
-(DeepSeek-V2) comes with a later slice.
+``w_o`` (H, Dh, d)); attention tensors are (B, S, H, Dh).
 """
 
 from __future__ import annotations
@@ -28,7 +40,7 @@ import torch
 from repro_torch.kernels.flash_attention.ref import NEG_INF, flash_attention_ref
 
 from .common import ModelConfig
-from .layers import apply_mrope, apply_rope, normal
+from .layers import apply_mrope, apply_rope, normal, rmsnorm
 
 
 def _block_pairs(n_q: int, n_kv: int, q_block: int, kv_block: int,
@@ -264,21 +276,146 @@ def gqa_decode(cfg: ModelConfig, params: dict, x: torch.Tensor,
 # MLA block (DeepSeek-V2)
 # ---------------------------------------------------------------------------
 
-_MLA = ("MLA attention (deepseek-v2) comes with the MLA slice of the LM "
-        "port (ROADMAP Queue 1 item 12d)")
+
+def mla_init(cfg: ModelConfig, dtype, generator, device) -> dict:
+    """MLA weights with the reference's fan-in scales: with a q LoRA
+    ``w_dq`` (d, q_lora), ``q_norm`` and ``w_uq`` (q_lora, H, nope +
+    rope), else ``w_q`` (d, H, nope + rope); ``w_dkv`` (d, kv_lora),
+    ``kv_norm``, ``w_kr`` (d, rope), ``w_uk`` (kv_lora, H, nope), ``w_uv``
+    (kv_lora, H, v) and ``w_o`` (H, v, d).  The norm scales are float32
+    zeros, as every norm's."""
+    d, h = cfg.d_model, cfg.num_heads
+    qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+    r = cfg.kv_lora_rank
+    s = d ** -0.5
+    p: dict = {}
+    if cfg.q_lora_rank:
+        ql = cfg.q_lora_rank
+        p["w_dq"] = normal((d, ql), s, dtype, generator, device)
+        p["q_norm"] = {"scale": torch.zeros((ql,), dtype=torch.float32,
+                                            device=device)}
+        p["w_uq"] = normal((ql, h, qk), ql ** -0.5, dtype, generator, device)
+    else:
+        p["w_q"] = normal((d, h, qk), s, dtype, generator, device)
+    p["w_dkv"] = normal((d, r), s, dtype, generator, device)
+    p["kv_norm"] = {"scale": torch.zeros((r,), dtype=torch.float32,
+                                         device=device)}
+    p["w_kr"] = normal((d, cfg.qk_rope_dim), s, dtype, generator, device)
+    p["w_uk"] = normal((r, h, cfg.qk_nope_dim), r ** -0.5, dtype, generator,
+                       device)
+    p["w_uv"] = normal((r, h, cfg.v_head_dim), r ** -0.5, dtype, generator,
+                       device)
+    p["w_o"] = normal((h, cfg.v_head_dim, d), (h * cfg.v_head_dim) ** -0.5,
+                      dtype, generator, device)
+    return p
 
 
-def mla_init(*args, **kwargs):
-    raise NotImplementedError(_MLA)
+def _mla_q(cfg: ModelConfig, params: dict, x: torch.Tensor,
+           positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (q_nope (B,S,H,nope), q_rope (B,S,H,rope)): through the q
+    LoRA (``x @ w_dq``, ``q_norm``, ``w_uq``) where the config has one,
+    each product in the compute dtype."""
+    if cfg.q_lora_rank:
+        cq = rmsnorm(params["q_norm"], x @ params["w_dq"], cfg.norm_eps)
+        q = _project(cq, params["w_uq"])
+    else:
+        q = _project(x, params["w_q"])
+    q_nope = q[..., :cfg.qk_nope_dim]
+    q_rope = apply_rope(q[..., cfg.qk_nope_dim:], positions, cfg.rope_theta)
+    return q_nope, q_rope
 
 
-def mla_forward(*args, **kwargs):
-    raise NotImplementedError(_MLA)
+def _mla_kv(cfg: ModelConfig, params: dict, x: torch.Tensor,
+            positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The compressed latent ``c_kv`` (B, S, kv_lora) after ``kv_norm``
+    and the rope key ``k_pe`` (B, S, 1, rope) of each position."""
+    c_kv = rmsnorm(params["kv_norm"], x @ params["w_dkv"], cfg.norm_eps)
+    k_pe = apply_rope((x @ params["w_kr"])[:, :, None, :], positions,
+                      cfg.rope_theta)
+    return c_kv, k_pe
 
 
-def mla_init_cache(*args, **kwargs):
-    raise NotImplementedError(_MLA)
+def mla_forward(cfg: ModelConfig, params: dict, x: torch.Tensor,
+                positions: torch.Tensor, *, q_block: int = 512,
+                kv_block: int = 512) -> torch.Tensor:
+    """Full-sequence MLA (prompt / training): expand the latents into k
+    (``k_nope`` beside the shared ``k_pe``, broadcast to every head) and
+    v, then attend: kernel E on the card, q·k over nope + rope, v over
+    ``v_head_dim``, scale (nope + rope)^-0.5.  The attention-kind keys of
+    GQA (kv heads, softcap, window, biases) do not apply."""
+    from .flash import flash_attention  # local import, as the reference's
+    q_nope, q_rope = _mla_q(cfg, params, x, positions)
+    c_kv, k_pe = _mla_kv(cfg, params, x, positions)
+    k_nope = _project(c_kv, params["w_uk"])
+    v = _project(c_kv, params["w_uv"])
+    b, s, h = q_nope.shape[:3]
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_pe.expand(b, s, h, cfg.qk_rope_dim)], dim=-1)
+    o = flash_attention(q, k, v, causal=True, q_block=q_block,
+                        kv_block=kv_block,
+                        scale=(cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5,
+                        p_bf16=cfg.attn_p_bf16)
+    return _out(o, params["w_o"])
 
 
-def mla_decode(*args, **kwargs):
-    raise NotImplementedError(_MLA)
+class MLACache(NamedTuple):
+    c_kv: torch.Tensor    # (B, S_max, kv_lora)
+    k_pe: torch.Tensor    # (B, S_max, rope_dim)
+
+
+def mla_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                   device) -> MLACache:
+    return MLACache(
+        c_kv=torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype,
+                         device=device),
+        k_pe=torch.zeros((batch, max_len, cfg.qk_rope_dim), dtype=dtype,
+                         device=device))
+
+
+def mla_decode(cfg: ModelConfig, params: dict, x: torch.Tensor,
+               cache: MLACache, pos: int, *,
+               absorb: bool = False) -> tuple[torch.Tensor, MLACache]:
+    """One-token MLA decode.  x: (B, 1, d); ``pos`` the cache index to
+    write.  The token's ``c_kv`` and ``k_pe`` are cast into the cache's
+    dtype and written into ``cache`` in place (the reference returns a
+    new cache), which is returned.
+
+    ``absorb=False`` — naive: expand k_nope and v (compute dtype) for the
+    whole cache every step, scores and p@v in float32.
+    ``absorb=True``  — absorbed: fold ``w_uk`` into q (compute dtype) and
+    attend in the latent space in float32; the latent context is cast to
+    the compute dtype before ``w_uv``, as the reference does.
+    Both mask with ``kpos <= pos`` over the whole cache and take a full
+    softmax."""
+    b = x.shape[0]
+    pos_b = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_rope = _mla_q(cfg, params, x, pos_b)
+    c_new, kpe_new = _mla_kv(cfg, params, x, pos_b)
+    cache.c_kv[:, pos:pos + 1] = c_new.to(cache.c_kv.dtype)
+    cache.k_pe[:, pos:pos + 1] = kpe_new[:, :, 0, :].to(cache.k_pe.dtype)
+    c_kv, k_pe = cache
+    s_max = c_kv.shape[1]
+    scale = (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+    valid = torch.arange(s_max, device=x.device) <= pos
+    k_pe32 = k_pe.float()
+    if absorb:
+        # q' = q_nope @ w_uk  -> latent space: (B, 1, H, kv_lora)
+        q_lat = torch.einsum("bshn,rhn->bshr", q_nope, params["w_uk"])
+        c32 = c_kv.float()
+        s = (torch.einsum("bshr,btr->bhst", q_lat.float(), c32)
+             + torch.einsum("bshr,btr->bhst", q_rope.float(), k_pe32)) \
+            * scale
+        s = s.masked_fill(~valid, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        ctx = torch.einsum("bhst,btr->bshr", p, c32)     # latent context
+        o = torch.einsum("bshr,rhk->bshk", ctx.to(x.dtype), params["w_uv"])
+    else:
+        k_nope = _project(c_kv, params["w_uk"])          # (B, S_max, H, n)
+        v = _project(c_kv, params["w_uv"])               # (B, S_max, H, v)
+        s = (torch.einsum("bshn,bthn->bhst", q_nope.float(), k_nope.float())
+             + torch.einsum("bshn,btn->bhst", q_rope.float(), k_pe32)) \
+            * scale
+        s = s.masked_fill(~valid, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhst,bthk->bshk", p, v.float()).to(x.dtype)
+    return _out(o, params["w_o"]), cache

@@ -1,6 +1,6 @@
-"""Transformer assembly of the port's LM: stacks of GQA, Mamba, mLSTM
-and sLSTM blocks with dense or MoE FFNs and the dense prologue (the
-reference's ``repro/models/transformer.py``).
+"""Transformer assembly of the port's LM: stacks of GQA or MLA
+attention, Mamba, mLSTM and sLSTM blocks with dense or MoE FFNs and the
+dense prologue (the reference's ``repro/models/transformer.py``).
 
 The reference runs ``first_k_dense`` unscanned prologue layers
 (``params["pre_{i}"]``), then scans (``lax.scan``) over ``R`` repeats of
@@ -20,15 +20,17 @@ Public API:
     loss_fn(cfg, params, batch, remat)      -> scalar loss (chunked xent
                                                + the MoE aux loss)
     init_cache(cfg, batch, max_len, dtype, device) -> decode cache
-    decode_step(cfg, params, cache, batch, pos) -> (logits, cache)
+    decode_step(cfg, params, cache, batch, pos, mla_absorb)
+                                            -> (logits, cache)
 
-On the card every norm runs kernel D and every full-sequence attention
-kernel E, in training too (their autograd Functions' backwards are torch
-ops); decode attention, the MoE block (:mod:`.moe`) and the SSM blocks
-(:mod:`.ssm`) are plain tensor code, as in the reference.  Without RoPE
-(``use_rope=False``, Jamba) sinusoidal positions are added to the
-embeddings.  MLA blocks, sequence parallelism and frontend embeddings
-come with later slices and raise ``NotImplementedError``.
+On the card every norm runs kernel D (MLA's ``q_norm`` and ``kv_norm``
+too) and every full-sequence attention kernel E, in training too (their
+autograd Functions' backwards are torch ops); decode attention (GQA's
+and MLA's, naive or absorbed), the MoE block (:mod:`.moe`) and the SSM
+blocks (:mod:`.ssm`) are plain tensor code, as in the reference.
+Without RoPE (``use_rope=False``, Jamba) sinusoidal positions are added
+to the embeddings.  Sequence parallelism and frontend embeddings come
+with later slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -51,7 +53,6 @@ from .layers import (compute_dtype, dense_ffn, dense_ffn_init, embed,
 
 #: What later slices bring: (message, ROADMAP Queue 1 item).
 _LATER = {
-    "mla": ("MLA attention comes with the MLA slice of the LM port", "12d"),
     "seq_parallel": ("sequence parallelism comes with the sharding slice "
                      "of the LM port", "12g"),
     "embeds": ("frontend embeddings (modality stubs) come with the "
@@ -68,8 +69,6 @@ def _later(what: str):
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what this slice does not run."""
-    if cfg.attention_kind == "mla":
-        raise _later("mla")
     if cfg.seq_parallel:
         raise _later("seq_parallel")
     if cfg.frontend_stub:
@@ -100,7 +99,9 @@ def _block_init(cfg: ModelConfig, kind: str, use_moe: bool, dtype,
     d = cfg.d_model
     p: dict = {"norm1": rmsnorm_init(d, device)}
     if kind.startswith("attn"):
-        p["mixer"] = attn.gqa_init(cfg, dtype, generator, device)
+        p["mixer"] = (attn.mla_init(cfg, dtype, generator, device)
+                      if cfg.attention_kind == "mla"
+                      else attn.gqa_init(cfg, dtype, generator, device))
     elif kind == "mamba":
         p["mixer"] = ssm.mamba_init(cfg, dtype, generator, device)
     elif kind == "mlstm":
@@ -148,6 +149,8 @@ def _ffn_half(cfg: ModelConfig, use_moe: bool, params: dict,
 def _mixer_forward(cfg: ModelConfig, kind: str, params: dict,
                    x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
     if kind.startswith("attn"):
+        if cfg.attention_kind == "mla":
+            return attn.mla_forward(cfg, params, x, positions)
         return attn.gqa_forward(cfg, params, x, positions,
                                 window=_window(cfg, kind))
     if kind == "mamba":
@@ -172,9 +175,12 @@ def _block_forward(cfg: ModelConfig, kind: str, use_moe: bool,
 
 def _block_init_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                       dtype, device):
-    """A layer's decode state: a KV cache for attention, the O(1) state
-    of an SSM block."""
+    """A layer's decode state: a KV cache for GQA, the compressed
+    ``c_kv`` and ``k_pe`` cache for MLA, the O(1) state of an SSM
+    block."""
     if kind.startswith("attn"):
+        if cfg.attention_kind == "mla":
+            return attn.mla_init_cache(cfg, batch, max_len, dtype, device)
         return attn.gqa_init_cache(cfg, batch, max_len, dtype, device)
     if kind == "mamba":
         return ssm.mamba_init_state(cfg, batch, dtype, device)
@@ -186,13 +192,20 @@ def _block_init_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 
 
 def _block_decode(cfg: ModelConfig, kind: str, use_moe: bool, params: dict,
-                  x: torch.Tensor, cache, pos: int) -> tuple:
-    """Returns (x, the layer's cache): a KV cache written in place, or
-    an SSM block's new state."""
+                  x: torch.Tensor, cache, pos: int,
+                  mla_absorb: bool) -> tuple:
+    """Returns (x, the layer's cache): a KV or MLA cache written in
+    place, or an SSM block's new state.  ``mla_absorb`` picks MLA's
+    absorbed step (GQA and the SSM blocks ignore it, as in the
+    reference)."""
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
     if kind.startswith("attn"):
-        h, cache = attn.gqa_decode(cfg, params["mixer"], h, cache, pos,
-                                   window=_window(cfg, kind))
+        if cfg.attention_kind == "mla":
+            h, cache = attn.mla_decode(cfg, params["mixer"], h, cache, pos,
+                                       absorb=mla_absorb)
+        else:
+            h, cache = attn.gqa_decode(cfg, params["mixer"], h, cache, pos,
+                                       window=_window(cfg, kind))
     elif kind == "mamba":
         h, cache = ssm.mamba_decode(cfg, params["mixer"], h, cache)
     elif kind == "mlstm":
@@ -305,8 +318,9 @@ def params_from_jax(cfg: ModelConfig, params: dict) -> dict:
     first_k_dense``; ``params["blocks"]`` is a tuple over the P pattern
     positions, each stacked along a leading repeat axis R, and layer
     ``first_k_dense + j`` is repeat ``j // P`` at position ``j % P``.
-    Dtypes are kept (norm scales, the MoE router and the SSM blocks'
-    gate, decay and skip leaves stay float32 in a bf16 model)."""
+    Dtypes are kept (norm scales, MLA's ``q_norm`` and ``kv_norm`` among
+    them, the MoE router and the SSM blocks' gate, decay and skip leaves
+    stay float32 in a bf16 model)."""
     check_supported(cfg)
     blocks = params["blocks"]
     pat, r = len(cfg.block_pattern), cfg.num_pattern_repeats
@@ -457,8 +471,9 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: Batch,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device="cuda") -> dict:
     """One decode state a layer (the prologue's ``pre_{i}`` first): a KV
-    cache (zeros, in the compute dtype by default) for attention, a
-    ``MambaState``, ``MLSTMState`` or ``SLSTMState`` for an SSM block."""
+    cache (zeros, in the compute dtype by default) for GQA, an
+    ``MLACache`` for MLA, a ``MambaState``, ``MLSTMState`` or
+    ``SLSTMState`` for an SSM block."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = dtype or compute_dtype(cfg)
@@ -473,9 +488,11 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: Batch,
     """One-token step. batch.tokens: (B, 1).
 
     ``pos`` is the cache position to write (== number of tokens already in
-    the cache).  Returns (logits (B, 1, V), cache): KV caches are updated
-    in place, an SSM layer's entry replaced by its new state.  Without
-    RoPE and without ``batch.positions`` the token sits at ``pos``.
+    the cache).  Returns (logits (B, 1, V), cache): KV and MLA caches are
+    updated in place, an SSM layer's entry replaced by its new state.
+    Without RoPE and without ``batch.positions`` the token sits at
+    ``pos``.  ``mla_absorb`` reaches every MLA layer, the prologue's
+    included: the absorbed step instead of the naive one.
     """
     check_supported(cfg)
     pos = int(pos)
@@ -488,6 +505,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: Batch,
                                          layer_moe_flags(cfg))):
         x, cache["layers"][i] = _block_decode(cfg, cfg.layer_kind(i),
                                               use_moe, p, x,
-                                              cache["layers"][i], pos)
+                                              cache["layers"][i], pos,
+                                              mla_absorb)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return _logits(cfg, params, x), cache

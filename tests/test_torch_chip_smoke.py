@@ -152,10 +152,13 @@ def test_plain_kernels_fails_if_a_kernel_launches_inside(kernel):
 
 
 
-MMA256 = ("_ZN12_GLOBAL__N_13mma16flash_fwd_kernelILi256EEEvPK13__nv_"
+# kernel E's instances as ptxas names them: templates on the (q·k, v)
+# head-dim pair
+MMA256 = ("_ZN12_GLOBAL__N_13mma16flash_fwd_kernelILi256ELi256EEEvPK13__nv_"
           "bfloat16S4_S4_PS2_iiiiiiff")
-SIMT256 = ("_ZN12_GLOBAL__N_116flash_fwd_kernelIfLi256EEEvPKT_S3_S3_PS1_"
-           "iiiiiiff")
+SIMT256 = ("_ZN12_GLOBAL__N_116flash_fwd_kernelIfLi256ELi256EEEvPKT_S3_S3_"
+           "PS1_iiiiiiff")
+MMA192 = MMA256.replace("ILi256ELi256EE", "ILi192ELi128EE")
 PTXAS = f"""\
 ptxas info    : Compiling entry function '{MMA256}' for 'sm_90a'
 ptxas info    : Function properties for {MMA256}
@@ -167,6 +170,10 @@ ptxas info    : Compiling entry function '{SIMT256}' for 'sm_90a'
 ptxas info    : Function properties for {SIMT256}
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 178 registers, used 1 barriers
+ptxas info    : Compiling entry function '{MMA192}' for 'sm_90a'
+ptxas info    : Function properties for {MMA192}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 249 registers, used 1 barriers
 """
 
 
@@ -180,6 +187,10 @@ def test_ptxas_report_gives_each_route_its_registers_and_spills():
         "spill_loads": 0}
     with pytest.raises(CS.SmokeFailure, match="0 kernels"):
         CS.flash_kernel_usage(usage, "mma", 128)
+    # the pair: (192, 128) is its own instance, not (256, 256)'s
+    assert CS.flash_kernel_usage(usage, "mma", 192, 128)["registers"] == 249
+    with pytest.raises(CS.SmokeFailure, match="0 kernels"):
+        CS.flash_kernel_usage(usage, "mma", 192)
 
 
 def test_misaligned_rmsnorm_case_takes_the_strided_route():
@@ -987,6 +998,7 @@ def test_ssm_anchors_fail_on_a_wrong_route_digest(monkeypatch, one_thread):
     ("arctic-480b", dict(ZERO, D=5, E=2)),
     ("xlstm-350m", dict(ZERO, D=5)),
     ("jamba-v0.1-52b", dict(ZERO, D=33, E=2)),
+    ("deepseek-v2-236b", dict(ZERO, D=13, E=3)),
 ])
 def test_lm_launches_count_the_norms_and_attention_layers(arch, want):
     from repro_torch.configs import get_reduced_config
@@ -1097,3 +1109,151 @@ def test_scan_ranges_wrap_the_scans_and_restore():
                               torch.zeros(1, 4, 3), x, x)
         assert out.shape == (1, 4, 2)
     assert all(getattr(ssm, n) is saved[n] for n in CS.SCANS)
+
+
+# ---------------------------------------------------------------------------
+# Phase 9f: MLA serving (deepseek-v2-236b)
+# ---------------------------------------------------------------------------
+
+#: The rehearsal's serve run (batch, prompt, generated) and the absorbed
+#: step's cache length.
+MLA_SERVE, MLA_CTX = (2, 8, 4), 64
+#: The reduced deepseek-v2's launches: norm1, norm2, q_norm and kv_norm in
+#: each of 3 layers and the final norm; E once a layer.
+MLA_FWD = dict(ZERO, D=13, E=3)
+
+
+def _mla_phase(monkeypatch, fwd=MLA_FWD, step=dict(ZERO, D=13)):
+    """Phase 9f at the reduced bf16 deepseek-v2 (the dense prologue and 2
+    MoE layers of 8 experts), a 64-token prompt; ``read_counts`` as the
+    card gives them around each prompt's forward and its plain and
+    float32 plain forwards, the naive and the absorbed step, the serve
+    run and its plain teacher-forced run."""
+    from repro_torch.configs import get_reduced_config
+
+    steps = MLA_SERVE[1] + MLA_SERVE[2] - 1
+    seq = iter([fwd, ZERO, ZERO] * 2 + [step] * 2
+               + [dict(ZERO, D=13 * steps), ZERO])
+    monkeypatch.setattr(CS, "read_counts", lambda: next(seq))
+    return CS.phase_mla(torch.device("cpu"), "cpu, not a card",
+                        get_reduced_config("deepseek-v2-236b"), 64,
+                        MLA_SERVE, MLA_CTX)
+
+
+def test_mla_phase_on_the_cpu(monkeypatch, capsys, one_thread):
+    """The whole phase at the reduced bf16 deepseek-v2: the forward and
+    the serve run against themselves on the plain path (equal), beside
+    the float32 witness (not equal), in float32 on the kernels' float32
+    routes; the absorbed step against the naive one (float32 within
+    1e-4 of the largest logit, bf16 within the witness); the bounds; the
+    reduced float32 model on its JAX anchors, routes included."""
+    fwd, step, out = _mla_phase(monkeypatch)
+    assert fwd == MLA_FWD and step == dict(ZERO, D=13)
+    assert (out["layers"], out["of_layers"], out["qk_dims"]) == \
+        (3, 60, [32, 16])
+    f, s, a = out["forward"], out["serve"], out["absorb"]
+    assert f["routes_agree"] == [1.0, 1.0] and s["routes_agree"] == [1, 1]
+    assert f["vs_plain_all_tokens"]["max_abs_diff"] == 0.0
+    assert f["float32_witness"]["vs_plain_all_tokens"]["max_abs_diff"] > 0
+    assert f["float32"]["routes_agree"] == [1.0, 1.0]
+    assert f["second_prompt"]["seed"] == CS.MOE_SECOND_PROMPT_SEED
+    assert f["kept_picks"] <= f["slots"] and f["bound"]["bound_ms"] > 0
+    assert f["routed_bound"]["ops"] < f["bound"]["ops"]
+    assert a["launches_naive"] == a["launches_absorbed"] == \
+        dict(ZERO, D=13)
+    assert a["float32"]["max_abs_diff"] <= 1e-4 * a["float32"]["max_abs"]
+    assert 0 < a["absorbed_vs_naive"]["max_abs_diff"] <= \
+        1.25 * a["float32_witness"]["max_abs_diff"]
+    assert a["absorbed_bound"]["ops"] < a["naive_bound"]["ops"]
+    assert s["launches_per_step"] == dict(ZERO, D=13)
+    assert out["anchors"]["routes_equal"] and out["anchors"]["greedy_equal"]
+    assert "device_ms" not in f and "naive_ms" not in a  # no card
+    printed = capsys.readouterr().out
+    assert "deepseek-v2-236b forward (3 layers)" in printed
+    assert "absorbed vs naive" in printed and "mla phase" in printed
+
+
+def test_mla_phase_fails_on_other_launches(monkeypatch, one_thread):
+    with pytest.raises(CS.SmokeFailure,
+                       match="deepseek-v2-236b forward: expected 13"):
+        _mla_phase(monkeypatch, fwd=dict(ZERO, D=11, E=3))
+
+
+def test_mla_absorbed_step_fails_on_other_launches(monkeypatch,
+                                                   one_thread):
+    with pytest.raises(CS.SmokeFailure, match="naive step: expected 13"):
+        _mla_phase(monkeypatch, step=dict(ZERO, D=13, E=3))
+
+
+def test_mla_anchors_fail_on_a_wrong_route_digest(monkeypatch, one_thread):
+    from repro_torch.models import anchors as A
+    bad = dict(A.LM_ANCHORS["deepseek-v2-236b"])
+    bad["routes"] = dict(bad["routes"], top_e_crc32=1)
+    monkeypatch.setitem(A.LM_ANCHORS, "deepseek-v2-236b", bad)
+    with pytest.raises(CS.SmokeFailure, match="routes"):
+        CS.phase_anchor("deepseek-v2-236b", torch.device("cpu"))
+
+
+def test_mla_bounds_at_deepseek_full_width():
+    """Seven full-width layers hold 50.1 GB.  The 4096-token prompt with
+    every slot of the MoE buffer (160 experts x 8 groups x 24 slots a
+    layer) is 28.9 TFLOP of bf16: ~29 ms at 989 TFLOP/s, over its 14.9
+    ms of bytes.  A decode step at batch 4 reads every weight but the
+    embedding table (14.6 ms); at a 4096-token cache the naive step's
+    expansion of k_nope and v is 0.55 TFLOP a layer, the absorbed step's
+    work a fortieth of it; both bound by bytes."""
+    from repro_torch.models import transformer as T
+
+    cfg = CS.mla_config()
+    assert (cfg.num_layers, cfg.d_model, cfg.moe.num_experts) == \
+        (7, 5120, 160)
+    params = T.init_params(cfg, torch.Generator(), "meta")
+    assert abs(T.param_bytes(params) / 1e9 - 50.12) < 0.01
+    slots = 6 * 160 * 8 * 24
+    fwd = CS.lm_bounds(cfg, params, 4096, kept=slots, used=6 * 160)
+    assert fwd["bound_by"] == "operations"
+    assert abs(fwd["ops"] / 1e12 - 28.9) < 0.05
+    assert abs(fwd["bytes_ms"] - 14.91) < 0.01
+    step = CS.lm_bounds(cfg, params, 4, kept=6 * 160, used=6 * 160, ctx=48)
+    assert step["bound_by"] == "bytes"
+    assert abs(step["bound_ms"] - 14.65) < 0.01
+    naive = CS.lm_bounds(cfg, params, 4, kept=6 * 160, used=6 * 160,
+                         ctx=4096)
+    absorbed = CS.lm_bounds(cfg, params, 4, kept=6 * 160, used=6 * 160,
+                            ctx=4096, absorb=True)
+    expand = 2 * 4 * 4096 * 512 * 128 * 256
+    assert abs(naive["ops"] - absorbed["ops"] - 7 * expand) \
+        < 0.05 * expand
+    assert naive["bound_by"] == absorbed["bound_by"] == "bytes"
+    assert naive["bytes"] == absorbed["bytes"]
+
+
+def test_flash_bound_with_head_dims_apart():
+    """deepseek-v2's prompt attention: q·k over 192, p@v over 128, at S
+    4096 and 128 heads: 0.41 + 3 x 0.27 TFLOP at 989 TFLOP/s, 1.25 ms."""
+    assert CS.head_dims((192, 128)) == (192, 128)
+    assert CS.head_dims(64) == (64, 64)
+    nbytes, qk, pv = CS.flash_work(1, 4096, 4096, 128, 128, 192, True, 0,
+                                   2, 128)
+    pairs = 128 * 4096 * 4097 // 2
+    assert (qk, pv) == (2 * 192 * pairs, 2 * 128 * pairs)
+    assert nbytes == 2 * (192 + 128) * 2 * 4096 * 128
+    ms, by = CS.flash_bound(nbytes, qk, pv, True)
+    assert by == "operations" and ms == pytest.approx(1.251, abs=1e-3)
+    q, k, v = CS.flash_inputs(1, 8, 8, 2, 2, 48, "float32", 0,
+                              torch.device("cpu"), 32)
+    assert (q.shape[-1], k.shape[-1], v.shape[-1]) == (48, 48, 32)
+
+
+def test_fill_mla_cache_draws_every_layer_up_to_its_end():
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_reduced_config("deepseek-v2-236b")
+    cache = T.init_cache(cfg, 2, 8, device="cpu")
+    CS.fill_mla_cache(cache, 7, 3)
+    for c in cache["layers"]:
+        for t in c:
+            assert bool((t[:, 7] == 0).all()) and bool((t[:, :7] != 0).all())
+            assert t.dtype == torch.bfloat16
+    assert not torch.equal(cache["layers"][0].c_kv, cache["layers"][1].c_kv)

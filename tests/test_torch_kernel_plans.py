@@ -61,11 +61,17 @@ from repro_torch.kernels.sweep_grid import kernel as AK
 # Kernel E's plan
 
 
-@pytest.mark.parametrize("d", EK.HEAD_DIMS)
+def _dims_id(dims) -> str:
+    """A head-dim pair's test id: the one dim where q·k and v agree."""
+    return str(dims[0]) if dims[0] == dims[1] else f"{dims[0]}x{dims[1]}"
+
+
+@pytest.mark.parametrize("dims", EK.HEAD_DIMS, ids=_dims_id)
 @pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "mma"),
                                          (torch.float32, "simt")])
-def test_flash_route_by_dtype_and_shared_memory_fits(d, dtype, route):
-    p = E.plan(1, 8192, 8, 4, d, dtype)
+def test_flash_route_by_dtype_and_shared_memory_fits(dims, dtype, route):
+    d, dv = dims
+    p = E.plan(1, 8192, 8, 4, d, dtype, dv)
     assert p.route == route
     assert 0 < p.smem_bytes <= EK.SMEM_PER_BLOCK
     assert p.blocks_per_sm >= 1
@@ -73,19 +79,23 @@ def test_flash_route_by_dtype_and_shared_memory_fits(d, dtype, route):
         assert p.stages in (2, 3)
         assert p.keys == (32 if d == 256 else 64)
         # q, then stages x (K + V), rows padded by 16 bytes
-        assert p.smem_bytes == 2 * (d + 8) * (64 + 2 * p.stages * p.keys)
+        assert p.smem_bytes == 2 * ((d + 8) * 64
+                                    + p.stages * p.keys * (d + dv + 16))
     else:   # today's CUDA-core tiling, unchanged
         assert (p.keys, p.stages) == (32, 1)
-        assert p.smem_bytes == 4 * (64 * d + 32 * (d + 4) + 32 * d)
+        assert p.smem_bytes == 4 * (64 * d + 32 * (d + 4) + 32 * dv)
 
 
-@pytest.mark.parametrize("d", EK.HEAD_DIMS)
-def test_flash_bf16_route_fits_two_blocks_an_sm(d):
-    p = E.plan(1, 8192, 8, 4, d, torch.bfloat16)
+@pytest.mark.parametrize("dims", EK.HEAD_DIMS, ids=_dims_id)
+def test_flash_bf16_route_fits_two_blocks_an_sm(dims):
+    d, dv = dims
+    p = E.plan(1, 8192, 8, 4, d, torch.bfloat16, dv)
     assert p.blocks_per_sm >= 2
     assert 2 * (p.smem_bytes + EK.SMEM_RESERVED) <= EK.SMEM_PER_SM
     if d == 256:    # q 33 KB + 2 stages x (K + V) 33 KB
         assert (p.keys, p.stages, p.smem_bytes) == (32, 2, 101_376)
+    if (d, dv) == (192, 128):   # q 25.6 KB + 2 x (K 25.6 + V 17.4 KB)
+        assert (p.keys, p.stages, p.smem_bytes) == (64, 2, 111_616)
 
 
 @pytest.mark.parametrize("b,sq,h,kvh", [
@@ -105,7 +115,7 @@ def test_flash_grid_covers_every_folded_row(b, sq, h, kvh, dtype):
 
 @pytest.mark.parametrize("d,dtype,exc", [
     (96, torch.bfloat16, ValueError), (16, torch.float32, ValueError),
-    (64, torch.float16, TypeError)])
+    (64, torch.float16, TypeError), (192, torch.bfloat16, ValueError)])
 def test_flash_plan_refuses_what_no_kernel_is_built_for(d, dtype, exc):
     with pytest.raises(exc):
         E.plan(1, 64, 4, 2, d, dtype)
