@@ -201,6 +201,50 @@ Phases, each of which ends the run with a non-zero exit on any failure:
    three, against a resume from step 3: losses and the final checkpoint
    bitwise.  Prints the ``train`` line (step ms, tokens/s, busy share,
    share of the matmul bound, peak memory).
+9g. Modality stubs (the twelfth path), after phase 9 and before 9e (its
+   8 GB are freed before jamba's 52 GB): qwen2-vl-2b (28 layers, d 1536,
+   12/2 heads of 128, d_ff 8960, vocab 151,936, tied, qkv biases, M-RoPE
+   sections 16/24/24) and musicgen-large (48 layers, d 2048, 32/32 heads
+   of 64, GELU d_ff 8192, vocab 2048, sinusoidal positions), both at
+   full width and depth, bf16, weights from a seeded generator on the
+   card, fed precomputed embeddings (``Batch.embeds``; the vision tower
+   and EnCodec are stubs in both packages).  (a) qwen2-vl's
+   ``transformer.forward`` on one 4096-token prompt: 16 text tokens
+   (rows of its own table), one 48 x 48 image of merged patches (seeded
+   normals at the table's scale), 1776 text tokens, at Qwen2-VL's t/h/w
+   positions; counts read around exactly it (57 launches of D, 28 of E),
+   against the plain D and E within 0.25 and 93 % of the argmaxes, and
+   in float32 (D's and E's float32 routes against the plain path in
+   float32) within 0.01 and 99 % (STUB_LIMITS, placed by the float32
+   plain path's witness); M-RoPE with t = h = w
+   equals RoPE within 1e-6 in float32 at its shapes, and the image's
+   positions move the logits past the first text run by more than 0.25
+   where t = h = w leaves the text run as it was; device and wall time,
+   busy share, the operation bound.  (b) Serving at batch 4: the
+   prompts' cache from one forward (the reference's decode rule, t = h =
+   w = the cache index, as a decode-step prefill writes it; the first 32
+   positions also decoded a step at a time, within 0.25), then 15 greedy
+   ``decode_step(Batch(tokens=...))`` steps, counts read around them
+   (57 of D a step, none of E); the plain D and E stay within the
+   limits, and in float32 reproduce the tokens served on the kernels'
+   float32 routes; ms a step, tok/s, the byte bound.
+   (c) One ``loss_fn`` backward on 1 x 1024 embeddings holding a 24 x 24
+   image (E with stats, the M-RoPE backward; 57 of D, 28 of E), then
+   ``optim.compression.compress_with_feedback`` over its ~1.54 B
+   gradient elements, int8 twice and bf16 once: every leaf within its
+   reconstruction bound, its new error feedback bitwise target - recon,
+   the bytes on the wire the elements x 1 (x 2), three leaves bitwise
+   their CPU run; each step's ms.  (d) musicgen's forward on 1536 frame
+   embeddings (30.72 s at 50 Hz: 1500 do not tile the prompt
+   attention's 512 blocks, in either package; 97 of D, 48 of E) as (a);
+   16 decode steps at batch 4, each fed the next frame (teacher-forced),
+   after the 1536 frames' cache from one forward: counts (97 of D a
+   step, none of E), the steps' logits against the forward's at the
+   same positions in bf16 (its limits) and in float32 (E's float32
+   route, within 1e-3, the reference test's bound); ms a step, the
+   bound.  (e) The reduced
+   float32 qwen2-vl-2b and musicgen-large against ``LM_ANCHORS`` (their
+   forwards on ``anchor_embeds``).  Prints the ``stub`` line.
 9e. SSM (the tenth path), after phase 9 (its 52 GB are freed before
    9d): xlstm-350m at full width and depth (24 mLSTM and sLSTM blocks,
    d 1024, 4 heads, vocab 50,304, tied embeddings, bf16) and
@@ -287,7 +331,9 @@ Phases, each of which ends the run with a non-zero exit on any failure:
    step (``launches_train``, ``launches_train_step``), in the SSM
    models' forwards and decode steps (``launches_ssm``), in arctic's
    forward and decode step (``launches_moe``), in deepseek-v2's
-   (``launches_mla``) and their time at arctic's shapes (``moe_shape``:
+   (``launches_mla``), in qwen2-vl-2b's and musicgen-large's forwards
+   and decode steps (``launches_stub``; their time there, ``stub_shape``)
+   and their time at arctic's shapes (``moe_shape``:
    E's library call there is SDPA), at jamba's and xlstm's
    (``ssm_shape``) and at deepseek-v2's (``mla_shape``: SDPA with q·k
    and v apart, and the kernels its backend launched); A's
@@ -297,7 +343,8 @@ Phases, each of which ends the run with a non-zero exit on any failure:
    layer at 4 and 256 ROIs with its tile), ``handtracking``,
    ``rmsnorm_shapes``/``flash_shapes`` (each case's route; E's registers
    and spills from ptxas and its share of the bound), ``lm``, ``train``,
-   ``ssm``, ``moe`` and ``mla`` JSON lines, the card's name and power limit, and last the
+   ``stub``, ``ssm``, ``moe`` and ``mla`` JSON lines, the card's name and
+   power limit, and last the
    ``ok`` line.  Kernel C's SASS must hold int8 tensor-core (IMMA) and
    cp.async (LDGSTS) instructions.
 
@@ -2563,7 +2610,9 @@ RMSNORM_CASES = ((LM_SEQ, 2304, "bfloat16", "gemma2 forward"),
                  (4096, 4096, "bfloat16", "jamba forward"),
                  (4096, 1024, "bfloat16", "xlstm forward"),
                  (4096, 1536, "bfloat16", "deepseek q_norm"),
-                 (4096, 512, "bfloat16", "deepseek kv_norm"))
+                 (4096, 512, "bfloat16", "deepseek kv_norm"),
+                 (4096, 1536, "bfloat16", "qwen2-vl forward"),
+                 (1536, 2048, "bfloat16", "musicgen forward"))
 
 # Kernel E's cases: (name, b, sq, skv, h, kv, d, causal, window, softcap,
 # dtype); d is q's and k's head dim and v's, or a pair (q·k, v) where
@@ -2610,6 +2659,10 @@ FLASH_CASES = (
      "bfloat16"),
     ("mla s512", 1, 512, 512, 16, 16, (192, 128), True, 0, 0.0,
      "bfloat16"),
+    # the modality-stub prompts (phase 9g): qwen2-vl-2b's 4096 tokens, 6
+    # query heads a kv head; musicgen-large's 1536 frames, MHA at d 64
+    ("qwen2-vl", 1, 4096, 4096, 12, 2, 128, True, 0, 0.0, "bfloat16"),
+    ("musicgen", 1, 1536, 1536, 32, 32, 64, True, 0, 0.0, "bfloat16"),
 )
 #: The cases whose gradient through kernel E's autograd Function is held
 #: against autograd through its plain version (phase 8).
@@ -3208,7 +3261,7 @@ def phase_anchor(arch: str, dev) -> dict:
     """The reduced float32 ``arch`` on ``dev`` (weights from the numpy
     seed of ``repro_torch.models.anchors``) against the logits and greedy
     tokens frozen from the JAX reference (and an MoE arch's routes), at
-    ANCHOR_TOL."""
+    ANCHOR_TOL; a modality-stub arch's forward on ``anchor_embeds``."""
     import torch
 
     from repro_torch.configs import get_reduced_config
@@ -3221,10 +3274,15 @@ def phase_anchor(arch: str, dev) -> dict:
     params = T.to_device(T.params_from_jax(cfg, A.jax_layout_params(cfg)),
                          dev)
     fwd_np, prompt_np = A.anchor_tokens(cfg)
+    batch = T.Batch(tokens=torch.as_tensor(fwd_np, device=dev))
+    if cfg.frontend_stub:
+        emb, pos = A.anchor_embeds(cfg)
+        batch = T.Batch(embeds=torch.as_tensor(emb, device=dev),
+                        positions=None if pos is None
+                        else torch.as_tensor(pos, device=dev))
     with torch.no_grad():
         with A.record_routes() as routes:
-            logits = T.forward(cfg, params, T.Batch(
-                tokens=torch.as_tensor(fwd_np, device=dev))).cpu().numpy()
+            logits = T.forward(cfg, params, batch).cpu().numpy()
         toks = token_serve.generate(
             cfg, params, torch.as_tensor(prompt_np, device=dev),
             A.GREEDY_STEPS)["tokens"].cpu().numpy()
@@ -3252,6 +3310,690 @@ def phase_anchor(arch: str, dev) -> dict:
           f"{worst!r} of JAX, greedy tokens equal"
           + (", routes equal" if "routes" in a else ""))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Modality-stub serving (the twelfth path)
+# ---------------------------------------------------------------------------
+
+#: The modality-stub path's models, both at full width and depth (they
+#: fit one card whole): qwen2-vl-2b (28 layers, d 1536, 12/2 heads of
+#: 128, d_ff 8960, vocab 151,936, tied, qkv biases, M-RoPE sections 16 /
+#: 24 / 24; 3.1 GB of bf16) and musicgen-large (48 layers, d 2048, 32/32
+#: heads of 64, GELU d_ff 8192, vocab 2048, sinusoidal positions; 4.85
+#: GB).  Their frontends (the vision tower, EnCodec) are stubs in both
+#: packages: the model takes precomputed (B, S, d) embeddings.
+STUB_VL, STUB_AUDIO = "qwen2-vl-2b", "musicgen-large"
+#: qwen2-vl's prompt (cell 14): STUB_IMAGE's text tokens, one image of
+#: rows x columns merged patches (a 1344 x 1344 image at Qwen2-VL's 14-px
+#: patches, 2 x 2 merged: 48 x 48), text tokens: 4096 in all, at
+#: Qwen2-VL's t/h/w positions (``anchors.image_positions``).
+STUB_IMAGE = (16, 48, 48, 1776)
+#: musicgen's prompt (cell 15): 1536 frames, 30.72 s of audio at
+#: EnCodec's 50 Hz (MusicGen's longest generation is 30 s, 1500 frames).
+#: The prompt attention tiles a sequence longer than FLASH_BLOCK by
+#: blocks of FLASH_BLOCK (``models.flash.flash_attention``, as the
+#: reference's): 1500 frames raise in both packages, 1536 is the nearest
+#: length that tiles.
+STUB_FRAMES = 1536
+#: ``gqa_forward``'s q and kv blocks.
+FLASH_BLOCK = 512
+#: Serving: batch and decode steps after the prefill (qwen2-vl greedy on
+#: tokens, its first from the prefill's logits; musicgen teacher-forced
+#: on the next seeded frame embeddings).
+STUB_SERVE = (4, 16)
+#: The compression gate's backward: one qwen2-vl sequence of 1024
+#: embeddings holding one 24 x 24 image.
+STUB_GRAD_IMAGE = (16, 24, 24, 432)
+#: Positions of qwen2-vl's prompt decoded one at a time from 0 (the
+#: reference's cache-exact prefill) against the forward's cache.
+STUB_PREFILL_CHECK = 32
+#: musicgen's teacher-forced decode against its forward at the same
+#: positions (the reference's ``test_decode_matches_forward`` at full
+#: width): in float32 (on E's float32 route) within the reference test's
+#: 1e-3; in bf16 within the model's STUB_LIMITS, the two paths rounding
+#: apart (kernel E against the plain decode attention, both over float32
+#: accumulators).
+STUB_DECODE_F32_MAX_DIFF = 1e-3
+#: Kernels vs plain, by model: the largest logit difference and the
+#: share of equal argmaxes in bf16, and in float32 (D's and E's float32
+#: routes against the plain path in float32).  With random weights the
+#: argmaxes are near ties (qwen2-vl's 151,936-way tied head; musicgen's
+#: logits set mostly by its sinusoidal positions), so a bf16 ulp of a
+#: norm or attention output flips 3-5 % of them and the ``lm`` phase's 98
+#: % does not hold.  Readings on the H100, kernels vs plain [the float32
+#: witness, the plain path in float32 against the plain path]: qwen2-vl's
+#: forward 0.119 apart, 95.9 % of the argmaxes equal [0.108, 95.0 %], its
+#: served logits 0.094, 96.9 %; musicgen's forward 0.070, 95.0 % [0.069,
+#: 94.7 %], its decode against its forward 0.063, 93.8 %.  The bf16
+#: limits (0.25, and 2-3 points below the witness's argmaxes) hold a
+#: kernel to a sound change of rounding, no more: they cannot tell a
+#: fault of that size from one.  The float32 run can: 2.6e-5 (qwen2-vl)
+#: and 6.2e-6 (musicgen) apart, every argmax equal and the served tokens
+#: reproduced, against the witness's 0.07-0.11 and 95 %.
+STUB_LIMITS = {
+    "qwen2-vl-2b": {"max_diff": LM_BF16_MAX_DIFF, "argmax": 0.93,
+                    "float32": {"max_diff": 0.01, "argmax": 0.99}},
+    "musicgen-large": {"max_diff": LM_BF16_MAX_DIFF, "argmax": 0.92,
+                       "float32": {"max_diff": 0.01, "argmax": 0.99}},
+}
+#: The M-RoPE gates: in float32 at qwen2-vl's shapes, M-RoPE with t = h =
+#: w against RoPE; and the image's positions must move the prompt's
+#: logits by more than a kernels-vs-plain difference (LM_BF16_MAX_DIFF)
+#: past the first text run.
+STUB_MROPE_F32 = 1e-6
+#: int8 reconstruction: |target - recon| <= scale * (1/2 + 2^-16): half a
+#: step, plus the roundings of target / scale (a value below 128: half
+#: an ulp is 2^-18 of the step) and of q * scale (2^-17 of it at most).
+INT8_ERR_STEPS = 0.5 + 2.0 ** -16
+#: bf16 reconstruction: half a bf16 ulp, at most 2^-8 of |target| (8
+#: significant bits), and half the smallest bf16 step below its normals.
+BF16_REL_ERR, BF16_ABS_ERR = 2.0 ** -8, 2.0 ** -134
+
+
+def stub_embeds(cfg, params, image: tuple | None, n: int, bsz: int,
+                gen) -> tuple:
+    """(B, S, d) frontend embeddings in the compute dtype and, with
+    ``image`` (text, rows, columns, text), (3, B, S) positions: text as
+    rows of the model's own table for tokens drawn from ``gen``, the
+    image (or, without one, every one of the ``n`` frames) as seeded
+    normals at the table's scale d^-0.5."""
+    import torch
+
+    from repro_torch.models import anchors as A
+
+    table = params["embed"]["table"]
+    dev, d = table.device, cfg.d_model
+    if image is None:
+        x = torch.randn((bsz, n, d), generator=gen, device=dev)
+        return (x * d ** -0.5).to(table.dtype), None
+    before, rows, cols, after = image
+    tok = torch.randint(0, cfg.vocab_size, (bsz, before + after),
+                        generator=gen, device=dev)
+    img = torch.randn((bsz, rows * cols, d), generator=gen, device=dev)
+    img = (img * d ** -0.5).to(table.dtype)
+    text = table[tok]
+    x = torch.cat([text[:, :before], img, text[:, before:]], dim=1)
+    pos = torch.as_tensor(A.image_positions(*image), device=dev)
+    return x, pos[:, None].expand(3, bsz, -1).contiguous()
+
+
+def forward_prefill(cfg, params, batch, cache, upto: int):
+    """The cache a cache-exact prefill writes (the reference's, a decode
+    step a position, rotating q and k at t = h = w = the cache index),
+    from one forward: ``transformer.hidden_states`` on ``batch`` (its
+    default (B, S) positions, the decode rule), each layer's k and v
+    recorded as ``attention._qkv`` returns them and written into
+    ``cache`` at positions < ``upto``.  Returns the hidden states."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer as T
+
+    check(batch.positions is None, "forward_prefill: the decode rule's "
+          "positions are the default ones")
+    kv, qkv = [], attn._qkv
+
+    def recording(*args, **kw):
+        q, k, v = qkv(*args, **kw)
+        kv.append((k, v))
+        return q, k, v
+
+    attn._qkv = recording
+    try:
+        h, _ = T.hidden_states(cfg, params, batch)
+    finally:
+        attn._qkv = qkv
+    check(len(kv) == len(cache["layers"]),
+          f"forward_prefill: {len(kv)} attention layers recorded, "
+          f"{len(cache['layers'])} cached")
+    for c, (k, v) in zip(cache["layers"], kv):
+        c.k[:, :upto] = k[:, :upto].to(c.k.dtype)
+        c.v[:, :upto] = v[:, :upto].to(c.v.dtype)
+    return h
+
+
+def stub_forward(cfg, params, params32, batch, limits: dict) -> tuple:
+    """One (1, S) prompt through ``transformer.forward`` on kernels D and
+    E, counts read around exactly it (:func:`lm_launches`); again on
+    their plain versions and, in float32 on ``params32``, on the plain
+    versions (the witness: a sound change of rounding) and on D's and
+    E's float32 routes.  Kernels vs plain, by position bins, held to
+    ``limits`` (``max_diff``, ``argmax``) in bf16 and to
+    ``limits["float32"]`` in float32 (against the plain path in
+    float32); the witness printed beside them.  Returns the kernel
+    path's logits and the report."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    dev = params["embed"]["table"].device
+    seq = batch.embeds.shape[1]
+    expect = lm_launches(cfg, params)
+    sync(dev)
+    reset_counts()
+    logits = T.forward(cfg, params, batch)
+    sync(dev)
+    launches = read_counts()
+    check(launches == expect,
+          f"{cfg.name} forward: expected {expect['D']} launches of D and "
+          f"{expect['E']} of E, got {launches}")
+    check(tuple(logits.shape) == (1, seq, cfg.vocab_size),
+          f"{cfg.name} forward logits {tuple(logits.shape)}")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    batch32 = batch._replace(embeds=batch.embeds.float())
+    with plain_kernels():
+        plain = T.forward(cfg, params, batch)
+    with plain_kernels():
+        wide = T.forward(cfg32, params32, batch32)
+    narrow = T.forward(cfg32, params32, batch32)
+    rep = {"batch": 1, "seq": seq, "launches": launches,
+           "vs_plain": compare_logits(logits, plain),
+           "vs_plain_by_position": by_position(logits, plain),
+           "float32_witness": {
+               "vs_plain": compare_logits(wide, plain),
+               "vs_plain_by_position": by_position(wide, plain)},
+           "float32": {"vs_plain": compare_logits(narrow, wide)}}
+    del plain, wide, narrow
+    vs, f32 = rep["vs_plain"], rep["float32"]["vs_plain"]
+    print(f"{cfg.name} forward ({cfg.num_layers} layers) B=1 S={seq}: "
+          f"launches {launches}, kernels vs plain {vs}, by position "
+          f"{rep['vs_plain_by_position']}; plain float32 vs plain "
+          f"{rep['float32_witness']}; in float32 {f32}")
+    check(within_limits(vs, limits),
+          f"{cfg.name} forward: kernels vs plain {vs}, limits {limits}")
+    check(within_limits(f32, limits["float32"]),
+          f"{cfg.name} forward in float32: kernels vs plain {f32}, limits "
+          f"{limits['float32']}")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return logits, rep
+
+
+def within_limits(vs: dict, limits: dict) -> bool:
+    """A :func:`compare_logits` reading held to ``limits``."""
+    return (vs["max_abs_diff"] <= limits["max_diff"]
+            and vs["argmax_agree"] >= limits["argmax"])
+
+
+def stub_timing(cfg, params, batch, rep: dict, what: str) -> None:
+    """The forward's wall and device time (a checked trace), busy share,
+    top kernels and share of its bound, into ``rep`` (on the card)."""
+    from repro_torch.models import transformer as T
+
+    fwd = lambda: T.forward(cfg, params, batch)  # noqa: E731
+    rep["bound"] = lm_bounds(cfg, params, rep["seq"])
+    if params["embed"]["table"].device.type != "cuda":
+        return
+    rep["wall_ms"] = host_ms(fwd, 2)
+    timed(rep, "device_ms", fwd, 2, f"{what} forward",
+          {"::rmsnorm_kernel<": rep["launches"]["D"],
+           "::flash_fwd_kernel<": rep["launches"]["E"]})
+    rep["bound_share"] = rep["bound"]["bound_ms"] / rep["device_ms"]
+    busy, by_kernel = busy_share(fwd)
+    rep["busy_share"] = busy
+    rep["device_s_by_kernel"] = dict(sorted(
+        by_kernel.items(), key=lambda kv: -kv[1])[:8])
+
+
+def mrope_checks(cfg, params, batch, logits, before: int) -> dict:
+    """M-RoPE at qwen2-vl's shapes: in float32, ``apply_mrope`` with t =
+    h = w against ``apply_rope`` (within STUB_MROPE_F32); the prompt's
+    forward at t = h = w (its (B, S) default positions) against its
+    ``logits`` at the image's positions: equal over the first ``before``
+    text tokens (the same positions), apart by more than LM_BF16_MAX_DIFF
+    after them."""
+    import torch
+
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as T
+
+    dev, seq = logits.device, logits.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((1, seq, cfg.num_heads, cfg.resolved_head_dim),
+                    generator=gen, device=dev)
+    pos = torch.arange(seq, device=dev)[None]
+    rope = layers.apply_rope(x, pos, cfg.rope_theta)
+    mrope = layers.apply_mrope(x, pos[None].expand(3, 1, seq),
+                               cfg.rope_theta, cfg.mrope_sections)
+    f32 = (rope - mrope).abs().max().item()
+    del x, rope, mrope
+    text = T.forward(cfg, params, batch._replace(positions=None))
+    rep = {"rope_vs_mrope_f32": f32,
+           "text_run": compare_logits(text[:, :before], logits[:, :before]),
+           "after_text_run": compare_logits(text[:, before:],
+                                            logits[:, before:])}
+    del text
+    print(f"{cfg.name} M-RoPE: float32 vs RoPE at t = h = w {f32!r}; "
+          f"t = h = w vs the image's positions {rep}")
+    check(f32 <= STUB_MROPE_F32,
+          f"{cfg.name}: M-RoPE at t = h = w is {f32!r} from RoPE")
+    check(rep["text_run"]["max_abs_diff"] <= LM_BF16_MAX_DIFF
+          and rep["after_text_run"]["max_abs_diff"] > LM_BF16_MAX_DIFF,
+          f"{cfg.name}: the image's positions do not move the logits as "
+          f"M-RoPE's sections should: {rep}")
+    return rep
+
+
+def stub_decode_bound(cfg, params, rep: dict, bsz: int, first: int,
+                      steps: int) -> None:
+    """The decode steps' bound (positions ``first`` .. ``first`` +
+    ``steps`` - 1, averaged) and, on the card, its share of the measured
+    step."""
+    bounds = [lm_bounds(cfg, params, bsz, ctx=t + 1)
+              for t in range(first, first + steps)]
+    rep["bound_ms"] = float(np.mean([b["bound_ms"] for b in bounds]))
+    rep["bound_by"] = bounds[0]["bound_by"]
+    if "decode_ms_per_step" in rep and \
+            params["embed"]["table"].device.type == "cuda":
+        rep["bound_share"] = rep["bound_ms"] / rep["decode_ms_per_step"]
+
+
+def step_readings(cfg, params, cache, batch, pos: int, rep: dict,
+                  what: str) -> None:
+    """One decode step's device time (checked trace) and busy share, on
+    the card."""
+    from repro_torch.models import transformer as T
+
+    if params["embed"]["table"].device.type != "cuda":
+        return
+    step = lambda: T.decode_step(cfg, params, cache, batch, pos)  # noqa
+    timed(rep, "step_device_ms", step, 3, f"{what} decode step",
+          {"::rmsnorm_kernel<": lm_launches(cfg, params)["D"]})
+    busy, by_kernel = busy_share(step)
+    rep["step_busy_share"] = busy
+    rep["step_device_s_by_kernel"] = dict(sorted(
+        by_kernel.items(), key=lambda kv: -kv[1])[:8])
+
+
+def vl_serve(cfg, params, params32, embeds, gen_n: int,
+             limits: dict) -> tuple:
+    """qwen2-vl served at batch B: the prompts' cache from one forward
+    (:func:`forward_prefill`), the first token from its last position,
+    then ``gen_n`` - 1 greedy ``decode_step(Batch(tokens=...))`` steps,
+    counts read around them (2L + 1 of D a step, none of E), timed;
+    the served tokens teacher-forced through the plain D and E, their
+    logits held to ``limits``.  Served again in float32 on ``params32``
+    (D's and E's float32 routes), where the plain path teacher-forced
+    reproduces the served tokens (every argmax equal) and its logits
+    hold ``limits["float32"]``.  The first STUB_PREFILL_CHECK positions
+    of the first prompt decoded one at a time (the reference's prefill)
+    against the forward: the last position's logits within ``limits``.
+    Returns the launches a step and the report."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    dev = embeds.device
+    bsz, plen = embeds.shape[:2]
+    n_norms = lm_launches(cfg, params)["D"]
+    steps = gen_n - 1
+
+    def run(c, p, x, served=None, count=False):
+        """Prefill, then the decode steps (fed ``served``'s tokens when
+        given, else greedy); with ``count``, the steps' launch counts
+        read around them."""
+        cache = T.init_cache(c, bsz, plen + gen_n, device=dev)
+        h = forward_prefill(c, p, T.Batch(embeds=x), cache, plen)
+        logits = [T._logits(c, p, h[:, -1:])[:, -1]]
+        del h
+        tok = logits[0].argmax(-1, keepdim=True)
+        toks = [tok]
+        sync(dev)
+        if count:
+            reset_counts()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            if served is not None:
+                tok = served[:, i:i + 1]
+            lg, cache = T.decode_step(c, p, cache, T.Batch(tokens=tok),
+                                      plen + i)
+            logits.append(lg[:, -1])
+            tok = lg[:, -1].argmax(-1, keepdim=True)
+            toks.append(tok)
+        sync(dev)
+        counts = read_counts() if count else None
+        return (torch.cat(toks, 1), torch.stack(logits, 1), counts,
+                time.perf_counter() - t0, cache)
+
+    tokens, k_logits, launches, decode_s, cache = run(cfg, params, embeds,
+                                                      count=True)
+    check(launches == dict(lm_launches(cfg, params), D=n_norms * steps,
+                           E=0),
+          f"{cfg.name} serve: expected {n_norms * steps} launches of D and "
+          f"none of E, got {launches}")
+    with plain_kernels():
+        _, p_logits, _, _, _ = run(cfg, params, embeds, tokens)
+    rep: dict = {"batch": bsz, "prompt": plen, "gen": gen_n,
+                 "launches_per_step": {k: v // steps
+                                       for k, v in launches.items()},
+                 "vs_plain": compare_logits(k_logits, p_logits),
+                 "decode_ms_per_step": decode_s / steps * 1e3,
+                 "tok_per_s": bsz * steps / decode_s}
+    del k_logits, p_logits
+    # float32: the plain path reproduces the tokens served on the kernels'
+    # float32 routes
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    tokens32, k32, _, _, _ = run(cfg32, params32, embeds.float())
+    with plain_kernels():
+        _, p32, _, _, _ = run(cfg32, params32, embeds.float(), tokens32)
+    rep["float32"] = dict(compare_logits(k32, p32),
+                          tokens_reproduced=bool(torch.equal(
+                              p32.argmax(-1), tokens32)))
+    del k32, p32
+    # the reference's prefill, a decode step a position, over the first
+    # positions of the first prompt, against the forward
+    n = min(STUB_PREFILL_CHECK, plen)
+    seq_cache = T.init_cache(cfg, 1, n, device=dev)
+    for t in range(n):
+        lg, seq_cache = T.decode_step(cfg, params, seq_cache, T.Batch(
+            embeds=embeds[:1, t:t + 1]), t)
+    fwd = T.forward(cfg, params, T.Batch(embeds=embeds[:1, :n]))
+    rep["prefill_check"] = dict(compare_logits(lg, fwd[:, -1:]),
+                                positions=n)
+    del fwd, seq_cache
+    vs, f32, pc = rep["vs_plain"], rep["float32"], rep["prefill_check"]
+    stub_decode_bound(cfg, params, rep, bsz, plen, steps)
+    step_readings(cfg, params, cache, T.Batch(tokens=tokens[:, -1:]),
+                  plen + steps, rep, cfg.name)
+    print(f"{cfg.name} serve batch={bsz} prompt={plen} gen={gen_n}: "
+          f"launches {launches}, kernels vs plain {vs}, in float32 {f32}, "
+          f"prefill check {pc}, {rep['tok_per_s']:.1f} tok/s, "
+          f"{rep['decode_ms_per_step']:.2f} ms a step (bound "
+          f"{rep['bound_ms']:.3f})")
+    check(within_limits(vs, limits),
+          f"{cfg.name} serve: kernels vs plain {vs}, limits {limits}")
+    check(f32["tokens_reproduced"],
+          f"{cfg.name} serve in float32: the plain path does not reproduce "
+          f"the served tokens: {f32}")
+    check(within_limits(f32, limits["float32"]),
+          f"{cfg.name} serve in float32: kernels vs plain {f32}, limits "
+          f"{limits['float32']}")
+    check(pc["max_abs_diff"] <= limits["max_diff"],
+          f"{cfg.name}: a decode-step prefill of {n} positions against the "
+          f"forward: {pc}")
+    return rep["launches_per_step"], rep
+
+
+def audio_serve(cfg, params, params32, frames, plen: int, steps: int,
+                limits: dict) -> tuple:
+    """musicgen at batch B over ``frames`` (B, S, d), S tiled by
+    FLASH_BLOCK and at least ``plen`` + ``steps``: the first ``plen``
+    frames' cache from one forward over all S (:func:`forward_prefill`,
+    which also gives the forward's logits at the later positions), then
+    ``steps`` ``decode_step(Batch(embeds=...))`` steps each fed the next
+    frame, counts read around them (2L + 1 of D a step, none of E),
+    timed; the steps' logits against the forward's at the same positions
+    (the reference's ``test_decode_matches_forward``): in bf16 within
+    ``limits``, and in float32 on ``params32`` (E's float32 route) within
+    STUB_DECODE_F32_MAX_DIFF.  Returns the launches a step and the
+    report."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    dev = frames.device
+    bsz = frames.shape[0]
+    total = plen + steps
+    n_norms = lm_launches(cfg, params)["D"]
+
+    def run(c, p, x, count: bool):
+        cache = T.init_cache(c, bsz, total, device=dev)
+        h = forward_prefill(c, p, T.Batch(embeds=x), cache, plen)
+        want = T._logits(c, p, h[:, plen:total])
+        del h
+        sync(dev)
+        if count:
+            reset_counts()
+        t0 = time.perf_counter()
+        got = [T.decode_step(c, p, cache, T.Batch(embeds=x[:, t:t + 1]),
+                             t)[0][:, -1] for t in range(plen, total)]
+        sync(dev)
+        return (torch.stack(got, 1), want,
+                read_counts() if count else None,
+                time.perf_counter() - t0, cache)
+
+    got, want, launches, decode_s, cache = run(cfg, params, frames, True)
+    check(launches == dict(lm_launches(cfg, params), D=n_norms * steps,
+                           E=0),
+          f"{cfg.name} serve: expected {n_norms * steps} launches of D and "
+          f"none of E, got {launches}")
+    rep: dict = {"batch": bsz, "prompt": plen, "gen": steps,
+                 "launches_per_step": {k: v // steps
+                                       for k, v in launches.items()},
+                 "vs_forward": compare_logits(got, want),
+                 "decode_ms_per_step": decode_s / steps * 1e3,
+                 "tok_per_s": bsz * steps / decode_s}
+    del got, want
+    got, want, _, _, _ = run(dataclasses.replace(cfg, dtype="float32"),
+                             params32, frames.float(), False)
+    rep["float32_vs_forward"] = compare_logits(got, want)
+    del got, want
+    vs, f32 = rep["vs_forward"], rep["float32_vs_forward"]
+    print(f"{cfg.name} decode batch={bsz} from {plen} frames, {steps} "
+          f"teacher-forced steps: launches {launches}, decode vs forward "
+          f"{vs}, in float32 {f32}")
+    check(within_limits(vs, limits),
+          f"{cfg.name}: decode vs forward {vs}, limits {limits}")
+    check(f32["max_abs_diff"] <= STUB_DECODE_F32_MAX_DIFF,
+          f"{cfg.name}: decode vs forward in float32 {f32}")
+    stub_decode_bound(cfg, params, rep, bsz, plen, steps)
+    step_readings(cfg, params, cache, T.Batch(
+        embeds=frames[:, total - 1:total]), total - 1, rep, cfg.name)
+    print(f"{cfg.name} serve: {rep['tok_per_s']:.1f} frames/s, "
+          f"{rep['decode_ms_per_step']:.2f} ms a step (bound "
+          f"{rep['bound_ms']:.3f})")
+    return rep["launches_per_step"], rep
+
+
+def compression_check(cfg, params, image: tuple, gen) -> dict:
+    """Gradient compression (``optim.compression``) on a full gradient:
+    one ``loss_fn`` backward of ``cfg`` on a (1, S) prompt of ``image``'s
+    layout (kernel E with its stats, kernel D, the M-RoPE backward),
+    counts read around it; then two ``compress_with_feedback`` steps in
+    int8 and one in bf16 over every leaf, each timed, each leaf held to
+    its reconstruction bound (INT8_ERR_STEPS of its scale; BF16_REL_ERR
+    of |target| plus BF16_ABS_ERR) and its new error feedback bitwise ``target - recon``,
+    the bytes on the wire = the elements x 1 (x 2), and three leaves run
+    again on the CPU, bitwise."""
+    import torch
+
+    from repro_torch.checkpoint.manager import _flatten
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import compression as C
+
+    dev = params["embed"]["table"].device
+    embeds, pos = stub_embeds(cfg, params, image, 0, 1, gen)
+    seq = embeds.shape[1]
+    labels = torch.randint(0, cfg.vocab_size, (1, seq), generator=gen,
+                           device=dev)
+    batch = T.Batch(embeds=embeds, positions=pos, labels=labels)
+    with torch.enable_grad():
+        train = S.trainable(params)
+        sync(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        loss, grads = S.value_and_grad(cfg, train, batch)
+        sync(dev)
+        backward_s = time.perf_counter() - t0
+        launches = read_counts()
+    del train
+    check(launches == lm_launches(cfg, params),
+          f"{cfg.name} loss_fn backward: expected {lm_launches(cfg, params)}"
+          f" launches, got {launches}")
+    check(bool(torch.isfinite(loss)), f"{cfg.name}: loss {loss}")
+    named = dict(_flatten(grads))
+    numel = sum(g.numel() for g in named.values())
+    rep: dict = {"seq": seq, "image": list(image), "loss": float(loss),
+                 "launches": launches, "backward_s": backward_s,
+                 "leaves": len(named), "elements": numel, "steps": []}
+    ef = C.init_error_feedback(grads)
+    for kind in ("int8", "int8", "bf16"):
+        ccfg = C.CompressionConfig(kind)
+        sync(dev)
+        t0 = time.perf_counter()
+        comp, new_ef = C.compress_with_feedback(grads, ef, ccfg)
+        sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        wire = C.compressed_bytes(grads, ccfg)
+        check(wire == numel * ccfg.bytes_per_element,
+              f"compression: {wire} bytes on the wire for {numel} "
+              f"elements of {kind}")
+        worst = 0.0
+        # the compressed leaves in the order of _flatten's paths
+        flat_c = dict(zip(named, C._leaves(comp)))
+        flat_e = dict(_flatten(new_ef))
+        flat_prev = dict(_flatten(ef))
+        for path, e_prev in flat_prev.items():
+            g, c, e_new = named[path], flat_c[path], flat_e[path]
+            target = g.float() + e_prev
+            recon = C.decompress_leaf(c)
+            err = (target - recon).abs()
+            if kind == "int8":
+                share = (err.max() / (c.scale * INT8_ERR_STEPS)).item()
+            else:
+                share = (err / (target.abs() * BF16_REL_ERR
+                                + BF16_ABS_ERR)).max().item()
+            check(share <= 1.0, f"compression {kind} {path}: |target - "
+                  f"recon| reaches {share!r} of its bound")
+            worst = max(worst, share)
+            del err
+            check(torch.equal((target - recon).view(torch.int32),
+                              e_new.view(torch.int32)),
+                  f"compression {kind} {path}: the new error feedback is "
+                  f"not target - recon")
+            del target, recon
+        bits = torch.int8 if kind == "int8" else torch.int16
+        # a sample run again on the CPU: a norm scale, the first layer's
+        # q bias, the last layer's k projection
+        for path in ("final_norm/scale", "layers/0/mixer/b_q",
+                     f"layers/{cfg.num_layers - 1}/mixer/w_k"):
+            cpu_c, cpu_e = C.compress_with_feedback(
+                {"x": named[path].cpu()}, {"x": flat_prev[path].cpu()},
+                ccfg)
+            c, want = flat_c[path], cpu_c["x"]
+            check(torch.equal(c.payload.cpu().view(bits),
+                              want.payload.view(bits))
+                  and (c.scale is None) == (want.scale is None)
+                  and (c.scale is None or torch.equal(
+                      c.scale.cpu().view(torch.int32),
+                      want.scale.view(torch.int32)))
+                  and torch.equal(flat_e[path].cpu().view(torch.int32),
+                                  cpu_e["x"].view(torch.int32)),
+                  f"compression {kind} {path}: card and CPU differ")
+        rep["steps"].append({"kind": kind, "ms": ms, "wire_bytes": wire,
+                             "worst_share_of_bound": worst,
+                             "cpu_leaves_bitwise": True})
+        print(f"{cfg.name} compression {kind}: {ms:.1f} ms over "
+              f"{len(named)} leaves, {numel} elements, {wire:.0f} bytes "
+              f"on the wire, the worst leaf at {worst!r} of its bound")
+        ef = new_ef
+        del comp, flat_c, flat_e, flat_prev
+    del grads, named, ef, new_ef
+    return rep
+
+
+def phase_stub(dev, smi: str, vl=None, audio=None, image: tuple = STUB_IMAGE,
+               frames: int = STUB_FRAMES, serve: tuple = STUB_SERVE,
+               grad_image: tuple = STUB_GRAD_IMAGE) -> tuple:
+    """The modality-stub models at full width and depth on ``dev``
+    (``vl``, ``audio``: other configs).  qwen2-vl-2b: (a) the forward on
+    one prompt of ``image``'s layout at its t/h/w positions
+    (:func:`stub_forward`: counts, kernels vs plain, the float32
+    witness), its timing and bound; the M-RoPE gates
+    (:func:`mrope_checks`); (b) serving at ``serve`` (batch, tokens) from
+    the same layout's prompts (:func:`vl_serve`); (c) the compression
+    gate on a ``grad_image`` backward (:func:`compression_check`).
+    musicgen-large: (a) the forward on ``frames`` frame embeddings;
+    (b) teacher-forced decode after them, against the forward
+    (:func:`audio_serve`).  (c) The reduced float32 models against
+    ``LM_ANCHORS``.  Returns each model's forward and decode-step launch
+    counts and the ``stub`` report."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    bsz, gen_n = serve
+    report: dict = {}
+    launches: dict = {}
+    for cfg in (vl or get_config(STUB_VL), audio or get_config(STUB_AUDIO)):
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        rep: dict = {"layers": cfg.num_layers, "d_model": cfg.d_model,
+                     "heads": [cfg.num_heads, cfg.num_kv_heads],
+                     "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+                     "ffn": cfg.ffn_kind, "vocab": cfg.vocab_size,
+                     "tied": cfg.tie_embeddings,
+                     "mrope_sections": list(cfg.mrope_sections),
+                     "rope": cfg.use_rope, "dtype": cfg.dtype}
+        gen = torch.Generator(device=dev).manual_seed(0)
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            params = T.init_params(cfg, gen, dev)
+            sync(dev)
+            rep.update(init_s=time.perf_counter() - t0,
+                       params=T.param_count(params),
+                       param_gb=T.param_bytes(params) / 1e9)
+            params32 = float32_copy(params)
+            vl_arch = bool(cfg.mrope_sections)
+            if vl_arch:
+                # the prompts; served by tokens after them
+                embeds, pos = stub_embeds(cfg, params, image, 0, bsz, gen)
+                n = embeds.shape[1]
+                batch = T.Batch(embeds=embeds[:1], positions=pos[:, :1])
+                rep["image"] = dict(zip(("before", "rows", "cols", "after"),
+                                        image))
+            else:
+                # the prompts' frames and the gen_n fed after them, to a
+                # length the prompt attention tiles
+                span = frames + gen_n
+                if span > FLASH_BLOCK:
+                    span = -(-span // FLASH_BLOCK) * FLASH_BLOCK
+                embeds, pos = stub_embeds(cfg, params, None, span, bsz, gen)
+                n = frames
+                batch = T.Batch(embeds=embeds[:1, :n])
+            limits = STUB_LIMITS[cfg.name]
+            logits, fwd = stub_forward(cfg, params, params32, batch,
+                                       limits)
+            if vl_arch:
+                fwd["mrope"] = mrope_checks(cfg, params, batch, logits,
+                                            image[0])
+            del logits
+            stub_timing(cfg, params, batch, fwd, cfg.name)
+            rep["forward"] = fwd
+            if vl_arch:
+                step, rep["serve"] = vl_serve(cfg, params, params32, embeds,
+                                              gen_n, limits)
+            else:
+                step, rep["serve"] = audio_serve(cfg, params, params32,
+                                                 embeds, n, gen_n, limits)
+            del params32, embeds, batch, pos
+            if cuda:
+                torch.cuda.empty_cache()
+        if vl_arch:
+            rep["compression"] = compression_check(cfg, params, grad_image,
+                                                   gen)
+        del params
+        if cuda:
+            rep["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            torch.cuda.empty_cache()
+        launches[cfg.name] = {"forward": fwd["launches"],
+                              "decode_step": step}
+        report[cfg.name] = rep
+
+    # (c) the reduced float32 models against the JAX anchors
+    report["anchors"] = {arch: phase_anchor(arch, dev)
+                         for arch in (STUB_VL, STUB_AUDIO)}
+    report["wall_s"] = time.perf_counter() - t_phase
+    report["card"] = smi
+    print(f"stub phase: {report['wall_s']:.1f} s; card {smi}")
+    return launches, report
 
 
 # ---------------------------------------------------------------------------
@@ -3326,7 +4068,8 @@ def lm_bounds(cfg, params, tokens: int, kept: int = 0, used: int = 0,
     through ``cfg``'s ``params``, counted from the code's own shapes: the
     larger of the bytes it must move over PEAK_BYTES_PER_S (every weight
     read once, of the experts only the ``used`` (layer, expert) pairs',
-    of the embedding the gathered rows; the token ids, each attention
+    of the embedding the gathered rows (or frontend embeddings, as many
+    bytes) unless the head is tied to it and reads it whole; the token ids, each attention
     layer's k and v cache and, in decode, each SSM layer's state read
     once, the new states and the logits written once) and its operations:
     the bf16 ones (2 a weight and token of each product, the experts' for
@@ -3351,7 +4094,9 @@ def lm_bounds(cfg, params, tokens: int, kept: int = 0, used: int = 0,
     flags = T.layer_moe_flags(cfg)
     unused = 0 if m is None else \
         (sum(flags) * m.num_experts - used) * 3 * d * m.d_ff_expert * item
-    nbytes = (T.param_bytes(params) - table.numel() * item - unused
+    # a tied head reads the whole table; else only the gathered rows
+    gathered = 0 if cfg.tie_embeddings else table.numel() * item
+    nbytes = (T.param_bytes(params) - gathered - unused
               + tokens * (d * item + 8) + tokens * V * item)
     pairs = tokens * ctx if ctx else tokens * (tokens + 1) // 2
     bf16, f32 = 2 * tokens * d * V, 0
@@ -4976,6 +5721,15 @@ def lm_kernel_report(err: dict, dev) -> tuple:
     rows[1]["mla_shape"] = dict(shape_readings(mla_row),
                                 library_kernels=mla_row.get(
                                     "library_kernels"))
+    # the modality-stub models' shapes (phase 9g): a norm of each prompt,
+    # one attention layer of each
+    rows[0]["stub_shape"] = {
+        arch: shape_readings(next(r for r in norm_rows if r["what"] == what))
+        for arch, what in ((STUB_VL, "qwen2-vl forward"),
+                           (STUB_AUDIO, "musicgen forward"))}
+    rows[1]["stub_shape"] = {
+        arch: shape_readings(next(r for r in attn_rows if r["name"] == name))
+        for arch, name in ((STUB_VL, "qwen2-vl"), (STUB_AUDIO, "musicgen"))}
     # kernel E's bf16 route runs on the tensor cores (HMMA) with K/V
     # staged by cp.async (LDGSTS), read by ldmatrix (LDSM)
     sass = sass_opcodes(LIBRARY.path(), ("HMMA", "LDGSTS", "LDSM"))
@@ -5036,7 +5790,8 @@ def run(dev, grid_big, smi: str, lm_cfg, lm_seq: int = LM_SEQ,
         train_argv: list = TRAIN_ARGV) -> None:
     """Phases 2-11 on ``dev`` with ``grid_big`` as the stream's grid,
     ``lm_cfg`` run at ``lm_seq`` tokens as the LM, ``train.main(
-    train_argv)`` as the training path, xlstm-350m and jamba at
+    train_argv)`` as the training path, qwen2-vl-2b and musicgen-large
+    as the modality-stub path, xlstm-350m and jamba at
     SSM_JAMBA_LAYERS layers as the SSM path, arctic-480b at MOE_LAYERS
     layers as the MoE path and deepseek-v2-236b at MLA_LAYERS layers as
     the MLA path."""
@@ -5091,6 +5846,8 @@ def run(dev, grid_big, smi: str, lm_cfg, lm_seq: int = LM_SEQ,
     # The LM last: its serve run's trace (~85,000 kernels) is the largest
     # the script takes.
     lm_launches, lm = phase_lm(dev, lm_cfg, lm_seq, serve_argv, smi)
+    # the modality-stub models (8 GB) before jamba's 52 GB
+    stub_launches, stub = phase_stub(dev, smi)
     # the SSM path before MoE: jamba's 52 GB, freed before arctic's
     ssm_launches, ssm = phase_ssm(dev, smi)
     # MoE after every other phase: its 55 GB of weights need the card
@@ -5110,12 +5867,16 @@ def run(dev, grid_big, smi: str, lm_cfg, lm_seq: int = LM_SEQ,
                                "decode_step": moe_step[key]}
         row["launches_mla"] = {"forward": mla_fwd[key],
                                "decode_step": mla_step[key]}
+        row["launches_stub"] = {
+            arch: {k: counts[key] for k, counts in runs.items()}
+            for arch, runs in stub_launches.items()}
     print(json.dumps({"stream": stats, "card": smi}))
     print(json.dumps({"stream_resilience": resilience, "card": smi}))
     print(json.dumps(shapes))
     print(json.dumps({"handtracking": ht}))
     print(json.dumps(lm_shapes))
     print(json.dumps({"lm": lm}))
+    print(json.dumps({"stub": stub}))
     print(json.dumps({"train": trained}))
     print(json.dumps({"ssm": ssm}))
     print(json.dumps({"moe": moe}))

@@ -34,12 +34,19 @@ def value_and_grad(cfg: ModelConfig, params, batch: T.Batch,
                    remat: bool = False) -> tuple[torch.Tensor, Any]:
     """``(loss, grads)``: the loss (detached) and its gradient with
     respect to every leaf of ``params`` (which must require grad), in
-    ``params``' structure and dtypes."""
+    ``params``' structure and dtypes.  A leaf the loss does not read
+    (the embedding table of a model fed ``Batch.embeds`` with an untied
+    head) gets zeros, as ``jax.grad`` gives it."""
     leaves: list = []
     adamw._map(leaves.append, params)
     loss = T.loss_fn(cfg, params, batch, remat=remat)
-    grads = iter(torch.autograd.grad(loss, leaves))
-    return loss.detach(), adamw._map(lambda _: next(grads), params)
+    grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
+
+    def grad_of(p):
+        g = next(grads)
+        return torch.zeros_like(p) if g is None else g
+
+    return loss.detach(), adamw._map(grad_of, params)
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,

@@ -10,11 +10,14 @@ unstacked), so the same arrays feed ``repro.models.transformer`` and,
 through :func:`repro_torch.models.transformer.params_from_jax`, the
 port.  ``LM_ANCHORS`` holds what the JAX reference computed from them on
 the CPU for the reduced float32 gemma2-2b, qwen2-0.5b, arctic-480b,
-xlstm-350m, jamba-v0.1-52b and deepseek-v2-236b: full-forward logits at
-fixed positions and greedy tokens after a prefill, and for the MoE archs
-the forward's routes (``tests/test_torch_transformer.py`` and, for the
-SSM archs, ``tests/test_torch_ssm_models.py``, for deepseek-v2
-``tests/test_torch_mla_models.py`` recompute them with JAX);
+xlstm-350m, jamba-v0.1-52b, deepseek-v2-236b, qwen2-vl-2b and
+musicgen-large: full-forward logits at fixed positions (the
+modality-stub archs' on :func:`anchor_embeds`, qwen2-vl's at
+:func:`image_positions`) and greedy tokens after a prefill, and for the
+MoE archs the forward's routes (``tests/test_torch_transformer.py`` and,
+for the SSM archs, ``tests/test_torch_ssm_models.py``, for deepseek-v2
+``tests/test_torch_mla_models.py``, for the stub archs
+``tests/test_torch_stub_models.py`` recompute them with JAX);
 :func:`record_routes` and :func:`routes_digest` read and condense the
 port's routes.  ``TRAIN_ANCHORS`` holds the reference's training run
 from the same weights: each step's loss and global gradient norm, and
@@ -202,6 +205,45 @@ def anchor_tokens(cfg: ModelConfig, seed: int = TOKEN_SEED) -> tuple:
     return fwd, prompt
 
 
+#: The anchors' modality-stub inputs: the seed of the frontend
+#: embeddings, and the M-RoPE prompt's layout (text tokens, image rows and
+#: columns of merged patches, text tokens) filling FORWARD_SHAPE's 256.
+EMBED_SEED = 13
+ANCHOR_IMAGE = (16, 12, 12, 96)
+
+
+def image_positions(before: int, rows: int, cols: int,
+                    after: int) -> np.ndarray:
+    """(3, S) int32 t/h/w positions of a prompt of ``before`` text
+    tokens, one image of ``rows`` x ``cols`` merged patches and ``after``
+    text tokens, by Qwen2-VL's rule: text at t = h = w = its index; the
+    image at t = its first index, h and w that plus its row and column;
+    the text after it from the largest position so far plus one."""
+    text = np.arange(before)
+    r, c = np.divmod(np.arange(rows * cols), cols)
+    start = before + max(rows, cols)
+    tail = start + np.arange(after)
+    streams = [np.concatenate([text, before + img, tail])
+               for img in (np.zeros_like(r), r, c)]
+    return np.stack(streams).astype(np.int32)
+
+
+def anchor_embeds(cfg: ModelConfig, seed: int = EMBED_SEED) -> tuple:
+    """A modality-stub arch's forward inputs: (embeds (2, 256, d)
+    float32, seeded normals at the embedding table's scale d^-0.5, and
+    for M-RoPE the (3, 2, 256) positions of ANCHOR_IMAGE's prompt, else
+    None)."""
+    rng = np.random.default_rng(seed)
+    d = cfg.d_model
+    embeds = (rng.standard_normal(FORWARD_SHAPE + (d,))
+              * d ** -0.5).astype(np.float32)
+    if not cfg.mrope_sections:
+        return embeds, None
+    pos = image_positions(*ANCHOR_IMAGE)
+    return embeds, np.ascontiguousarray(np.broadcast_to(
+        pos[:, None], (3,) + FORWARD_SHAPE))
+
+
 @contextlib.contextmanager
 def record_routes():
     """Inside the ``with``, every MoE layer's routing
@@ -256,7 +298,10 @@ TRAIN_DATA_SEED = 0
 #: probabilities among a token's k+1 largest over the forward and the
 #: greedy run (the gap between the k-th and the (k+1)-th sets which
 #: experts a token takes, the earlier gaps their order, which sets the
-#: capacity ranks: how far the routes are from a tie).
+#: capacity ranks: how far the routes are from a tie).  The
+#: modality-stub archs (qwen2-vl-2b, musicgen-large) take their forward
+#: on :func:`anchor_embeds` (qwen2-vl with its image positions); their
+#: greedy run is on the token prompt, through the embedding table.
 LM_ANCHORS: dict = {
     "gemma2-2b": {
         "logits": (
@@ -595,6 +640,134 @@ LM_ANCHORS: dict = {
         "routes": {"top_e_crc32": 3946592666, "keep_crc32": 3818974591,
                    "dropped": (107, 158)},
         "min_router_gap": 2.483278512954712e-05,
+    },
+    "qwen2-vl-2b": {
+        "logits": (
+            (
+                -0.19900330901145935, -1.1687321662902832,
+                0.4586206078529358, -0.5623308420181274,
+                0.2647421061992645, -0.5384136438369751,
+                -0.3293498158454895, 1.5068705081939697,
+                -0.045347027480602264, 0.49473145604133606,
+                -0.6856415271759033, 0.152474507689476,
+                0.9138473868370056, 0.9033243656158447,
+                -1.018069863319397, 0.14347894489765167,
+            ),
+            (
+                0.8075576424598694, 0.06885617971420288,
+                2.4128005504608154, -0.19102731347084045,
+                -0.5721284747123718, 0.5264679193496704,
+                -1.5822218656539917, 1.7557072639465332,
+                0.2840701639652252, -2.5720789432525635,
+                -1.195887804031372, -0.7302414178848267,
+                -1.0956199169158936, -1.0573867559432983,
+                -0.05969294533133507, 0.09616944938898087,
+            ),
+            (
+                0.6812494397163391, -0.003383549163118005,
+                0.7628888487815857, -0.4059928357601166,
+                0.785465657711029, 0.1021580919623375,
+                -0.2048357129096985, 2.322052478790283,
+                -0.4425983726978302, -2.4895312786102295,
+                0.30439332127571106, -1.5411738157272339,
+                0.09450054168701172, 1.5344433784484863,
+                0.8358172178268433, -1.8413567543029785,
+            ),
+            (
+                0.9496157169342041, 0.2061329334974289,
+                0.17699623107910156, 2.0899860858917236,
+                0.37989768385887146, 0.28270483016967773,
+                0.2955448031425476, 0.8017446398735046,
+                -0.4989916980266571, -1.0482243299484253,
+                -0.04339239001274109, -0.6756963729858398,
+                0.2588542401790619, -1.6407153606414795,
+                -0.3971256911754608, -0.6593562364578247,
+            ),
+            (
+                0.3635888397693634, 2.568401575088501,
+                -0.0812152847647667, 0.724350094795227,
+                -0.7325361967086792, -0.6077273488044739,
+                0.5389500856399536, 0.6495182514190674,
+                0.44749772548675537, -1.4883465766906738,
+                0.24445819854736328, -1.8847830295562744,
+                -0.08694205433130264, -1.2526272535324097,
+                -0.04241529107093811, -2.0515239238739014,
+            ),
+        ),
+        "row_sums": (
+            24.380413672770374, -7.288334527111147,
+            36.358276224695146, 34.15468145348132,
+            18.674728192097973,
+        ),
+        "greedy": (
+            (98, 98, 98, 98, 98, 98, 98, 79),
+            (223, 284, 340, 337, 337, 337, 337, 344),
+        ),
+        "min_top2_gap": 0.05159449577331543,
+    },
+    "musicgen-large": {
+        "logits": (
+            (
+                0.023845618590712547, -0.5710961818695068,
+                0.8165044188499451, -0.01292846817523241,
+                0.23578792810440063, -0.26831406354904175,
+                0.59807950258255, 0.052381567656993866,
+                -0.6033962368965149, 0.8672772645950317,
+                -0.35611918568611145, 1.2327455282211304,
+                -0.20212915539741516, 2.0859851837158203,
+                1.409427523612976, 0.5249767899513245,
+            ),
+            (
+                -1.655595064163208, 0.5802968144416809,
+                1.0668299198150635, 0.7031760215759277,
+                -0.46963784098625183, -0.6236513257026672,
+                0.22107335925102234, -0.34215468168258667,
+                -1.3767778873443604, 0.5495648980140686,
+                1.2111772298812866, 0.4342173933982849,
+                0.10457813739776611, 1.8148669004440308,
+                0.3974621593952179, 0.6236019730567932,
+            ),
+            (
+                -1.6834068298339844, 0.6219652891159058,
+                1.1249135732650757, 0.6777528524398804,
+                -0.48943623900413513, -0.578204870223999,
+                0.042808499187231064, -0.38559606671333313,
+                -1.4872394800186157, 0.46547237038612366,
+                1.378752589225769, 0.5200839638710022,
+                -0.03682084009051323, 1.6277966499328613,
+                0.48563966155052185, 0.6893408894538879,
+            ),
+            (
+                -2.170626401901245, 1.0986714363098145,
+                2.4020817279815674, -0.5001262426376343,
+                0.46072322130203247, 0.10612323135137558,
+                0.235371932387352, -1.1446994543075562,
+                -0.5655677318572998, -0.9579955339431763,
+                2.5695245265960693, 0.3045787215232849,
+                0.8514286279678345, 1.5901989936828613,
+                0.2831403315067291, 0.9262970685958862,
+            ),
+            (
+                -0.9100840091705322, 0.8979632258415222,
+                0.8025128245353699, -0.5196521282196045,
+                0.5494245290756226, 0.20633266866207123,
+                1.0679653882980347, -0.04893627017736435,
+                -0.3055869936943054, -0.6231632232666016,
+                0.7177886962890625, 1.1682153940200806,
+                0.6478062272071838, 1.7966803312301636,
+                0.6218534708023071, 0.998028576374054,
+            ),
+        ),
+        "row_sums": (
+            10.09701716573909, -22.017317259218544,
+            -25.185864173574373, -31.858616209123284,
+            6.877485464792699,
+        ),
+        "greedy": (
+            (215, 215, 215, 215, 215, 215, 215, 198),
+            (215, 215, 215, 215, 215, 215, 215, 198),
+        ),
+        "min_top2_gap": 0.046500205993652344,
     },
 }
 

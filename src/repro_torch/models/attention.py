@@ -1,6 +1,6 @@
 """Attention of the port's LM: the reference's
-``repro/models/attention.py``, GQA (RoPE, sliding windows, logit
-softcap) and MLA (DeepSeek-V2's multi-head latent attention).
+``repro/models/attention.py``, GQA (RoPE or M-RoPE, sliding windows,
+logit softcap) and MLA (DeepSeek-V2's multi-head latent attention).
 
 Two paths, as in the reference:
 
@@ -199,6 +199,8 @@ def _rope_or_mrope(cfg: ModelConfig, x: torch.Tensor,
     if not cfg.use_rope:
         return x
     if cfg.mrope_sections:
+        if positions.ndim == 2:     # text only: t = h = w
+            positions = positions[None].expand(3, *positions.shape)
         return apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
     return apply_rope(x, positions, cfg.rope_theta)
 

@@ -1,5 +1,5 @@
-"""Elementary layers of the port's LM: norms, RoPE, FFNs, embeddings,
-softcap (the reference's ``repro/models/layers.py``).
+"""Elementary layers of the port's LM: norms, RoPE and M-RoPE, FFNs,
+embeddings, softcap (the reference's ``repro/models/layers.py``).
 
 Parameters are plain dicts of tensors in the reference's layouts.  Math
 that the reference does in float32 (norms, RoPE, softcaps) is done in
@@ -8,6 +8,7 @@ float32 here and cast back to the input's dtype, as it does.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -54,7 +55,7 @@ def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Rotary position embeddings
+# Rotary position embeddings (RoPE + M-RoPE)
 # ---------------------------------------------------------------------------
 
 
@@ -77,10 +78,35 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def apply_mrope(x, positions3, theta, sections):
-    raise NotImplementedError(
-        "M-RoPE (qwen2-vl) comes with the modality-stub slice of the LM "
-        "port (ROADMAP Queue 1 item 12e)")
+@functools.lru_cache(maxsize=None)
+def _section_ids(sections: tuple, device: torch.device) -> torch.Tensor:
+    """(half,) index of the position stream (0 t, 1 h, 2 w) each
+    frequency takes, made once a device: a copy to the card inside a
+    forward would wait on its stream."""
+    ids = torch.repeat_interleave(torch.arange(len(sections)),
+                                  torch.tensor(sections))
+    return ids.to(device)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: tuple) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL): the half-dim frequency bands are split
+    into (temporal, height, width) ``sections``, each rotated by its own
+    position stream; f32 math, the halves rotated as :func:`apply_rope`.
+
+    x: (B, S, H, D); positions3: (3, B, S) integer.
+    """
+    half = x.shape[-1] // 2
+    assert sum(sections) == half, (sections, half)
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)     # (half,)
+    sec_id = _section_ids(tuple(sections), x.device)           # (half,)
+    pos = positions3.float().index_select(0, sec_id)           # (half, B, S)
+    ang = pos.permute(1, 2, 0) * freqs                         # (B, S, half)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

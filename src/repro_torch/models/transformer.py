@@ -28,9 +28,13 @@ too) and every full-sequence attention kernel E, in training too (their
 autograd Functions' backwards are torch ops); decode attention (GQA's
 and MLA's, naive or absorbed), the MoE block (:mod:`.moe`) and the SSM
 blocks (:mod:`.ssm`) are plain tensor code, as in the reference.
-Without RoPE (``use_rope=False``, Jamba) sinusoidal positions are added
-to the embeddings.  Sequence parallelism and frontend embeddings come
-with later slices and raise ``NotImplementedError``.
+Without RoPE (``use_rope=False``, Jamba, MusicGen) sinusoidal positions
+are added to the embeddings; with ``mrope_sections`` (Qwen2-VL) q and k
+rotate by M-RoPE over (3, B, S) t/h/w positions, (B, S) ones standing
+for t = h = w.  A modality-stub config (``frontend_stub``) takes
+precomputed frontend embeddings (``Batch.embeds``) or, as the reference,
+token ids through its table.  Sequence parallelism comes with a later
+slice and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -55,8 +59,6 @@ from .layers import (compute_dtype, dense_ffn, dense_ffn_init, embed,
 _LATER = {
     "seq_parallel": ("sequence parallelism comes with the sharding slice "
                      "of the LM port", "12g"),
-    "embeds": ("frontend embeddings (modality stubs) come with the "
-               "modality-stub slice of the LM port", "12e"),
 }
 
 LOSS_CHUNK = 256     # sequence-chunked cross entropy (bounds logits memory)
@@ -71,16 +73,17 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what this slice does not run."""
     if cfg.seq_parallel:
         raise _later("seq_parallel")
-    if cfg.frontend_stub:
-        raise _later("embeds")
 
 
 class Batch(NamedTuple):
-    """Token ids (frontend embeddings come with a later slice).
+    """Either token ids or precomputed frontend embeddings (modality
+    stubs).
 
-    tokens:    (B, S) integer
-    embeds:    (B, S, d_model) or None — not supported yet
-    positions: (B, S) integer, or None for 0..S-1
+    tokens:    (B, S) integer, or None when ``embeds`` is given
+    embeds:    (B, S, d_model) or None — vision patches / audio frames,
+               cast to the compute dtype
+    positions: (B, S) integer, or (3, B, S) t/h/w streams for M-RoPE, or
+               None for 0..S-1
     labels:    (B, S) next-token targets (training only)
     """
     tokens: Optional[torch.Tensor] = None
@@ -369,15 +372,18 @@ def _sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
 def _inputs_to_x(cfg: ModelConfig, params: dict,
                  batch: Batch) -> tuple[torch.Tensor, torch.Tensor]:
     if batch.embeds is not None:
-        raise _later("embeds")
-    x = embed(params["embed"], batch.tokens, cfg.scale_embeddings,
-              cfg.d_model)
-    b, s = batch.tokens.shape
+        x = batch.embeds.to(compute_dtype(cfg))
+        b, s = x.shape[:2]
+    else:
+        x = embed(params["embed"], batch.tokens, cfg.scale_embeddings,
+                  cfg.d_model)
+        b, s = batch.tokens.shape
     pos = batch.positions
     if pos is None:
         pos = _default_positions(b, s, x.device)
     if not cfg.use_rope:
-        x = x + _sinusoidal(pos, cfg.d_model).to(x.dtype)
+        p2d = pos if pos.ndim == 2 else pos[0]
+        x = x + _sinusoidal(p2d, cfg.d_model).to(x.dtype)
     return x, pos
 
 
@@ -485,7 +491,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
 def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: Batch,
                 pos: int, *, mla_absorb: bool = False
                 ) -> tuple[torch.Tensor, dict]:
-    """One-token step. batch.tokens: (B, 1).
+    """One-token step. batch.tokens: (B, 1) (or embeds (B, 1, d)).
 
     ``pos`` is the cache position to write (== number of tokens already in
     the cache).  Returns (logits (B, 1, V), cache): KV and MLA caches are
@@ -497,9 +503,9 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: Batch,
     check_supported(cfg)
     pos = int(pos)
     if batch.positions is None and not cfg.use_rope:
+        inp = batch.tokens if batch.tokens is not None else batch.embeds
         batch = batch._replace(positions=torch.full(
-            (batch.tokens.shape[0], 1), pos, dtype=torch.int32,
-            device=batch.tokens.device))
+            (inp.shape[0], 1), pos, dtype=torch.int32, device=inp.device))
     x, _ = _inputs_to_x(cfg, params, batch)
     for i, (p, use_moe) in enumerate(zip(params["layers"],
                                          layer_moe_flags(cfg))):

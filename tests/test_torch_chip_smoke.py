@@ -1257,3 +1257,228 @@ def test_fill_mla_cache_draws_every_layer_up_to_its_end():
             assert bool((t[:, 7] == 0).all()) and bool((t[:, :7] != 0).all())
             assert t.dtype == torch.bfloat16
     assert not torch.equal(cache["layers"][0].c_kv, cache["layers"][1].c_kv)
+
+
+# ---------------------------------------------------------------------------
+# Phase 9g: modality-stub serving (qwen2-vl-2b, musicgen-large)
+# ---------------------------------------------------------------------------
+
+#: The rehearsal's sizes: qwen2-vl's prompt layout (text, image rows and
+#: columns, text: 32 tokens), musicgen's frames, serving (batch, tokens)
+#: and the compression backward's layout (12 tokens).
+STUB_IMAGE, STUB_FRAMES, STUB_SERVE, STUB_GRAD = (4, 3, 3, 19), 24, (2, 4), \
+    (2, 2, 2, 6)
+
+
+def _stub_counts(cfg):
+    """A forward's launches from the config's layer count (norm1 and
+    norm2 a layer and the final norm; E once a layer) and a decode
+    step's (the norms, no E)."""
+    n = cfg.num_layers
+    return dict(ZERO, D=2 * n + 1, E=n), dict(ZERO, D=2 * n + 1)
+
+
+def _stub_phase(monkeypatch, vl_fwd=None):
+    """Phase 9g at the reduced bf16 qwen2-vl-2b and musicgen-large (2
+    layers each); ``read_counts`` as the card gives them around each
+    forward (and its plain and float32 plain forwards), the served
+    decode steps (qwen2-vl's plain teacher-forced runs, bf16 and float32,
+    inside ``plain_kernels``) and the compression gate's backward."""
+    from repro_torch.configs import get_reduced_config
+
+    vl = get_reduced_config("qwen2-vl-2b")
+    au = get_reduced_config("musicgen-large")
+    (vf, vs), (af, as_) = _stub_counts(vl), _stub_counts(au)
+    steps_vl, steps_au = STUB_SERVE[1] - 1, STUB_SERVE[1]
+    seq = iter([vl_fwd or vf, ZERO, ZERO, dict(ZERO, D=vs["D"] * steps_vl),
+                ZERO, ZERO, vf,
+                af, ZERO, ZERO, dict(ZERO, D=as_["D"] * steps_au)])
+    monkeypatch.setattr(CS, "read_counts", lambda: next(seq))
+    return CS.phase_stub(torch.device("cpu"), "cpu, not a card", vl, au,
+                         STUB_IMAGE, STUB_FRAMES, STUB_SERVE, STUB_GRAD)
+
+
+def test_stub_phase_on_the_cpu(monkeypatch, capsys, one_thread):
+    """The whole phase at the reduced bf16 models: the forwards and
+    qwen2-vl's serve run against themselves on the plain path (equal),
+    beside the float32 witness (not equal); the M-RoPE gates (t = h = w
+    is RoPE exactly; the image's positions move the logits after the
+    first text run only); the prefill from one forward against a decode
+    step a position; musicgen's decode against its forward, bf16 and
+    float32; the compression gate; the reduced float32 models on their
+    JAX anchors; the ``stub`` line's keys."""
+    from repro_torch.configs import get_reduced_config
+
+    launches, out = _stub_phase(monkeypatch)
+    for arch in ("qwen2-vl-2b", "musicgen-large"):
+        fwd, step = _stub_counts(get_reduced_config(arch))
+        assert launches[arch] == {"forward": fwd, "decode_step": step}
+        rep = out[arch]
+        f = rep["forward"]
+        assert f["launches"] == fwd and rep["layers"] == 2
+        assert f["vs_plain"]["max_abs_diff"] == 0.0
+        assert f["float32_witness"]["vs_plain"]["max_abs_diff"] > 0
+        assert f["bound"]["bound_ms"] > 0 and "device_ms" not in f
+        assert rep["serve"]["launches_per_step"] == step
+        assert rep["serve"]["bound_ms"] > 0
+        assert "step_device_ms" not in rep["serve"]        # no card
+        assert out["anchors"][arch]["greedy_equal"]
+    vl, au = out["qwen2-vl-2b"], out["musicgen-large"]
+    assert vl["image"] == dict(zip(("before", "rows", "cols", "after"),
+                                   STUB_IMAGE))
+    m = vl["forward"]["mrope"]
+    assert m["rope_vs_mrope_f32"] == 0.0
+    assert m["text_run"]["max_abs_diff"] == 0.0
+    assert m["after_text_run"]["max_abs_diff"] > CS.LM_BF16_MAX_DIFF
+    s = vl["serve"]
+    assert s["vs_plain"]["max_abs_diff"] == 0
+    assert s["float32"]["tokens_reproduced"]
+    assert s["float32"]["max_abs_diff"] == 0
+    for rep in (vl, au):
+        assert rep["forward"]["float32"]["vs_plain"]["max_abs_diff"] == 0
+    assert s["prefill_check"]["positions"] == 32
+    assert s["prefill_check"]["max_abs_diff"] <= CS.LM_BF16_MAX_DIFF
+    assert au["serve"]["vs_forward"]["argmax_agree"] >= CS.LM_BF16_ARGMAX
+    assert au["serve"]["float32_vs_forward"]["max_abs_diff"] \
+        <= CS.STUB_DECODE_F32_MAX_DIFF
+    c = vl["compression"]
+    assert c["launches"] == _stub_counts(get_reduced_config(
+        "qwen2-vl-2b"))[0]
+    assert [x["kind"] for x in c["steps"]] == ["int8", "int8", "bf16"]
+    assert [x["wire_bytes"] for x in c["steps"]] == \
+        [c["elements"], c["elements"], 2 * c["elements"]]
+    assert all(0 < x["worst_share_of_bound"] <= 1 for x in c["steps"])
+    assert c["leaves"] == 26 and c["seq"] == 12
+    json.dumps({"stub": out})
+    printed = capsys.readouterr().out
+    assert "qwen2-vl-2b forward (2 layers)" in printed
+    assert "M-RoPE" in printed and "stub phase" in printed
+
+
+def test_stub_phase_fails_on_a_perturbed_plain_e(monkeypatch, one_thread):
+    """A plain E that is not the function (its output off by 0.5) fails
+    the first kernels-vs-plain gate, qwen2-vl's forward.  On the CPU both
+    paths' attention is the blockwise ``_fwd_pass``: it is perturbed
+    where ``plain_kernels`` has swapped the plain E in."""
+    real = flash._fwd_pass
+
+    def perturbed(*args, **kw):
+        out, m, l_ = real(*args, **kw)
+        if flash.flash_attention_fwd is CS.flash_ref_by_kv_head:
+            out = out + 0.5
+        return out, m, l_
+
+    monkeypatch.setattr(flash, "_fwd_pass", perturbed)
+    with pytest.raises(CS.SmokeFailure,
+                       match="qwen2-vl-2b forward: kernels vs plain"):
+        _stub_phase(monkeypatch)
+
+
+def test_stub_phase_fails_on_other_launches(monkeypatch, one_thread):
+    with pytest.raises(CS.SmokeFailure,
+                       match="qwen2-vl-2b forward: expected 5"):
+        _stub_phase(monkeypatch, vl_fwd=dict(ZERO, D=5, E=1))
+
+
+def test_forward_prefill_writes_the_decode_steps_cache(one_thread):
+    """The cache one forward writes (:func:`chip_smoke.forward_prefill`)
+    is the cache the reference's prefill writes, a decode step a
+    position: the reduced float32 qwen2-vl (M-RoPE at t = h = w = the
+    index) and musicgen (sinusoidal positions), on embeds, within 1e-5;
+    the next step's logits from either cache agree as closely."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import transformer as T
+
+    for arch in ("qwen2-vl-2b", "musicgen-large"):
+        cfg = get_reduced_config(arch, dtype="float32")
+        params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        emb = torch.randn(2, 9, cfg.d_model,
+                          generator=torch.Generator().manual_seed(1)) * 0.1
+        with torch.no_grad():
+            fast = T.init_cache(cfg, 2, 9, device="cpu")
+            CS.forward_prefill(cfg, params, T.Batch(embeds=emb), fast, 8)
+            slow = T.init_cache(cfg, 2, 9, device="cpu")
+            for t in range(8):
+                T.decode_step(cfg, params, slow,
+                              T.Batch(embeds=emb[:, t:t + 1]), t)
+            for a, b in zip(fast["layers"], slow["layers"]):
+                assert torch.allclose(a.k, b.k, atol=1e-5)
+                assert torch.allclose(a.v, b.v, atol=1e-5)
+                assert bool((a.k[:, 8:] == 0).all())
+            last = T.Batch(embeds=emb[:, 8:9])
+            x, _ = T.decode_step(cfg, params, fast, last, 8)
+            y, _ = T.decode_step(cfg, params, slow, last, 8)
+        assert torch.allclose(x, y, atol=1e-5)
+
+
+def test_stub_embeds_follow_the_prompt_layout():
+    """qwen2-vl's prompt: text rows of the model's own table around the
+    image's seeded normals (at the table's scale), positions by
+    Qwen2-VL's rule for every sequence; musicgen's frames all normals."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import anchors as A
+    from repro_torch.models import transformer as T
+
+    cfg = get_reduced_config("qwen2-vl-2b")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    x, pos = CS.stub_embeds(cfg, params, STUB_IMAGE, 0, 2,
+                            torch.Generator().manual_seed(1))
+    table = params["embed"]["table"]
+    assert tuple(x.shape) == (2, 32, 128) and x.dtype == table.dtype
+    for row in list(range(4)) + list(range(13, 32)):
+        assert any(torch.equal(x[0, row], t) for t in table)
+    assert not any(torch.equal(x[0, 4], t) for t in table)
+    assert tuple(pos.shape) == (3, 2, 32)
+    assert torch.equal(pos[:, 1], torch.as_tensor(A.image_positions(
+        *STUB_IMAGE)).to(pos.dtype))
+    au = get_reduced_config("musicgen-large")
+    frames, none = CS.stub_embeds(au, T.init_params(au, device="cpu"), None,
+                                  7, 3, torch.Generator().manual_seed(2))
+    assert tuple(frames.shape) == (3, 7, 128) and none is None
+    assert abs(frames.float().std().item() - 128 ** -0.5) < 0.01
+
+
+def test_stub_bounds_at_full_width():
+    """qwen2-vl-2b (1.54 B parameters, 3.09 GB of bf16): its 4096-token
+    prompt is ~14 TFLOP of bf16 (10.7 for the layers' products, 1.9 for
+    the tied unembed, 1.4 for causal attention), ~14 ms at 989 TFLOP/s;
+    a decode step at batch 4 reads every weight, the tied table
+    included (~0.92 ms at 3.35 TB/s).  musicgen-large (2.42 B, 4.85 GB):
+    its 1536-frame prompt ~7.9 TFLOP; a decode step reads every weight
+    but the untied embedding table, and its 48 layers' k and v caches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    vl = get_config("qwen2-vl-2b")
+    vp = T.init_params(vl, torch.Generator(), "meta")
+    assert abs(T.param_count(vp) / 1e9 - 1.54) < 0.01
+    assert abs(T.param_bytes(vp) / 1e9 - 3.09) < 0.01
+    fwd = CS.lm_bounds(vl, vp, 4096)
+    assert fwd["bound_by"] == "operations"
+    assert 13.5e12 < fwd["ops"] < 14.5e12
+    unembed = 2 * 4096 * 1536 * 151936
+    assert abs(unembed / 1e12 - 1.91) < 0.01
+    step = CS.lm_bounds(vl, vp, 4, ctx=4112)
+    assert step["bound_by"] == "bytes"
+    assert step["bytes"] > T.param_bytes(vp)           # the table read whole
+    au = get_config("musicgen-large")
+    ap = T.init_params(au, torch.Generator(), "meta")
+    assert abs(T.param_bytes(ap) / 1e9 - 4.85) < 0.01
+    afwd = CS.lm_bounds(au, ap, 1536)
+    assert 7.8e12 < afwd["ops"] < 8.0e12
+    astep = CS.lm_bounds(au, ap, 4, ctx=1516)
+    table = ap["embed"]["table"]
+    cache = 48 * 2 * 4 * 1516 * 32 * 64 * 2          # k and v, every layer
+    want = T.param_bytes(ap) - table.numel() * 2 + cache
+    assert abs(astep["bytes"] - want) < 1e-3 * want
+
+
+def test_stub_launches_count_the_norms_and_attention_layers():
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    for arch, want in (("qwen2-vl-2b", dict(ZERO, D=57, E=28)),
+                       ("musicgen-large", dict(ZERO, D=97, E=48))):
+        cfg = get_config(arch)
+        params = T.init_params(cfg, torch.Generator(), "meta")
+        assert CS.lm_launches(cfg, params) == want

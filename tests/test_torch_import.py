@@ -178,13 +178,49 @@ def _gemma(**kw):
     return dataclasses.replace(get_reduced_config("gemma2-2b"), **kw)
 
 
+def _reference_pair(cfg):
+    """``cfg`` (float32) in both packages on the same numpy weights:
+    (the reference's config and params, the port's params)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_reduced_config as jax_config
+    from repro_torch.models import anchors
+
+    jcfg = dataclasses.replace(jax_config(cfg.name), **{
+        f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+        if f.name != "moe"})
+    w = anchors.jax_layout_params(cfg)
+    return jcfg, jax.tree.map(jnp.asarray, w), T.params_from_jax(cfg, w)
+
+
 @pytest.mark.parametrize("cfg, slice_", [
     (_gemma(seq_parallel=True), "sharding"),
-    (_gemma(frontend_stub=True), "modality-stub"),
+    (_gemma(frontend_stub=True, dtype="float32"), None),
 ], ids=["seq_parallel", "frontend_stub"])
 def test_later_slices_raise_not_implemented(cfg, slice_):
-    with pytest.raises(NotImplementedError, match=f"{slice_} slice"):
-        T.init_params(cfg, device="cpu")
+    """Sequence parallelism still raises, naming its slice; the
+    modality-stub configs came with the modality-stub slice and now
+    build, and gemma2's pattern as a stub backbone takes embeds (which
+    skip the embedding scale) as the reference's does."""
+    if slice_ is not None:
+        with pytest.raises(NotImplementedError, match=f"{slice_} slice"):
+            T.init_params(cfg, device="cpu")
+        return
+    import jax.numpy as jnp
+
+    from repro.models import transformer as JT
+
+    T.check_supported(cfg)
+    assert len(T.init_params(cfg, device="cpu")["layers"]) == cfg.num_layers
+    jcfg, jparams, params = _reference_pair(cfg)
+    emb = np.random.default_rng(0).standard_normal(
+        (2, 16, cfg.d_model)).astype(np.float32)
+    want = np.asarray(JT.forward(jcfg, jparams,
+                                 JT.Batch(embeds=jnp.asarray(emb))))
+    with torch.no_grad():
+        got = T.forward(cfg, params, T.Batch(embeds=torch.as_tensor(emb)))
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=1e-5)
 
 
 _MLA_DIMS = dict(attention_kind="mla", q_lora_rank=32, kv_lora_rank=16,
@@ -256,24 +292,50 @@ def test_moe_and_prologue_configs_build_and_run(cfg, n_moe):
     assert bool(logits.isfinite().all()) and bool(loss.isfinite())
 
 
-@pytest.mark.parametrize("call, slice_", [
-    (lambda p, c: T.forward(c, p, T.Batch(embeds=torch.zeros(1, 2, 128))),
-     "modality-stub"),
-    (lambda p, c: T.hidden_states(
-        c, p, T.Batch(embeds=torch.zeros(1, 2, 128)), remat=True),
-     "modality-stub"),
-    (lambda p, c: T.loss_fn(c, p, T.Batch(
-        embeds=torch.zeros(1, 2, 128),
-        labels=torch.zeros(1, 2, dtype=torch.int64))), "modality-stub"),
-    (lambda p, c: layers.apply_mrope(torch.zeros(1, 2, 2, 8),
-                                     torch.zeros(3, 1, 2), 1e4, (2, 1, 1)),
-     "modality-stub"),
-], ids=["embeds", "remat", "loss_fn", "mrope"])
-def test_later_entry_points_raise_not_implemented(call, slice_):
-    cfg = get_reduced_config("gemma2-2b")
-    params = T.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"{slice_} slice"):
-        call(params, cfg)
+def _embeds_call(what):
+    """(the port's call, the reference's call) of one entry point that
+    raised before the modality-stub slice, on (1, 8, d) embeds."""
+    import jax.numpy as jnp
+
+    from repro.models import layers as JL
+    from repro.models import transformer as JT
+
+    rng = np.random.default_rng(1)
+    emb = rng.standard_normal((1, 8, 128)).astype(np.float32)
+    labels = rng.integers(0, 512, (1, 8)).astype(np.int32)
+    tb = T.Batch(embeds=torch.as_tensor(emb),
+                 labels=torch.as_tensor(labels).long())
+    jb = JT.Batch(embeds=jnp.asarray(emb), labels=jnp.asarray(labels))
+    if what == "embeds":
+        return (lambda p, c: T.forward(c, p, tb),
+                lambda p, c: JT.forward(c, p, jb))
+    if what == "remat":
+        return (lambda p, c: T.hidden_states(c, p, tb, remat=True)[0],
+                lambda p, c: JT.hidden_states(c, p, jb, remat=True)[0])
+    if what == "loss_fn":
+        return (lambda p, c: T.loss_fn(c, p, tb),
+                lambda p, c: JT.loss_fn(c, p, jb))
+    x = rng.standard_normal((1, 2, 2, 8)).astype(np.float32)
+    pos3 = rng.integers(0, 64, (3, 1, 2)).astype(np.int32)
+    return (lambda p, c: layers.apply_mrope(
+                torch.as_tensor(x), torch.as_tensor(pos3), 1e4, (2, 1, 1)),
+            lambda p, c: JL.apply_mrope(jnp.asarray(x), jnp.asarray(pos3),
+                                        1e4, (2, 1, 1)))
+
+
+@pytest.mark.parametrize("what", ["embeds", "remat", "loss_fn", "mrope"])
+def test_later_entry_points_raise_not_implemented(what):
+    """The entry points that raised before the modality-stub slice
+    (frontend embeds through ``forward``, ``hidden_states`` with remat
+    and ``loss_fn``, and ``apply_mrope``) now run and agree with the
+    reference on the same weights and inputs."""
+    cfg = get_reduced_config("gemma2-2b", dtype="float32")
+    jcfg, jparams, params = _reference_pair(cfg)
+    port, ref = _embeds_call(what)
+    with torch.no_grad():
+        got = port(params, cfg)
+    want = np.asarray(ref(jparams, jcfg))
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=1e-5)
 
 
 def test_every_cuda_source_belongs_to_a_registered_library():

@@ -1,6 +1,6 @@
 """The port's LM layers (``repro_torch.models.layers``) against the
-reference's ``repro.models.layers`` on the same numpy inputs: RoPE,
-softcap, the FFNs, and the embed/unembed pair.  float32 within 1e-6
+reference's ``repro.models.layers`` on the same numpy inputs: RoPE and
+M-RoPE, softcap, the FFNs, and the embed/unembed pair.  float32 within 1e-6
 (float32 math in another order; ``sin``/``cos``/``tanh`` of two
 libraries), bf16 within one bf16 ulp of |x| <= 8 (2^-4)."""
 
@@ -121,6 +121,14 @@ def test_untied_unembed_matches_reference():
 
 
 def test_mrope_is_a_later_slice():
-    with pytest.raises(NotImplementedError, match="modality-stub slice"):
-        TL.apply_mrope(torch.zeros(1, 2, 2, 8), torch.zeros(3, 1, 2), 1e4,
-                       (2, 1, 1))
+    """M-RoPE came with the modality-stub slice: the call that raised
+    before it now agrees with the reference (``tests/test_torch_mrope.py``
+    holds it at qwen2-vl's sections)."""
+    rng = _rng(5)
+    x = rng.standard_normal((1, 2, 2, 8)).astype(np.float32)
+    pos3 = rng.integers(0, 64, (3, 1, 2)).astype(np.int32)
+    want = np.asarray(JL.apply_mrope(jnp.asarray(x), jnp.asarray(pos3), 1e4,
+                                     (2, 1, 1)))
+    got = TL.apply_mrope(torch.as_tensor(x), torch.as_tensor(pos3), 1e4,
+                         (2, 1, 1))
+    np.testing.assert_allclose(got.numpy(), want, **F32)
