@@ -1,10 +1,19 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``src/repro_torch``) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases roofline,lm,...]
 
 Every phase runs on card 0; on a machine with several cards phase 4d
-also streams across all of them.
+also streams across all of them.  ``--phases`` runs only the phases it
+names (``PHASES``: kernels, dense, dense_engine, stream,
+stream_resilience, scenario, optimize, stream_devices, service, rbe,
+pipeline, rmsnorm, flash, train, lm, roofline, stub, ssm, moe, mla),
+each with all of its gates; without it every phase runs.  An unknown
+name exits with status 2 before any work.  The build (phase 1) and the
+last line always run; a row of the ``kernels`` line needs the phases it
+is measured in (``ROW_NEEDS``), a launch field of a row its phase
+(``FIELD_PHASE``), and what a run could not fill the line names under
+``left_out``.
 
 Phases, each of which ends the run with a non-zero exit on any failure:
 
@@ -201,6 +210,25 @@ Phases, each of which ends the run with a non-zero exit on any failure:
    three, against a resume from step 3: losses and the final checkpoint
    bitwise.  Prints the ``train`` line (step ms, tokens/s, busy share,
    share of the matmul bound, peak memory).
+9h. Roofline (``roofline``), after phase 9: the program count
+   (``repro_torch.core.hlo_cost.analyze_program``) and the H100 spec
+   (``core.constants.H100_SXM``).  (a) gemma2-2b's 8192-token forward at
+   phase 9's shapes, counted on the kernel path (105 launches of D, 26
+   of E, each launch credited with its plain twin's flops) and on the
+   plain blockwise path (``rmsnorm_ref``, ``flash.blockwise_fwd``): the
+   flops equal exactly; the dot flops within 5 % of ``lm_bounds``' bf16
+   operations and equal to them with the attention taken over whole
+   block pairs instead of causal pairs; ``roofline.build_terms`` under
+   the H100 spec beside the forward's device time.  (b) One qwen2-0.5b
+   training step at ``TRAIN_ARGV``'s shapes counted (49 launches of D,
+   24 of E): its flops at least ``train_step_flops``'; the useful-flops
+   ratio.  (c) ``nvidia-smi`` ``power.draw`` at idle, over a ~5 s loop
+   of the forward, and over a device copy and a bf16 matmul loop (the
+   H100 spec's HBM and flop energies derived from them), beside
+   ``tpu_energy.step_energy``'s average power at the forward's measured
+   time (a reading, not a gate).  (d) ``dosc.advise`` under the H100
+   spec for qwen2-0.5b's gradient over 2 pods of 8.  Prints the
+   ``roofline`` line; ~30 s.
 9g. Modality stubs (the twelfth path), after phase 9 and before 9e (its
    8 GB are freed before jamba's 52 GB): qwen2-vl-2b (28 layers, d 1536,
    12/2 heads of 128, d_ff 8960, vocab 151,936, tied, qkv biases, M-RoPE
@@ -343,9 +371,8 @@ Phases, each of which ends the run with a non-zero exit on any failure:
    layer at 4 and 256 ROIs with its tile), ``handtracking``,
    ``rmsnorm_shapes``/``flash_shapes`` (each case's route; E's registers
    and spills from ptxas and its share of the bound), ``lm``, ``train``,
-   ``stub``, ``ssm``, ``moe`` and ``mla`` JSON lines, the card's name and
-   power limit, and last the
-   ``ok`` line.  Kernel C's SASS must hold int8 tensor-core (IMMA) and
+   ``stub``, ``ssm``, ``moe``, ``mla`` and ``roofline`` JSON lines, the
+   card's name and power limit, and last the ``ok`` line.  Kernel C's SASS must hold int8 tensor-core (IMMA) and
    cp.async (LDGSTS) instructions.
 
 Imports nothing of JAX or of the JAX reference package.
@@ -3036,9 +3063,10 @@ def flash_grad_check(q, k, v, kw, seed: int, what: str) -> dict:
                                out["plain"])}
 
 
-def flash_ref_by_kv_head(q, k, v, **kw):
+def flash_ref_by_kv_head(q, k, v, blocks=None, **kw):
     """``flash_attention_ref`` one kv head (and its g query heads) at a
-    time, the plain forward of :func:`plain_kernels`: each head's
+    time (``blocks`` unused: the full softmax has none), the plain
+    forward of :func:`plain_kernels`: each head's
     softmax is its own, so the same function, with a kv head's full
     scores alive at once instead of all of them (arctic-480b's
     4096-token prompt: 0.47 GB of float32 scores, not 3.76 GB, beside
@@ -5785,103 +5813,604 @@ def flex_library(row, qt, kt, vt, causal, window, cap, out, reps) -> None:
     timed(row, "library_ms", call, reps, "flex_attention")
 
 
+#: The roofline phase's limit on the counted forward's matmul and
+#: attention flops against ``lm_bounds``' bf16 operations (relative).
+ROOFLINE_LM_RTOL = 0.05
+#: Seconds of the forward loop the card's power is read over, and of the
+#: copy and matmul loops that derive the H100 spec's energies; seconds
+#: of no work before the idle reading.
+POWER_LOOP_S, POWER_PROBE_S, POWER_IDLE_S = 5.0, 2.0, 1.0
+#: The matmul loop's shape: gemma2-2b's FFN up projection over the
+#: 8192-token prompt, bf16.
+POWER_MATMUL = (8192, 2304, 9216)
+#: The copy loop's bytes (a device-to-device copy of a bf16 tensor).
+POWER_COPY_BYTES = 1 << 30
+#: The DOSC reading: the trained model's gradient over two pods of eight.
+DOSC_PODS, DOSC_POD_CHIPS = 2, 8
+
+
+@contextlib.contextmanager
+def plain_blockwise():
+    """Inside the ``with``, the LM's norms run ``rmsnorm_ref`` and its
+    prompt attention ``flash.blockwise_fwd`` (the reference's blockwise
+    plain version over the same static block pairs kernel E's launches
+    are credited with), on any device: the plain path whose count a
+    kernel path's must equal.  The launch counts are set to 0 on entry,
+    and the block fails if D or E was launched inside it."""
+    from repro_torch.kernels.rmsnorm import rmsnorm_ref
+    from repro_torch.models import flash, layers
+
+    saved = layers.rmsnorm_op, flash.flash_attention_fwd
+    layers.rmsnorm_op = lambda x, scale, eps=1e-6: rmsnorm_ref(x, scale, eps)
+    flash.flash_attention_fwd = flash.blockwise_fwd
+    reset_counts()
+    try:
+        yield
+        counts = read_counts()
+        check(counts["D"] == counts["E"] == 0,
+              f"the plain blockwise path launched kernels: {counts}")
+    finally:
+        layers.rmsnorm_op, flash.flash_attention_fwd = saved
+
+
+def attention_pairs(cfg, seq: int, block: int = 512) -> dict:
+    """(query, key) pairs of one ``seq``-token prompt summed over ``cfg``'s
+    attention layers, three ways: as ``lm_bounds`` counts them (causal,
+    every layer, no window), as the mask leaves them visible (the sliding
+    window too), and as the blockwise algorithm and kernel E's credit
+    compute them (whole blocks of the reference's static block pairs,
+    ``block`` wide, clipped to the sequence)."""
+    from repro_torch.models.attention import _block_pairs
+
+    b = min(block, seq)
+    out = {"lm_bounds": 0, "visible": 0, "blocks": 0}
+    for i in range(cfg.num_layers):
+        kind = cfg.layer_kind(i)
+        if not kind.startswith("attn"):
+            continue
+        window = cfg.sliding_window if kind == "attn_local" else 0
+        out["lm_bounds"] += seq * (seq + 1) // 2
+        out["visible"] += visible_pairs(seq, seq, True, window)
+        out["blocks"] += len(_block_pairs(seq // b, seq // b, b, b, 0, True,
+                                          window)) * b * b
+    return out
+
+
+def power_draw(run, seconds: float) -> dict:
+    """The card's ``power.draw`` (W) while ``run()`` repeats for about
+    ``seconds`` (``run`` None: while the card does nothing): nvidia-smi
+    read in a loop beside it, the median of the second half of the
+    readings (the draw ramps up, and nvidia-smi averages over its own
+    window)."""
+    import threading
+
+    import torch
+
+    readings, stop = [], threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            readings.append(float(query_gpu("power.draw").split()[0]))
+
+    t = threading.Thread(target=sample, daemon=True)
+    t.start()
+    t0 = time.perf_counter()
+    n = 0
+    try:
+        while time.perf_counter() - t0 < seconds:
+            if run is None:
+                time.sleep(0.05)
+            else:
+                run()
+                torch.cuda.synchronize()
+                n += 1
+    finally:
+        stop.set()
+        t.join(timeout=60)
+    check(len(readings) >= 2, f"power: {len(readings)} readings")
+    tail = readings[len(readings) // 2:]
+    return {"w": float(np.median(tail)), "readings": len(readings),
+            "runs": n, "s": time.perf_counter() - t0}
+
+
+def loop_rate(fn, reps: int) -> float:
+    """Calls a second of ``fn`` on the card, by CUDA events around
+    ``reps`` back-to-back calls."""
+    fn()
+    return 1e3 / unheld_ms(fn, reps)
+
+
+def counted_forward(cfg, params, batch) -> tuple:
+    """``analyze_program`` of one forward, and the launches it made."""
+    import torch
+
+    from repro_torch.core.hlo_cost import analyze_program
+    from repro_torch.models import transformer as T
+
+    reset_counts()
+    with torch.no_grad():
+        cost = analyze_program(T.forward, cfg, params, batch)
+    return cost, read_counts()
+
+
+def phase_roofline(dev, smi: str, cfg=None, seq: int = LM_SEQ,
+                   train_argv: list = TRAIN_ARGV,
+                   power: tuple = (POWER_IDLE_S, POWER_LOOP_S,
+                                   POWER_PROBE_S)) -> dict:
+    """The program count, the H100 roofline and power (phase 9h).
+
+    (a) ``cfg`` (gemma2-2b at full width) forward on a ``seq``-token
+    prompt counted by ``hlo_cost.analyze_program`` on the kernel path
+    (the launches of D and E ``lm_launches``, each credited with its
+    plain twin's flops) and on the plain blockwise path
+    (``plain_blockwise``): the two counts' flops equal exactly; the
+    matmul and attention flops within ROOFLINE_LM_RTOL of ``lm_bounds``'
+    bf16 operations, the difference exactly the attention's (whole block
+    pairs against ``lm_bounds``' causal pairs, ``attention_pairs``);
+    ``roofline.build_terms`` under ``H100_SXM`` beside the forward's
+    device time.  (b) One ``train_argv`` training step (qwen2-0.5b)
+    counted: its flops at least ``train_step_flops``' operations; the
+    useful-flops ratio.  (c) ``power.draw`` at idle, while the forward
+    loops, and while a device copy and a bf16 matmul loop (from which
+    the H100 spec's HBM and flop energies are derived), beside
+    ``tpu_energy.step_energy`` at the forward's measured time under the
+    frozen spec and under this run's readings.  (d) ``dosc.advise`` for
+    the trained model's gradient over DOSC_PODS pods of DOSC_POD_CHIPS.
+    Returns the ``roofline`` report; with ``power`` None, (c) is left
+    out (no card to read)."""
+    import torch
+
+    from repro_torch.configs import get_config, get_reduced_config
+    from repro_torch.core import dosc, roofline, tpu_energy
+    from repro_torch.core.constants import H100_SXM, H100_READINGS
+    from repro_torch.core.hlo_analysis import CollectiveSummary
+    from repro_torch.core.hlo_cost import analyze_program
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import steps as S
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+
+    t_phase = time.perf_counter()
+    split: dict = {}
+
+    def lap(name):
+        split[name] = time.perf_counter() - t_phase - sum(split.values())
+
+    cfg = cfg if cfg is not None else get_config(LM_ARCH)
+    cuda = dev.type == "cuda"
+    report: dict = {"arch": cfg.name, "seq": seq, "chip": H100_SXM.name}
+    none = CollectiveSummary([])
+    if power:
+        sync(dev)
+        idle = power_draw(None, power[0])
+    if cuda:
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with torch.no_grad():
+        params = T.init_params(cfg, gen, dev)
+        tokens = torch.randint(0, cfg.vocab_size, (1, seq), generator=gen,
+                               device=dev)
+    batch = T.Batch(tokens=tokens)
+    lap("setup")
+
+    # (a) the forward, counted on both paths
+    cost, launches = counted_forward(cfg, params, batch)
+    lap("count_kernel_path")
+    expect = lm_launches(cfg, params)
+    check(launches == expect, f"roofline forward: expected launches "
+          f"{expect}, got {launches}")
+    for name in ("rmsnorm", "flash_attention"):
+        check(cost.bytes_by_op.get(f"kernel {name}", 0) > 0,
+              f"roofline forward: no launch of {name} was credited")
+    with plain_blockwise():
+        plain, _ = counted_forward(cfg, params, batch)
+    lap("count_plain_path")
+    check(plain.flops == cost.flops
+          and dict(plain.flops_by_op) == dict(cost.flops_by_op),
+          f"roofline forward: kernel path {dict(cost.flops_by_op)} flops, "
+          f"plain path {dict(plain.flops_by_op)}")
+    lm = lm_bounds(cfg, params, seq)
+    pairs = attention_pairs(cfg, seq)
+    per_pair = 2 * (cfg.resolved_head_dim + cfg.resolved_head_dim) \
+        * cfg.num_heads
+    explained = lm["ops"] + per_pair * (pairs["blocks"] - pairs["lm_bounds"])
+    dot = cost.flops_by_op["dot"]
+    rel = dot / lm["ops"] - 1.0
+    check(dot == explained,
+          f"roofline forward: {dot} dot flops, {explained} explained "
+          f"(lm_bounds {lm['ops']} with the attention over whole blocks)")
+    check(abs(rel) <= ROOFLINE_LM_RTOL,
+          f"roofline forward: dot flops {dot} are {rel:+.4f} from "
+          f"lm_bounds' {lm['ops']}")
+    fwd = lambda: T.forward(cfg, params, batch)  # noqa: E731
+    with torch.no_grad():
+        fwd_rep: dict = {}
+        if cuda:
+            # The forward keeps the card busy (96 %, phase 9), so CUDA
+            # events around calls back to back read its device time, with
+            # the few idle gaps in it (never low); a trace's retries on
+            # machines that drop records cost ~10 s of the phase.
+            fwd()
+            fwd_rep["device_ms"] = unheld_ms(fwd, 3)
+            fwd_rep["device_ms_method"] = "events_unheld"
+        else:
+            t0 = time.perf_counter()
+            fwd()
+            fwd_rep["device_ms"] = (time.perf_counter() - t0) * 1e3
+            fwd_rep["device_ms_method"] = "host"
+    lap("forward_time")
+    terms = roofline.build_terms(
+        cfg.name, f"prompt_{seq}", "1", 1,
+        {"flops": cost.flops, "bytes accessed": cost.bytes}, none,
+        model_flops_global=lm["ops"], chip=H100_SXM)
+    t_fwd = fwd_rep["device_ms"] / 1e3
+    report["forward"] = {
+        "launches": launches, "flops": cost.flops,
+        "flops_by_op": dict(cost.flops_by_op), "bytes": cost.bytes,
+        "plain_bytes": plain.bytes, "plain_flops_equal": True,
+        "kernel_bytes": {k: v for k, v in cost.bytes_by_op.items()
+                         if k.startswith("kernel ")},
+        "lm_bounds_ops": lm["ops"], "dot_vs_lm_bounds": rel,
+        "attention_pairs": pairs,
+        "attention_flops": {k: per_pair * v for k, v in pairs.items()},
+        "terms": terms.to_dict(), **fwd_rep,
+        "measured_over_bound": t_fwd / terms.t_bound}
+    print(f"roofline forward {cfg.name} S={seq}: {cost.flops:.6e} flops "
+          f"(dot {dot:.6e}, lm_bounds {lm['ops']:.6e}, {rel:+.4%}), "
+          f"{cost.bytes:.6e} bytes; H100 t_compute "
+          f"{terms.t_compute * 1e3:.3f} ms, t_memory "
+          f"{terms.t_memory * 1e3:.3f} ms, dominant {terms.dominant}; "
+          f"measured {fwd_rep['device_ms']:.3f} ms = "
+          f"{t_fwd / terms.t_bound:.3f} x t_bound")
+
+    # (c) power: idle, the forward's loop, and the two probes
+    if power:
+        with torch.no_grad():
+            looped = power_draw(fwd, power[1])
+        n_el = POWER_COPY_BYTES // 2
+        src = torch.empty(n_el, dtype=torch.bfloat16, device=dev)
+        dst = torch.empty_like(src)
+
+        def copy():
+            for _ in range(20):
+                dst.copy_(src)
+
+        copy_rate = loop_rate(copy, 3) * 20 * 2 * POWER_COPY_BYTES
+        copied = power_draw(copy, power[2])
+        del src, dst
+        m, k, n = POWER_MATMUL
+        a = torch.randn(m, k, dtype=torch.bfloat16, device=dev)
+        w = torch.randn(k, n, dtype=torch.bfloat16, device=dev)
+
+        def matmul():
+            for _ in range(20):
+                torch.mm(a, w)
+
+        mm_rate = loop_rate(matmul, 3) * 20
+        multiplied = power_draw(matmul, power[2])
+        del a, w
+        mm_bytes = 2 * (m * k + k * n + m * n) * mm_rate
+        e_hbm = (copied["w"] - idle["w"]) / copy_rate
+        e_flop = (multiplied["w"] - idle["w"] - mm_bytes * e_hbm) \
+            / (2 * m * k * n * mm_rate)
+        this_run = dataclasses.replace(
+            H100_SXM, e_per_flop=e_flop, e_hbm_per_byte=e_hbm,
+            idle_power=idle["w"])
+        model = tpu_energy.step_energy(terms, none, 1, t_step=t_fwd,
+                                       chip=H100_SXM)
+        model_now = tpu_energy.step_energy(terms, none, 1, t_step=t_fwd,
+                                           chip=this_run)
+        report["power"] = {
+            "idle_w": idle["w"], "forward_w": looped["w"],
+            "copy_w": copied["w"], "matmul_w": multiplied["w"],
+            "readings": {"idle": idle, "forward": looped, "copy": copied,
+                         "matmul": multiplied},
+            "copy_bytes_per_s": copy_rate,
+            "matmul_flops_per_s": 2 * m * k * n * mm_rate,
+            "matmul_bytes_per_s": mm_bytes,
+            "derived": {"e_hbm_per_byte": e_hbm, "e_per_flop": e_flop},
+            "spec": {"idle_w": H100_SXM.idle_power,
+                     "e_hbm_per_byte": H100_SXM.e_hbm_per_byte,
+                     "e_per_flop": H100_SXM.e_per_flop,
+                     "frozen_from": H100_READINGS.card},
+            "model_avg_power_w": model.avg_power_w,
+            "model_breakdown_j": model.breakdown(),
+            "model_this_run_avg_power_w": model_now.avg_power_w,
+            "model_over_measured": model.avg_power_w / looped["w"]}
+        print(f"roofline power: idle {idle['w']:.2f} W, forward loop "
+              f"{looped['w']:.2f} W, copy {copied['w']:.2f} W at "
+              f"{copy_rate:.4e} B/s, matmul {multiplied['w']:.2f} W at "
+              f"{2 * m * k * n * mm_rate:.4e} FLOP/s; step_energy "
+              f"{model.avg_power_w:.2f} W (frozen spec), "
+              f"{model_now.avg_power_w:.2f} W (this run's readings); "
+              f"card {smi}")
+        lap("power")
+    del params, batch, tokens
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (b) one training step, counted
+    args = train.build_argparser().parse_args(train_argv)
+    tcfg = get_reduced_config(args.arch) if args.reduced \
+        else get_config(args.arch)
+    flops = train_step_flops(tcfg, args.global_batch, args.seq_len)
+    tparams = S.trainable(T.init_params(
+        tcfg, torch.Generator(device=dev).manual_seed(args.seed), dev))
+    opt_cfg = adamw.AdamWConfig(lr=args.lr, warmup_steps=args.warmup,
+                                total_steps=args.steps)
+    opt = adamw.init(opt_cfg, tparams)
+    tbatch = train.device_batch(SyntheticLM(tcfg, DataConfig(
+        seq_len=args.seq_len, global_batch=args.global_batch,
+        seed=args.seed)).batch_at(0), dev)
+    step = S.make_train_step(tcfg, opt_cfg, remat=args.remat)
+    grad_elems = T.param_count(tparams)
+    reset_counts()
+    tcost = analyze_program(step, tparams, opt, tbatch)
+    tlaunch = read_counts()
+    want = dict(train_launches(tcfg), A=0, B=0, C=0)
+    check(tlaunch == want, f"roofline train step: expected launches "
+          f"{want}, got {tlaunch}")
+    check(tcost.flops >= flops["ops"],
+          f"roofline train step: {tcost.flops} flops counted, fewer than "
+          f"train_step_flops' {flops['ops']}")
+    tterms = roofline.build_terms(
+        tcfg.name, f"train_{args.global_batch}x{args.seq_len}", "1", 1,
+        {"flops": tcost.flops, "bytes accessed": tcost.bytes}, none,
+        model_flops_global=flops["ops"], chip=H100_SXM)
+    report["train"] = {
+        "arch": tcfg.name, "global_batch": args.global_batch,
+        "seq": args.seq_len, "remat": args.remat, "launches": tlaunch,
+        "flops": tcost.flops, "flops_by_op": dict(tcost.flops_by_op),
+        "bytes": tcost.bytes, "train_step_flops": flops["ops"],
+        "useful_flops_ratio": tterms.useful_flops_ratio,
+        "terms": tterms.to_dict()}
+    lap("train_step")
+    print(f"roofline train step {tcfg.name}: {tcost.flops:.6e} flops "
+          f"counted, train_step_flops {flops['ops']:.6e}, useful "
+          f"{tterms.useful_flops_ratio:.4f}")
+    del tparams, opt, tbatch
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (d) the partition advisor under the H100 spec
+    report["dosc"] = {"grad_elems": grad_elems, "pods": DOSC_PODS,
+                      "intra_pod_chips": DOSC_POD_CHIPS}
+    for objective in ("energy", "time"):
+        report["dosc"][objective] = [
+            {"plan": c.plan.name, "t_comm_s": c.t_comm_s,
+             "e_comm_j": c.e_comm_j, "ici_bytes": c.ici_bytes,
+             "dcn_bytes": c.dcn_bytes}
+            for c in dosc.advise(grad_elems, DOSC_PODS, DOSC_POD_CHIPS,
+                                 objective=objective, chip=H100_SXM)]
+    report["table"] = roofline.format_table([terms, tterms])
+    lap("dosc")
+    report["phase_s"] = time.perf_counter() - t_phase
+    report["split_s"] = split
+    report["card"] = smi
+    print(report["table"])
+    return report
+
+
+#: The phases of :func:`run`, in the order they run (``--phases`` picks
+#: among them; the default runs them all).
+PHASES = ("kernels", "dense", "dense_engine", "stream", "stream_resilience",
+          "scenario", "optimize", "stream_devices", "service", "rbe",
+          "pipeline", "rmsnorm", "flash", "train", "lm", "roofline", "stub",
+          "ssm", "moe", "mla")
+#: The phases each row of the ``kernels`` line is measured in: a row is
+#: left out of the line unless they all ran.
+ROW_NEEDS = {"A": ("kernels", "dense_engine", "stream"),
+             "B": ("kernels", "dense_engine", "stream"),
+             "C": ("rbe", "pipeline"),
+             "D": ("rmsnorm", "flash", "lm"),
+             "E": ("rmsnorm", "flash", "lm")}
+#: The phase that fills each of a row's other launch fields: a row whose
+#: phase did not run goes without the field.
+FIELD_PHASE = {"launches_grid_argmin": "optimize",
+               "launches_service": "service",
+               "launches_train": "train", "launches_train_step": "train",
+               "launches_ssm": "ssm", "launches_moe": "moe",
+               "launches_mla": "mla", "launches_stub": "stub"}
+ROW_FIELDS = {"A": ("launches_service",),
+              "B": ("launches_grid_argmin", "launches_service"),
+              "C": (),
+              "D": ("launches_train", "launches_train_step", "launches_ssm",
+                    "launches_moe", "launches_mla", "launches_stub"),
+              "E": ("launches_train", "launches_train_step", "launches_ssm",
+                    "launches_moe", "launches_mla", "launches_stub")}
+
+
+def parse_phases(argv: list) -> tuple:
+    """The phases ``argv`` selects (``--phases a,b,...``; every phase
+    without it), in :data:`PHASES` order.  An unknown name is an
+    argparse error: exit status 2 before any work."""
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        prog="chip_smoke.py",
+        description="Smoke run of the PyTorch port on one CUDA card.")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated phases to run, of: "
+                    + ", ".join(PHASES) + " (default: all)")
+    args = ap.parse_args(argv)
+    names = [n.strip() for n in args.phases.split(",") if n.strip()]
+    unknown = sorted(set(names) - set(PHASES))
+    if unknown or not names:
+        ap.error(f"unknown phase(s) {', '.join(unknown) or '(none)'}; "
+                 f"known: {', '.join(PHASES)}")
+    return tuple(p for p in PHASES if p in names)
+
+
+def left_out(phases) -> dict:
+    """What the ``kernels`` line cannot fill when only ``phases`` run:
+    ``{"rows": {row: phases it lacks}, "fields": {row: {field: phase}},
+    "phases": phases not run}``; empty when every phase runs."""
+    on = set(phases)
+    if on >= set(PHASES):
+        return {}
+    rows = {r: [p for p in need if p not in on]
+            for r, need in ROW_NEEDS.items()
+            if not on.issuperset(need)}
+    fields = {r: {f: FIELD_PHASE[f] for f in ROW_FIELDS[r]
+                  if FIELD_PHASE[f] not in on}
+              for r in ROW_NEEDS if r not in rows}
+    return {"phases": [p for p in PHASES if p not in on], "rows": rows,
+            "fields": {r: f for r, f in fields.items() if f}}
+
+
 def run(dev, grid_big, smi: str, lm_cfg, lm_seq: int = LM_SEQ,
         serve_argv: list = SERVE_ARGV,
-        train_argv: list = TRAIN_ARGV) -> None:
+        train_argv: list = TRAIN_ARGV, phases: tuple = PHASES) -> None:
     """Phases 2-11 on ``dev`` with ``grid_big`` as the stream's grid,
     ``lm_cfg`` run at ``lm_seq`` tokens as the LM, ``train.main(
     train_argv)`` as the training path, qwen2-vl-2b and musicgen-large
     as the modality-stub path, xlstm-350m and jamba at
     SSM_JAMBA_LAYERS layers as the SSM path, arctic-480b at MOE_LAYERS
     layers as the MoE path and deepseek-v2-236b at MLA_LAYERS layers as
-    the MLA path."""
+    the MLA path; of them, the ``phases`` named (every phase keeps all
+    of its gates).  A row of the ``kernels`` line is printed only if
+    every phase it is measured in ran, and a field of a row only if its
+    phase ran; the line says what it left out (:func:`left_out`)."""
     from repro_torch.core import stream as ST
     from repro_torch.core.grids import (ANCHOR_1M, ANCHOR_10M,
                                         REFERENCE_GRID, stream_grid_axes)
 
-    err = phase_kernels(dev, grid_big, REFERENCE_GRID)
-    phase_dense(REFERENCE_GRID, dev)
-    dense = phase_dense_engine(dev, ANCHOR_1M)
-    res, launches, paths, plans = phase_stream(
-        grid_big, stream_grid_axes(10_000_000), ANCHOR_10M, dev)
-    resilience = phase_stream_resilience(dev)
-    phase_scenario(dev, smi)
-    opt = phase_optimize(dev, smi)
-    phase_stream_devices(dev, smi)
-    served = phase_service(dev, smi)
-    err["C"] = phase_rbe(dev)
-    ht_launches, ht = phase_pipeline(dev, smi)
-    err["D"] = phase_rmsnorm(dev)
-    err["E"] = phase_flash(dev)
-    rows, host = kernel_report(res, launches, err, grid_big, dense, dev)
-    rows[1]["launches_grid_argmin"] = opt["launches"]["B"]
-    for row, key in ((rows[0], "A"), (rows[1], "B")):
-        row["launches_service"] = served["in_process"]["launches"][key]
-    row_c, shapes = rbe_report(ht_launches, err["C"], dev, smi)
-    rows.append(row_c)
-    rows_de, lm_shapes = lm_kernel_report(err, dev)
-    rows += rows_de
-    lm_shapes["card"] = smi
-    print(json.dumps({"host_ms_per_call": host, "card": smi}))
-    # The device's busy share of each path, from one profiled run of the
-    # same sweep: its device time over its own wall time (the profiler's
-    # host overhead is in that wall time, so the share is a lower bound
-    # on the unprofiled run's).  The plans' steps are built, so no
-    # capture falls inside a trace.
-    for key, plan, prefetch in (("default", plans[0], 2),
-                                ("synchronous", plans[1], 0)):
-        profiled = []
-        busy = device_busy(lambda: profiled.append(
-            ST.stream_grid(plan=plan, prefetch=prefetch)))
-        total = sum(busy.values())
-        paths[key].update(
-            profiled_total_s=profiled[0].stats["total_s"],
-            device_busy_s=total,
-            device_busy_share=total / profiled[0].stats["total_s"],
-            device_s_by_kernel=dict(sorted(
-                busy.items(), key=lambda kv: -kv[1])[:8]))
-    stats = dict(paths["default"], synchronous=paths["synchronous"],
-                 plain=paths["plain"], bitwise_plain=paths["bitwise_plain"])
-    train_main, train_step, trained = phase_train(dev, smi, train_argv)
+    on = set(phases)
+    missing = left_out(phases)
+    no_row = missing.get("rows", {})
+    err, lines, rows = {}, [], []
+    if "kernels" in on:
+        err.update(phase_kernels(dev, grid_big, REFERENCE_GRID))
+    if "dense" in on:
+        phase_dense(REFERENCE_GRID, dev)
+    if "dense_engine" in on:
+        dense = phase_dense_engine(dev, ANCHOR_1M)
+    if "stream" in on:
+        res, launches, paths, plans = phase_stream(
+            grid_big, stream_grid_axes(10_000_000), ANCHOR_10M, dev)
+    if "stream_resilience" in on:
+        resilience = phase_stream_resilience(dev)
+    if "scenario" in on:
+        phase_scenario(dev, smi)
+    if "optimize" in on:
+        opt = phase_optimize(dev, smi)
+    if "stream_devices" in on:
+        phase_stream_devices(dev, smi)
+    if "service" in on:
+        served = phase_service(dev, smi)
+    if "rbe" in on:
+        err["C"] = phase_rbe(dev)
+    if "pipeline" in on:
+        ht_launches, ht = phase_pipeline(dev, smi)
+    if "rmsnorm" in on:
+        err["D"] = phase_rmsnorm(dev)
+    if "flash" in on:
+        err["E"] = phase_flash(dev)
+    if "A" not in no_row:
+        rows, host = kernel_report(res, launches, err, grid_big, dense, dev)
+        if "optimize" in on:
+            rows[1]["launches_grid_argmin"] = opt["launches"]["B"]
+        if "service" in on:
+            for row, key in ((rows[0], "A"), (rows[1], "B")):
+                row["launches_service"] = \
+                    served["in_process"]["launches"][key]
+    if "C" not in no_row:
+        row_c, shapes = rbe_report(ht_launches, err["C"], dev, smi)
+        rows.append(row_c)
+    if "D" not in no_row:
+        rows_de, lm_shapes = lm_kernel_report(err, dev)
+        rows += rows_de
+        lm_shapes["card"] = smi
+    if "A" not in no_row:
+        print(json.dumps({"host_ms_per_call": host, "card": smi}))
+    if "stream" in on:
+        # The device's busy share of each path, from one profiled run of
+        # the same sweep: its device time over its own wall time (the
+        # profiler's host overhead is in that wall time, so the share is
+        # a lower bound on the unprofiled run's).  The plans' steps are
+        # built, so no capture falls inside a trace.
+        for key, plan, prefetch in (("default", plans[0], 2),
+                                    ("synchronous", plans[1], 0)):
+            profiled = []
+            busy = device_busy(lambda: profiled.append(
+                ST.stream_grid(plan=plan, prefetch=prefetch)))
+            total = sum(busy.values())
+            paths[key].update(
+                profiled_total_s=profiled[0].stats["total_s"],
+                device_busy_s=total,
+                device_busy_share=total / profiled[0].stats["total_s"],
+                device_s_by_kernel=dict(sorted(
+                    busy.items(), key=lambda kv: -kv[1])[:8]))
+        stats = dict(paths["default"], synchronous=paths["synchronous"],
+                     plain=paths["plain"],
+                     bitwise_plain=paths["bitwise_plain"])
+    de, reports = {}, {}
+    if "train" in on:
+        train_main, train_step, reports["train"] = phase_train(
+            dev, smi, train_argv)
+        de.update(launches_train=train_main, launches_train_step=train_step)
     # The LM last: its serve run's trace (~85,000 kernels) is the largest
     # the script takes.
-    lm_launches, lm = phase_lm(dev, lm_cfg, lm_seq, serve_argv, smi)
+    if "lm" in on:
+        lm_launches, reports["lm"] = phase_lm(dev, lm_cfg, lm_seq,
+                                              serve_argv, smi)
+    # the program count and the H100 roofline of the LM's forward (its
+    # weights rebuilt) and of one training step
+    if "roofline" in on:
+        reports["roofline"] = phase_roofline(dev, smi, lm_cfg, lm_seq,
+                                             train_argv)
     # the modality-stub models (8 GB) before jamba's 52 GB
-    stub_launches, stub = phase_stub(dev, smi)
+    if "stub" in on:
+        stub_launches, reports["stub"] = phase_stub(dev, smi)
+        de["launches_stub"] = stub_launches
     # the SSM path before MoE: jamba's 52 GB, freed before arctic's
-    ssm_launches, ssm = phase_ssm(dev, smi)
+    if "ssm" in on:
+        ssm_launches, reports["ssm"] = phase_ssm(dev, smi)
+        de["launches_ssm"] = ssm_launches
     # MoE after every other phase: its 55 GB of weights need the card
-    moe_fwd, moe_step, moe = phase_moe(dev, smi)
+    if "moe" in on:
+        moe_fwd, moe_step, reports["moe"] = phase_moe(dev, smi)
+        de["launches_moe"] = {"forward": moe_fwd, "decode_step": moe_step}
     # MLA last, after arctic's weights are freed: its 50 GB and the
     # witness's float32 copies need the card
-    mla_fwd, mla_step, mla = phase_mla(dev, smi)
-    for row in rows_de:
-        key = row.pop("kernel")
+    if "mla" in on:
+        mla_fwd, mla_step, reports["mla"] = phase_mla(dev, smi)
+        de["launches_mla"] = {"forward": mla_fwd, "decode_step": mla_step}
+    for row in rows:
+        key = row.pop("kernel", None)
+        if key is None:
+            continue
         row["launches"] = lm_launches[key]
-        row["launches_train"] = train_main[key]
-        row["launches_train_step"] = train_step[key]
-        row["launches_ssm"] = {
-            arch: {k: counts[key] for k, counts in runs.items()}
-            for arch, runs in ssm_launches.items()}
-        row["launches_moe"] = {"forward": moe_fwd[key],
-                               "decode_step": moe_step[key]}
-        row["launches_mla"] = {"forward": mla_fwd[key],
-                               "decode_step": mla_step[key]}
-        row["launches_stub"] = {
-            arch: {k: counts[key] for k, counts in runs.items()}
-            for arch, runs in stub_launches.items()}
-    print(json.dumps({"stream": stats, "card": smi}))
-    print(json.dumps({"stream_resilience": resilience, "card": smi}))
-    print(json.dumps(shapes))
-    print(json.dumps({"handtracking": ht}))
-    print(json.dumps(lm_shapes))
-    print(json.dumps({"lm": lm}))
-    print(json.dumps({"stub": stub}))
-    print(json.dumps({"train": trained}))
-    print(json.dumps({"ssm": ssm}))
-    print(json.dumps({"moe": moe}))
-    print(json.dumps({"mla": mla}))
-    print(json.dumps({"kernels": rows}))
+        for field in ROW_FIELDS[key]:
+            if field not in de:
+                continue
+            if field in ("launches_ssm", "launches_stub"):
+                row[field] = {arch: {k: c[key] for k, c in runs.items()}
+                              for arch, runs in de[field].items()}
+            elif field in ("launches_moe", "launches_mla"):
+                row[field] = {k: c[key] for k, c in de[field].items()}
+            else:
+                row[field] = de[field][key]
+    if "stream" in on:
+        lines.append({"stream": stats, "card": smi})
+    if "stream_resilience" in on:
+        lines.append({"stream_resilience": resilience, "card": smi})
+    if "C" not in no_row:
+        lines.append(shapes)
+    if "pipeline" in on:
+        lines.append({"handtracking": ht})
+    if "D" not in no_row:
+        lines.append(lm_shapes)
+    for name in ("lm", "stub", "train", "ssm", "moe", "mla", "roofline"):
+        if name in reports:
+            lines.append({name: reports[name]})
+    kernels_line = {"kernels": rows}
+    if missing:
+        kernels_line["left_out"] = missing
+    lines.append(kernels_line)
+    for line in lines:
+        print(json.dumps(line))
 
 
 def build(libs) -> None:
@@ -5901,7 +6430,8 @@ def build(libs) -> None:
                 print(f"ptxas {lib.name}: {line.strip()}")
 
 
-def main() -> int:
+def main(argv: list | None = None) -> int:
+    phases = parse_phases(sys.argv[1:] if argv is None else argv)
     # torch.compile (the flex_attention yardstick) caches in the checkout.
     for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
                      ("TRITON_CACHE_DIR", "triton")):
@@ -5920,11 +6450,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = card()
     print(f"card: {smi}")
+    if phases != PHASES:
+        print(f"phases: {','.join(phases)} (of {len(PHASES)})")
     build(all_libraries())
     # Card 0 by index: a bare "cuda" would spread the "torch" backend's
     # streams over every visible card (stream_devices runs that case).
     run(torch.device("cuda", 0), stream_grid_axes(100_000_000), smi,
-        get_config(LM_ARCH))
+        get_config(LM_ARCH), phases=phases)
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

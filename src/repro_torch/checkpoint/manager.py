@@ -37,9 +37,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-
-def _is_namedtuple(tree) -> bool:
-    return isinstance(tree, tuple) and hasattr(tree, "_fields")
+from repro_torch.tree import is_namedtuple
 
 
 def _flatten(tree, prefix=()) -> list:
@@ -49,7 +47,7 @@ def _flatten(tree, prefix=()) -> list:
     if isinstance(tree, dict):
         return [kv for k in sorted(tree)
                 for kv in _flatten(tree[k], prefix + (str(k),))]
-    if _is_namedtuple(tree):
+    if is_namedtuple(tree):
         return [kv for name, x in zip(tree._fields, tree)
                 for kv in _flatten(x, prefix + (name,))]
     if isinstance(tree, (list, tuple)):
@@ -65,7 +63,7 @@ def _unflatten(like, leaves):
         return None
     if isinstance(like, dict):
         return {k: _unflatten(like[k], leaves) for k in sorted(like)}
-    if _is_namedtuple(like):
+    if is_namedtuple(like):
         return type(like)(*(_unflatten(x, leaves) for x in like))
     if isinstance(like, (list, tuple)):
         return type(like)(_unflatten(x, leaves) for x in like)

@@ -20,7 +20,8 @@ reproduces the paper's three headline results:
 * 39 % on-sensor power reduction, hybrid SRAM+MRAM vs pure SRAM      (Fig. 5b)
 
 TPU-v5e class constants used by the adapted (beyond-paper) TPU energy model
-and the roofline analysis are at the bottom.
+and the roofline analysis are at the bottom, and beside them the port's
+own chip, the H100 SXM (:data:`H100_SXM`), in the same fields.
 """
 
 from __future__ import annotations
@@ -285,3 +286,90 @@ class TPUChipSpec:
 
 
 TPU_V5E = TPUChipSpec()
+
+
+# ---------------------------------------------------------------------------
+# NVIDIA H100 SXM constants (the port's chip), in TPUChipSpec's fields
+# ---------------------------------------------------------------------------
+#
+# Rates, from NVIDIA's public documents:
+# * bf16 dense 989e12 FLOP/s and HBM3 3.35e12 B/s, 80 GB: the H100 Tensor
+#   Core GPU datasheet, SXM column ("BF16 Tensor Core 1,979 teraFLOPS",
+#   stated with sparsity, so 989 dense; "GPU memory 80GB", "GPU memory
+#   bandwidth 3.35TB/s");
+# * NVLink 4: 900 GB/s a GPU over both directions (the same datasheet,
+#   "Interconnect NVLink: 900GB/s"), so 450e9 B/s each way: the field
+#   ``ici_link_bandwidth`` holds the GPU's whole per-direction NVLink rate
+#   (its 18 links together), the tier inside one NVLink domain;
+# * the inter-node tier: one ConnectX-7 400 Gb/s InfiniBand port a GPU
+#   (the DGX H100 user guide: eight single-port ConnectX-7 adapters for
+#   the compute fabric, one per GPU), so 50e9 B/s a GPU (``dcn_bandwidth``);
+# * ``vmem_bytes``: the software-managed on-chip scratch a kernel stages
+#   in, as a TPU's VMEM: 228 KB of shared memory on each of 132 SMs (the
+#   H100 architecture whitepaper).
+#
+# NVIDIA publishes no energy per flop, per HBM byte or per link byte; each
+# below is derived, and the derivation stands beside it.  ``idle_power``
+# and the flop and HBM energies rest on the card's own readings, taken by
+# the ``roofline`` phase of chip_smoke.py (``python3 chip_smoke.py
+# --phases roofline``; it prints them on every run, beside these frozen
+# values) on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit: idle
+# 115.74 W; the copy loop 486.85 W at 3.030e12 B/s, so 122.5 pJ a byte;
+# the matmul loop 697.44 W at 758.0e12 FLOP/s and 0.504e12 B/s, so
+# 0.686 pJ a flop.  The readings hold the card's static power above idle
+# (clocks raised, leakage at temperature) as well as the work's.
+
+
+@dataclasses.dataclass(frozen=True)
+class _H100Readings:
+    """The roofline phase's readings that :data:`H100_SXM` freezes:
+    ``nvidia-smi --query-gpu=power.draw`` at idle and while two loops run
+    on the card (a device-to-device copy, bytes/s by CUDA events; a bf16
+    matmul at the gemma2-2b FFN's shape, flops/s likewise)."""
+
+    card: str = "NVIDIA H100 80GB HBM3, 700.00 W"
+    idle_w: float = 115.74
+    copy_w: float = 486.85
+    copy_bytes_per_s: float = 3030082857910.9033
+    matmul_w: float = 697.44
+    matmul_flops_per_s: float = 757973281552323.2
+    matmul_bytes_per_s: float = 503752859104.5985
+
+
+H100_READINGS = _H100Readings()
+
+
+def _e_hbm(r: _H100Readings) -> float:
+    """J/B: the copy loop's draw above idle over the bytes it moves (each
+    byte read and written once) a second."""
+    return (r.copy_w - r.idle_w) / r.copy_bytes_per_s
+
+
+def _e_flop(r: _H100Readings) -> float:
+    """J/FLOP: the matmul loop's draw above idle, less its HBM traffic at
+    :func:`_e_hbm`, over its flops a second."""
+    return ((r.matmul_w - r.idle_w - r.matmul_bytes_per_s * _e_hbm(r))
+            / r.matmul_flops_per_s)
+
+
+H100_SXM = TPUChipSpec(
+    name="h100-sxm",
+    peak_flops_bf16=989e12,
+    hbm_bandwidth=3.35e12,
+    ici_link_bandwidth=450e9,
+    dcn_bandwidth=50e9,
+    hbm_bytes=80e9,
+    vmem_bytes=132 * 228 * 1024,
+    e_per_flop=_e_flop(H100_READINGS),
+    e_hbm_per_byte=_e_hbm(H100_READINGS),
+    # NVLink: NVIDIA's one per-bit figure for its links is NVLink-C2C's
+    # 1.3 pJ/bit (the Grace Hopper superchip whitepaper), an on-package
+    # link; NVLink 4 runs through NVSwitch over the board, so this is a
+    # lower bound: 1.3e-12 x 8 bits.
+    e_ici_per_byte=1.3e-12 * 8,
+    # InfiniBand: no per-bit figure is published.  Taken as the adapter's
+    # power over its line rate, with an assumed 25 W for a 400 Gb/s
+    # ConnectX-7 card: 25 / 50e9 = 500 pJ/B (an assumption, not a reading).
+    e_dcn_per_byte=25.0 / 50e9,
+    idle_power=H100_READINGS.idle_w,
+)

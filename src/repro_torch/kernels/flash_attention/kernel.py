@@ -16,7 +16,11 @@ float32 inputs the CUDA-core route.  :func:`plan` chooses the route and
 its tiling in plain Python.  Given CPU tensors the wrapper runs the
 plain version (:func:`.ref.flash_attention_ref`); given CUDA tensors it
 launches the kernel on the current stream or raises.  It counts its
-launches in its ``launches`` attribute.  With ``return_stats=True`` it
+launches in its ``launches`` attribute, and reports each to
+:mod:`.._credit`: while a program is counted, a launch does the work of
+the reference's blockwise plain version
+(:func:`repro_torch.models.flash.blockwise_fwd`) over the static pairs
+of the ``blocks`` it is given.  With ``return_stats=True`` it
 also returns each row's softmax statistics (running max ``m`` and sum
 ``l``, float32, (B, Sq, KV, g)), the residuals of the flash backward
 (:class:`repro_torch.models.flash.FlashAttentionFunction`).
@@ -31,6 +35,7 @@ import pathlib
 
 import torch
 
+from .. import _credit
 from .._build import BASE_FLAGS, Library
 from . import ref
 
@@ -153,13 +158,17 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
                         logit_softcap: float = 0.0,
                         scale: float | None = None,
-                        return_stats: bool = False):
+                        return_stats: bool = False,
+                        blocks: tuple[int, int] = (512, 512)):
     """q: (B, Sq, H, D); k: (B, Skv, KV, D); v: (B, Skv, KV, Dv), one
     dtype (float32 or bfloat16), contiguous, on one device.  Returns (B,
     Sq, H, Dv) in q's dtype, and with ``return_stats`` ``(out, m, l)``,
     the float32 softmax statistics of each row, (B, Sq, KV, g).
     ``window`` 0 and ``logit_softcap`` 0 turn those off.  The scale
-    defaults to D^-0.5."""
+    defaults to D^-0.5.  ``blocks``, the (q, kv) blocks of the caller's
+    blockwise algorithm (the reference model's 512, clipped to the
+    sequences), change nothing but what a count credits (the kernel
+    picks its own tiles, :func:`plan`)."""
     _check(q, k, v)
     b, sq, h, d = q.shape
     dv = v.shape[3]
@@ -195,6 +204,15 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise RuntimeError(f"flash_attention_launch failed: {msg} "
                                f"(code {rc})")
         flash_attention_fwd.launches += 1
+        if _credit.active():
+            from repro_torch.models.flash import blockwise_fwd
+
+            _credit.credit(
+                "flash_attention", blockwise_fwd, (q, k, v),
+                dict(causal=causal, window=window,
+                     logit_softcap=logit_softcap, scale=scale,
+                     return_stats=return_stats, blocks=tuple(blocks)),
+                (q, k, v), (out, m, l))
     return (out, m, l) if return_stats else out
 
 

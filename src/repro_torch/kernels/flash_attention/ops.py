@@ -19,7 +19,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``interpret``, which has no meaning here.
     ``block_q`` and ``block_kv`` must tile the sequences, as the
     reference requires; kernel E chooses its own tiles
-    (:func:`.kernel.plan`), so they change nothing else."""
+    (:func:`.kernel.plan`), so they change nothing but what a count of
+    the program credits (the blockwise work over their pairs)."""
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     if h % kvh:
@@ -28,4 +29,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"blocks ({block_q}, {block_kv}) do not tile "
                          f"(Sq, Skv) = ({sq}, {skv})")
     return flash_attention_fwd(q, k, v, causal=causal, window=window,
-                               logit_softcap=logit_softcap, scale=scale)
+                               logit_softcap=logit_softcap, scale=scale,
+                               blocks=(min(block_q, sq), min(block_kv, skv)))

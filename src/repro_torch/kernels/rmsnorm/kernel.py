@@ -12,7 +12,9 @@ warp a row with the row held in 16-byte vectors, or the strided
 fallback where ``d`` or a pointer breaks 16-byte alignment.  Given CPU
 tensors the wrapper runs the plain version (:func:`.ref.rmsnorm_ref`);
 given CUDA tensors it launches the kernel on the current stream or
-raises.  It counts its launches in its ``launches`` attribute.
+raises.  It counts its launches in its ``launches`` attribute, and
+reports each to :mod:`.._credit` (while a program is counted, its work
+is the plain version's at the same shapes).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import pathlib
 
 import torch
 
+from .. import _credit
 from .._build import BASE_FLAGS, Library
 from . import ref
 
@@ -134,6 +137,9 @@ def rmsnorm_fused(x: torch.Tensor, scale: torch.Tensor, *,
             msg = _lib().rmsnorm_error_string(rc).decode()
             raise RuntimeError(f"rmsnorm_launch failed: {msg} (code {rc})")
         rmsnorm_fused.launches += 1
+        if _credit.active():
+            _credit.credit("rmsnorm", ref.rmsnorm_ref, (x, scale, eps), {},
+                           (x, scale), (out,))
     return out
 
 

@@ -18,6 +18,7 @@ import torch
 from repro_torch.models import transformer as T
 from repro_torch.models.common import ModelConfig
 from repro_torch.optim import adamw
+from repro_torch.tree import tree_map
 
 
 class TrainState(NamedTuple):
@@ -27,7 +28,7 @@ class TrainState(NamedTuple):
 
 def trainable(params):
     """``params`` with every leaf a detached tensor that requires grad."""
-    return adamw._map(lambda p: p.detach().requires_grad_(True), params)
+    return tree_map(lambda p: p.detach().requires_grad_(True), params)
 
 
 def value_and_grad(cfg: ModelConfig, params, batch: T.Batch,
@@ -38,7 +39,7 @@ def value_and_grad(cfg: ModelConfig, params, batch: T.Batch,
     (the embedding table of a model fed ``Batch.embeds`` with an untied
     head) gets zeros, as ``jax.grad`` gives it."""
     leaves: list = []
-    adamw._map(leaves.append, params)
+    tree_map(leaves.append, params)
     loss = T.loss_fn(cfg, params, batch, remat=remat)
     grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
 
@@ -46,7 +47,7 @@ def value_and_grad(cfg: ModelConfig, params, batch: T.Batch,
         g = next(grads)
         return torch.zeros_like(p) if g is None else g
 
-    return loss.detach(), adamw._map(grad_of, params)
+    return loss.detach(), tree_map(grad_of, params)
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,

@@ -157,7 +157,7 @@ class FlashAttentionFunction(torch.autograd.Function):
             out, m, l = flash_attention_fwd(
                 q, k, v, causal=kw["causal"], window=kw["window"],
                 logit_softcap=kw["logit_softcap"], scale=kw["scale"],
-                return_stats=True)
+                return_stats=True, blocks=(kw["q_block"], kw["kv_block"]))
         elif q.device.type == "cpu":
             out, m, l = _fwd_pass(q, k, v, pairs, **kw)
         else:
@@ -173,6 +173,25 @@ class FlashAttentionFunction(torch.autograd.Function):
         dq, dk, dv = _bwd_pass(q, k, v, out, m, l, dout.contiguous(),
                                ctx.pairs, **ctx.kw)
         return dq, dk, dv, None, None
+
+
+def blockwise_fwd(q, k, v, *, causal: bool = True, window: int = 0,
+                  logit_softcap: float = 0.0, scale: float | None = None,
+                  return_stats: bool = False,
+                  blocks: tuple[int, int] = (512, 512)):
+    """Kernel E's function as the reference's blockwise plain version:
+    :func:`_fwd_pass` over the static pairs of ``blocks`` (clipped to
+    the sequences), with kernel E's wrapper's arguments and results.
+    It is the twin whose work a count credits to a launch of E."""
+    sq, skv = q.shape[1], k.shape[1]
+    q_block, kv_block = min(blocks[0], sq), min(blocks[1], skv)
+    scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
+    pairs = _block_pairs(sq // q_block, skv // kv_block, q_block, kv_block,
+                         skv - sq, bool(causal), int(window))
+    out, m, l = _fwd_pass(q, k, v, pairs, causal=causal, window=window,
+                          logit_softcap=logit_softcap, q_block=q_block,
+                          kv_block=kv_block, scale=scale)
+    return (out, m, l) if return_stats else out
 
 
 def flash_attention_vjp(q, k, v, *, causal, window, logit_softcap, q_block,
@@ -218,12 +237,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                    logit_softcap=logit_softcap,
                                    q_block=q_block, kv_block=kv_block,
                                    scale=scale)
-    if q.device.type == "cuda":
-        return flash_attention_fwd(q, k, v, causal=causal, window=window,
-                                   logit_softcap=logit_softcap, scale=scale)
-    pairs = _block_pairs(sq // q_block, skv // kv_block, q_block, kv_block,
-                         skv - sq, bool(causal), int(window))
-    out, _, _ = _fwd_pass(q, k, v, pairs, causal=causal, window=window,
-                          logit_softcap=logit_softcap, q_block=q_block,
-                          kv_block=kv_block, scale=scale)
-    return out
+    fwd = flash_attention_fwd if q.device.type == "cuda" else blockwise_fwd
+    return fwd(q, k, v, causal=causal, window=window,
+               logit_softcap=logit_softcap, scale=scale,
+               blocks=(q_block, kv_block))

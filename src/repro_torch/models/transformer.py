@@ -46,6 +46,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.sweep import resolve_device
+from repro_torch.tree import tree_map
 
 from . import attention as attn
 from . import moe as moe_mod
@@ -293,18 +294,10 @@ def param_bytes(params) -> int:
     return sum(t.numel() * t.element_size() for t in _leaves(params))
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
-    return fn(tree)
-
-
 def to_device(params, device) -> dict:
     """A copy of ``params`` with every tensor on ``device``."""
     dev = resolve_device(device)
-    return _tree_map(lambda t: t.to(dev), params)
+    return tree_map(lambda t: t.to(dev), params)
 
 
 def _from_numpy(a) -> torch.Tensor:
@@ -331,9 +324,9 @@ def params_from_jax(cfg: ModelConfig, params: dict) -> dict:
         raise ValueError(f"{len(blocks)} stacked positions, pattern has "
                          f"{pat}")
     pre = [f"pre_{i}" for i in range(cfg.first_k_dense)]
-    out = {k: _tree_map(_from_numpy, v) for k, v in params.items()
+    out = {k: tree_map(_from_numpy, v) for k, v in params.items()
            if k != "blocks" and k not in pre}
-    layers = [_tree_map(_from_numpy, params[k]) for k in pre]
+    layers = [tree_map(_from_numpy, params[k]) for k in pre]
     for j in range(r * pat):
         rep, posn = divmod(j, pat)
 
@@ -344,7 +337,7 @@ def params_from_jax(cfg: ModelConfig, params: dict) -> dict:
                                  f"config has {r}")
             return _from_numpy(a[rep])
 
-        layers.append(_tree_map(take, blocks[posn]))
+        layers.append(tree_map(take, blocks[posn]))
     out["layers"] = layers
     return out
 

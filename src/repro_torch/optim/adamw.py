@@ -1,6 +1,7 @@
 """AdamW with gradient clipping, cosine schedule and a configurable moment
 dtype: the port of the reference ``repro.optim.adamw``, as functions over
-trees (dicts, lists, tuples) of tensors.
+trees (dicts, lists, tuples, named tuples; ``None`` an empty subtree) of
+tensors (:mod:`repro_torch.tree`).
 
 The update runs in float32 whatever the parameters' dtype, as the
 reference's does: the global norm, the clip scale, the moments, the bias
@@ -15,9 +16,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Mapping, NamedTuple
+from typing import Any, NamedTuple
 
 import torch
+
+from repro_torch.tree import tree_leaves as _leaves
+from repro_torch.tree import tree_map as _map
 
 F32 = torch.float32
 
@@ -40,26 +44,6 @@ class AdamWState(NamedTuple):
     step: torch.Tensor   # () int32
     mu: Any              # first moments (a tree like params)
     nu: Any              # second moments
-
-
-def _leaves(tree) -> list:
-    """The tensors of a tree in the reference's flatten order (mapping
-    keys sorted, sequences in order)."""
-    if isinstance(tree, Mapping):
-        return [x for k in sorted(tree) for x in _leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in _leaves(v)]
-    return [tree]
-
-
-def _map(fn, tree, *rest):
-    """``fn`` over the leaves of ``tree`` and the matching leaves of
-    ``rest``, rebuilding ``tree``'s structure."""
-    if isinstance(tree, Mapping):
-        return {k: _map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map(fn, *vs) for vs in zip(tree, *rest))
-    return fn(tree, *rest)
 
 
 def _f32(value: float, like: torch.Tensor) -> torch.Tensor:

@@ -9,7 +9,7 @@ frame.
 Error feedback re-injects each step's quantization residual, so the sum
 of what is sent tracks the sum of the true gradients.  This module holds
 the compression math and the feedback state over trees (dicts, lists,
-tuples) of tensors; every value is float32 as in the reference.
+tuples, named tuples; ``None`` an empty subtree) of tensors; every value is float32 as in the reference.
 ``x / scale`` and ``amax / 127`` are true divisions on every device and
 ``torch.round`` rounds half to even as ``jnp.round`` does, so int8
 payloads and scales equal the reference's bitwise.
@@ -18,9 +18,11 @@ payloads and scales equal the reference's bitwise.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping, NamedTuple
+from typing import Any, NamedTuple
 
 import torch
+
+from repro_torch.tree import tree_leaves, tree_map
 
 F32 = torch.float32
 
@@ -40,28 +42,14 @@ class Compressed(NamedTuple):
     scale: Any       # per-tensor float32 scale (int8 only; None otherwise)
 
 
-def _map(fn, tree, *rest):
-    """``fn`` over the leaves of ``tree`` (and the matching leaves of
-    ``rest``), rebuilding its structure.  A :class:`Compressed` is a
-    leaf, as the reference's ``is_leaf`` makes it: rebuilding a named
-    tuple from a generator would fail."""
-    if isinstance(tree, Compressed):
-        return fn(tree, *rest)
-    if isinstance(tree, Mapping):
-        return {k: _map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map(fn, *vs) for vs in zip(tree, *rest))
-    return fn(tree, *rest)
+def _is_compressed(x) -> bool:
+    return isinstance(x, Compressed)
 
 
 def _leaves(tree) -> list:
-    if isinstance(tree, Compressed):
-        return [tree]
-    if isinstance(tree, Mapping):
-        return [x for k in sorted(tree) for x in _leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in _leaves(v)]
-    return [tree]
+    """The leaves of a tree in the reference's order, a
+    :class:`Compressed` one leaf."""
+    return tree_leaves(tree, is_leaf=_is_compressed)
 
 
 def compress_leaf(x: torch.Tensor, kind: str) -> Compressed:
@@ -88,8 +76,8 @@ def decompress_leaf(c: Compressed, dtype=F32) -> torch.Tensor:
 
 
 def init_error_feedback(grads: Any) -> Any:
-    return _map(lambda g: torch.zeros(g.shape, dtype=F32, device=g.device),
-                grads)
+    return tree_map(lambda g: torch.zeros(g.shape, dtype=F32,
+                                          device=g.device), grads)
 
 
 def compress_with_feedback(grads: Any, ef: Any,
@@ -100,7 +88,7 @@ def compress_with_feedback(grads: Any, ef: Any,
     then :func:`decompress_tree` on the receiving side.
     """
     if cfg.kind == "none":
-        return _map(lambda g: Compressed(g, None), grads), ef
+        return tree_map(lambda g: Compressed(g, None), grads), ef
     new_ef = []
 
     def one(g, e):
@@ -111,13 +99,14 @@ def compress_with_feedback(grads: Any, ef: Any,
                       else torch.zeros_like(target))
         return c
 
-    comp = _map(one, grads, ef)
-    it = iter(new_ef)       # _map visits the leaves in the same order
-    return comp, _map(lambda _: next(it), grads)
+    comp = tree_map(one, grads, ef)
+    it = iter(new_ef)   # tree_map visits the leaves in the same order
+    return comp, tree_map(lambda _: next(it), grads)
 
 
 def decompress_tree(comp: Any, dtype=F32) -> Any:
-    return _map(lambda c: decompress_leaf(c, dtype), comp)
+    return tree_map(lambda c: decompress_leaf(c, dtype), comp,
+                    is_leaf=_is_compressed)
 
 
 def compressed_bytes(grads: Any, cfg: CompressionConfig) -> float:

@@ -20,6 +20,7 @@ Each task returns what the tests compare; see the ``task_*`` functions.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import pathlib
@@ -1026,6 +1027,165 @@ def task_service_bench(p):
     return {"big": _grid_for(SB.N_BIG), "warm": _grid_for(0),
             "workers": tuple(SB.WORKER_COUNTS), "n_tenants": SB.N_TENANTS,
             "tenants": sorted(seen, key=lambda x: x[0])}
+
+
+def sample_hlo() -> str:
+    """``SAMPLE_HLO`` of the reference's ``tests/test_hlo_analysis.py``,
+    read from its source (the file imports ``repro.core``)."""
+    import ast
+
+    path = SRC.parent / "tests" / "test_hlo_analysis.py"
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "SAMPLE_HLO" for t in node.targets):
+            return ast.literal_eval(node.value)
+    raise LookupError("SAMPLE_HLO")
+
+
+def collective_fields(s) -> dict:
+    """A ``CollectiveSummary`` as plain values."""
+    return {"ops": [(o.opcode, o.payload_bytes, o.group_size, o.wire_bytes)
+                    for o in s.ops],
+            "total_payload_bytes": s.total_payload_bytes,
+            "total_wire_bytes": s.total_wire_bytes,
+            "by_opcode": s.by_opcode(), "by_group_size": s.by_group_size()}
+
+
+def hlo_cost_fields(c) -> dict:
+    """An ``HLOCost`` as plain values, field for field."""
+    return {"flops": c.flops, "bytes": c.bytes,
+            "collectives": collective_fields(c.collectives),
+            "flops_by_op": dict(c.flops_by_op),
+            "bytes_by_op": dict(c.bytes_by_op),
+            "unrolled_whiles": c.unrolled_whiles,
+            "unknown_trip_whiles": c.unknown_trip_whiles}
+
+
+def roofline_cases(H, roofline, tpu_energy, dosc, chip) -> dict:
+    """The cases of the reference's ``tests/test_hlo_analysis.py`` (its
+    ``TestRoofline``, ``TestTPUEnergy``, ``TestDOSCAdvisor``) as plain
+    values, through the given package's modules and chip."""
+    s = H.parse_collectives(sample_hlo())
+    cost = {"flops": 1e12, "bytes accessed": 1e9}
+    terms = roofline.build_terms("testarch", "train_4k", "16x16", 256, cost,
+                                 s, model_flops_global=200e12, chip=chip)
+    spread = roofline.build_terms("a", "s", "m", 4, cost, s, 2e14,
+                                  chip=chip, per_device_cost=False)
+    out = {"terms": terms.to_dict(), "spread": spread.to_dict(),
+           "table": roofline.format_table([terms, spread]),
+           "split16": tpu_energy.split_tiers(s, intra_pod_chips=16),
+           "split4": tpu_energy.split_tiers(s, intra_pod_chips=4)}
+    t = roofline.build_terms("a", "s", "m", 256, cost, s, 2e14, chip=chip)
+    for key, kw in (("energy", {}), ("energy_t", {"t_step": 0.05})):
+        e = tpu_energy.step_energy(t, s, intra_pod_chips=256, chip=chip,
+                                   **kw)
+        out[key] = {"fields": dataclasses.asdict(e), "total": e.total,
+                    "avg_power_w": e.avg_power_w,
+                    "breakdown": e.breakdown(),
+                    "system_w": tpu_energy.system_power_w(e, 256)}
+    for pods in (1, 2):
+        for objective in ("time", "energy"):
+            out[f"advise_{pods}_{objective}"] = [
+                (c.plan.name, c.t_comm_s, c.e_comm_j, c.ici_bytes,
+                 c.dcn_bytes, c.dcn_edge_bytes)
+                for c in dosc.advise(grad_elems_per_chip=50e6, pods=pods,
+                                     intra_pod_chips=256,
+                                     objective=objective, chip=chip)]
+    out["plans"] = [dataclasses.asdict(pl) for pl in dosc.DEFAULT_PLANS]
+    out["grad_reduce"] = [dataclasses.asdict(dosc.grad_reduce_cost(
+        pl, 1.25e6, 2, 8, grad_dtype_bytes=2, chip=chip))
+        for pl in dosc.DEFAULT_PLANS]
+    return out
+
+
+def task_roofline(p):
+    """The reference's roofline, energy and advisor cases under
+    ``TPU_V5E`` (``roofline_cases``)."""
+    from repro.core import dosc, hlo_analysis, roofline, tpu_energy
+    from repro.core.constants import TPU_V5E
+
+    return roofline_cases(hlo_analysis, roofline, tpu_energy, dosc, TPU_V5E)
+
+
+def hlo_programs(jax, jnp) -> dict:
+    """The five programs of the reference's ``tests/test_hlo_cost.py``
+    (a matmul, a scan of 8 matmuls, nested scans, a depthwise conv, an
+    elementwise chain), compiled: name -> (compiled, sizes)."""
+    def compile_(fn, *specs):
+        return jax.jit(fn).lower(*specs).compile()
+
+    f32 = jnp.float32
+    S = jax.ShapeDtypeStruct
+    out = {"matmul": compile_(lambda a, b: a @ b, S((128, 512), f32),
+                              S((512, 256), f32))}
+
+    def scan(a, bs):
+        def body(x, b):
+            return x @ b, ()
+        y, _ = jax.lax.scan(body, a, bs)
+        return y
+    out["scan"] = compile_(scan, S((128, 128), f32), S((8, 128, 128), f32))
+
+    def nested(a, bs):
+        def outer(x, b_outer):
+            def inner(y, _):
+                return y @ b_outer, ()
+            y, _ = jax.lax.scan(inner, x, None, length=5)
+            return y, ()
+        y, _ = jax.lax.scan(outer, a, bs)
+        return y
+    out["nested"] = compile_(nested, S((64, 64), f32), S((3, 64, 64), f32))
+
+    def conv(x, w):
+        return jax.lax.conv_general_dilated(
+            x, w, (1,), "VALID", dimension_numbers=("NWC", "WIO", "NWC"),
+            feature_group_count=32)
+    out["conv"] = compile_(conv, S((1, 64, 32), f32), S((4, 1, 32), f32))
+    out["elementwise"] = compile_(lambda a: jnp.tanh(a) * 2 + 1,
+                                  S((128, 128), f32))
+    return out
+
+
+def task_hlo_cost(p):
+    """The reference's text analysis on ``SAMPLE_HLO`` and on the texts
+    of the five compiled programs of its ``tests/test_hlo_cost.py``
+    (each text with its ``analyze`` fields, plain and with
+    ``vmem_credit_depth`` 1 and 2), and the dot and convolution flops of
+    a reduced float32 LM forward (``p["arch"]`` cut to ``p["layers"]``
+    layers, on (``p["batch"]``, ``p["seq"]``) tokens), compiled."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_reduced_config
+    from repro.core import hlo_analysis as H
+    from repro.core import hlo_cost
+    from repro.models import transformer as T
+
+    sample = sample_hlo()
+    out = {"sample": {"collectives": collective_fields(
+        H.parse_collectives(sample)),
+        "count_op": {op: H.count_op(sample, op) for op in
+                     ("fusion", "all-reduce", "copy", "parameter")},
+        "analyze": hlo_cost_fields(hlo_cost.analyze(sample))},
+        "empty": hlo_cost_fields(hlo_cost.analyze("")),
+        "programs": {}}
+    for name, c in hlo_programs(jax, jnp).items():
+        text = c.as_text()
+        out["programs"][name] = {
+            "text": text,
+            "analyze": {depth: hlo_cost_fields(hlo_cost.analyze(
+                text, vmem_credit_depth=depth)) for depth in (None, 1, 2)},
+            "top": hlo_cost.top_bytes_breakdown(hlo_cost.analyze(text), 3)}
+    cfg = get_reduced_config(p["arch"], num_layers=p["layers"],
+                             dtype="float32")
+    params = T.init_params(cfg, jax.random.key(0))
+    tokens = jnp.zeros((p["batch"], p["seq"]), jnp.int32)
+    text = jax.jit(lambda pr, t: T.forward(cfg, pr, T.Batch(tokens=t))) \
+        .lower(params, tokens).compile().as_text()
+    lm = hlo_cost.analyze(text)
+    out["lm"] = {"dot": lm.flops_by_op.get("dot", 0.0),
+                 "convolution": lm.flops_by_op.get("convolution", 0.0)}
+    return out
 
 
 TASKS = {name[5:]: fn for name, fn in globals().items()

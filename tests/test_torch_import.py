@@ -454,3 +454,36 @@ def test_worker_children_on_the_cpu_get_device_cpu(monkeypatch, tmp_path):
         assert c.args[c.args.index("--device") + 1] == "cpu"
         assert c.args[c.args.index("--wid") + 1].startswith(f"w{i}.")
         assert c.env["CUDA_VISIBLE_DEVICES"] == "7"
+
+
+#: The analysis modules: the port of the reference's
+#: ``core/{hlo_analysis,hlo_cost,roofline,tpu_energy,dosc}.py``.
+ANALYSIS = ("hlo_analysis", "hlo_cost", "roofline", "tpu_energy", "dosc")
+
+
+def test_analysis_modules_stand_alone_and_are_exported():
+    """They import with JAX and the reference package unimportable, and
+    ``repro_torch.core`` exports each, as the reference's does; so does
+    the shared tree helper."""
+    code = """
+import importlib, sys
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"blocked: {name}")
+sys.meta_path.insert(0, Block())
+import repro_torch.core as core
+import repro_torch.tree
+for m in %r:
+    assert getattr(core, m) is sys.modules["repro_torch.core." + m], m
+print("ok")
+""" % (ANALYSIS,)
+    env = dict(os.environ, PYTHONPATH=str(PKG.parent))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.split()[-1] == "ok", \
+        out.stderr[-2000:]
+    for m in ANALYSIS:
+        for name in _imports(PKG / "core" / f"{m}.py"):
+            assert name.split(".")[0] not in ("jax", "jaxlib", "repro"), \
+                (m, name)
