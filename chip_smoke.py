@@ -7,7 +7,8 @@ Every phase runs on card 0; on a machine with several cards phase 4d
 also streams across all of them.  ``--phases`` runs only the phases it
 names (``PHASES``: kernels, dense, dense_engine, stream,
 stream_resilience, scenario, optimize, stream_devices, service, rbe,
-pipeline, rmsnorm, flash, train, lm, roofline, stub, ssm, moe, mla),
+pipeline, rmsnorm, flash, train, lm, roofline, sharding, stub, ssm, moe,
+mla),
 each with all of its gates; without it every phase runs.  An unknown
 name exits with status 2 before any work.  The build (phase 1) and the
 last line always run; a row of the ``kernels`` line needs the phases it
@@ -229,6 +230,29 @@ Phases, each of which ends the run with a non-zero exit on any failure:
    time (a reading, not a gate).  (d) ``dosc.advise`` under the H100
    spec for qwen2-0.5b's gradient over 2 pods of 8.  Prints the
    ``roofline`` line; ~30 s.
+9i. Sharding (``sharding``, the thirteenth path), after 9h:
+   codeqwen1.5-7b (hf:Qwen/CodeQwen1.5-7B) at full width and depth x
+   prefill_32k (32 sequences of 32,768 tokens) on the (16, 16) ("data",
+   "model") mesh, as rank 0 of a fake 256-rank world (torch's ``fake``
+   process group in this one process), without and with
+   ``seq_parallel``.  (1) ``launch.dryrun.run_cell`` on ``meta`` under
+   the H100 spec: rank 0's count and its row.  (2) Rank 0's shard on the
+   card (``device="cuda"``; its shards made there from a seeded
+   generator; the step counted, then timed), the counts read around it.
+   Gates: no error row; (a) 65 launches of D (norm1 and norm2 in each of
+   32 layers, the final norm) and 32 of E a step, at rank 0's local
+   shapes (D (65,536, 4,096), with ``seq_parallel`` (4,096, 4,096) a
+   layer; E (2, 32,768, 2/2, 128)); (b) the per-device flops counted on
+   ``meta`` equal the count of rank 0's run on the card exactly; (c) its
+   peak allocated bytes at least its analytic state bytes and below the
+   card's memory; (d) D at (65,536, 4,096) in bf16 within one ulp of its
+   plain version, E at (2, 32,768, 2/2, 128) in float32 within the flash
+   phase's float32 limit of its plain version and in bf16 no further
+   from that float32 run than the plain version in bf16
+   (SHARD_E_WITNESS_RATIO); each with its time, plain time, bound and
+   ``F.rms_norm``'s or SDPA's time.  Prints the ``sharding`` line (D's
+   and E's rows gain ``launches_sharding`` and ``sharding_shape``);
+   ~35 s.
 9g. Modality stubs (the twelfth path), after phase 9 and before 9e (its
    8 GB are freed before jamba's 52 GB): qwen2-vl-2b (28 layers, d 1536,
    12/2 heads of 128, d_ff 8960, vocab 151,936, tied, qkv biases, M-RoPE
@@ -360,7 +384,10 @@ Phases, each of which ends the run with a non-zero exit on any failure:
    models' forwards and decode steps (``launches_ssm``), in arctic's
    forward and decode step (``launches_moe``), in deepseek-v2's
    (``launches_mla``), in qwen2-vl-2b's and musicgen-large's forwards
-   and decode steps (``launches_stub``; their time there, ``stub_shape``)
+   and decode steps (``launches_stub``; their time there, ``stub_shape``),
+   in rank 0's sharded prefill steps, two a run without and with
+   ``seq_parallel`` (``launches_sharding``; their time at rank 0's
+   shapes, ``sharding_shape``)
    and their time at arctic's shapes (``moe_shape``:
    E's library call there is SDPA), at jamba's and xlstm's
    (``ssm_shape``) and at deepseek-v2's (``mla_shape``: SDPA with q·k
@@ -371,7 +398,8 @@ Phases, each of which ends the run with a non-zero exit on any failure:
    layer at 4 and 256 ROIs with its tile), ``handtracking``,
    ``rmsnorm_shapes``/``flash_shapes`` (each case's route; E's registers
    and spills from ptxas and its share of the bound), ``lm``, ``train``,
-   ``stub``, ``ssm``, ``moe``, ``mla`` and ``roofline`` JSON lines, the
+   ``stub``, ``ssm``, ``moe``, ``mla``, ``roofline`` and ``sharding``
+   JSON lines, the
    card's name and power limit, and last the ``ok`` line.  Kernel C's SASS must hold int8 tensor-core (IMMA) and
    cp.async (LDGSTS) instructions.
 
@@ -2716,7 +2744,8 @@ def ulps(got, want) -> int:
 def bf16_within_one_ulp(got, want, atol: float) -> tuple:
     """Whether every element of ``got`` is within one bf16 ulp of
     ``want`` (the spacing of bf16 values at |want|) plus ``atol``, and the
-    largest ulp distance among the elements with |want| > ULP_FLOOR."""
+    largest ulp distance among the elements with |want| > ULP_FLOOR
+    (``want`` bf16, or a float32 witness counted in bf16 steps)."""
     import torch
 
     g, w = got.float(), want.float()
@@ -2725,6 +2754,7 @@ def bf16_within_one_ulp(got, want, atol: float) -> tuple:
                           torch.ldexp(torch.ones_like(w), e - 8))
     close = bool(((g - w).abs() <= spacing + atol).all().item())
     big = w.abs() > ULP_FLOOR
+    want = want.to(got.dtype)       # a float32 witness, in bf16 steps
     return close, (ulps(got[big], want[big]) if bool(big.any()) else 0)
 
 
@@ -6192,12 +6222,262 @@ def phase_roofline(dev, smi: str, cfg=None, seq: int = LM_SEQ,
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phase 9i: sharding — rank 0 of a 256-rank mesh
+# ---------------------------------------------------------------------------
+
+#: The sharded cell: codeqwen1.5-7b (hf:Qwen/CodeQwen1.5-7B) at full
+#: width and depth, prefill_32k (32 sequences of 32,768 tokens), on the
+#: single-pod (16, 16) ("data", "model") mesh; rank 0 holds 2 sequences
+#: and 2 of the 32 q and kv heads.  No MoE: routes would read the fake
+#: collectives' unset values.
+SHARD_ARCH, SHARD_SHAPE = "codeqwen1.5-7b", "prefill_32k"
+#: Kernel E in bf16 at the shard's 32,768 keys against the float32 run
+#: of its plain version: its largest difference and relative L2 error at
+#: most this many times the plain version's in bf16 (the ratio the
+#: absorbed MLA decode is held to, MLA_ABSORB_WITNESS_RATIO).
+SHARD_E_WITNESS_RATIO = 1.25
+
+
+def shard_launches(cfg, shape, dims: tuple, seq_parallel: bool) -> dict:
+    """Rank 0's launches of one step, by kernel and local shape: D on
+    (rows, d) (norm1 and norm2 a layer, on the sequence-sharded residual
+    with ``seq_parallel``, and the final norm on the whole sequence), E
+    on (B, S, H, Dh) q heads (one a layer)."""
+    import collections
+
+    data, model = dims[-2], dims[-1]
+    b, s = shape.global_batch // data, shape.seq_len
+    rows = b * (s // model if seq_parallel else s)
+    d = collections.Counter({(rows, cfg.d_model): 2 * cfg.num_layers})
+    d[(b * s, cfg.d_model)] += 1
+    e = {(b, s, cfg.num_heads // model, cfg.resolved_head_dim):
+         cfg.num_layers}
+    return {"D": dict(d), "E": e}
+
+
+@contextlib.contextmanager
+def launch_shapes():
+    """Record each launch of D and E by its first argument's shape (a
+    credit sink: every wrapper reports its launches while one is set)."""
+    import collections
+
+    from repro_torch.kernels import _credit
+
+    seen = {"D": collections.Counter(), "E": collections.Counter()}
+    names = {"rmsnorm": "D", "flash_attention": "E"}
+
+    def sink(name, twin, args, kwargs, inputs, outputs):
+        seen[names[name]][tuple(inputs[0].shape)] += 1
+
+    _credit._SINKS.append(sink)
+    try:
+        yield seen
+    finally:
+        _credit._SINKS.remove(sink)
+
+
+def shard_kernel_checks(dev, rows: int, d: int, q_shape: tuple) -> dict:
+    """Gate (d): kernel D at (rows, d) and E at ``q_shape`` (B, S, H, Dh;
+    as many kv heads as q heads, causal) against their plain versions
+    within the rmsnorm and flash phases' limits (E in bf16 against the
+    plain version's float32 run, E in float32 against it too); each
+    one's time, plain time, bound and library time (``F.rms_norm``,
+    ``scaled_dot_product_attention``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as E
+    from repro_torch.kernels import rmsnorm as D
+
+    x, scale = rmsnorm_inputs(rows, d, "bfloat16", 90, dev)
+    got, want = D.rmsnorm_fused(x, scale), D.rmsnorm_ref(x, scale)
+    u = ulps(got, want)
+    check(u <= BF16_ULPS, f"sharding: kernel D {rows}x{d}: {u} ulp from "
+          f"its plain version (limit {BF16_ULPS})")
+    nbytes = 2 * x.numel() * x.element_size() + 4 * d
+    dr = {"shape": [rows, d], "ulps": u,
+          "max_abs_err": (got.float() - want.float()).abs().max().item(),
+          "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    del got, want
+    w = (1.0 + scale).to(x.dtype)
+    timed(dr, "ms", lambda: D.rmsnorm_fused(x, scale), 20, "sharding D")
+    timed(dr, "plain_ms", lambda: D.rmsnorm_ref(x, scale), 5,
+          "sharding D, plain")
+    timed(dr, "library_ms", lambda: F.rms_norm(x, (d,), w, 1e-6), 20,
+          "sharding D, F.rms_norm")
+    del x, scale, w
+    b, s, h, dh = q_shape
+    q, k, v = flash_inputs(b, s, s, h, h, dh, "bfloat16", 91, dev)
+    got = E.flash_attention_fwd(q, k, v, causal=True)
+    want = flash_ref_by_kv_head(q, k, v, causal=True)
+    # the float32 route against the plain version in float32 (the flash
+    # phase's float32 limit); that float32 run is the witness of the bf16
+    # route, which is no further from it than the plain version in bf16
+    # (SHARD_E_WITNESS_RATIO, in the largest difference and in relative
+    # L2).  The flash phase's elementwise bf16 limit (one ulp +
+    # FLASH_BF16_ATOL) holds at its 8,192 keys; at 32,768 the kernel's
+    # float32 sums carry up to ~2e-6 absolute, past it at a few hundred
+    # outputs of |out| ~1e-5 (counted in ``beyond_one_ulp``).
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    witness = flash_ref_by_kv_head(q32, k32, v32, causal=True)
+    got32 = E.flash_attention_fwd(q32, k32, v32, causal=True)
+    f32_ok = bool(((got32 - witness).abs() <= FLASH_F32_TOL["atol"]
+                   + FLASH_F32_TOL["rtol"] * witness.abs()).all())
+    f32_err = (got32 - witness).abs().max().item()
+    del got32, q32, k32, v32
+    check(f32_ok, f"sharding: kernel E {q_shape} float32 differs from its "
+          f"plain version by {f32_err!r} (limit {FLASH_F32_TOL})")
+    vs = {}
+    for name, t in (("kernel", got), ("plain", want)):
+        diff = t.float() - witness
+        _, e = torch.frexp(witness)
+        spacing = torch.where(witness == 0, 0.0, torch.ldexp(
+            torch.ones_like(witness), e - 8))
+        vs[name] = {"max_abs": diff.abs().max().item(),
+                    "rel_l2": (diff.norm() / witness.norm()).item(),
+                    "beyond_one_ulp": int((diff.abs() > spacing
+                                           + FLASH_BF16_ATOL).sum())}
+        del diff, spacing
+    ratio = {k: vs["kernel"][k] / vs["plain"][k]
+             for k in ("max_abs", "rel_l2")}
+    check(max(ratio.values()) <= SHARD_E_WITNESS_RATIO
+          and bool(got.isfinite().all()),
+          f"sharding: kernel E {q_shape} bf16 against the float32 witness "
+          f"{vs} (ratio limit {SHARD_E_WITNESS_RATIO})")
+    _, u = bf16_within_one_ulp(got, want, FLASH_BF16_ATOL)
+    nbytes, qk_ops, pv_ops = flash_work(b, s, s, h, h, dh, True, 0,
+                                        q.element_size())
+    b_ms, b_by = flash_bound(nbytes, qk_ops, pv_ops, True)
+    er = {"shape": list(q_shape), "kv_heads": h, "ulps_vs_plain": u,
+          "f32_max_abs_err": f32_err, "vs_witness": vs,
+          "witness_ratio": ratio,
+          "max_abs_err": (got.float() - want.float()).abs().max().item(),
+          "bound_ms": b_ms, "bound_by": b_by}
+    del got, want, witness
+    timed(er, "ms", lambda: E.flash_attention_fwd(q, k, v, causal=True), 3,
+          "sharding E")
+    timed(er, "plain_ms", lambda: flash_ref_by_kv_head(q, k, v,
+                                                       causal=True), 2,
+          "sharding E, plain")
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    timed(er, "library_ms", lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, scale=dh ** -0.5), 3,
+        "sharding E, scaled_dot_product_attention")
+    er["library"] = "scaled_dot_product_attention"
+    er["bound_share"] = b_ms / er["ms"]
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"D": dr, "E": er}
+
+
+def phase_sharding(dev, smi: str, arch: str = SHARD_ARCH,
+                   shape=SHARD_SHAPE, cfg=None,
+                   mesh_shape: str = "16x16", run_cell=None) -> tuple:
+    """The sharding path (phase 9i): ``arch`` x ``shape`` on the
+    ``mesh_shape`` mesh as rank 0 of a fake world of its size, without
+    and with ``seq_parallel``.  (1) The dry-run on ``meta`` under the
+    H100 spec (``launch.dryrun.run_cell(..., chip="h100")``): its row.
+    (2) Rank 0's shard on the card (``device="cuda"``: the step counted,
+    then timed), the counts read around it.  Gates: no error row; (a)
+    rank 0 launches D and E ``shard_launches`` times a step at those
+    local shapes; (b) the per-device flops counted on ``meta`` equal the
+    count of rank 0's run on the card exactly, op class by op class; (c)
+    its peak allocated bytes at least its analytic state bytes and
+    below the card's memory; (d) ``shard_kernel_checks`` at the local
+    shapes.  ``run_cell`` stands in for the dry-run's (a CPU rehearsal).
+    Returns (launches by kernel and run, the ``sharding`` report)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+
+    t_phase = time.perf_counter()
+    run_cell = run_cell or dryrun.run_cell
+    cfg = cfg if cfg is not None else get_config(arch)
+    shape = dryrun._input_shape(shape)
+    dims = tuple(int(n) for n in mesh_shape.split("x"))
+    report: dict = {"arch": arch, "shape": shape.name, "mesh": mesh_shape,
+                    "card": smi, "runs": {}}
+    launches: dict = {}
+    for sp in (False, True):
+        key = "seq_parallel" if sp else "plain"
+        c = dataclasses.replace(cfg, seq_parallel=sp)
+        kw = dict(mesh_shape=mesh_shape, chip="h100", cfg=c)
+        t0 = time.perf_counter()
+        meta = run_cell(arch, shape, False, **kw)
+        meta_s = time.perf_counter() - t0
+        check(meta["status"] == "ok", f"sharding {key}: meta dry-run "
+              f"{meta['status']}: {meta.get('error')}\n"
+              f"{meta.get('traceback', '')}")
+        reset_counts()
+        with launch_shapes() as seen:
+            card_row = run_cell(arch, shape, False, device=dev.type, **kw)
+        counts = read_counts()
+        check(card_row["status"] == "ok", f"sharding {key}: rank 0 on the "
+              f"card {card_row['status']}: {card_row.get('error')}\n"
+              f"{card_row.get('traceback', '')}")
+        mem = card_row["memory_analysis"]
+        steps = mem["steps_run"]
+        want = shard_launches(c, shape, dims, sp)
+        for k in ("D", "E"):
+            n = sum(want[k].values()) * steps
+            check(counts[k] == n, f"sharding {key}: {counts[k]} launches "
+                  f"of {k} in {steps} steps, expected {n}")
+            got = {s: m // steps for s, m in seen[k].items()}
+            check(got == want[k], f"sharding {key}: {k}'s local shapes "
+                  f"{got}, expected {want[k]}")
+        others = {k: n for k, n in counts.items() if k not in "DE" and n}
+        check(not others, f"sharding {key}: launched {others}")
+        mc, cc = meta["cost_analysis"], card_row["cost_analysis"]
+        check(mc["flops_per_device"] == cc["flops_per_device"]
+              and mc["flops_by_op"] == cc["flops_by_op"],
+              f"sharding {key}: meta counts {mc['flops_by_op']}, the card "
+              f"{cc['flops_by_op']}")
+        state = card_row["state_bytes_per_device"]
+        check(state <= mem["peak_allocated_bytes"]
+              < mem["device_total_bytes"],
+              f"sharding {key}: peak {mem['peak_allocated_bytes']} B, "
+              f"analytic state {state} B, card {mem['device_total_bytes']}")
+        rf = card_row["roofline"]
+        launches[key] = {k: counts[k] for k in ("D", "E")}
+        report["runs"][key] = {
+            "meta_row": meta, "meta_s": meta_s,
+            "card": {k: card_row[k] for k in ("memory_analysis",
+                                              "cost_analysis",
+                                              "collectives", "roofline")},
+            "launches": launches[key], "steps": steps,
+            "launch_shapes": {k: {"x".join(map(str, s)): n
+                                  for s, n in want[k].items()}
+                              for k in ("D", "E")},
+            "step_s": mem["step_s"],
+            "measured_over_t_bound": mem["step_s"] / rf["t_bound"],
+            "measured_over_t_compute": mem["step_s"] / rf["t_compute"]}
+        print(f"sharding {key}: meta {meta_s:.1f} s, flops/device "
+              f"{mc['flops_per_device']!r}; rank 0 on the card step "
+              f"{mem['step_s'] * 1e3:.1f} ms (t_bound "
+              f"{rf['t_bound'] * 1e3:.1f} ms, {rf['dominant']}), peak "
+              f"{mem['peak_allocated_bytes'] / 2**30:.2f} GiB; launches "
+              f"{launches[key]}")
+    runs = report["runs"]
+    report["sp_over_plain_step"] = (runs["seq_parallel"]["step_s"]
+                                    / runs["plain"]["step_s"])
+    # without seq_parallel every norm is one shape, the whole sequence
+    plain_want = shard_launches(cfg, shape, dims, False)
+    (rows, d), = plain_want["D"]
+    q_shape, = plain_want["E"]
+    report["kernels"] = shard_kernel_checks(dev, rows, d, q_shape)
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(f"sharding: phase {report['phase_s']:.1f} s")
+    return launches, report
+
+
 #: The phases of :func:`run`, in the order they run (``--phases`` picks
 #: among them; the default runs them all).
 PHASES = ("kernels", "dense", "dense_engine", "stream", "stream_resilience",
           "scenario", "optimize", "stream_devices", "service", "rbe",
-          "pipeline", "rmsnorm", "flash", "train", "lm", "roofline", "stub",
-          "ssm", "moe", "mla")
+          "pipeline", "rmsnorm", "flash", "train", "lm", "roofline",
+          "sharding", "stub", "ssm", "moe", "mla")
 #: The phases each row of the ``kernels`` line is measured in: a row is
 #: left out of the line unless they all ran.
 ROW_NEEDS = {"A": ("kernels", "dense_engine", "stream"),
@@ -6211,14 +6491,17 @@ FIELD_PHASE = {"launches_grid_argmin": "optimize",
                "launches_service": "service",
                "launches_train": "train", "launches_train_step": "train",
                "launches_ssm": "ssm", "launches_moe": "moe",
-               "launches_mla": "mla", "launches_stub": "stub"}
+               "launches_mla": "mla", "launches_stub": "stub",
+               "launches_sharding": "sharding"}
 ROW_FIELDS = {"A": ("launches_service",),
               "B": ("launches_grid_argmin", "launches_service"),
               "C": (),
               "D": ("launches_train", "launches_train_step", "launches_ssm",
-                    "launches_moe", "launches_mla", "launches_stub"),
+                    "launches_moe", "launches_mla", "launches_stub",
+                    "launches_sharding"),
               "E": ("launches_train", "launches_train_step", "launches_ssm",
-                    "launches_moe", "launches_mla", "launches_stub")}
+                    "launches_moe", "launches_mla", "launches_stub",
+                    "launches_sharding")}
 
 
 def parse_phases(argv: list) -> tuple:
@@ -6267,8 +6550,9 @@ def run(dev, grid_big, smi: str, lm_cfg, lm_seq: int = LM_SEQ,
     train_argv)`` as the training path, qwen2-vl-2b and musicgen-large
     as the modality-stub path, xlstm-350m and jamba at
     SSM_JAMBA_LAYERS layers as the SSM path, arctic-480b at MOE_LAYERS
-    layers as the MoE path and deepseek-v2-236b at MLA_LAYERS layers as
-    the MLA path; of them, the ``phases`` named (every phase keeps all
+    layers as the MoE path, deepseek-v2-236b at MLA_LAYERS layers as
+    the MLA path and rank 0 of codeqwen1.5-7b's 256-rank prefill as the
+    sharding path; of them, the ``phases`` named (every phase keeps all
     of its gates).  A row of the ``kernels`` line is printed only if
     every phase it is measured in ran, and a field of a row only if its
     phase ran; the line says what it left out (:func:`left_out`)."""
@@ -6360,6 +6644,10 @@ def run(dev, grid_big, smi: str, lm_cfg, lm_seq: int = LM_SEQ,
     if "roofline" in on:
         reports["roofline"] = phase_roofline(dev, smi, lm_cfg, lm_seq,
                                              train_argv)
+    # rank 0 of codeqwen1.5-7b's 256-rank prefill (~9 GB at its peak)
+    if "sharding" in on:
+        de["launches_sharding"], reports["sharding"] = phase_sharding(
+            dev, smi)
     # the modality-stub models (8 GB) before jamba's 52 GB
     if "stub" in on:
         stub_launches, reports["stub"] = phase_stub(dev, smi)
@@ -6388,10 +6676,14 @@ def run(dev, grid_big, smi: str, lm_cfg, lm_seq: int = LM_SEQ,
             if field in ("launches_ssm", "launches_stub"):
                 row[field] = {arch: {k: c[key] for k, c in runs.items()}
                               for arch, runs in de[field].items()}
-            elif field in ("launches_moe", "launches_mla"):
+            elif field in ("launches_moe", "launches_mla",
+                           "launches_sharding"):
                 row[field] = {k: c[key] for k, c in de[field].items()}
             else:
                 row[field] = de[field][key]
+        if "sharding" in reports:
+            row["sharding_shape"] = shape_readings(
+                reports["sharding"]["kernels"][key])
     if "stream" in on:
         lines.append({"stream": stats, "card": smi})
     if "stream_resilience" in on:
@@ -6402,7 +6694,8 @@ def run(dev, grid_big, smi: str, lm_cfg, lm_seq: int = LM_SEQ,
         lines.append({"handtracking": ht})
     if "D" not in no_row:
         lines.append(lm_shapes)
-    for name in ("lm", "stub", "train", "ssm", "moe", "mla", "roofline"):
+    for name in ("lm", "stub", "train", "ssm", "moe", "mla", "roofline",
+                 "sharding"):
         if name in reports:
             lines.append({name: reports[name]})
     kernels_line = {"kernels": rows}

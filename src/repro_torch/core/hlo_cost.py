@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import re
+import sys
 from collections import defaultdict
 from typing import Dict, List, Optional, Tuple
 
@@ -572,11 +573,18 @@ def analyze_program(fn, *args, **kw) -> HLOCost:
       bytes, its inputs read and its outputs written once
       (``bytes_by_op["kernel <name>"]``).
 
+    A program on DTensors is counted per device, as the reference counts
+    the SPMD-partitioned program: the count lets DTensor unwrap each
+    operation (as ``CommDebugMode`` does) and sees the local operations
+    at the local shapes and the collectives DTensor issues; a kernel run
+    on a local shard is credited at the local shapes.
+
     An eager loop runs its body once a trip and each trip is counted,
     so the undercount of a ``while`` body counted once, which
     :func:`analyze` repairs by trip counts, cannot arise:
     ``unrolled_whiles`` and ``unknown_trip_whiles`` stay 0.
     """
+    from torch._subclasses.fake_tensor import FakeTensor
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils.flop_counter import flop_registry
 
@@ -631,10 +639,27 @@ def analyze_program(fn, *args, **kw) -> HLOCost:
         cost.bytes += b
         cost.bytes_by_op[name] += b
 
+    dtensor = _dtensor_type()
+
     class _Counting(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if dtensor is not None and any(issubclass(t, dtensor)
+                                           for t in types):
+                # let DTensor unwrap first: its local operations and its
+                # collectives come back here, counted per device
+                return NotImplemented
             kwargs = kwargs or {}
+            if func is torch.ops.aten.equal.default and \
+                    args[0].device.type == "meta":
+                # a meta tensor has no values to compare: DTensor asks
+                # whether two embedding masks it made from the same ids
+                # agree (a sharded table's backward), which they do
+                return True
             out = func(*args, **kwargs)
+            if any(issubclass(t, FakeTensor) for t in types):
+                # DTensor's sharding propagation runs each operation on
+                # fake tensors of the global shapes: no device runs it
+                return out
             count(func, args, kwargs, out)
             return out
 
@@ -658,6 +683,13 @@ def analyze_program(fn, *args, **kw) -> HLOCost:
     return cost
 
 
+def _dtensor_type():
+    """``DTensor``, if ``torch.distributed.tensor`` is imported (no
+    DTensor exists before it is)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return None if mod is None else mod.DTensor
+
+
 #: Flops of a kernel's plain twin, by the twin and its arguments' shapes.
 _TWIN_FLOPS: dict = {}
 
@@ -675,7 +707,12 @@ def _meta_key(x):
 def _twin_flops(twin, args: tuple, kwargs: dict) -> dict:
     """``flops_by_op`` of ``twin(*args, **kwargs)``, run on ``meta``
     tensors of the arguments' shapes and dtypes outside every active
-    count (a kernel's work depends on its shapes and settings alone)."""
+    count (a kernel's work depends on its shapes and settings alone).
+    A twin that loops over block pairs doing the same work in each
+    (``twin.pair_count``, the blockwise attention) is counted over its
+    first pair and its first two, and the difference times the rest
+    added: the count of every pair, without running 2,080 of them
+    operation by operation at 32,768 tokens."""
     from torch.utils._python_dispatch import _disable_current_modes
 
     key = (twin.__module__, twin.__qualname__, _meta_key(args),
@@ -686,13 +723,24 @@ def _twin_flops(twin, args: tuple, kwargs: dict) -> dict:
                 return torch.empty(x.shape, dtype=x.dtype, device="meta")
             return x
 
+        def count(**extra) -> dict:
+            with _disable_current_modes(), torch.no_grad():
+                return dict(analyze_program(
+                    twin, *(meta(a) for a in args), **kwargs,
+                    **extra).flops_by_op)
+
+        pair_count = getattr(twin, "pair_count", None)
+        n = pair_count(*args, **kwargs) if pair_count else 0
         sinks = list(_credit._SINKS)
         _credit._SINKS.clear()
         try:
-            with _disable_current_modes(), torch.no_grad():
-                got = analyze_program(twin, *(meta(a) for a in args),
-                                      **kwargs)
+            if n > 2:
+                one, two = count(first_pairs=1), count(first_pairs=2)
+                got = {k: one.get(k, 0.0) + (n - 1) * (two[k] - one.get(
+                    k, 0.0)) for k in two}
+            else:
+                got = count()
         finally:
             _credit._SINKS[:] = sinks
-        _TWIN_FLOPS[key] = dict(got.flops_by_op)
+        _TWIN_FLOPS[key] = got
     return _TWIN_FLOPS[key]

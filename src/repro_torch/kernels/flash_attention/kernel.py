@@ -15,7 +15,9 @@ route (``mma.sync``, p@v exact through a three-piece bf16 split of p),
 float32 inputs the CUDA-core route.  :func:`plan` chooses the route and
 its tiling in plain Python.  Given CPU tensors the wrapper runs the
 plain version (:func:`.ref.flash_attention_ref`); given CUDA tensors it
-launches the kernel on the current stream or raises.  It counts its
+launches the kernel on the current stream or raises; given ``meta``
+tensors it returns empty results (a count of the program still credits
+the launch); a DTensor it refuses.  It counts its
 launches in its ``launches`` attribute, and reports each to
 :mod:`.._credit`: while a program is counted, a launch does the work of
 the reference's blockwise plain version
@@ -37,6 +39,7 @@ import torch
 
 from .. import _credit
 from .._build import BASE_FLAGS, Library
+from .._sharded import refuse
 from . import ref
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
@@ -134,6 +137,8 @@ def _check(q, k, v) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name}: expected a torch.Tensor, got {type(t)}")
+    refuse("flash_attention_fwd", q, k, v)
+    for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dim() != 4:
             raise ValueError(f"{name} must be 4-D, got {tuple(t.shape)}")
         if t.device != q.device:
@@ -179,17 +184,21 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        logit_softcap=logit_softcap,
                                        scale=scale, return_stats=return_stats)
-    if dev.type != "cuda":
-        raise ValueError(f"flash_attention_fwd runs on cuda or cpu, not "
-                         f"{dev}")
-    p = plan(b, sq, h, kvh, d, q.dtype, dv)
+    if dev.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_attention_fwd runs on cuda, cpu or meta, "
+                         f"not {dev}")
+    p = plan(b, sq, h, kvh, d, q.dtype, dv) if dev.type == "cuda" else None
     out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=dev)
     m = l = None
     if return_stats:
         m = torch.empty((b, sq, kvh, h // kvh), dtype=torch.float32,
                         device=dev)
         l = torch.empty_like(m)
-    if b and sq and skv and h:
+    if dev.type == "meta":
+        # shapes only: no launch, but a count credits the kernel's work
+        _credit_launch(q, k, v, out, m, l, causal, window, logit_softcap,
+                       scale, return_stats, blocks)
+    elif b and sq and skv and h:
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _lib().flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -204,16 +213,24 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise RuntimeError(f"flash_attention_launch failed: {msg} "
                                f"(code {rc})")
         flash_attention_fwd.launches += 1
-        if _credit.active():
-            from repro_torch.models.flash import blockwise_fwd
-
-            _credit.credit(
-                "flash_attention", blockwise_fwd, (q, k, v),
-                dict(causal=causal, window=window,
-                     logit_softcap=logit_softcap, scale=scale,
-                     return_stats=return_stats, blocks=tuple(blocks)),
-                (q, k, v), (out, m, l))
+        _credit_launch(q, k, v, out, m, l, causal, window, logit_softcap,
+                       scale, return_stats, blocks)
     return (out, m, l) if return_stats else out
+
+
+def _credit_launch(q, k, v, out, m, l, causal, window, logit_softcap,
+                   scale, return_stats, blocks) -> None:
+    """Report a launch (or a ``meta`` stand-in for one) to the active
+    counts: the work of the blockwise plain version at its blocks."""
+    if _credit.active():
+        from repro_torch.models.flash import blockwise_fwd
+
+        _credit.credit(
+            "flash_attention", blockwise_fwd, (q, k, v),
+            dict(causal=causal, window=window,
+                 logit_softcap=logit_softcap, scale=scale,
+                 return_stats=return_stats, blocks=tuple(blocks)),
+            (q, k, v), (out, m, l))
 
 
 flash_attention_fwd.launches = 0

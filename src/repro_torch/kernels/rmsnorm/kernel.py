@@ -12,8 +12,9 @@ warp a row with the row held in 16-byte vectors, or the strided
 fallback where ``d`` or a pointer breaks 16-byte alignment.  Given CPU
 tensors the wrapper runs the plain version (:func:`.ref.rmsnorm_ref`);
 given CUDA tensors it launches the kernel on the current stream or
-raises.  It counts its launches in its ``launches`` attribute, and
-reports each to :mod:`.._credit` (while a program is counted, its work
+raises; given ``meta`` tensors it returns an empty result (a count of
+the program still credits the launch); a DTensor it refuses.  It counts
+its launches in its ``launches`` attribute, and reports each to :mod:`.._credit` (while a program is counted, its work
 is the plain version's at the same shapes).
 """
 
@@ -28,6 +29,7 @@ import torch
 
 from .. import _credit
 from .._build import BASE_FLAGS, Library
+from .._sharded import refuse
 from . import ref
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
@@ -105,6 +107,7 @@ def rmsnorm_fused(x: torch.Tensor, scale: torch.Tensor, *,
     if not isinstance(x, torch.Tensor) or not isinstance(scale,
                                                          torch.Tensor):
         raise TypeError("x and scale must be torch.Tensors")
+    refuse("rmsnorm_fused", x, scale)
     if x.dim() != 2:
         raise ValueError(f"x must be 2-D (rows, d), got {tuple(x.shape)}")
     rows, d = x.shape
@@ -121,9 +124,16 @@ def rmsnorm_fused(x: torch.Tensor, scale: torch.Tensor, *,
     dev = x.device
     if dev.type == "cpu":
         return ref.rmsnorm_ref(x, scale, eps)
-    if dev.type != "cuda":
-        raise ValueError(f"rmsnorm_fused runs on cuda or cpu, not {dev}")
+    if dev.type not in ("cuda", "meta"):
+        raise ValueError(f"rmsnorm_fused runs on cuda, cpu or meta, not "
+                         f"{dev}")
     out = torch.empty_like(x)
+    if dev.type == "meta":
+        # shapes only: no launch, but a count credits the kernel's work
+        if _credit.active():
+            _credit.credit("rmsnorm", ref.rmsnorm_ref, (x, scale, eps), {},
+                           (x, scale), (out,))
+        return out
     if rows and d:
         p = plan(rows, d, x.element_size(), x.data_ptr(), scale.data_ptr(),
                  out.data_ptr())

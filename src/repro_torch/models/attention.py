@@ -41,6 +41,7 @@ from repro_torch.kernels.flash_attention.ref import NEG_INF, flash_attention_ref
 
 from .common import ModelConfig
 from .layers import apply_mrope, apply_rope, normal, rmsnorm
+from .sharding import BATCH, constrain, merge_dims, unflatten_last
 
 
 def _block_pairs(n_q: int, n_kv: int, q_block: int, kv_block: int,
@@ -157,6 +158,9 @@ def decode_attention(q, k_cache, v_cache, cache_len: int, *, window=0,
     _, s_max, kv_heads, dv = v_cache.shape
     g = h // kv_heads
     scale = scale if scale is not None else dh ** -0.5
+    # under a mesh the cache is sequence-sharded: each shard attends
+    # with every head of the token's q (a no-op without a mesh)
+    q = constrain(q, BATCH, None, None, None)
     qg = q.reshape(b, kv_heads, g, dh).float()
     s = torch.einsum("bkgd,btkd->bkgt", qg, k_cache.float()) * scale
     if logit_softcap:
@@ -207,8 +211,7 @@ def _rope_or_mrope(cfg: ModelConfig, x: torch.Tensor,
 
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("bsd,dhk->bshk", x, w)`` as one matmul."""
-    b, s, d = x.shape
-    return (x @ w.reshape(d, -1)).view(b, s, *w.shape[1:])
+    return unflatten_last(x @ merge_dims(w, 1, w.ndim), w.shape[1:])
 
 
 def _qkv(cfg: ModelConfig, params: dict, x: torch.Tensor,
@@ -224,8 +227,7 @@ def _qkv(cfg: ModelConfig, params: dict, x: torch.Tensor,
 
 def _out(o: torch.Tensor, w_o: torch.Tensor) -> torch.Tensor:
     """``einsum("bshk,hkd->bsd", o, w_o)`` as one matmul."""
-    b, s = o.shape[:2]
-    return o.reshape(b, s, -1) @ w_o.reshape(-1, w_o.shape[-1])
+    return merge_dims(o, 2, 4) @ merge_dims(w_o, 0, 2)
 
 
 def gqa_forward(cfg: ModelConfig, params: dict, x: torch.Tensor,

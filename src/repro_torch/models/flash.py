@@ -8,6 +8,10 @@ softmax algorithm over the statically enumerated (q block, kv block)
 pairs, as plain tensor code.  The scale multiplies the q·k product, as
 here in the reference (its Pallas kernel scales q instead).
 
+On ``meta`` tensors the forward is kernel E's wrapper, which returns
+empty results and reports the launch to a count; a DTensor runs on its
+local shards (:func:`_sharded`).
+
 Backward: where autograd records, the call goes through
 :class:`FlashAttentionFunction`, which takes the place of the
 reference's ``custom_vjp``: the forward keeps only (q, k, v, out, m, l),
@@ -21,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels._sharded import is_dtensor, local_call
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 
 from .attention import NEG_INF, _block_pairs
@@ -153,7 +158,7 @@ class FlashAttentionFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, pairs, kw):
-        if q.device.type == "cuda":
+        if q.device.type in ("cuda", "meta"):
             out, m, l = flash_attention_fwd(
                 q, k, v, causal=kw["causal"], window=kw["window"],
                 logit_softcap=kw["logit_softcap"], scale=kw["scale"],
@@ -175,23 +180,41 @@ class FlashAttentionFunction(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+def _twin_pairs(q, k, causal, window, blocks) -> tuple:
+    sq, skv = q.shape[1], k.shape[1]
+    q_block, kv_block = min(blocks[0], sq), min(blocks[1], skv)
+    pairs = _block_pairs(sq // q_block, skv // kv_block, q_block, kv_block,
+                         skv - sq, bool(causal), int(window))
+    return pairs, q_block, kv_block
+
+
 def blockwise_fwd(q, k, v, *, causal: bool = True, window: int = 0,
                   logit_softcap: float = 0.0, scale: float | None = None,
                   return_stats: bool = False,
-                  blocks: tuple[int, int] = (512, 512)):
+                  blocks: tuple[int, int] = (512, 512),
+                  first_pairs: int | None = None):
     """Kernel E's function as the reference's blockwise plain version:
     :func:`_fwd_pass` over the static pairs of ``blocks`` (clipped to
     the sequences), with kernel E's wrapper's arguments and results.
-    It is the twin whose work a count credits to a launch of E."""
-    sq, skv = q.shape[1], k.shape[1]
-    q_block, kv_block = min(blocks[0], sq), min(blocks[1], skv)
+    It is the twin whose work a count credits to a launch of E.
+    ``first_pairs`` runs only that many of the pairs: every pair does
+    the same operations on the same shapes, so a count of one and of
+    two pairs gives the work of all (:attr:`blockwise_fwd.pair_count`)."""
+    pairs, q_block, kv_block = _twin_pairs(q, k, causal, window, blocks)
+    if first_pairs is not None:
+        pairs = pairs[:first_pairs]
     scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
-    pairs = _block_pairs(sq // q_block, skv // kv_block, q_block, kv_block,
-                         skv - sq, bool(causal), int(window))
     out, m, l = _fwd_pass(q, k, v, pairs, causal=causal, window=window,
                           logit_softcap=logit_softcap, q_block=q_block,
                           kv_block=kv_block, scale=scale)
     return (out, m, l) if return_stats else out
+
+
+#: The number of block pairs :func:`blockwise_fwd` runs at the given
+#: arguments, which a count of the twin's work reads.
+blockwise_fwd.pair_count = lambda q, k, v, *, causal=True, window=0, \
+    blocks=(512, 512), **_: len(_twin_pairs(q, k, causal, window,
+                                           blocks)[0])
 
 
 def flash_attention_vjp(q, k, v, *, causal, window, logit_softcap, q_block,
@@ -229,15 +252,63 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             "p_bf16 (bf16 probabilities in the p@v product) comes with the "
             "kernel-redesign queue (ROADMAP Queue 2), with tensor-core tiles")
     scale = float(scale if scale is not None else dh ** -0.5)
-    if q.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"flash_attention runs on cuda or cpu, not "
+    kw = dict(causal=causal, window=window, logit_softcap=logit_softcap,
+              q_block=q_block, kv_block=kv_block, scale=scale)
+    if is_dtensor(q):
+        return _sharded(q, k, v, kw)
+    if q.device.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"flash_attention runs on cuda, cpu or meta, not "
                          f"{q.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return flash_attention_vjp(q, k, v, causal=causal, window=window,
-                                   logit_softcap=logit_softcap,
-                                   q_block=q_block, kv_block=kv_block,
-                                   scale=scale)
-    fwd = flash_attention_fwd if q.device.type == "cuda" else blockwise_fwd
+        return flash_attention_vjp(q, k, v, **kw)
+    fwd = flash_attention_fwd if q.device.type != "cpu" else blockwise_fwd
     return fwd(q, k, v, causal=causal, window=window,
                logit_softcap=logit_softcap, scale=scale,
                blocks=(q_block, kv_block))
+
+
+def _sharded(q, k, v, kw: dict):
+    """DTensor q, k and v through :func:`flash_attention` on their local
+    shards: the batch as it is sharded, the q heads too, the sequence
+    whole (a sequence-sharded mesh dim is gathered first).  Where the
+    rules shard the q heads over a mesh dim but not the kv heads (kv
+    heads that do not divide it), k and v stay replicated there and each
+    shard takes, for each of its q heads, that head's kv head (an
+    ``index_select``: the local call is then one kv head a q head); the
+    gradient of k and v is summed over that mesh dim."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = q.device_mesh
+    h, kvh = q.shape[2], k.shape[2]
+    qp, kp, kg, sliced = [], [], [], None
+    for i, p in enumerate(q.placements):
+        if p.is_shard() and p.dim == 0:
+            qp.append(Shard(0))
+            kp.append(Shard(0))
+            kg.append(Shard(0))
+        elif p.is_shard() and p.dim == 2 and sliced is None:
+            qp.append(Shard(2))
+            if kvh % mesh.size(i) == 0:
+                kp.append(Shard(2))
+                kg.append(Shard(2))
+            else:
+                sliced = i
+                kp.append(Replicate())
+                kg.append(Partial())
+        else:
+            qp.append(Replicate())
+            kp.append(Replicate())
+            kg.append(Replicate())
+    qp, kp, kg = tuple(qp), tuple(kp), tuple(kg)
+
+    def local(ql, kl, vl):
+        if sliced is not None:
+            hl = ql.shape[2]
+            first = mesh.get_local_rank(sliced) * hl
+            heads = torch.div(torch.arange(first, first + hl,
+                                           device=ql.device),
+                              h // kvh, rounding_mode="floor")
+            kl, vl = kl.index_select(2, heads), vl.index_select(2, heads)
+        return flash_attention(ql, kl.contiguous(), vl.contiguous(), **kw)
+
+    return local_call(local, (q, k, v), (qp, kp, kp), qp, (qp, kg, kg))

@@ -15,6 +15,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels._sharded import is_dtensor
 from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_op
 
 from .common import ModelConfig
@@ -32,7 +33,10 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 def normal(shape, std: float, dtype, generator, device) -> torch.Tensor:
     """``N(0, 1) * std`` drawn in float32 from ``generator`` on
     ``device``, cast to ``dtype`` (the reference's init idiom).  The
-    product is taken in place: one float32 temporary, not two."""
+    product is taken in place: one float32 temporary, not two.  On the
+    ``meta`` device nothing is drawn: an empty tensor of the shape."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     x = torch.randn(shape, generator=generator, device=device,
                     dtype=torch.float32)
     return x.mul_(std).to(dtype)
@@ -120,10 +124,11 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     logits it is 8.4 GB, and out-of-place ops would hold three of them
     at once.  Where autograd records, the same ops run out of place (the
     tanh's backward reads its output, which the in-place product would
-    overwrite)."""
+    overwrite), and on a DTensor (an in-place op cannot keep a partial
+    placement)."""
     if not cap:
         return x
-    if torch.is_grad_enabled() and x.requires_grad:
+    if torch.is_grad_enabled() and x.requires_grad or is_dtensor(x):
         return (torch.tanh(x.float() / cap) * cap).to(x.dtype)
     y = x.to(torch.float32, copy=True)
     return y.div_(cap).tanh_().mul_(cap).to(x.dtype)

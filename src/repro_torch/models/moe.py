@@ -23,11 +23,17 @@ is read back on the host (and no atomics run on the card).
 Top-k follows ``jax.lax.top_k``: the k largest, ties to the lower
 expert index (a stable descending sort, first k).
 
-The reference's ``constrain`` calls and its ``moe_partial_sum`` branches
-place the buffer and the expert products on a device mesh (ROADMAP
-Queue 1 item 12g, sharding); on one device they compute the same math,
-so the port accepts the flag and computes it.  ``train`` is accepted and
-changes nothing, as in the reference (no router jitter).
+The reference's ``constrain`` calls place the buffer and the expert
+products on a device mesh (:mod:`.sharding`): the buffer's experts over
+"model" and its groups over the batch axes, or, with
+``moe_partial_sum``, its ``d`` (and the products' ``f``) over "data",
+where the experts' contraction dims are sharded (the FSDP rule of
+``launch/partitioning.py``), so both expert products contract locally.
+In the port's (E, G·C, d) layout the reference's (G, E, C, d) spec
+``(BATCH, MODEL, None, None)`` is ``(MODEL, BATCH, None)``.  Without a
+mesh they return their argument, so both settings compute the same
+math.  ``train`` is accepted and changes nothing, as in the reference
+(no router jitter).
 
 Supports the reference's variants: Arctic (128 experts top-2 plus a
 dense residual FFN in parallel), DeepSeek (routed plus always-on shared
@@ -44,6 +50,7 @@ import torch.nn.functional as F
 
 from .common import ModelConfig, MoEConfig
 from .layers import dense_ffn, dense_ffn_init, normal
+from .sharding import BATCH, MODEL, constrain
 
 GROUP_SIZE = 512     # tokens per routing group (training/prefill)
 
@@ -51,8 +58,11 @@ GROUP_SIZE = 512     # tokens per routing group (training/prefill)
 def _experts(shape, std: float, dtype, generator, device) -> torch.Tensor:
     """(E, ...) normals at ``std`` in ``dtype``, drawn one expert at a
     time into a preallocated tensor: the float32 draw a call is one
-    expert's (140 MB at arctic-480b's 7168 x 4864), not all of them."""
+    expert's (140 MB at arctic-480b's 7168 x 4864), not all of them.
+    On the ``meta`` device, an empty tensor of the shape."""
     w = torch.empty(shape, dtype=dtype, device=device)
+    if w.device.type == "meta":
+        return w
     for i in range(shape[0]):
         w[i] = normal(shape[1:], std, dtype, generator, device)
     return w
@@ -159,21 +169,34 @@ def moe_apply(cfg: ModelConfig, params: dict, x: torch.Tensor,
     dst = torch.where(r.keep, row, n)                  # drops: scratch row
     src = xg[:, :, None, :].expand(g, gs, m.top_k, d).reshape(-1, d)
     buf = x.new_zeros((n + 1, d)).index_copy(0, dst.reshape(-1), src)
-    h = buf[:n].view(e, g * cap, d)
+    h = constrain(buf[:n].view(e, g * cap, d), MODEL, BATCH, None)
 
     # ---- expert FFN: one batched matmul over the experts ----
+    ps = cfg.moe_partial_sum
+    if ps:
+        # reshard the buffer so groups gather while d shards over "data"
+        # (the experts' contraction dims are "data"-sharded): both
+        # expert products contract locally, no weight is gathered
+        h = constrain(h, MODEL, None, "data")
     up = torch.bmm(h, params["w_up"])
+    if ps:
+        up = constrain(up, MODEL, None, "data")      # reduce-scatter f
     if cfg.ffn_kind == "swiglu":
-        act = F.silu(torch.bmm(h, params["w_gate"])) * up
+        gate = F.silu(torch.bmm(h, params["w_gate"]))
+        if ps:
+            gate = constrain(gate, MODEL, None, "data")
+        act = gate * up
     else:
         act = F.gelu(up, approximate="tanh")
-    out = torch.bmm(act, params["w_down"]).reshape(n, d)
+    out = torch.bmm(act, params["w_down"])
+    out = constrain(out, *((MODEL, None, "data") if ps
+                           else (MODEL, BATCH, None))).reshape(n, d)
 
     # ---- combine: gather each token's k slots, weight by router prob ----
     gathered = out[torch.where(r.keep, row, 0)]               # (G, gs, k, d)
     gathered = torch.where(r.keep[..., None], gathered, 0)
     yg = torch.einsum("gskd,gsk->gsd", gathered, r.top_p.to(x.dtype))
-    y = yg.reshape(b, s, d)
+    y = constrain(yg.reshape(b, s, d), BATCH, None, None)
 
     # ---- always-on branches ----
     if "shared" in params:

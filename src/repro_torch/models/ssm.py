@@ -43,6 +43,7 @@ import torch.nn.functional as F
 
 from .common import ModelConfig
 from .layers import normal
+from .sharding import BATCH, MODEL, local_region, pointwise
 
 NEG_INF = -2.0e38
 #: Time steps of the Mamba scan whose ``da`` and ``dbx`` are made at once
@@ -150,7 +151,12 @@ def mamba_forward(cfg: ModelConfig, params: dict,
     xc = F.silu(_mamba_conv_full(params, xin))
     a, b_mat, c_mat, dt = _mamba_ssm_inputs(cfg, params, xc)
     x32 = xc.float()
-    y = _mamba_scan(a, b_mat, c_mat, dt, x32) + params["D"] * x32
+    # on local shards under a mesh: batch and channels split, S whole
+    y = local_region(_mamba_scan, (a, b_mat, c_mat, dt, x32),
+                     ((MODEL, None), (BATCH, None, None),
+                      (BATCH, None, None), (BATCH, None, MODEL),
+                      (BATCH, None, MODEL)),
+                     (BATCH, None, MODEL), dt.shape) + params["D"] * x32
     y = y.to(x.dtype) * F.silu(z)
     return y @ params["out_proj"]
 
@@ -284,7 +290,7 @@ def mlstm_block_forward(cfg: ModelConfig, params: dict,
     v = (xin @ params["w_v"]).view(b, s, h, hd)
     x32 = xin.float()
     log_i = x32 @ params["w_ig"] + params["b_ig"]             # (B, S, H)
-    log_f = F.logsigmoid(x32 @ params["w_fg"] + params["b_fg"])
+    log_f = pointwise(F.logsigmoid, x32 @ params["w_fg"] + params["b_fg"])
     ht = mlstm_parallel(q, k, v, log_i, log_f)
     y = ht.reshape(b, s, di) * F.silu(gate)
     return y @ params["w_down"]
@@ -311,7 +317,7 @@ def mlstm_block_decode(cfg: ModelConfig, params: dict, x: torch.Tensor,
     v = (xin @ params["w_v"]).view(b, h, hd).float()
     x32 = xin.float()
     log_i = x32 @ params["w_ig"] + params["b_ig"]             # (B, H)
-    log_f = F.logsigmoid(x32 @ params["w_fg"] + params["b_fg"])
+    log_f = pointwise(F.logsigmoid, x32 @ params["w_fg"] + params["b_fg"])
     m_new = torch.maximum(log_f + state.m, log_i)
     f_sc = torch.exp(log_f + state.m - m_new)
     i_sc = torch.exp(log_i - m_new)
@@ -366,7 +372,7 @@ def _slstm_cell(gz, gi, gf, go, state: SLSTMState
     float32 pre-activations (biases added); elementwise, so any layout
     of the state's (B, H, hd) works."""
     z = torch.tanh(gz)
-    log_f = F.logsigmoid(gf)
+    log_f = pointwise(F.logsigmoid, gf)
     o = torch.sigmoid(go)
     lfm = log_f + state.m
     m_new = torch.maximum(lfm, gi)
@@ -422,9 +428,18 @@ def slstm_block_forward(cfg: ModelConfig, params: dict,
         .view(4, hh, hd).transpose(0, 1)[:, None]
     wx = (x @ w_all).view(b, s, 4, hh, hd).permute(1, 3, 0, 2, 4) \
         .contiguous()
-    zero = torch.zeros((hh, b, hd), dtype=torch.float32, device=x.device)
-    state = SLSTMState(zero, zero, zero, torch.full_like(zero, -1e30))
-    hs = _slstm_scan(wx, r_all, bias, state)
+
+    def scan(wx, r_all, bias):
+        zero = torch.zeros(wx[0, :, :, 0].shape, dtype=torch.float32,
+                           device=wx.device)
+        state = SLSTMState(zero, zero, zero, torch.full_like(zero, -1e30))
+        return _slstm_scan(wx, r_all, bias, state)
+
+    # on local shards under a mesh: heads and batch split, S whole
+    hs = local_region(scan, (wx, r_all, bias),
+                      ((None, MODEL, BATCH, None, None), (MODEL, None, None),
+                       (MODEL, None, None, None)),
+                      (None, MODEL, BATCH, None), (s, hh, b, hd))
     y = hs.permute(2, 0, 1, 3).reshape(b, s, d).to(x.dtype)
     return y @ params["w_out"]
 

@@ -33,8 +33,16 @@ are added to the embeddings; with ``mrope_sections`` (Qwen2-VL) q and k
 rotate by M-RoPE over (3, B, S) t/h/w positions, (B, S) ones standing
 for t = h = w.  A modality-stub config (``frontend_stub``) takes
 precomputed frontend embeddings (``Batch.embeds``) or, as the reference,
-token ids through its table.  Sequence parallelism comes with a later
-slice and raises ``NotImplementedError``.
+token ids through its table.
+
+Under a device mesh (:func:`.sharding.use_mesh`, DTensor parameters and
+inputs) the reference's :func:`.sharding.constrain` calls place the
+residual stream, batch over ("pod", "data"); with ``cfg.seq_parallel``
+(Megatron sequence parallelism) the residual stream and the norms are
+also sharded over "model" along the sequence, which each mixer and MoE
+block gathers on entry and scatters on exit.  Without a mesh every
+``constrain`` returns its argument, so ``seq_parallel`` computes what
+it computes without.
 """
 
 from __future__ import annotations
@@ -55,25 +63,15 @@ from .common import ModelConfig
 from .layers import (compute_dtype, dense_ffn, dense_ffn_init, embed,
                      embedding_init, rmsnorm, rmsnorm_init, unembed,
                      unembed_init)
-
-#: What later slices bring: (message, ROADMAP Queue 1 item).
-_LATER = {
-    "seq_parallel": ("sequence parallelism comes with the sharding slice "
-                     "of the LM port", "12g"),
-}
+from .sharding import BATCH, MODEL, constrain, local_region, take_last
 
 LOSS_CHUNK = 256     # sequence-chunked cross entropy (bounds logits memory)
 
 
-def _later(what: str):
-    msg, item = _LATER[what]
-    return NotImplementedError(f"{msg} (ROADMAP Queue 1 item {item})")
-
-
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not run."""
-    if cfg.seq_parallel:
-        raise _later("seq_parallel")
+    """Raise for a config the port cannot run: every config of the
+    reference runs, in float32 or bfloat16 (``ValueError`` otherwise)."""
+    compute_dtype(cfg)
 
 
 class Batch(NamedTuple):
@@ -134,20 +132,32 @@ def _window(cfg: ModelConfig, kind: str) -> int:
 
 
 def _ffn_half(cfg: ModelConfig, use_moe: bool, params: dict,
-              x: torch.Tensor, train: bool) -> tuple:
+              x: torch.Tensor, train: bool, res_spec: tuple = ()) -> tuple:
     """The FFN half of a block: (x, aux), aux None without MoE (the
-    reference's zero)."""
+    reference's zero).  With ``res_spec`` (the prompt forward's) the
+    result is constrained to it, and under ``seq_parallel`` the MoE
+    block gathers the sequence it routes over."""
     if "ffn" not in params:
         return x, None
     aux = None
+    sp = cfg.seq_parallel and bool(res_spec)
     h = rmsnorm(params["norm2"], x, cfg.norm_eps)
     if use_moe:
+        if sp:   # MoE routes over full token sets; gather S
+            h = constrain(h, BATCH, None, None)
         h, aux = moe_mod.moe_apply(cfg, params["ffn"], h, train=train)
+        if sp:
+            h = constrain(h, BATCH, MODEL, None)
+    elif sp:
+        h = _token_parallel_ffn(cfg, params["ffn"], h)
     else:
         h = dense_ffn(params["ffn"], h, cfg.ffn_kind)
     if cfg.post_block_norm:
         h = rmsnorm(params["post_norm2"], h, cfg.norm_eps)
-    return x + h, aux
+    x = x + h
+    if res_spec:
+        x = constrain(x, *res_spec)
+    return x, aux
 
 
 def _mixer_forward(cfg: ModelConfig, kind: str, params: dict,
@@ -166,15 +176,48 @@ def _mixer_forward(cfg: ModelConfig, kind: str, params: dict,
     raise ValueError(kind)
 
 
+def _token_parallel_ffn(cfg: ModelConfig, params: dict,
+                        h: torch.Tensor) -> torch.Tensor:
+    """The dense FFN of the sequence-parallel residual stream: each
+    shard's tokens (batch and sequence split) through the whole weights,
+    gathered, as the stream's layout asks; :func:`dense_ffn` itself
+    without a mesh.  A product of a tensor sharded on two leading dims
+    is not left to DTensor, which cannot flatten them in every torch
+    release."""
+    names = sorted(params)
+
+    def ffn(h, *ws):
+        return dense_ffn(dict(zip(names, ws)), h, cfg.ffn_kind)
+
+    ws = tuple(params[n] for n in names)
+    spec = (BATCH, MODEL, None)
+    return local_region(ffn, (h,) + ws, (spec,) + ((None, None),) * len(ws),
+                        spec, h.shape)
+
+
 def _block_forward(cfg: ModelConfig, kind: str, use_moe: bool,
                    params: dict, x: torch.Tensor,
                    positions: torch.Tensor) -> tuple:
-    """Returns (x, aux_loss), aux_loss None for a block without MoE."""
+    """Returns (x, aux_loss), aux_loss None for a block without MoE.
+
+    With ``cfg.seq_parallel`` the residual stream is S-sharded over
+    "model" (Megatron SP): norms and the dense FFN run token-parallel;
+    the mixer (which needs the full sequence) gathers S on entry and
+    scatters on exit.
+    """
+    sp = cfg.seq_parallel
+    res_spec = (BATCH, MODEL, None) if sp else (BATCH, None, None)
+    x = constrain(x, *res_spec)
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
+    if sp:
+        h = constrain(h, BATCH, None, None)      # all-gather S for mixer
     h = _mixer_forward(cfg, kind, params["mixer"], h, positions)
     if cfg.post_block_norm:
         h = rmsnorm(params["post_norm1"], h, cfg.norm_eps)
-    return _ffn_half(cfg, use_moe, params, x + h, train=True)
+    if sp:
+        h = constrain(h, BATCH, MODEL, None)     # reduce-scatter back
+    x = constrain(x + h, *res_spec)
+    return _ffn_half(cfg, use_moe, params, x, train=True, res_spec=res_spec)
 
 
 def _block_init_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
@@ -255,10 +298,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
                 device="cuda") -> dict:
     """Random weights with the reference's fan-in scales (norm scales 0,
     biases 0), drawn from ``generator`` (a generator on ``device``; by
-    default one seeded with 0)."""
-    check_supported(cfg)
+    default one seeded with 0).  On the ``meta`` device nothing is drawn
+    (:func:`.layers.normal`): the shapes and dtypes alone."""
     dev = resolve_device(device)
-    if generator is None:
+    if generator is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(0)
     dtype = compute_dtype(cfg)
     params: dict = {
@@ -377,7 +420,7 @@ def _inputs_to_x(cfg: ModelConfig, params: dict,
     if not cfg.use_rope:
         p2d = pos if pos.ndim == 2 else pos[0]
         x = x + _sinusoidal(p2d, cfg.d_model).to(x.dtype)
-    return x, pos
+    return constrain(x, BATCH, None, None), pos
 
 
 def hidden_states(cfg: ModelConfig, params: dict, batch: Batch,
@@ -408,6 +451,8 @@ def hidden_states(cfg: ModelConfig, params: dict, batch: Batch,
             x, aux = _block_forward(cfg, kind, use_moe, p, x, positions)
         if aux is not None:
             aux_total = aux_total + aux
+    if cfg.seq_parallel:
+        x = constrain(x, BATCH, None, None)     # gather S for the head
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return x, aux_total
 
@@ -428,7 +473,7 @@ def _chunk_loss(cfg: ModelConfig, params: dict, hb: torch.Tensor,
     """Summed cross entropy of one sequence chunk: its logits in float32,
     ``logsumexp`` minus the gold logit."""
     logits = _logits(cfg, params, hb).float()
-    gold = logits.gather(-1, lb.long()[..., None])[..., 0]
+    gold = take_last(logits, lb.long())
     return (torch.logsumexp(logits, dim=-1) - gold).sum()
 
 

@@ -1188,6 +1188,191 @@ def task_hlo_cost(p):
     return out
 
 
+def _spec_tuple(spec) -> tuple:
+    """A ``PartitionSpec`` as a tuple: one entry a dim, ``None``, an axis
+    name or a tuple of them."""
+    return tuple(tuple(e) if isinstance(e, (tuple, list)) else e
+                 for e in spec)
+
+
+def _paths(jax, tree, fn) -> dict:
+    """``{path: fn(leaf)}`` over a pytree, paths as the reference's
+    partitioning prints them."""
+    from repro.launch.partitioning import _path_str
+
+    out = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(
+            tree, is_leaf=lambda x: x is None)[0]:
+        if leaf is not None:
+            out[_path_str(path)] = fn(leaf)
+    return out
+
+
+def task_sharding_rules(p):
+    """The reference's sharding rules and state stand-ins for the
+    (arch x shape x mesh) cells of ``p``: each arch's config (full, or
+    reduced with ``p["reduced"]``'s overrides), each shape of
+    ``p["shapes"]`` ((name, seq_len, global_batch, mode); ``SHAPES`` by
+    default) that ``cell_is_runnable`` passes, each mesh of
+    ``p["meshes"]`` ({name: {axis: size}}, as an abstract mesh).  For
+    each: every parameter's spec (``param_spec``), shape and dtype; the
+    optimizer state's; each runnable cell's input specs and shapes
+    (``batch_pspec``, ``input_specs``), decode cache specs and shapes
+    (``cache_spec``, ``cache_specs``), and the dry-run's analytic state
+    bytes a device (``_analytic_state_bytes`` as ``lower_cell`` sums
+    it)."""
+    import jax
+
+    from repro.configs import SHAPES, InputShape, cell_is_runnable
+    from repro.configs import get_config, get_reduced_config
+    from repro.launch import partitioning as pt
+    from repro.launch import specs
+    from repro.launch.dryrun import _analytic_state_bytes
+    from repro.optim import adamw
+
+    def sd(leaf):
+        return (tuple(leaf.shape), str(leaf.dtype))
+
+    meshes = {name: jax.sharding.AbstractMesh(tuple(ax.values()),
+                                              tuple(ax))
+              for name, ax in p["meshes"].items()}
+    shapes = ([InputShape(*s) for s in p["shapes"]] if p.get("shapes")
+              else list(SHAPES.values()))
+    out = {}
+    for arch in p["archs"]:
+        cfg = (get_reduced_config(arch, **p["reduced"])
+               if p.get("reduced") is not None else get_config(arch))
+        p_shapes = specs.params_specs(cfg)
+        opt_cfg = adamw.AdamWConfig(moment_dtype=specs.moment_dtype_for(cfg))
+        o_shapes = specs.opt_specs(opt_cfg, p_shapes)
+        a = out[arch] = {"params": _paths(jax, p_shapes, sd),
+                         "opt": _paths(jax, o_shapes, sd),
+                         "param_specs": {}, "cells": {}}
+        for mname, mesh in meshes.items():
+            a["param_specs"][mname] = _paths(
+                jax, jax.tree_util.tree_map_with_path(
+                    lambda path, leaf: pt.param_spec(mesh, path, leaf),
+                    p_shapes), _spec_tuple)
+        for shape in shapes:
+            if not cell_is_runnable(arch, shape.name)[0]:
+                continue
+            batch = specs.input_specs(cfg, shape)
+            cell = a["cells"][shape.name] = {
+                "batch": _paths(jax, batch, sd), "batch_specs": {},
+                "cache_specs": {}, "state_bytes": {}}
+            if shape.mode == "decode":
+                c_shapes = specs.cache_specs(cfg, shape)
+                cell["cache"] = _paths(jax, c_shapes, sd)
+            for mname, mesh in meshes.items():
+                cell["batch_specs"][mname] = _paths(
+                    jax, pt.batch_pspec(mesh, batch), _spec_tuple)
+                p_shard = pt.params_shardings(mesh, p_shapes)
+                chips = mesh.size
+                state = _analytic_state_bytes(p_shard, p_shapes, chips)
+                if shape.mode == "train":
+                    state += 2 * _analytic_state_bytes(p_shard, o_shapes.mu,
+                                                       chips)
+                elif shape.mode == "decode":
+                    c_shard = pt.cache_spec(mesh, c_shapes,
+                                            shape.global_batch)
+                    cell["cache_specs"][mname] = _paths(
+                        jax, c_shard, lambda s: _spec_tuple(s.spec))
+                    state += _analytic_state_bytes(c_shard, c_shapes, chips)
+                cell["state_bytes"][mname] = state
+    return out
+
+
+def task_shapes_table(p):
+    """The reference's ``configs.shapes``: ``SHAPES``, each (arch x
+    shape) cell's ``cell_is_runnable`` and ``all_cells()``."""
+    import dataclasses
+
+    from repro.configs import ARCH_IDS, SHAPES, shapes
+
+    return {"shapes": {k: dataclasses.astuple(v) for k, v in SHAPES.items()},
+            "runnable": {(a, s): shapes.cell_is_runnable(a, s)
+                         for a in ARCH_IDS for s in SHAPES},
+            "all_cells": shapes.all_cells(),
+            "long_context": sorted(shapes.LONG_CONTEXT_ARCHS),
+            "skip_reasons": dict(shapes.SKIP_REASONS)}
+
+
+def task_sharded_loss(p):
+    """The reference's sharded loss (``tests/test_dryrun_small.py``'s
+    program: the loss under ``jit`` with the rules' shardings on the
+    (2, 4) debug mesh of 8 host devices) for each arch of ``p["archs"]``
+    reduced to ``p["reduced"]`` in ``p["dtype"]``, on the anchors' numpy
+    weights (each leaf in the dtype the reference's init gives it) and
+    ``p["tokens"]`` as tokens and labels; with its unsharded loss."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_reduced_config
+    from repro.launch import partitioning as pt
+    from repro.launch.mesh import make_debug_mesh
+    from repro.models import transformer as T
+    from repro_torch.configs import get_reduced_config as port_config
+    from repro_torch.models import anchors as A
+
+    assert len(jax.devices()) == 8
+    mesh = make_debug_mesh(data=2, model=4)
+    toks = jnp.asarray(np.asarray(p["tokens"], np.int32))
+    batch = T.Batch(tokens=toks, labels=toks)
+    out = {}
+    for arch in p["archs"]:
+        cfg = get_reduced_config(arch, dtype=p["dtype"], **p["reduced"])
+        pcfg = port_config(arch, dtype=p["dtype"], **p["reduced"])
+        shapes = jax.eval_shape(lambda: T.init_params(cfg, jax.random.key(0)))
+        params = jax.tree.map(lambda a, s: jnp.asarray(a).astype(s.dtype),
+                              A.jax_layout_params(pcfg), shapes)
+        ref = float(T.loss_fn(cfg, params, batch))
+        with jax.set_mesh(mesh):
+            p_shapes = jax.tree.map(
+                lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype), params)
+            p_shard = pt.params_shardings(mesh, p_shapes)
+            b_shard = pt.batch_spec(mesh, jax.tree.map(
+                lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype), batch))
+            params_s = jax.tree.map(jax.device_put, params, p_shard)
+            batch_s = jax.tree.map(jax.device_put, batch, b_shard)
+            fn = jax.jit(lambda pr, b: T.loss_fn(cfg, pr, b),
+                         in_shardings=(p_shard, b_shard))
+            got = float(fn(params_s, batch_s))
+        out[arch] = {"unsharded": ref, "sharded": got}
+    return out
+
+
+def task_seq_parallel_forward(p):
+    """The reference's forward with ``seq_parallel=True`` (no mesh) on
+    the anchors' weights and inputs, for each reduced float32 arch of
+    ``p["archs"]``: its logits at ``ANCHOR_ROWS``, eagerly."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_reduced_config
+    from repro.models import transformer as T
+    from repro_torch.configs import get_reduced_config as port_config
+    from repro_torch.models import anchors as A
+
+    out = {}
+    for arch in p["archs"]:
+        pcfg = port_config(arch, dtype="float32")
+        cfg = dataclasses.replace(get_reduced_config(arch, dtype="float32"),
+                                  seq_parallel=True)
+        params = jax.tree.map(jnp.asarray, A.jax_layout_params(pcfg))
+        if pcfg.frontend_stub:
+            embeds, positions = A.anchor_embeds(pcfg)[:2]
+            batch = T.Batch(embeds=jnp.asarray(embeds),
+                            positions=None if positions is None
+                            else jnp.asarray(positions))
+        else:
+            batch = T.Batch(tokens=jnp.asarray(A.anchor_tokens(pcfg)[0]))
+        logits = np.asarray(T.forward(cfg, params, batch))
+        out[arch] = np.stack([logits[b, s] for b, s in A.ANCHOR_ROWS])
+    return out
+
+
 TASKS = {name[5:]: fn for name, fn in globals().items()
          if name.startswith("task_")}
 

@@ -20,7 +20,7 @@ import chip_smoke as CS  # noqa: E402
 
 def test_no_flag_selects_every_phase_in_order():
     assert CS.parse_phases([]) == CS.PHASES
-    assert len(set(CS.PHASES)) == len(CS.PHASES) == 20
+    assert len(set(CS.PHASES)) == len(CS.PHASES) == 21
     assert "roofline" in CS.PHASES
 
 
@@ -110,6 +110,9 @@ def _stub_phases(monkeypatch):
             "phase_train": (counts, counts, {"train": 1}),
             "phase_lm": (counts, {"lm": 1}),
             "phase_roofline": {"roofline": 1},
+            "phase_sharding": ({"plain": counts, "seq_parallel": counts},
+                               {"kernels": {"D": {"ms": 1.0},
+                                            "E": {"ms": 2.0}}}),
             "phase_stub": ({"qwen2-vl-2b": {"forward": counts}}, {"s": 1}),
             "phase_ssm": ({"xlstm-350m": {"forward": counts}}, {"s": 1}),
             "phase_moe": (counts, counts, {"m": 1}),
@@ -142,7 +145,7 @@ def test_the_default_run_calls_every_phase_and_fills_every_row(
     assert keys == ["host_ms_per_call", "stream", "stream_resilience",
                     "rbe_shapes", "handtracking", "flash_shapes", "lm",
                     "stub", "train", "ssm", "moe", "mla", "roofline",
-                    "kernels"]
+                    "sharding", "kernels"]
     rows = lines[-1]["kernels"]
     assert "left_out" not in lines[-1]
     assert [r["name"] for r in rows] == list("ABCDE")
@@ -151,7 +154,10 @@ def test_the_default_run_calls_every_phase_and_fills_every_row(
     assert list(rows[3]) == ["name", "launches", "launches_train",
                              "launches_train_step", "launches_ssm",
                              "launches_moe", "launches_mla",
-                             "launches_stub"]
+                             "launches_stub", "launches_sharding",
+                             "sharding_shape"]
+    assert rows[4]["launches_sharding"] == {"plain": 5, "seq_parallel": 5}
+    assert rows[4]["sharding_shape"] == {"ms": 2.0}
     assert rows[4]["launches"] == 5
     assert rows[4]["launches_ssm"] == {"xlstm-350m": {"forward": 5}}
     assert rows[3]["launches_moe"] == {"forward": 4, "decode_step": 4}
@@ -176,4 +182,4 @@ def test_a_row_is_reported_once_its_phases_ran(monkeypatch, capsys):
                                        "launches_train_step"}
     assert last["left_out"]["fields"]["D"] == {
         "launches_ssm": "ssm", "launches_moe": "moe", "launches_mla": "mla",
-        "launches_stub": "stub"}
+        "launches_stub": "stub", "launches_sharding": "sharding"}

@@ -156,8 +156,10 @@ def _t(shape, dtype=torch.float32, **kw):
     (_t((1, 4, 8, 32)).transpose(1, 2), _t((1, 8, 2, 32)),
      _t((1, 8, 2, 32)), ValueError),
     (_t((8, 4, 32)), _t((8, 2, 32)), _t((8, 2, 32)), ValueError),
+    # meta tensors are shapes to count (an empty result, no launch), but
+    # not beside a tensor on a device
     (_t((1, 8, 4, 32), device="meta"), _t((1, 8, 2, 32), device="meta"),
-     _t((1, 8, 2, 32), device="meta"), ValueError),
+     _t((1, 8, 2, 32)), ValueError),
 ], ids=["float16", "mixed-dtypes", "heads", "head-dim", "kv-lengths",
         "strided", "3-D", "meta"])
 def test_wrapper_refuses_what_the_kernel_does_not_take(q, k, v, exc):

@@ -88,8 +88,9 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     (torch.zeros(4, 8), torch.zeros(8, dtype=torch.float64), ValueError),
     (torch.zeros(8, 4).T, torch.zeros(8), ValueError),    # not contiguous
     (torch.zeros(2, 4, 8), torch.zeros(8), ValueError),   # not 2-D
-    (torch.zeros(4, 8, device="meta"), torch.zeros(8, device="meta"),
-     ValueError),                                          # neither device
+    # meta tensors are shapes to count (an empty result, no launch), but
+    # not beside a scale on a device
+    (torch.zeros(4, 8, device="meta"), torch.zeros(8), ValueError),
 ], ids=["float16", "scale-width", "scale-dtype", "strided", "3-D", "meta"])
 def test_wrapper_refuses_what_the_kernel_does_not_take(x, scale, exc):
     with pytest.raises(exc):
