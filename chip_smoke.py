@@ -178,8 +178,20 @@ Phases, each of which ends the run with a non-zero exit on any failure:
    through
    ``flash_attention_ref``: float32 within 1e-5 + 1e-5 relative, bf16
    within 1 % of the largest magnitude (the backward's delta comes from
-   the bf16 output, as in the reference).  Kernel E's SASS must hold
-   tensor-core (HMMA) and cp.async (LDGSTS) instructions.
+   the bf16 output, as in the reference).  The p_bf16 route (the
+   reference's ``attn_p_bf16``: p and v rounded to bf16 before p@v; its
+   own library, built with ``-DFLASH_P_BF16=1``) at gemma2-2b's layers,
+   deepseek's (192, 128) and qwen2's training shape in both dtypes: one
+   launch on the route with its stats, held against the reference's
+   blockwise pass with ``p_bf16`` at E's own key tile (the rounded p
+   depends on the running max there): within the limits above but at
+   rounding ties (counted; at most P_BF16_TIE_SHARE of the outputs, each
+   within the route's own effect), m and l within 1e-5 + 1e-5
+   relative; at qwen2's training shape (dq, dk, dv) through the Function
+   with ``p_bf16`` against the plain Function (the pass's stats, the
+   same backward) within the plain p_bf16 gradient's distance to
+   autograd through the full softmax.  Kernel E's SASS, both libraries,
+   must hold tensor-core (HMMA) and cp.async (LDGSTS) instructions.
 9. LM (the third path): gemma2-2b at full width (26 layers, d 2304,
    256,000 vocab, bf16, weights from a seeded generator on the card).
    (a) ``transformer.forward`` on an 8192-token prompt, counts read
@@ -187,7 +199,11 @@ Phases, each of which ends the run with a non-zero exit on any failure:
    the same forward on the plain versions of D and E on the card:
    logits within 0.25 absolute (softcapped at 30; bf16 flips of one ulp
    in norms and attention propagate through 26 layers) and at least 98 %
-   of the argmaxes equal.  (b) ``token_serve.main`` at the reference's CLI
+   of the argmaxes equal; then with ``attn_p_bf16`` (26 launches of E,
+   each on the p_bf16 route) against the plain p_bf16 forward (the
+   reference's blockwise pass at its 512 blocks) within the same limits
+   (which the float32-p forward meets too: the flash phase holds the
+   route's rounding), timed.  (b) ``token_serve.main`` at the reference's CLI
    defaults (batch 4, prompt 32, gen 16, greedy), counts read around it
    (105 launches of D a step, none of E), then teacher-forced on its own
    tokens through both paths: the kernel path reproduces the served
@@ -205,7 +221,10 @@ Phases, each of which ends the run with a non-zero exit on any failure:
    gradients through kernels D and E against the same step on their
    plain versions (``plain_kernels()``: autograd through the plain D and
    E): loss within 1e-2, every leaf's cosine >= 0.99, the global norm
-   within 1 %.  (c) The reduced float32 qwen2-0.5b and gemma2-2b trained
+   within 1 %; the same with ``attn_p_bf16`` (kernel E's p_bf16 route
+   with stats and the route's backward, against the plain Function),
+   then TRAIN_P_BF16_STEPS steps with it (every E on the route, losses
+   finite).  (c) The reduced float32 qwen2-0.5b and gemma2-2b trained
    five steps against ``TRAIN_ANCHORS`` (frozen from the JAX reference)
    at the CPU tests' tolerances.  (d) Six steps with a checkpoint every
    three, against a resume from step 3: losses and the final checkpoint
@@ -235,7 +254,8 @@ Phases, each of which ends the run with a non-zero exit on any failure:
    prefill_32k (32 sequences of 32,768 tokens) on the (16, 16) ("data",
    "model") mesh, as rank 0 of a fake 256-rank world (torch's ``fake``
    process group in this one process), without and with
-   ``seq_parallel``.  (1) ``launch.dryrun.run_cell`` on ``meta`` under
+   ``seq_parallel``, and with ``attn_p_bf16`` (every E on its p_bf16
+   route).  (1) ``launch.dryrun.run_cell`` on ``meta`` under
    the H100 spec: rank 0's count and its row.  (2) Rank 0's shard on the
    card (``device="cuda"``; its shards made there from a seeded
    generator; the step counted, then timed), the counts read around it.
@@ -250,7 +270,9 @@ Phases, each of which ends the run with a non-zero exit on any failure:
    phase's float32 limit of its plain version and in bf16 no further
    from that float32 run than the plain version in bf16
    (SHARD_E_WITNESS_RATIO); each with its time, plain time, bound and
-   ``F.rms_norm``'s or SDPA's time.  Prints the ``sharding`` line (D's
+   ``F.rms_norm``'s or SDPA's time; E's p_bf16 route there against its
+   plain version at E's key tile, with its time, bound and SDPA's.
+   Prints the ``sharding`` line (D's
    and E's rows gain ``launches_sharding`` and ``sharding_shape``);
    ~35 s.
 9g. Modality stubs (the twelfth path), after phase 9 and before 9e (its
@@ -2270,6 +2292,7 @@ def reset_counts() -> None:
     R.rbe_matmul_raw.launches = 0
     D.rmsnorm_fused.launches = 0
     E.flash_attention_fwd.launches = 0
+    E.flash_attention_fwd.launches_p_bf16 = 0
 
 
 def read_counts() -> dict:
@@ -2283,6 +2306,13 @@ def read_counts() -> dict:
             "C": R.rbe_matmul_raw.launches,
             "D": D.rmsnorm_fused.launches,
             "E": E.flash_attention_fwd.launches}
+
+
+def p_bf16_launches() -> int:
+    """Kernel E's launches on its p_bf16 route since ``reset_counts``."""
+    from repro_torch.kernels import flash_attention as E
+
+    return E.flash_attention_fwd.launches_p_bf16
 
 
 def keynet_int8_shapes(batch: int) -> list:
@@ -2724,6 +2754,44 @@ FLASH_CASES = (
 FLASH_GRAD_CASES = ("qwen2 train", "qwen2 train f32", "gemma2 local",
                     "gemma2 global", "reduced d32", "kernel_bench",
                     "mla s512", "reduced mla")
+#: The cases whose p_bf16 route (``ModelConfig.attn_p_bf16``: p and v
+#: rounded to bf16 before p@v) is held against its plain version, the
+#: reference's blockwise pass at kernel E's own key tile
+#: (``flash_p_bf16_check``): gemma2's local and global layers,
+#: deepseek's (192, 128), qwen2's training shape, a float32 one; and of
+#: those, the ones whose gradient through the Function with ``p_bf16``
+#: is held too.
+FLASH_P_BF16_CASES = ("gemma2 local", "gemma2 global", "deepseek mla",
+                      "qwen2 train", "qwen2 train f32")
+FLASH_P_BF16_GRAD_CASES = ("qwen2 train", "qwen2 train f32")
+#: The cases whose p_bf16 readings (time, plain time, bound, SDPA's time)
+#: the kernels line's E row sums: gemma2-2b's pair and deepseek's layer.
+FLASH_P_BF16_READ_CASES = ("gemma2 local", "gemma2 global", "deepseek mla")
+#: The p_bf16 route against its plain version at E's key tile: within
+#: the flash phase's limits (one bf16 ulp + FLASH_BF16_ATOL, or
+#: FLASH_F32_TOL) but at rounding ties, where a p lies within the float32
+#: sums' few ulps of a bf16 rounding boundary and the kernel's and
+#: torch's exp and sums round it apart.  Ties are counted; at most this
+#: share of the outputs (gemma2-2b's layers read 0.09 %, most of them
+#: outputs near 0, where one bf16 ulp is far below a flip's 1e-6), each
+#: within the route's own effect on the same inputs (the plain route's
+#: distance to the full softmax).
+P_BF16_TIE_SHARE = 1e-2
+#: Seconds each phase spent on the p_bf16 route's checks and readings
+#: (:func:`p_bf16_lap`), printed with their sum at the end of the run:
+#: what the route adds to the script's time, builds aside.
+P_BF16_S: dict = {}
+
+
+@contextlib.contextmanager
+def p_bf16_lap(phase: str):
+    """Add the seconds the block takes to ``P_BF16_S[phase]``."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        P_BF16_S[phase] = (P_BF16_S.get(phase, 0.0)
+                           + time.perf_counter() - t0)
 
 
 def ulps(got, want) -> int:
@@ -2896,7 +2964,8 @@ def flash_work(b, sq, skv, h, kv, d, causal, window, itemsize,
     return nbytes, 2 * d * pairs, 2 * dv * pairs
 
 
-def flash_bound(nbytes, qk_ops, pv_ops, bf16: bool) -> tuple:
+def flash_bound(nbytes, qk_ops, pv_ops, bf16: bool,
+                p_bf16: bool = False) -> tuple:
     """The least time of kernel E's work: its bytes over the memory rate
     or its operations over the rates of their types, whichever is longer.
     On bf16 inputs q.k multiplies bf16 values, whose products are exact
@@ -2904,11 +2973,13 @@ def flash_bound(nbytes, qk_ops, pv_ops, bf16: bool) -> tuple:
     accumulation) computes it; p stays float32 (as the reference's
     p_bf16=False keeps it), and its three bf16 pieces (hi, mid, lo; their
     sum is p exactly) make p@v three such passes, the least the card
-    needs for float32 p times bf16 v computed exactly.  On float32 inputs
+    needs for float32 p times bf16 v computed exactly.  On the p_bf16
+    route p is rounded to bf16, so p@v is one pass.  On float32 inputs
     both run at the float32 rate."""
     tb = nbytes / PEAK_BYTES_PER_S * 1e3
     if bf16:
-        to = (qk_ops + 3 * pv_ops) / PEAK_BF16_OPS_PER_S * 1e3
+        to = (qk_ops + (1 if p_bf16 else 3) * pv_ops) \
+            / PEAK_BF16_OPS_PER_S * 1e3
     else:
         to = (qk_ops + pv_ops) / PEAK_F32_OPS_PER_S * 1e3
     return max(tb, to), "bytes" if tb >= to else "operations"
@@ -3010,8 +3081,19 @@ def phase_flash(dev) -> float:
               f"max_abs_err={e!r} ({err})")
         check(close, f"kernel E {name}: differs from its plain version")
         check(bool(got.isfinite().all()), f"kernel E {name}: non-finite")
+        p16 = None
+        if name in FLASH_P_BF16_CASES:
+            with p_bf16_lap("flash"):
+                p16 = flash_p_bf16_check(q, k, v, kw, want,
+                                         f"kernel E {name} p_bf16")
+                if name in FLASH_P_BF16_GRAD_CASES:
+                    p16["grad"] = flash_p_bf16_grad_check(
+                        q, k, v, kw, 80 + i, f"kernel E {name}")
+            print(f"kernel E {name} p_bf16: {p16}")
         del want
         stats = flash_stats_check(q, k, v, got, kw, f"kernel E {name}")
+        if p16 is not None:
+            stats["p_bf16"] = p16
         if name in FLASH_GRAD_CASES:
             stats["grad"] = flash_grad_check(q, k, v, kw, 70 + i,
                                              f"kernel E {name}")
@@ -3093,17 +3175,162 @@ def flash_grad_check(q, k, v, kw, seed: int, what: str) -> dict:
                                out["plain"])}
 
 
-def flash_ref_by_kv_head(q, k, v, blocks=None, **kw):
+def tile_blocks(q, k, v) -> tuple:
+    """The blocks at which the blockwise pass is kernel E's function on
+    its p_bf16 route: one q block of the whole sequence, kv blocks of
+    E's own key tile (the running max, and so the rounded p, moves
+    there)."""
+    from repro_torch.kernels import flash_attention as E
+
+    b, sq, h, d = q.shape
+    keys = E.plan(b, sq, h, k.shape[2], d, q.dtype, v.shape[3]).keys
+    check(k.shape[1] % keys == 0, f"p_bf16: {k.shape[1]} keys do not "
+          f"tile E's key tile {keys}")
+    return sq, keys
+
+
+def p_bf16_ties(got, want, witness: float, what: str) -> dict:
+    """``got`` against ``want`` (the p_bf16 route's plain version at E's
+    key tile) within the flash phase's limits but at ties
+    (P_BF16_TIE_SHARE, each within ``witness``)."""
+    import torch
+
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    if got.dtype == torch.bfloat16:
+        _, e = torch.frexp(w)
+        base = torch.where(w == 0, 0.0, torch.ldexp(torch.ones_like(w),
+                                                     e - 8)) \
+            + FLASH_BF16_ATOL
+    else:
+        base = FLASH_F32_TOL["atol"] + FLASH_F32_TOL["rtol"] * w.abs()
+    ties = int((diff > base).sum())
+    err = diff.max().item()
+    check(ties <= P_BF16_TIE_SHARE * diff.numel() and err <= witness
+          and bool(g.isfinite().all()),
+          f"{what}: {ties} of {diff.numel()} outputs past the limit, the "
+          f"largest difference {err!r} (the route's own effect "
+          f"{witness!r})")
+    return {"max_abs_err": err, "ties": ties, "witness": witness}
+
+
+def flash_p_bf16_check(q, k, v, kw, plain, what: str) -> dict:
+    """Kernel E's p_bf16 route with its stats: one launch on the route,
+    its output held (``p_bf16_ties``) against the reference's blockwise
+    pass with ``p_bf16`` at E's key tile (``tile_blocks``) on the card,
+    the witness the plain route's distance to ``plain`` (the full
+    softmax, p unrounded); its m and l (of the unrounded p) within
+    FLASH_F32_TOL of that pass's."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as E
+    from repro_torch.models import flash
+
+    # E at the blocks of its own tile: they change nothing on the card
+    # but what a count credits, and on the CPU (a rehearsal) its plain
+    # version runs at them
+    blocks = tile_blocks(q, k, v)
+    before = E.flash_attention_fwd.launches_p_bf16
+    got, m, l = E.flash_attention_fwd(q, k, v, **kw, return_stats=True,
+                                      blocks=blocks, p_bf16=True)
+    check(q.device.type != "cuda"
+          or E.flash_attention_fwd.launches_p_bf16 == before + 1,
+          f"{what}: the route did not launch once")
+    with torch.no_grad():
+        want, pm, pl = flash.blockwise_fwd(q, k, v, **kw, return_stats=True,
+                                           blocks=blocks, p_bf16=True)
+    sync(q.device)
+    witness = (want.float() - plain.float()).abs().max().item()
+    res = p_bf16_ties(got, want, witness, what)
+    for name, a, w in (("m", m, pm), ("l", l, pl)):
+        close = bool(((a - w).abs() <= FLASH_F32_TOL["atol"]
+                      + FLASH_F32_TOL["rtol"] * w.abs()).all())
+        res[name] = (a - w).abs().max().item()
+        check(close, f"{what}: stats {name} differ from the blockwise "
+              f"pass's by {res[name]!r}")
+    return res
+
+
+def plain_flash_function():
+    """:class:`repro_torch.models.flash.FlashAttentionFunction` with its
+    forward on the plain version (the reference's ``_fwd_pass``, on any
+    device) and the same backward: the plain path of the p_bf16 route
+    where autograd records."""
+    from repro_torch.models import flash
+
+    class PlainFlashFunction(flash.FlashAttentionFunction):
+        @staticmethod
+        def forward(ctx, q, k, v, pairs, kw):
+            out, m, l = flash._fwd_pass(q, k, v, pairs, **kw)
+            ctx.save_for_backward(q, k, v, out, m, l)
+            ctx.pairs, ctx.kw = pairs, kw
+            return out
+
+    return PlainFlashFunction
+
+
+def flash_p_bf16_grad_check(q, k, v, kw, seed: int, what: str) -> dict:
+    """(dq, dk, dv) through kernel E's Function with ``p_bf16`` (E's
+    route with stats, then the reference's p_bf16 backward) against the
+    plain Function (the blockwise pass's stats, the same backward), both
+    at E's key tile, each within the witness: the plain p_bf16
+    gradient's distance to autograd through the full softmax."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as E
+    from repro_torch.models import attention, flash
+
+    rng = np.random.default_rng(seed)
+    do = torch.as_tensor(rng.standard_normal((*q.shape[:3], v.shape[3]))
+                         .astype(np.float32)).to(q.dtype).to(q.device)
+    qb, kb = tile_blocks(q, k, v)
+    sq, skv = q.shape[1], k.shape[1]
+    pairs = attention._block_pairs(sq // qb, skv // kb, qb, kb, skv - sq,
+                                   kw["causal"], kw["window"])
+    fkw = dict(kw, q_block=qb, kv_block=kb, scale=q.shape[3] ** -0.5,
+               p_bf16=True)
+    before = E.flash_attention_fwd.launches_p_bf16
+    out = {}
+    for name, fn in (
+            ("kernel", lambda *a: flash.flash_attention(*a, **fkw)),
+            ("plain", lambda *a: plain_flash_function().apply(*a, pairs,
+                                                              fkw)),
+            ("full", lambda *a: E.flash_attention_ref(*a, **kw))):
+        args = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out[name] = torch.autograd.grad(fn(*args), args, do)
+    check(q.device.type != "cuda"
+          or E.flash_attention_fwd.launches_p_bf16 == before + 1,
+          f"{what}: the p_bf16 Function did not launch the route once")
+    res = {}
+    for n, a, b, c in zip(("dq", "dk", "dv"), out["kernel"], out["plain"],
+                          out["full"]):
+        diff = (a.float() - b.float()).abs().max().item()
+        witness = (b.float() - c.float()).abs().max().item()
+        check(a.dtype == b.dtype and bool(a.isfinite().all())
+              and diff <= witness, f"{what} p_bf16 {n}: {diff!r} from the "
+              f"plain Function (witness {witness!r})")
+        res[n] = {"max_abs_diff": diff, "witness": witness}
+    return res
+
+
+def flash_ref_by_kv_head(q, k, v, blocks=None, p_bf16=False, **kw):
     """``flash_attention_ref`` one kv head (and its g query heads) at a
     time (``blocks`` unused: the full softmax has none), the plain
     forward of :func:`plain_kernels`: each head's
     softmax is its own, so the same function, with a kv head's full
     scores alive at once instead of all of them (arctic-480b's
     4096-token prompt: 0.47 GB of float32 scores, not 3.76 GB, beside
-    55 GB of weights)."""
+    55 GB of weights).  With ``p_bf16`` the plain version of that route
+    instead: the reference's blockwise pass at ``blocks`` (the full
+    softmax normalises p before any rounding and cannot express it)."""
     import torch
 
     from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.models import flash
+
+    if p_bf16:
+        return flash.blockwise_fwd(q, k, v, blocks=blocks or (512, 512),
+                                   p_bf16=True, **kw)
 
     kvh = k.shape[2]
     g = q.shape[2] // kvh
@@ -3120,12 +3347,16 @@ def plain_kernels():
     with autograd the plain path is autograd through ``rmsnorm_ref`` and
     ``flash_attention_ref``, not kernel D's and E's autograd Functions.
     The forward's plain attention runs a kv head at a time
-    (:func:`flash_ref_by_kv_head`).  The launch counts are set to 0
+    (:func:`flash_ref_by_kv_head`).  On the p_bf16 route
+    (``attn_p_bf16``) the plain attention is the reference's blockwise
+    pass with ``p_bf16`` at the model's blocks, and where autograd
+    records the plain Function (:func:`plain_flash_function`: that
+    pass's stats, the route's backward).  The launch counts are set to 0
     on entry, and the block fails if D or E was launched inside it (the
     swap missed a route to the kernels)."""
     from repro_torch.kernels.flash_attention import flash_attention_ref
     from repro_torch.kernels.rmsnorm import rmsnorm_ref
-    from repro_torch.models import flash, layers
+    from repro_torch.models import attention, flash, layers
 
     check(hasattr(layers, "rmsnorm_op")
           and hasattr(flash, "flash_attention_fwd")
@@ -3134,7 +3365,16 @@ def plain_kernels():
           "it swaps")
 
     def plain_vjp(q, k, v, *, causal, window, logit_softcap, scale,
-                  **blocks):
+                  q_block, kv_block, p_bf16=False):
+        if p_bf16:
+            sq, skv = q.shape[1], k.shape[1]
+            pairs = attention._block_pairs(
+                sq // q_block, skv // kv_block, q_block, kv_block, skv - sq,
+                causal, window)
+            return plain_flash_function().apply(q, k, v, pairs, dict(
+                causal=causal, window=window, logit_softcap=logit_softcap,
+                q_block=q_block, kv_block=kv_block, scale=scale,
+                p_bf16=True))
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    logit_softcap=logit_softcap, scale=scale)
 
@@ -3247,6 +3487,9 @@ def phase_lm(dev, cfg, seq: int, serve_argv: list, smi: str) -> tuple:
         report["forward"]["busy_share"] = busy
         report["forward"]["device_s_by_kernel"] = dict(sorted(
             wall.items(), key=lambda kv: -kv[1])[:8])
+        with p_bf16_lap("lm"):
+            report["forward_p_bf16"] = lm_p_bf16_forward(cfg, params,
+                                                         batch, expect)
         del params, batch, tokens
 
     # (b) token serving at the reference's CLI defaults
@@ -3299,6 +3542,49 @@ def phase_lm(dev, cfg, seq: int, serve_argv: list, smi: str) -> tuple:
                          for arch in ("gemma2-2b", "qwen2-0.5b")}
     report["card"] = smi
     return fwd_launches, report
+
+
+def lm_p_bf16_forward(cfg, params, batch, expect: dict) -> dict:
+    """The prompt forward with ``attn_p_bf16`` (kernel E's p_bf16 route,
+    each launch on it) against the same forward on the plain versions
+    (the reference's blockwise pass with ``p_bf16`` at the model's 512
+    blocks) within the forward's limits, and the float32-probability
+    forward's distance to that plain forward beside it (the route's own
+    effect); its device time by CUDA events around two calls.  These
+    limits cannot tell the two routes apart (the float32-p forward lies
+    about as near: 0.117 against the route's 0.109 on one H100): the
+    gate holds the launches and the path end to end, and the flash
+    phase (``flash_p_bf16_check``) holds the kernel's rounding."""
+    from repro_torch.models import transformer as T
+
+    dev = batch.tokens.device
+    cfg16 = dataclasses.replace(cfg, attn_p_bf16=True)
+    sync(dev)
+    reset_counts()
+    logits = T.forward(cfg16, params, batch)
+    sync(dev)
+    launches, n16 = read_counts(), p_bf16_launches()
+    check(launches == expect and n16 == expect["E"],
+          f"forward p_bf16: expected {expect} launches, each of E on the "
+          f"route, got {launches} ({n16} on the route)")
+    with plain_kernels():
+        plain = T.forward(cfg16, params, batch)
+    vs = compare_logits(logits, plain)
+    del logits
+    route = compare_logits(T.forward(cfg, params, batch), plain)
+    del plain
+    check(vs["max_abs_diff"] <= LM_BF16_MAX_DIFF
+          and vs["argmax_agree"] >= LM_BF16_ARGMAX,
+          f"forward p_bf16: kernels vs plain {vs}")
+    print(f"lm forward p_bf16 {cfg.name}: launches {launches} ({n16} on "
+          f"the route), kernels vs plain {vs}; the float32-p forward vs "
+          f"that plain {route}")
+    # CUDA events around the calls as they run (the forward's own
+    # reading comes to this after its traces drop records: PR 28's runs)
+    fwd = lambda: T.forward(cfg16, params, batch)  # noqa: E731
+    return {"launches": launches, "launches_p_bf16": n16, "vs_plain": vs,
+            "f32_p_vs_plain": route, "device_ms": unheld_ms(fwd, 2),
+            "device_ms_method": "events_unheld"}
 
 
 def teacher_forced(cfg, params, seq_toks, dev) -> list:
@@ -5453,8 +5739,9 @@ def resume_check(argv: list, dev, root: pathlib.Path) -> dict:
         t0 = time.perf_counter()
         a = train.main(args + ["--ckpt-dir", str(whole)])
         part.mkdir(parents=True)
-        shutil.copytree(whole / f"step_{RESUME_AT:09d}",
-                        part / f"step_{RESUME_AT:09d}")
+        # moved, not copied (~5 GB): only step RESUME_STEPS is compared
+        (whole / f"step_{RESUME_AT:09d}").rename(
+            part / f"step_{RESUME_AT:09d}")
         b = train.main(args + ["--ckpt-dir", str(part), "--resume"])
         wall = time.perf_counter() - t0
         check(b["steps"] == RESUME_STEPS - RESUME_AT,
@@ -5566,6 +5853,9 @@ def phase_train(dev, smi: str, argv: list = TRAIN_ARGV,
           f"train step: kernels vs plain {vs}")
     report["vs_plain"] = vs
     print(f"train step {cfg.name}: kernels vs plain {vs}")
+    with p_bf16_lap("train"):
+        report["p_bf16"] = train_p_bf16(cfg, params, opt_cfg, ds, args, dev,
+                                        per_step)
 
     # one step counted alone, then steps timed one by one
     sync(dev)
@@ -5620,6 +5910,54 @@ def phase_train(dev, smi: str, argv: list = TRAIN_ARGV,
     return launches, one, report
 
 
+#: Training steps run with ``attn_p_bf16`` after the gradient check.
+TRAIN_P_BF16_STEPS = 1
+
+
+def train_p_bf16(cfg, params, opt_cfg, ds, args, dev, per_step) -> dict:
+    """qwen2-0.5b with ``attn_p_bf16``: one step's loss and gradients
+    through kernel E's p_bf16 route (with stats) and the route's
+    backward against the same on the plain versions (the plain Function:
+    the blockwise pass's stats), within the train step's limits; then
+    TRAIN_P_BF16_STEPS steps, each launching D and E ``per_step`` times,
+    every E on the route, their losses finite."""
+    from repro_torch.launch import steps as S
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+
+    cfg16 = dataclasses.replace(cfg, attn_p_bf16=True)
+    batch = train.device_batch(ds.batch_at(0), dev)
+    loss_k, g_k = S.value_and_grad(cfg16, params, batch, args.remat)
+    with plain_kernels():
+        loss_p, g_p = S.value_and_grad(cfg16, params, batch, args.remat)
+    vs = compare_grads(loss_k, g_k, loss_p, g_p)
+    del g_k, g_p
+    check(vs["loss_diff"] <= TRAIN_LOSS_ATOL
+          and vs["min_leaf_cos"] >= TRAIN_LEAF_COS
+          and vs["grad_norm_rel_diff"] <= TRAIN_GNORM_RTOL,
+          f"train step p_bf16: kernels vs plain {vs}")
+    step = S.make_train_step(cfg16, opt_cfg, remat=args.remat)
+    opt = adamw.init(opt_cfg, params)
+    sync(dev)
+    reset_counts()
+    losses = []
+    for i in range(TRAIN_P_BF16_STEPS):
+        params, opt, met = step(params, opt,
+                                train.device_batch(ds.batch_at(i), dev))
+        losses.append(float(met["loss"]))
+    launches, n16 = read_counts(), p_bf16_launches()
+    n = TRAIN_P_BF16_STEPS
+    check(launches["D"] == per_step["D"] * n
+          and launches["E"] == n16 == per_step["E"] * n
+          and all(np.isfinite(losses)),
+          f"train p_bf16: {n} steps launched {launches} ({n16} of E on "
+          f"the route), losses {losses}")
+    print(f"train p_bf16 {cfg.name}: kernels vs plain {vs}; {n} steps, "
+          f"launches {launches} ({n16} on the route), losses {losses}")
+    return {"vs_plain": vs, "steps": n, "losses": losses,
+            "launches": launches, "launches_p_bf16": n16}
+
+
 def busy_share(run) -> tuple:
     """The device's busy share of one profiled ``run()``: its device time
     over its own wall time, taken inside the trace (the profiler's host
@@ -5650,9 +5988,11 @@ def lm_kernel_report(err: dict, dev) -> tuple:
     from repro_torch.kernels import flash_attention as E
     from repro_torch.kernels import rmsnorm as D
 
-    from repro_torch.kernels.flash_attention.kernel import LIBRARY
+    from repro_torch.kernels.flash_attention.kernel import (LIBRARY,
+                                                            LIBRARY_P_BF16)
 
     usage = ptxas_usage(LIBRARY.info.get("ptxas", ""))
+    usage16 = ptxas_usage(LIBRARY_P_BF16.info.get("ptxas", ""))
     norm_rows = []
     for i, (rows, d, dtype, what) in enumerate(RMSNORM_CASES):
         x, scale = rmsnorm_inputs(rows, d, dtype, 40 + i, dev, what)
@@ -5727,6 +6067,13 @@ def lm_kernel_report(err: dict, dev) -> tuple:
                         lambda: [sdpa() for _ in range(5)]))
                 except SmokeFailure as e:
                     row["library_kernels"] = f"not read: {e}"
+        if name in FLASH_P_BF16_READ_CASES:
+            with p_bf16_lap("kernels line"):
+                row["p_bf16"] = p_bf16_readings(
+                    row, q, k, v, kw, reps, usage16, plan.route,
+                    lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=causal, scale=d ** -0.5,
+                        enable_gqa=True))
         attn_rows.append(row)
         del q, k, v, qt, kt, vt
 
@@ -5754,7 +6101,8 @@ def lm_kernel_report(err: dict, dev) -> tuple:
          "plain_ms": sum(r["plain_ms"] for r in main_e),
          "bound_ms": e_bound, "bound_by": e_by,
          "library_ms": None if None in e_lib else sum(e_lib),
-         **methods(main_e, ("ms", "plain_ms", "library_ms"))}]
+         **methods(main_e, ("ms", "plain_ms", "library_ms")),
+         "p_bf16": p_bf16_summary(main_e, attn_rows)}]
     # arctic-480b's shapes (phase 9d): one norm of its 4096-token prompt,
     # one layer's attention
     for row, shape in ((rows[0], [r for r in norm_rows
@@ -5791,11 +6139,70 @@ def lm_kernel_report(err: dict, dev) -> tuple:
     # kernel E's bf16 route runs on the tensor cores (HMMA) with K/V
     # staged by cp.async (LDGSTS), read by ldmatrix (LDSM)
     sass = sass_opcodes(LIBRARY.path(), ("HMMA", "LDGSTS", "LDSM"))
-    check(sass["HMMA"] > 0 and sass["LDGSTS"] > 0,
+    sass16 = sass_opcodes(LIBRARY_P_BF16.path(), ("HMMA", "LDGSTS", "LDSM"))
+    check(sass["HMMA"] > 0 and sass["LDGSTS"] > 0 and sass16["HMMA"] > 0
+          and sass16["LDGSTS"] > 0,
           f"kernel E's SASS lacks tensor-core or cp.async instructions: "
-          f"{sass}")
+          f"{sass}, p_bf16 route {sass16}")
     return rows, {"rmsnorm_shapes": norm_rows, "flash_shapes": attn_rows,
-                  "flash_sass": sass}
+                  "flash_sass": sass, "flash_sass_p_bf16": sass16}
+
+
+def p_bf16_readings(row, q, k, v, kw, reps: int, usage16: dict,
+                    route: str, sdpa) -> dict:
+    """Kernel E's p_bf16 route at a ``flash_shapes`` case: its time, its
+    plain version's (the blockwise pass at E's key tile), its bound (on
+    bf16 inputs p@v one tensor-core pass), its library time (the row's
+    own where that library rounds p to bf16 too: ``flex_attention``, and
+    SDPA's bf16 kernels), SDPA's time at the same shapes (causal, without
+    the window and softcap where the case has them: another function)
+    and its ptxas registers and spills."""
+    from repro_torch.kernels import flash_attention as E
+    from repro_torch.models import flash
+
+    bf16 = row["bf16"]
+    b_ms, b_by = flash_bound(row["bytes"], row["qk_ops"], row["pv_ops"],
+                             bf16, p_bf16=bf16)
+    out = {"bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": row["library_ms"] if bf16 else None,
+           "library_ms_method": row.get("library_ms_method") if bf16
+           else None,
+           **flash_kernel_usage(usage16, route, row["d"], row["dv"])}
+    blocks = tile_blocks(q, k, v)
+    timed(out, "ms", lambda: E.flash_attention_fwd(q, k, v, **kw,
+                                                   p_bf16=True),
+          reps, f"kernel E {row['name']} p_bf16")
+    # the plain version issues ~25 operations a block pair (~6,400 at
+    # gemma2-2b's global layer): one call timed by CUDA events as it runs
+    out["plain_ms"] = unheld_ms(lambda: flash.blockwise_fwd(
+        q, k, v, **kw, blocks=blocks, p_bf16=True), 1)
+    out["plain_ms_method"] = "events_unheld"
+    timed(out, "sdpa_ms", sdpa, reps,
+          f"kernel E {row['name']}, scaled_dot_product_attention")
+    out["sdpa_same_function"] = not (row["window"] or row["softcap"])
+    out["bound_share"] = b_ms / out["ms"]
+    return out
+
+
+def p_bf16_summary(main_e: list, attn_rows: list) -> dict:
+    """The E row's p_bf16 readings: gemma2-2b's local and global layer
+    summed (as the row's own), and deepseek-v2's MLA layer."""
+    e16 = [r["p_bf16"] for r in main_e]
+    bound, by = flash_bound(sum(r["bytes"] for r in main_e),
+                            sum(r["qk_ops"] for r in main_e),
+                            sum(r["pv_ops"] for r in main_e), True,
+                            p_bf16=True)
+    lib = [r["library_ms"] for r in e16]
+    mla = next(r for r in attn_rows if r["name"] == "deepseek mla")
+    return {"ms": sum(r["ms"] for r in e16),
+            "plain_ms": sum(r["plain_ms"] for r in e16),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": None if None in lib else sum(lib),
+            "sdpa_ms": sum(r["sdpa_ms"] for r in e16),
+            **methods(e16, ("ms", "plain_ms", "library_ms", "sdpa_ms")),
+            "mla_shape": {k: mla["p_bf16"][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "sdpa_ms")}}
 
 
 def shape_readings(row: dict) -> dict:
@@ -6283,7 +6690,10 @@ def shard_kernel_checks(dev, rows: int, d: int, q_shape: tuple) -> dict:
     within the rmsnorm and flash phases' limits (E in bf16 against the
     plain version's float32 run, E in float32 against it too); each
     one's time, plain time, bound and library time (``F.rms_norm``,
-    ``scaled_dot_product_attention``)."""
+    ``scaled_dot_product_attention``).  E's p_bf16 route on the same
+    inputs against its plain version at E's key tile
+    (``flash_p_bf16_check``, the witness the plain route's distance to
+    the full softmax), with its time and bound beside SDPA's time."""
     import torch
     import torch.nn.functional as F
 
@@ -6354,6 +6764,10 @@ def shard_kernel_checks(dev, rows: int, d: int, q_shape: tuple) -> dict:
           "witness_ratio": ratio,
           "max_abs_err": (got.float() - want.float()).abs().max().item(),
           "bound_ms": b_ms, "bound_by": b_by}
+    kw = dict(causal=True, window=0, logit_softcap=0.0)
+    with p_bf16_lap("sharding"):
+        p16 = flash_p_bf16_check(q, k, v, kw, want,
+                                 f"sharding: kernel E {q_shape} p_bf16")
     del got, want, witness
     timed(er, "ms", lambda: E.flash_attention_fwd(q, k, v, causal=True), 3,
           "sharding E")
@@ -6366,6 +6780,19 @@ def shard_kernel_checks(dev, rows: int, d: int, q_shape: tuple) -> dict:
         "sharding E, scaled_dot_product_attention")
     er["library"] = "scaled_dot_product_attention"
     er["bound_share"] = b_ms / er["ms"]
+    with p_bf16_lap("sharding"):
+        p16["bound_ms"], p16["bound_by"] = flash_bound(
+            nbytes, qk_ops, pv_ops, True, p_bf16=True)
+        timed(p16, "ms", lambda: E.flash_attention_fwd(q, k, v, **kw,
+                                                       p_bf16=True), 3,
+              "sharding E p_bf16")
+        # SDPA (bf16, which rounds p too) at the same shape: the reading
+        # above
+        p16["library_ms"] = er["library_ms"]
+        p16["library_ms_method"] = er["library_ms_method"]
+        p16["bound_share"] = p16["bound_ms"] / p16["ms"]
+    er["p_bf16"] = p16
+    print(f"sharding: kernel E {q_shape} p_bf16 {p16}")
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return {"D": dr, "E": er}
@@ -6400,11 +6827,12 @@ def phase_sharding(dev, smi: str, arch: str = SHARD_ARCH,
     report: dict = {"arch": arch, "shape": shape.name, "mesh": mesh_shape,
                     "card": smi, "runs": {}}
     launches: dict = {}
-    for sp in (False, True):
-        key = "seq_parallel" if sp else "plain"
-        c = dataclasses.replace(cfg, seq_parallel=sp)
+    for sp, p16 in ((False, False), (True, False), (False, True)):
+        key = "p_bf16" if p16 else "seq_parallel" if sp else "plain"
+        c = dataclasses.replace(cfg, seq_parallel=sp, attn_p_bf16=p16)
         kw = dict(mesh_shape=mesh_shape, chip="h100", cfg=c)
         t0 = time.perf_counter()
+        t_run = t0
         meta = run_cell(arch, shape, False, **kw)
         meta_s = time.perf_counter() - t0
         check(meta["status"] == "ok", f"sharding {key}: meta dry-run "
@@ -6429,6 +6857,9 @@ def phase_sharding(dev, smi: str, arch: str = SHARD_ARCH,
                   f"{got}, expected {want[k]}")
         others = {k: n for k, n in counts.items() if k not in "DE" and n}
         check(not others, f"sharding {key}: launched {others}")
+        n16 = p_bf16_launches()
+        check(n16 == (counts["E"] if p16 else 0), f"sharding {key}: "
+              f"{n16} of {counts['E']} launches of E on the p_bf16 route")
         mc, cc = meta["cost_analysis"], card_row["cost_analysis"]
         check(mc["flops_per_device"] == cc["flops_per_device"]
               and mc["flops_by_op"] == cc["flops_by_op"],
@@ -6442,6 +6873,7 @@ def phase_sharding(dev, smi: str, arch: str = SHARD_ARCH,
         rf = card_row["roofline"]
         launches[key] = {k: counts[k] for k in ("D", "E")}
         report["runs"][key] = {
+            "launches_p_bf16": n16,
             "meta_row": meta, "meta_s": meta_s,
             "card": {k: card_row[k] for k in ("memory_analysis",
                                               "cost_analysis",
@@ -6459,6 +6891,9 @@ def phase_sharding(dev, smi: str, arch: str = SHARD_ARCH,
               f"{rf['t_bound'] * 1e3:.1f} ms, {rf['dominant']}), peak "
               f"{mem['peak_allocated_bytes'] / 2**30:.2f} GiB; launches "
               f"{launches[key]}")
+        if p16:
+            P_BF16_S["sharding"] = (P_BF16_S.get("sharding", 0.0)
+                                    + time.perf_counter() - t_run)
     runs = report["runs"]
     report["sp_over_plain_step"] = (runs["seq_parallel"]["step_s"]
                                     / runs["plain"]["step_s"])
@@ -6542,6 +6977,20 @@ def left_out(phases) -> dict:
             "fields": {r: f for r, f in fields.items() if f}}
 
 
+class Laps:
+    """The seconds between successive :meth:`lap` calls, each printed as
+    it is taken (a phase's wall time: the script's time limit is read
+    by them)."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def lap(self, name: str) -> None:
+        now = time.perf_counter()
+        print(f"phase {name}: {now - self.t:.1f} s", flush=True)
+        self.t = now
+
+
 def run(dev, grid_big, smi: str, lm_cfg, lm_seq: int = LM_SEQ,
         serve_argv: list = SERVE_ARGV,
         train_argv: list = TRAIN_ARGV, phases: tuple = PHASES) -> None:
@@ -6561,36 +7010,50 @@ def run(dev, grid_big, smi: str, lm_cfg, lm_seq: int = LM_SEQ,
                                         REFERENCE_GRID, stream_grid_axes)
 
     on = set(phases)
+    laps = Laps()
     missing = left_out(phases)
     no_row = missing.get("rows", {})
     err, lines, rows = {}, [], []
     if "kernels" in on:
         err.update(phase_kernels(dev, grid_big, REFERENCE_GRID))
+        laps.lap("kernels")
     if "dense" in on:
         phase_dense(REFERENCE_GRID, dev)
+        laps.lap("dense")
     if "dense_engine" in on:
         dense = phase_dense_engine(dev, ANCHOR_1M)
+        laps.lap("dense_engine")
     if "stream" in on:
         res, launches, paths, plans = phase_stream(
             grid_big, stream_grid_axes(10_000_000), ANCHOR_10M, dev)
+        laps.lap("stream")
     if "stream_resilience" in on:
         resilience = phase_stream_resilience(dev)
+        laps.lap("stream_resilience")
     if "scenario" in on:
         phase_scenario(dev, smi)
+        laps.lap("scenario")
     if "optimize" in on:
         opt = phase_optimize(dev, smi)
+        laps.lap("optimize")
     if "stream_devices" in on:
         phase_stream_devices(dev, smi)
+        laps.lap("stream_devices")
     if "service" in on:
         served = phase_service(dev, smi)
+        laps.lap("service")
     if "rbe" in on:
         err["C"] = phase_rbe(dev)
+        laps.lap("rbe")
     if "pipeline" in on:
         ht_launches, ht = phase_pipeline(dev, smi)
+        laps.lap("pipeline")
     if "rmsnorm" in on:
         err["D"] = phase_rmsnorm(dev)
+        laps.lap("rmsnorm")
     if "flash" in on:
         err["E"] = phase_flash(dev)
+        laps.lap("flash")
     if "A" not in no_row:
         rows, host = kernel_report(res, launches, err, grid_big, dense, dev)
         if "optimize" in on:
@@ -6606,6 +7069,7 @@ def run(dev, grid_big, smi: str, lm_cfg, lm_seq: int = LM_SEQ,
         rows_de, lm_shapes = lm_kernel_report(err, dev)
         rows += rows_de
         lm_shapes["card"] = smi
+        laps.lap("kernels line, D and E")
     if "A" not in no_row:
         print(json.dumps({"host_ms_per_call": host, "card": smi}))
     if "stream" in on:
@@ -6629,47 +7093,58 @@ def run(dev, grid_big, smi: str, lm_cfg, lm_seq: int = LM_SEQ,
         stats = dict(paths["default"], synchronous=paths["synchronous"],
                      plain=paths["plain"],
                      bitwise_plain=paths["bitwise_plain"])
+        laps.lap("stream profiles")
     de, reports = {}, {}
     if "train" in on:
         train_main, train_step, reports["train"] = phase_train(
             dev, smi, train_argv)
         de.update(launches_train=train_main, launches_train_step=train_step)
+        laps.lap("train")
     # The LM last: its serve run's trace (~85,000 kernels) is the largest
     # the script takes.
     if "lm" in on:
         lm_launches, reports["lm"] = phase_lm(dev, lm_cfg, lm_seq,
                                               serve_argv, smi)
+        laps.lap("lm")
     # the program count and the H100 roofline of the LM's forward (its
     # weights rebuilt) and of one training step
     if "roofline" in on:
         reports["roofline"] = phase_roofline(dev, smi, lm_cfg, lm_seq,
                                              train_argv)
+        laps.lap("roofline")
     # rank 0 of codeqwen1.5-7b's 256-rank prefill (~9 GB at its peak)
     if "sharding" in on:
         de["launches_sharding"], reports["sharding"] = phase_sharding(
             dev, smi)
+        laps.lap("sharding")
     # the modality-stub models (8 GB) before jamba's 52 GB
     if "stub" in on:
         stub_launches, reports["stub"] = phase_stub(dev, smi)
         de["launches_stub"] = stub_launches
+        laps.lap("stub")
     # the SSM path before MoE: jamba's 52 GB, freed before arctic's
     if "ssm" in on:
         ssm_launches, reports["ssm"] = phase_ssm(dev, smi)
         de["launches_ssm"] = ssm_launches
+        laps.lap("ssm")
     # MoE after every other phase: its 55 GB of weights need the card
     if "moe" in on:
         moe_fwd, moe_step, reports["moe"] = phase_moe(dev, smi)
         de["launches_moe"] = {"forward": moe_fwd, "decode_step": moe_step}
+        laps.lap("moe")
     # MLA last, after arctic's weights are freed: its 50 GB and the
     # witness's float32 copies need the card
     if "mla" in on:
         mla_fwd, mla_step, reports["mla"] = phase_mla(dev, smi)
         de["launches_mla"] = {"forward": mla_fwd, "decode_step": mla_step}
+        laps.lap("mla")
     for row in rows:
         key = row.pop("kernel", None)
         if key is None:
             continue
         row["launches"] = lm_launches[key]
+        if key == "E":
+            row["launches_p_bf16"] = p_bf16_row_launches(reports)
         for field in ROW_FIELDS[key]:
             if field not in de:
                 continue
@@ -6702,8 +7177,27 @@ def run(dev, grid_big, smi: str, lm_cfg, lm_seq: int = LM_SEQ,
     if missing:
         kernels_line["left_out"] = missing
     lines.append(kernels_line)
+    if P_BF16_S:
+        print(f"p_bf16 checks: {sum(P_BF16_S.values()):.1f} s ("
+              + ", ".join(f"{k} {v:.1f}" for k, v in P_BF16_S.items())
+              + ")")
     for line in lines:
         print(json.dumps(line))
+
+
+def p_bf16_row_launches(reports: dict) -> dict:
+    """Kernel E's launches on its p_bf16 route in the phases that ran:
+    the LM's forward, the training steps, rank 0's sharded step."""
+    out = {}
+    if "lm" in reports:
+        out["lm_forward"] = reports["lm"]["forward_p_bf16"][
+            "launches_p_bf16"]
+    if "train" in reports:
+        out["train_steps"] = reports["train"]["p_bf16"]["launches_p_bf16"]
+    if "sharding" in reports:
+        out["sharding_steps"] = reports["sharding"]["runs"]["p_bf16"][
+            "launches_p_bf16"]
+    return out
 
 
 def build(libs) -> None:

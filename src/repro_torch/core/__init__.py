@@ -7,5 +7,5 @@ counts (``hlo_analysis``, ``hlo_cost``: HLO text or a torch program;
 partition advisor, for a TPU or the H100)."""
 
 from . import (arrays, constants, dosc, energy, handtracking,  # noqa: F401
-               hlo_analysis, hlo_cost, latency, optimize, pareto, partition,
-               rbe, roofline, sweep, system, tpu_energy, workloads)
+               hlo_analysis, hlo_cost, latency, loop_marks, optimize, pareto,
+               partition, rbe, roofline, sweep, system, tpu_energy, workloads)

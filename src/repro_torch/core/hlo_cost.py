@@ -6,7 +6,9 @@ The text analysis (:func:`analyze`, :class:`HLOCost`,
 package's ``core/hlo_cost.py``, unchanged: on the same HLO text it
 gives the reference's results field for field.
 :func:`analyze_program` counts a torch program the same way, from the
-aten operations it dispatches (see its docstring).
+aten operations it dispatches (see its docstring); with
+``vmem_credit=True`` it is ``analyze``'s ``vmem_credit_depth=2`` over
+the loops marked by :func:`.loop_marks.fused_loop`.
 
 ``compiled.cost_analysis()`` counts each computation ONCE — a program whose
 layers live inside a ``lax.scan`` (a ``while`` op) reports one layer's
@@ -36,6 +38,7 @@ from __future__ import annotations
 import dataclasses
 import re
 import sys
+import weakref
 from collections import defaultdict
 from typing import Dict, List, Optional, Tuple
 
@@ -43,6 +46,7 @@ import torch
 
 from repro_torch.kernels import _credit
 
+from . import loop_marks
 from .hlo_analysis import (COLLECTIVE_OPS, CollectiveOp, CollectiveSummary,
                            _DTYPE_BYTES, _GROUPS_IOTA_RE, _GROUPS_RE,
                            _SHAPE_RE)
@@ -418,6 +422,18 @@ def top_bytes_breakdown(cost: HLOCost, n: int = 6) -> dict:
 # the counterpart for a torch program
 # ---------------------------------------------------------------------------
 
+#: Inside a mark, with the credit on, the aten operations that load a
+#: block (their outputs are charged) and those that store one (the
+#: argument at the index given, the update, is charged); ``copy_``
+#: stores only into a view (``x[i] = y``).
+BLOCK_LOADS = frozenset((
+    "select", "slice", "narrow", "unbind", "split", "split_with_sizes",
+    "index_select", "gather", "index",
+))
+BLOCK_STORES = {"copy_": 1, "index_put_": 2, "index_put": 2,
+                "_index_put_impl_": 2, "slice_scatter": 1,
+                "select_scatter": 1}
+
 #: aten operations (in-place forms too) that count one flop an output
 #: element, each beside the HLO opcode of the reference's ``_ARITH_OPS``
 #: it stands for.  ``_to_copy`` counts only where it changes the dtype
@@ -536,7 +552,8 @@ def _group_size(func, args, kwargs) -> int:
     raise ValueError(f"{func}: no process group among its arguments")
 
 
-def analyze_program(fn, *args, **kw) -> HLOCost:
+def analyze_program(fn, *args, vmem_credit: bool = False,
+                    **kw) -> HLOCost:
     """Run ``fn(*args, **kw)`` once and count what it does, as
     :func:`analyze` counts a compiled program's HLO.
 
@@ -583,6 +600,20 @@ def analyze_program(fn, *args, **kw) -> HLOCost:
     so the undercount of a ``while`` body counted once, which
     :func:`analyze` repairs by trip counts, cannot arise:
     ``unrolled_whiles`` and ``unknown_trip_whiles`` stay 0.
+
+    ``vmem_credit=True`` is the reference's ``vmem_credit_depth=2``
+    (``analyze``): an operation inside a
+    :func:`.loop_marks.fused_loop` mark is
+    charged its flops in full, and bytes only where it loads a block (a
+    slicing operation, :data:`BLOCK_LOADS`: its outputs) or stores one
+    (:data:`BLOCK_STORES`: the update; ``x[i] = y`` makes the view
+    ``x[i]`` only to write it, so that view is not also a load), under
+    ``bytes_by_op["vmem-block-io"]``; collectives as always.  A tensor
+    made inside the marked loop (an intermediate of the fused body,
+    which stays in VMEM) is neither loaded nor stored: slicing it or
+    writing into it moves no bytes.  A kernel
+    whose twin runs a mark (kernel E's blockwise twin) is charged the
+    twin's block I/O so counted, in place of its own inputs and outputs.
     """
     from torch._subclasses.fake_tensor import FakeTensor
     from torch.utils._python_dispatch import TorchDispatchMode
@@ -590,6 +621,47 @@ def analyze_program(fn, *args, **kw) -> HLOCost:
 
     cost = HLOCost()
     coll_ops: List[CollectiveOp] = []
+    # block loads charged inside marks and alive, by id: (weak
+    # reference, bytes); an entry goes when its view is freed
+    loads: dict = {}
+    # tensors made inside the marked loop now running (the fused body's
+    # intermediates, which stay in VMEM), by id: (weak reference, loop)
+    made: dict = {}
+
+    def remember(outs) -> None:
+        for t in outs:
+            made[id(t)] = (weakref.ref(t, lambda _, i=id(t): made.pop(i,
+                                                                     None)),
+                           loop_marks.loops)
+
+    def inside(t) -> bool:
+        for x in (t, getattr(t, "_base", None)):
+            ref, loop = made.get(id(x), (None, -1))
+            if ref is not None and ref() is x and loop == loop_marks.loops:
+                return True
+        return False
+
+    def block_io(name, args, outs) -> None:
+        if name in BLOCK_LOADS and not inside(args[0]):
+            b = _nbytes(outs)
+            for t in outs:
+                loads[id(t)] = (weakref.ref(
+                    t, lambda _, i=id(t): loads.pop(i, None)),
+                    t.numel() * t.element_size())
+        elif (name in BLOCK_STORES and len(args) > BLOCK_STORES[name]
+              and not inside(args[0])):
+            dest = args[0]
+            if name == "copy_" and dest._base is None:
+                return
+            b = _nbytes(_tensors(args[BLOCK_STORES[name]]))
+            ref, made = loads.pop(id(dest), (None, 0))
+            if ref is not None and ref() is dest:
+                b -= made
+        else:
+            remember(outs)
+            return
+        cost.bytes += b
+        cost.bytes_by_op["vmem-block-io"] += b
 
     def count(func, args, kwargs, out) -> None:
         name = func.overloadpacket.__name__
@@ -633,6 +705,9 @@ def analyze_program(fn, *args, **kw) -> HLOCost:
             if f:
                 cost.flops += f
                 cost.flops_by_op["elementwise"] += f
+        if vmem_credit and loop_marks.depth:
+            block_io(name, args, outs)
+            return
         if func.is_view or name in NO_BYTES_ATEN:
             return
         b = _nbytes(_tensors(args) + _tensors(kwargs) + outs)
@@ -664,20 +739,26 @@ def analyze_program(fn, *args, **kw) -> HLOCost:
             return out
 
     def sink(name, twin, targs, tkw, inputs, outputs) -> None:
-        flops = _twin_flops(twin, targs, tkw)
+        flops, nbytes = _twin_cost(twin, targs, tkw, vmem_credit)
         for key, f in flops.items():
             cost.flops += f
             cost.flops_by_op[key] += f
-        b = _nbytes([t for t in list(inputs) + list(outputs)
-                     if t is not None])
+        if "vmem-block-io" in nbytes:
+            b, key = nbytes["vmem-block-io"], "vmem-block-io"
+        else:
+            b = _nbytes([t for t in list(inputs) + list(outputs)
+                         if t is not None])
+            key = f"kernel {name}"
         cost.bytes += b
-        cost.bytes_by_op[f"kernel {name}"] += b
+        cost.bytes_by_op[key] += b
 
     _credit._SINKS.append(sink)
+    loop_marks.credit_counts += vmem_credit
     try:
         with _Counting():
             fn(*args, **kw)
     finally:
+        loop_marks.credit_counts -= vmem_credit
         _credit._SINKS.remove(sink)
     cost.collectives = CollectiveSummary(coll_ops)
     return cost
@@ -690,8 +771,9 @@ def _dtensor_type():
     return None if mod is None else mod.DTensor
 
 
-#: Flops of a kernel's plain twin, by the twin and its arguments' shapes.
-_TWIN_FLOPS: dict = {}
+#: Flops and bytes of a kernel's plain twin, by the twin, its arguments'
+#: shapes and the credit.
+_TWIN_COST: dict = {}
 
 
 def _meta_key(x):
@@ -704,43 +786,51 @@ def _meta_key(x):
     return x
 
 
-def _twin_flops(twin, args: tuple, kwargs: dict) -> dict:
-    """``flops_by_op`` of ``twin(*args, **kwargs)``, run on ``meta``
-    tensors of the arguments' shapes and dtypes outside every active
-    count (a kernel's work depends on its shapes and settings alone).
-    A twin that loops over block pairs doing the same work in each
-    (``twin.pair_count``, the blockwise attention) is counted over its
-    first pair and its first two, and the difference times the rest
-    added: the count of every pair, without running 2,080 of them
-    operation by operation at 32,768 tokens."""
+def _twin_cost(twin, args: tuple, kwargs: dict,
+               vmem_credit: bool = False) -> tuple:
+    """(``flops_by_op``, ``bytes_by_op``) of ``twin(*args, **kwargs)``,
+    run on ``meta`` tensors of the arguments' shapes and dtypes outside
+    every active count (a kernel's work depends on its shapes and
+    settings alone), with the credit or not.  A twin that loops over
+    block pairs doing the same work in each (``twin.pair_count``, the
+    blockwise attention) is counted over its first two pairs and its
+    first three (loops of more than one trip either way, so marked
+    alike), and the difference times the rest added: the count of every
+    pair, without running 2,080 of them operation by operation at
+    32,768 tokens."""
     from torch.utils._python_dispatch import _disable_current_modes
 
     key = (twin.__module__, twin.__qualname__, _meta_key(args),
-           _meta_key(kwargs))
-    if key not in _TWIN_FLOPS:
+           _meta_key(kwargs), vmem_credit)
+    if key not in _TWIN_COST:
         def meta(x):
             if isinstance(x, torch.Tensor):
                 return torch.empty(x.shape, dtype=x.dtype, device="meta")
             return x
 
-        def count(**extra) -> dict:
+        def count(**extra) -> tuple:
             with _disable_current_modes(), torch.no_grad():
-                return dict(analyze_program(
-                    twin, *(meta(a) for a in args), **kwargs,
-                    **extra).flops_by_op)
+                c = analyze_program(twin, *(meta(a) for a in args),
+                                    vmem_credit=vmem_credit, **kwargs,
+                                    **extra)
+            return dict(c.flops_by_op), dict(c.bytes_by_op)
+
+        def extrapolate(two: dict, three: dict, n: int) -> dict:
+            return {k: two.get(k, 0.0) + (n - 2) * (three[k]
+                                                    - two.get(k, 0.0))
+                    for k in three}
 
         pair_count = getattr(twin, "pair_count", None)
         n = pair_count(*args, **kwargs) if pair_count else 0
         sinks = list(_credit._SINKS)
         _credit._SINKS.clear()
         try:
-            if n > 2:
-                one, two = count(first_pairs=1), count(first_pairs=2)
-                got = {k: one.get(k, 0.0) + (n - 1) * (two[k] - one.get(
-                    k, 0.0)) for k in two}
+            if n > 3:
+                two, three = count(first_pairs=2), count(first_pairs=3)
+                got = tuple(extrapolate(a, b, n) for a, b in zip(two, three))
             else:
                 got = count()
         finally:
             _credit._SINKS[:] = sinks
-        _TWIN_FLOPS[key] = got
-    return _TWIN_FLOPS[key]
+        _TWIN_COST[key] = got
+    return _TWIN_COST[key]

@@ -29,10 +29,12 @@ BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
-#: The modules whose ``LIBRARY`` is a kernel library of the port, with
-#: their flags: the sweep grid (kernels A and B, ``--fmad=false`` for
-#: its bitwise contract), the RBE int8 matmul (kernel C), RMSNorm (kernel
-#: D) and flash attention (kernel E), the last three on BASE_FLAGS.
+#: The modules whose ``LIBRARY`` (or ``LIBRARIES``) is a kernel library
+#: of the port, with their flags: the sweep grid (kernels A and B,
+#: ``--fmad=false`` for its bitwise contract), the RBE int8 matmul
+#: (kernel C), RMSNorm (kernel D) and flash attention (kernel E, and its
+#: p_bf16 route built apart with ``-DFLASH_P_BF16=1``), the last three on
+#: BASE_FLAGS.
 LIBRARY_MODULES = ("repro_torch.kernels.sweep_grid.kernel",
                    "repro_torch.kernels.rbe_matmul.kernel",
                    "repro_torch.kernels.rmsnorm.kernel",
@@ -42,7 +44,9 @@ LIBRARY_MODULES = ("repro_torch.kernels.sweep_grid.kernel",
 def all_libraries() -> tuple:
     """Every kernel library of the port (imported on call: the kernel
     modules import this one)."""
-    return tuple(importlib.import_module(m).LIBRARY for m in LIBRARY_MODULES)
+    mods = [importlib.import_module(m) for m in LIBRARY_MODULES]
+    return tuple(lib for mod in mods
+                 for lib in getattr(mod, "LIBRARIES", (mod.LIBRARY,)))
 
 
 def nvcc() -> str:

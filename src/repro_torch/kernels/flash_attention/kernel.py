@@ -12,9 +12,17 @@ C++ (``csrc/flash_attention.cu``, whose note gives their design and what
 bounds them), built with ``nvcc`` for ``sm_90a`` at first use into
 ``build/`` and loaded with ``ctypes``: bf16 inputs take the tensor-core
 route (``mma.sync``, p@v exact through a three-piece bf16 split of p),
-float32 inputs the CUDA-core route.  :func:`plan` chooses the route and
-its tiling in plain Python.  Given CPU tensors the wrapper runs the
-plain version (:func:`.ref.flash_attention_ref`); given CUDA tensors it
+float32 inputs the CUDA-core route.  ``p_bf16=True`` is the reference
+LM's bf16-probability route (``ModelConfig.attn_p_bf16``: p and v
+rounded to bf16 before p@v, one tensor-core pass on bf16 inputs),
+the same source built with ``-DFLASH_P_BF16=1`` as a library of its own
+(:data:`LIBRARY_P_BF16`), at the same tiling.  :func:`plan` chooses the
+route and its tiling in plain Python.  Given CPU tensors the wrapper
+runs the plain version (:func:`.ref.flash_attention_ref`; with
+``p_bf16`` the reference's blockwise pass,
+:func:`repro_torch.models.flash.blockwise_fwd`, at the caller's
+``blocks``, since the full softmax normalises p before any rounding);
+given CUDA tensors it
 launches the kernel on the current stream or raises; given ``meta``
 tensors it returns empty results (a count of the program still credits
 the launch); a DTensor it refuses.  It counts its
@@ -50,6 +58,12 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 # that loses range near the masked scores).
 LIBRARY = Library("flash_attention", CSRC, "flash_attention.cu",
                   ("flash_attention.cu",), BASE_FLAGS)
+#: The p_bf16 route: the same source and flags with -DFLASH_P_BF16=1 (a
+#: second nvcc, built beside the first).
+LIBRARY_P_BF16 = Library("flash_attention_p_bf16", CSRC,
+                         "flash_attention.cu", ("flash_attention.cu",),
+                         BASE_FLAGS + ("-DFLASH_P_BF16=1",))
+LIBRARIES = (LIBRARY, LIBRARY_P_BF16)
 
 #: dtype codes of the C interface, and the (q·k, v) head-dim pairs it is
 #: built for: equal dims (GQA), and MLA's (192, 128) for deepseek-v2 and
@@ -99,7 +113,9 @@ def plan(b: int, sq: int, h: int, kvh: int, d: int, dtype: torch.dtype,
     half the registers), q and K rows of d and V rows of dv each padded
     by 16 bytes, and as many stages (2 or 3) as leave room for two blocks
     an SM.  float32 keeps the CUDA-core kernel's tiling (q and K of d, V
-    of dv, staged as float32)."""
+    of dv, staged as float32).  The p_bf16 route runs at the same plan:
+    it drops the mid and lo pieces of p (8 registers a thread at most,
+    too few to change the tile) and changes no shared memory."""
     dv = d if dv is None else dv
     if dtype not in DTYPES:
         raise TypeError(f"dtype {dtype}: expected float32 or bfloat16")
@@ -119,9 +135,13 @@ def plan(b: int, sq: int, h: int, kvh: int, d: int, dtype: torch.dtype,
                 grid)
 
 
-@functools.lru_cache(maxsize=1)
-def _lib():
-    lib = LIBRARY.load()
+@functools.lru_cache(maxsize=2)
+def _lib(p_bf16: bool = False):
+    lib = (LIBRARY_P_BF16 if p_bf16 else LIBRARY).load()
+    lib.flash_attention_p_bf16.restype = ctypes.c_int
+    if lib.flash_attention_p_bf16() != int(p_bf16):
+        raise RuntimeError(f"the flash_attention library loaded for "
+                           f"p_bf16={p_bf16} is the other route's")
     lib.flash_attention_launch.argtypes = (
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
         + [ctypes.c_float, ctypes.c_float]
@@ -164,7 +184,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         logit_softcap: float = 0.0,
                         scale: float | None = None,
                         return_stats: bool = False,
-                        blocks: tuple[int, int] = (512, 512)):
+                        blocks: tuple[int, int] = (512, 512),
+                        p_bf16: bool = False):
     """q: (B, Sq, H, D); k: (B, Skv, KV, D); v: (B, Skv, KV, Dv), one
     dtype (float32 or bfloat16), contiguous, on one device.  Returns (B,
     Sq, H, Dv) in q's dtype, and with ``return_stats`` ``(out, m, l)``,
@@ -173,7 +194,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     defaults to D^-0.5.  ``blocks``, the (q, kv) blocks of the caller's
     blockwise algorithm (the reference model's 512, clipped to the
     sequences), change nothing but what a count credits (the kernel
-    picks its own tiles, :func:`plan`)."""
+    picks its own tiles, :func:`plan`), and on the CPU, with ``p_bf16``,
+    the blocks of the plain version.  ``p_bf16``: p and v rounded to
+    bf16 before p@v (m and l of the unrounded p)."""
     _check(q, k, v)
     b, sq, h, d = q.shape
     dv = v.shape[3]
@@ -181,6 +204,13 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = float(scale if scale is not None else d ** -0.5)
     dev = q.device
     if dev.type == "cpu":
+        if p_bf16:
+            from repro_torch.models.flash import blockwise_fwd
+
+            return blockwise_fwd(q, k, v, causal=causal, window=window,
+                                 logit_softcap=logit_softcap, scale=scale,
+                                 return_stats=return_stats, blocks=blocks,
+                                 p_bf16=True)
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        logit_softcap=logit_softcap,
                                        scale=scale, return_stats=return_stats)
@@ -197,10 +227,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dev.type == "meta":
         # shapes only: no launch, but a count credits the kernel's work
         _credit_launch(q, k, v, out, m, l, causal, window, logit_softcap,
-                       scale, return_stats, blocks)
+                       scale, return_stats, blocks, p_bf16)
     elif b and sq and skv and h:
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _lib().flash_attention_launch(
+        lib = _lib(bool(p_bf16))
+        rc = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             m.data_ptr() if return_stats else None,
             l.data_ptr() if return_stats else None,
@@ -209,19 +240,23 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             p.keys, p.stages, p.smem_bytes, p.grid[0],
             dev.index if dev.index is not None else 0, stream)
         if rc != 0:
-            msg = _lib().flash_attention_error_string(rc).decode()
+            msg = lib.flash_attention_error_string(rc).decode()
             raise RuntimeError(f"flash_attention_launch failed: {msg} "
                                f"(code {rc})")
         flash_attention_fwd.launches += 1
+        flash_attention_fwd.launches_p_bf16 += bool(p_bf16)
         _credit_launch(q, k, v, out, m, l, causal, window, logit_softcap,
-                       scale, return_stats, blocks)
+                       scale, return_stats, blocks, p_bf16)
     return (out, m, l) if return_stats else out
 
 
 def _credit_launch(q, k, v, out, m, l, causal, window, logit_softcap,
-                   scale, return_stats, blocks) -> None:
+                   scale, return_stats, blocks, p_bf16) -> None:
     """Report a launch (or a ``meta`` stand-in for one) to the active
-    counts: the work of the blockwise plain version at its blocks."""
+    counts: the work of the blockwise plain version at its blocks.  With
+    ``p_bf16`` its dot flops are those without; its casts to bf16 add
+    ``elementwise`` flops (a ``convert`` an element, as the reference's
+    count charges its casts)."""
     if _credit.active():
         from repro_torch.models.flash import blockwise_fwd
 
@@ -229,8 +264,11 @@ def _credit_launch(q, k, v, out, m, l, causal, window, logit_softcap,
             "flash_attention", blockwise_fwd, (q, k, v),
             dict(causal=causal, window=window,
                  logit_softcap=logit_softcap, scale=scale,
-                 return_stats=return_stats, blocks=tuple(blocks)),
+                 return_stats=return_stats, blocks=tuple(blocks),
+                 p_bf16=bool(p_bf16)),
             (q, k, v), (out, m, l))
 
 
 flash_attention_fwd.launches = 0
+#: Of those, the launches on the p_bf16 route.
+flash_attention_fwd.launches_p_bf16 = 0

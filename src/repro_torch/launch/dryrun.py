@@ -27,13 +27,19 @@ issues.  For each cell it records:
 Usage:
     python -m repro_torch.launch.dryrun --arch codeqwen1.5-7b \\
         --shape prefill_32k --chip h100 [--seq-parallel] [--device cuda]
+        [--attn-p-bf16] [--vmem-credit]
     python -m repro_torch.launch.dryrun --all [--multi-pod] [--out rows.json]
 
-Flags with no counterpart give an error row: ``--attn-p-bf16`` (the
-kernel's bf16-probability route is not ported) and ``--vmem-credit``
-(a TPU VMEM fusion credit of the compiled program's loop bodies; an
-eager count has no loop bodies to credit).  The exit code is 1 if any
-row is an error.
+``--attn-p-bf16`` runs the LM's attention on the bf16-probability route
+(kernel E's ``p_bf16`` route on the card, credited on ``meta`` with its
+twin's work).  ``--vmem-credit`` is the reference's VMEM fusion credit:
+the count is taken with ``analyze_program(..., vmem_credit=True)``,
+which charges the operations inside the port's marked loops (the
+bodies the reference's compiled program runs at ``while`` depth >= 2,
+:func:`repro_torch.core.loop_marks.fused_loop`) their flops in full and
+only their block loads and stores as bytes, under
+``bytes_by_op["vmem-block-io"]``.  The exit code is 1 if any row is an
+error.
 """
 
 from __future__ import annotations
@@ -64,9 +70,6 @@ DEFAULT_OUT = "build/dryrun_results.json"
 CHIPS = {"v5e": TPU_V5E, "h100": H100_SXM}
 #: Seed of rank 0's shards on a device.
 SHARD_SEED = 0
-VMEM_CREDIT_REFUSED = (
-    "--vmem-credit prices a compiled program's loop bodies as VMEM-fused "
-    "Pallas kernels; an eager count of the port has no counterpart of it")
 
 
 def _analytic_state_bytes(shard_tree, shape_tree, chips: int) -> float:
@@ -184,11 +187,12 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
                mla_absorb: bool = False, donate: bool = True,
                mesh_shape: str | None = None,
                cfg_overrides: dict | None = None, device: str = "meta",
-               cfg=None):
+               cfg=None, vmem_credit: bool = False):
     """Run one cell's step as rank 0 of a fake world of the mesh's size
-    and count it; returns (cost, context dict).  ``cfg`` stands in for
-    ``arch``'s config (a reduced one, say).  ``donate`` has no
-    counterpart (an eager step holds its inputs); it is accepted."""
+    and count it (with the VMEM credit where ``vmem_credit``); returns
+    (cost, context dict).  ``cfg`` stands in for ``arch``'s config (a
+    reduced one, say).  ``donate`` has no counterpart (an eager step
+    holds its inputs); it is accepted."""
     del donate
     cfg = cfg or get_config(arch)
     if cfg_overrides:
@@ -245,16 +249,18 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
         ctx = dict(cfg=cfg, shape=shape, mesh=mesh, chips=chips,
                    intra_pod_chips=intra_pod_chips(mesh),
                    state_bytes_per_device=cell_state_bytes(cfg, shape,
-                                                           mesh))
+                                                           mesh),
+                   vmem_credit=vmem_credit)
         if dev.type == "meta":
-            cost = hlo_cost.analyze_program(step)
+            cost = hlo_cost.analyze_program(step, vmem_credit=vmem_credit)
             ctx["memory_analysis"] = {"error": "no device: meta"}
         else:
-            cost, ctx["memory_analysis"] = _run_shard(step, state, dev)
+            cost, ctx["memory_analysis"] = _run_shard(step, state, dev,
+                                                      vmem_credit)
     return cost, ctx
 
 
-def _run_shard(step, state, dev) -> tuple:
+def _run_shard(step, state, dev, vmem_credit: bool = False) -> tuple:
     """Rank 0's step on ``dev``: counted once (which warms it), then
     timed once; its local state bytes and, on the card, the peak
     allocated bytes and the card's memory."""
@@ -262,7 +268,7 @@ def _run_shard(step, state, dev) -> tuple:
     if cuda:
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-    cost = hlo_cost.analyze_program(step)
+    cost = hlo_cost.analyze_program(step, vmem_credit=vmem_credit)
     if cuda:
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
@@ -282,8 +288,13 @@ def _run_shard(step, state, dev) -> tuple:
 
 def analyse_cell(arch: str, shape_name: str, multi_pod: bool, cost, ctx,
                  vmem_credit: bool = False, chip: str = "v5e") -> dict:
-    if vmem_credit:
-        raise ValueError(VMEM_CREDIT_REFUSED)
+    """The row of a counted cell.  The credit is applied as the step is
+    counted (:func:`lower_cell`), so ``vmem_credit`` must be how it
+    was."""
+    if vmem_credit != ctx.get("vmem_credit", False):
+        raise ValueError(f"the cell was counted with vmem_credit="
+                         f"{ctx.get('vmem_credit', False)}, not "
+                         f"{vmem_credit}")
     cfg, shape = ctx["cfg"], ctx["shape"]
     shape_name = shape.name
     chips = ctx["chips"]
@@ -337,14 +348,12 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
                 "tag": tag, "status": "skipped", "reason": reason}
     t0 = time.time()
     try:
-        if vmem_credit:
-            raise ValueError(VMEM_CREDIT_REFUSED)
         cost, ctx = lower_cell(
             arch, shape, multi_pod, mla_absorb=mla_absorb,
             mesh_shape=mesh_shape, cfg_overrides=cfg_overrides,
-            device=device, cfg=cfg)
+            device=device, cfg=cfg, vmem_credit=vmem_credit)
         row = analyse_cell(arch, shape_name, multi_pod, cost, ctx,
-                           chip=chip)
+                           vmem_credit=vmem_credit, chip=chip)
         row["mesh"] = mesh_name
         row["tag"] = tag
         row["compile_seconds"] = round(time.time() - t0, 1)
@@ -373,8 +382,8 @@ def main(argv: list | None = None) -> int:
                     help="params above this get a second data-axis shard; "
                     "use a huge value to disable FSDP")
     ap.add_argument("--vmem-credit", action="store_true",
-                    help="the reference's VMEM fusion credit of loop "
-                    "bodies: no counterpart in an eager count (error row)")
+                    help="price the marked inner-loop bodies as VMEM-fused "
+                    "kernels (flops in full, block I/O only as bytes)")
     ap.add_argument("--seq-parallel", action="store_true",
                     help="Megatron-style sequence parallelism")
     ap.add_argument("--chip", choices=tuple(CHIPS), default="v5e",

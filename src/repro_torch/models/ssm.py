@@ -41,6 +41,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.loop_marks import fused_loop
+
 from .common import ModelConfig
 from .layers import normal
 from .sharding import BATCH, MODEL, local_region, pointwise
@@ -128,18 +130,20 @@ def _mamba_scan(a, b_mat, c_mat, dt, x32) -> torch.Tensor:
     h = torch.zeros((b, di, a.shape[1]), dtype=torch.float32,
                     device=dt.device)
     ys = []
-    for t0 in range(0, s, MAMBA_CHUNK):
-        t1 = min(s, t0 + MAMBA_CHUNK)
-        dtc = dt[:, t0:t1].transpose(0, 1)                    # (T, B, di)
-        da = torch.exp(dtc[..., None] * a)                     # (T, B, di, N)
-        dbx = (dtc * x32[:, t0:t1].transpose(0, 1))[..., None] \
-            * b_mat[:, t0:t1].transpose(0, 1)[:, :, None, :]
-        hs = []
-        for da_t, dbx_t in zip(da.unbind(0), dbx.unbind(0)):
-            h = torch.addcmul(dbx_t, da_t, h)                  # da·h + dbx
-            hs.append(h)
-        ys.append(torch.einsum("tbdn,tbn->tbd", torch.stack(hs),
-                               c_mat[:, t0:t1].transpose(0, 1)))
+    with fused_loop(s):     # the reference's scan body, at depth 2
+        for t0 in range(0, s, MAMBA_CHUNK):
+            # the chunk's block of each input (narrow: a slice even over
+            # the whole sequence, which indexing would elide)
+            dtc, xc, bc, cc = (t.narrow(1, t0, min(s, t0 + MAMBA_CHUNK)
+                                        - t0).transpose(0, 1)
+                               for t in (dt, x32, b_mat, c_mat))
+            da = torch.exp(dtc[..., None] * a)                 # (T, B, di, N)
+            dbx = (dtc * xc)[..., None] * bc[:, :, None, :]
+            hs = []
+            for da_t, dbx_t in zip(da.unbind(0), dbx.unbind(0)):
+                h = torch.addcmul(dbx_t, da_t, h)              # da·h + dbx
+                hs.append(h)
+            ys.append(torch.einsum("tbdn,tbn->tbd", torch.stack(hs), cc))
     return torch.cat(ys).transpose(0, 1)
 
 
@@ -247,36 +251,51 @@ def mlstm_parallel(q, k, v, log_i, log_f, q_block: int = 256,
     qh, kh, vh = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))
     fh = torch.cumsum(log_f.float(), dim=1).permute(0, 2, 1)   # (B, H, S)
     ih = log_i.float().permute(0, 2, 1)
+    rows = []
+    with fused_loop((s // q_block) * (s // kv_block)):   # its pair scan
+        for qi in range(s // q_block):
+            rows.append(_mlstm_row_block(qh, kh, vh, fh, ih, qi, q_block,
+                                         kv_block, scale))
+    # normalised after the scan, as the reference does
     out = []
-    for qi in range(s // q_block):
-        qs = slice(qi * q_block, (qi + 1) * q_block)
-        qpos = torch.arange(qs.start, qs.stop, device=dev)
-        o = torch.zeros((b, h, q_block, hd), dtype=torch.float32, device=dev)
-        l = torch.zeros((b, h, q_block), dtype=torch.float32, device=dev)
-        m = torch.full((b, h, q_block), NEG_INF, dtype=torch.float32,
-                       device=dev)
-        for kj in range(s // kv_block):
-            if kj * kv_block > qs.stop - 1:
-                break
-            ks = slice(kj * kv_block, (kj + 1) * kv_block)
-            kpos = torch.arange(ks.start, ks.stop, device=dev)
-            # decay logits (B, H, qb, kb)
-            logd = fh[:, :, qs, None] - fh[:, :, None, ks] + ih[:, :, None, ks]
-            logd = torch.where(kpos[None, :] <= qpos[:, None], logd, NEG_INF)
-            m_new = torch.maximum(m, logd.amax(-1))
-            m_safe = torch.where(m_new <= NEG_INF / 2, 0.0, m_new)
-            dmat = torch.exp(logd - m_safe[..., None])
-            s_qk = (qh[:, :, qs] @ kh[:, :, ks].transpose(-1, -2)) * scale
-            a = s_qk * dmat
-            alpha = torch.where(m <= NEG_INF / 2, 0.0,
-                                torch.exp(m - m_safe))
-            l = l * alpha + a.sum(-1)
-            o = o * alpha[..., None] + a @ vh[:, :, ks]
-            m = m_new
+    for o, l, m in rows:
         m_safe = torch.where(m <= NEG_INF / 2, 0.0, m)
         den = torch.maximum(l.abs(), torch.exp(-m_safe))[..., None]
         out.append(o / den)
     return torch.cat(out, dim=2).permute(0, 2, 1, 3).to(q.dtype)
+
+
+def _mlstm_row_block(qh, kh, vh, fh, ih, qi, q_block, kv_block, scale):
+    """One q block of :func:`mlstm_parallel`: its kv blocks up to the
+    causal limit, online; (o, l, m), o (B, H, q_block, hd) not yet
+    normalised."""
+    b, h, s, hd = qh.shape
+    dev = qh.device
+    qs = slice(qi * q_block, (qi + 1) * q_block)
+    qpos = torch.arange(qs.start, qs.stop, device=dev)
+    o = torch.zeros((b, h, q_block, hd), dtype=torch.float32, device=dev)
+    l = torch.zeros((b, h, q_block), dtype=torch.float32, device=dev)
+    m = torch.full((b, h, q_block), NEG_INF, dtype=torch.float32,
+                   device=dev)
+    for kj in range(s // kv_block):
+        if kj * kv_block > qs.stop - 1:
+            break
+        ks = slice(kj * kv_block, (kj + 1) * kv_block)
+        kpos = torch.arange(ks.start, ks.stop, device=dev)
+        # decay logits (B, H, qb, kb)
+        logd = fh[:, :, qs, None] - fh[:, :, None, ks] + ih[:, :, None, ks]
+        logd = torch.where(kpos[None, :] <= qpos[:, None], logd, NEG_INF)
+        m_new = torch.maximum(m, logd.amax(-1))
+        m_safe = torch.where(m_new <= NEG_INF / 2, 0.0, m_new)
+        dmat = torch.exp(logd - m_safe[..., None])
+        s_qk = (qh[:, :, qs] @ kh[:, :, ks].transpose(-1, -2)) * scale
+        a = s_qk * dmat
+        alpha = torch.where(m <= NEG_INF / 2, 0.0,
+                            torch.exp(m - m_safe))
+        l = l * alpha + a.sum(-1)
+        o = o * alpha[..., None] + a @ vh[:, :, ks]
+        m = m_new
+    return o, l, m
 
 
 def mlstm_block_forward(cfg: ModelConfig, params: dict,
@@ -409,12 +428,13 @@ def _slstm_scan(wx: torch.Tensor, r_all: torch.Tensor, bias: torch.Tensor,
     state laid out (H, B, hd); returns every step's h (S, H, B, hd)."""
     hh, b = wx.shape[1], wx.shape[2]
     hs = []
-    for wxt in wx.unbind(0):
-        rh = torch.bmm(state.h.to(wx.dtype), r_all).view(hh, b, 4, -1)
-        g = (wxt + rh) + bias          # summed in the dtype, then float32
-        h, state = _slstm_cell(g[:, :, 0], g[:, :, 1], g[:, :, 2],
-                               g[:, :, 3], state)
-        hs.append(h)
+    with fused_loop(wx.shape[0]):   # the reference's time scan
+        for wxt in wx.unbind(0):
+            rh = torch.bmm(state.h.to(wx.dtype), r_all).view(hh, b, 4, -1)
+            g = (wxt + rh) + bias      # summed in the dtype, then float32
+            h, state = _slstm_cell(g[:, :, 0], g[:, :, 1], g[:, :, 2],
+                                   g[:, :, 3], state)
+            hs.append(h)
     return torch.stack(hs)
 
 

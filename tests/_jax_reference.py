@@ -1188,6 +1188,96 @@ def task_hlo_cost(p):
     return out
 
 
+def task_vmem_credit(p):
+    """Each reduced arch of ``p["archs"]`` (``p["reduced"]``'s
+    overrides) stepping on each shape of ``p["shapes"]`` ((name,
+    seq_len, global_batch, mode)), compiled unsharded: its flops by op
+    and its bytes by op under ``analyze`` plain and with
+    ``vmem_credit_depth=2``, the dry-run's ``--vmem-credit``."""
+    import jax
+
+    from repro.configs import InputShape, get_reduced_config
+    from repro.core import hlo_cost
+    from repro.launch import specs, steps
+    from repro.optim import adamw
+
+    out = {}
+    for arch in p["archs"]:
+        cfg = get_reduced_config(arch, **p["reduced"])
+        params = specs.params_specs(cfg)
+        for shape in (InputShape(*s) for s in p["shapes"]):
+            batch = specs.input_specs(cfg, shape)
+            if shape.mode == "train":
+                opt_cfg = adamw.AdamWConfig(
+                    moment_dtype=specs.moment_dtype_for(cfg))
+                lowered = jax.jit(steps.make_train_step(cfg, opt_cfg)).lower(
+                    params, specs.opt_specs(opt_cfg, params), batch)
+            elif shape.mode == "prefill":
+                lowered = jax.jit(steps.make_prefill_step(cfg)).lower(
+                    params, batch)
+            else:
+                lowered = jax.jit(steps.make_serve_step(cfg)).lower(
+                    params, specs.cache_specs(cfg, shape), batch,
+                    specs.pos_spec())
+            text = lowered.compile().as_text()
+            out[arch, shape.name] = {
+                credit: {"flops_by_op": dict(c.flops_by_op),
+                         "bytes_by_op": dict(c.bytes_by_op)}
+                for credit, c in ((False, hlo_cost.analyze(text)),
+                                  (True, hlo_cost.analyze(
+                                      text, vmem_credit_depth=2)))}
+            out[arch, shape.name]["block_io_parts"] = _block_io_parts(
+                hlo_cost, text)
+    return out
+
+
+def _block_io_parts(hlo_cost, text: str, depth: int = 2) -> dict:
+    """The reference's ``vmem-block-io`` (``analyze(text,
+    vmem_credit_depth=depth)``) split by what it charges in each fusion
+    at ``while`` depth >= ``depth``: the outputs of its ``dynamic-slice``
+    and ``gather`` operations (``"loads"``), the updates of its
+    ``dynamic-update-slice`` operations (``"stores"``) and those
+    operations' outputs, each the whole buffer updated
+    (``"updated_buffers"``).  The walk is ``analyze``'s (trip counts,
+    fusion bodies walked as well as charged)."""
+    comps, entry, shapes = hlo_cost._parse_computations(text)
+    parts = {"loads": 0.0, "stores": 0.0, "updated_buffers": 0.0}
+
+    def nbytes(shape: str) -> int:
+        return hlo_cost._shape_elems_bytes(shape)[1]
+
+    def walk(name: str, mult: float, level: int) -> None:
+        comp = comps.get(name)
+        for ins in comp.instrs if comp is not None else ():
+            if ins.opcode == "while":
+                tm = hlo_cost._TRIP.search(ins.line)
+                for rx in (hlo_cost._BODY, hlo_cost._COND):
+                    m = rx.search(ins.line)
+                    if m:
+                        walk(m.group(1), mult * (int(tm.group(1)) if tm
+                                                 else 1), level + 1)
+            elif ins.opcode in ("fusion", "call", "conditional",
+                                "async-start"):
+                cm = (hlo_cost._CALLS.search(ins.line)
+                      or hlo_cost._TO_APPLY.search(ins.line))
+                if not cm:
+                    continue
+                walk(cm.group(1), mult, level)
+                body = comps.get(cm.group(1))
+                if ins.opcode != "fusion" or level < depth or body is None:
+                    continue
+                for b in body.instrs:
+                    if b.opcode in ("dynamic-slice", "gather"):
+                        parts["loads"] += nbytes(b.out_shape) * mult
+                    elif b.opcode == "dynamic-update-slice":
+                        parts["updated_buffers"] += nbytes(b.out_shape) * mult
+                        if len(b.operands) > 1:
+                            parts["stores"] += nbytes(
+                                shapes.get(b.operands[1], "")) * mult
+    walk(entry, 1.0, 0)
+    return parts
+
+
 def _spec_tuple(spec) -> tuple:
     """A ``PartitionSpec`` as a tuple: one entry a dim, ``None``, an axis
     name or a tuple of them."""

@@ -692,9 +692,15 @@ TRAIN_ARGV = ["--arch", "qwen2-0.5b", "--reduced", "--steps", "12",
 
 def _train_counts(monkeypatch, main_counts, step_counts):
     """``read_counts`` as the card gives them around train.main, the
-    plain path and one step (on the CPU the wrappers count nothing)."""
-    seq = iter([main_counts, dict(A=0, B=0, C=0, D=0, E=0), step_counts])
+    plain path, the plain p_bf16 path, the p_bf16 steps (each launch of
+    E on the route) and one step (on the CPU the wrappers count
+    nothing)."""
+    zeros = dict(A=0, B=0, C=0, D=0, E=0)
+    n = CS.TRAIN_P_BF16_STEPS
+    p16 = dict(step_counts, D=n * step_counts["D"], E=n * step_counts["E"])
+    seq = iter([main_counts, zeros, zeros, p16, step_counts])
     monkeypatch.setattr(CS, "read_counts", lambda: next(seq))
+    monkeypatch.setattr(CS, "p_bf16_launches", lambda: p16["E"])
 
 
 def test_train_phase_on_the_cpu(monkeypatch, tmp_path, capsys, one_thread):
@@ -708,6 +714,8 @@ def test_train_phase_on_the_cpu(monkeypatch, tmp_path, capsys, one_thread):
     assert main["D"] == 60 and one == dict(A=0, B=0, C=0, D=5, E=2)
     assert out["main"]["loss_decreased"] and out["main"]["steps"] == 12
     assert out["vs_plain"]["min_leaf_cos"] >= CS.TRAIN_LEAF_COS
+    assert out["p_bf16"]["vs_plain"]["min_leaf_cos"] >= CS.TRAIN_LEAF_COS
+    assert out["p_bf16"]["launches_p_bf16"] == 2 * CS.TRAIN_P_BF16_STEPS
     assert set(out["anchors"]) == {"qwen2-0.5b", "gemma2-2b"}
     assert out["resume"]["loss_gap"] == 0
     assert out["resume"]["leaves_differing"] == []

@@ -107,12 +107,16 @@ def _stub_phases(monkeypatch):
             "lm_kernel_report": lambda: (
                 [{"name": "D", "kernel": "D"}, {"name": "E", "kernel": "E"}],
                 {"flash_shapes": 1}),
-            "phase_train": (counts, counts, {"train": 1}),
-            "phase_lm": (counts, {"lm": 1}),
+            "phase_train": (counts, counts,
+                            {"train": 1, "p_bf16": {"launches_p_bf16": 6}}),
+            "phase_lm": (counts, {"lm": 1,
+                                  "forward_p_bf16": {"launches_p_bf16": 7}}),
             "phase_roofline": {"roofline": 1},
             "phase_sharding": ({"plain": counts, "seq_parallel": counts},
                                {"kernels": {"D": {"ms": 1.0},
-                                            "E": {"ms": 2.0}}}),
+                                            "E": {"ms": 2.0}},
+                                "runs": {"p_bf16": {
+                                    "launches_p_bf16": 8}}}),
             "phase_stub": ({"qwen2-vl-2b": {"forward": counts}}, {"s": 1}),
             "phase_ssm": ({"xlstm-350m": {"forward": counts}}, {"s": 1}),
             "phase_moe": (counts, counts, {"m": 1}),
@@ -159,6 +163,8 @@ def test_the_default_run_calls_every_phase_and_fills_every_row(
     assert rows[4]["launches_sharding"] == {"plain": 5, "seq_parallel": 5}
     assert rows[4]["sharding_shape"] == {"ms": 2.0}
     assert rows[4]["launches"] == 5
+    assert rows[4]["launches_p_bf16"] == {
+        "lm_forward": 7, "train_steps": 6, "sharding_steps": 8}
     assert rows[4]["launches_ssm"] == {"xlstm-350m": {"forward": 5}}
     assert rows[3]["launches_moe"] == {"forward": 4, "decode_step": 4}
 

@@ -60,6 +60,7 @@ def stand_ins(monkeypatch):
         with _disable_current_modes():
             res = real_blockwise(q, k, v, **kw)
         E.flash_attention_fwd.launches += 1
+        E.flash_attention_fwd.launches_p_bf16 += kw.get("p_bf16", False)
         if _credit.active():
             _credit.credit("flash_attention", real_blockwise, (q, k, v), kw,
                            (q, k, v), (res,))
@@ -89,10 +90,11 @@ def test_sharding_phase_on_the_cpu(stand_ins):
         run_cell=_run_cell)
     layers = cfg.num_layers
     # two steps a run: the counted one and the timed one
-    assert launches == {"plain": {"D": 2 * (2 * layers + 1),
-                                  "E": 2 * layers},
-                        "seq_parallel": {"D": 2 * (2 * layers + 1),
-                                         "E": 2 * layers}}
+    assert launches == dict.fromkeys(
+        ("plain", "seq_parallel", "p_bf16"),
+        {"D": 2 * (2 * layers + 1), "E": 2 * layers})
+    assert rep["runs"]["p_bf16"]["launches_p_bf16"] == 2 * layers
+    assert rep["runs"]["plain"]["launches_p_bf16"] == 0
     plain, sp = rep["runs"]["plain"], rep["runs"]["seq_parallel"]
     # rank 0 holds 8 / 2 sequences and 4 / 4 q heads; with seq_parallel
     # its layer norms see 256 / 4 tokens of each
@@ -112,6 +114,8 @@ def test_sharding_phase_on_the_cpu(stand_ins):
     for k in ("D", "E"):
         assert {"ms", "plain_ms", "library_ms", "bound_ms"} <= set(
             rep["kernels"][k])
+    p16 = rep["kernels"]["E"]["p_bf16"]
+    assert {"ms", "library_ms", "bound_ms", "ties", "m", "l"} <= set(p16)
 
 
 def test_shard_launches_at_full_size():

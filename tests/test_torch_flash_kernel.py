@@ -127,14 +127,20 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
 
 
 def test_gradient_and_p_bf16_are_refused():
-    """p_bf16 is still refused (it comes with the kernel-redesign queue);
-    a call that needs a gradient is no longer refused: it goes through
-    the recompute backward (``FlashAttentionFunction``)."""
+    """Neither is refused any longer: ``p_bf16`` runs the reference's
+    bf16-probability route (held against the reference in
+    ``test_torch_flash_p_bf16.py``), and a call that needs a gradient
+    goes through the recompute backward (``FlashAttentionFunction``),
+    with ``p_bf16`` too."""
     tq, tk, tv = (torch.as_tensor(a) for a in _qkv(1, 64, 64, 4, 2, 32, 8))
-    with pytest.raises(NotImplementedError, match="p_bf16.*Queue 2"):
-        TF.flash_attention(tq.detach(), tk, tv, p_bf16=True)
-    with pytest.raises(NotImplementedError, match="p_bf16"):
-        TF.flash_attention(tq.requires_grad_(), tk, tv, p_bf16=True)
+    p16 = TF.flash_attention(tq.detach(), tk, tv, p_bf16=True)
+    assert p16.grad_fn is None and bool(torch.isfinite(p16).all())
+    assert not torch.equal(p16, TF.flash_attention(tq.detach(), tk, tv))
+    out = TF.flash_attention(tq.clone().requires_grad_(), tk, tv,
+                             p_bf16=True)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFunctionBackward"
+    assert torch.equal(out.detach(), p16)
+    tq.requires_grad_()
     out = TF.flash_attention(tq, tk, tv)
     assert type(out.grad_fn).__name__ == "FlashAttentionFunctionBackward"
     with torch.no_grad():
