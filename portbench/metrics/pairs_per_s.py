@@ -1,0 +1,7 @@
+"""(Configuration x trace) pairs of every sweep of the window over its
+seconds."""
+from portbench.readers import rate
+
+
+def read(ctx):
+    return rate(ctx, "sessions")
