@@ -57,6 +57,8 @@ import torch
 from . import arrays as A
 from . import pareto as P
 from . import sweep as SW
+from .spans import count as _count
+from .spans import span as _span
 
 _REGISTRY: "OrderedDict[str, EvalBackend]" = OrderedDict()
 
@@ -767,7 +769,9 @@ def cached_step(spec: ChunkSpec, backend: str | None, scan_chunks: int,
 def _cached_chunk_step(spec: ChunkSpec, name: str, scan_chunks: int,
                        dev: torch.device, shard: tuple) -> ChunkStep:
     """:func:`_new_step`, cached under the shard's position as well as
-    its device."""
+    its device.  A miss builds the step (on the card with its warm-up
+    and graph capture) under the ``stream.step_build`` span and counts
+    it in the running sweep's ``stats["step_builds"]``."""
     key = (spec, name, int(scan_chunks), str(dev), shard)
     with _STEP_CACHE_LOCK:
         fn = _STEP_CACHE.get(key)
@@ -777,7 +781,9 @@ def _cached_chunk_step(spec: ChunkSpec, name: str, scan_chunks: int,
             fn.busy = True
             return fn
         _STEP_CACHE_STATS["misses"] += 1
-    fn = _new_step(spec, name, scan_chunks, dev, shard)
+    with _span("stream.step_build", "step_build_s"):
+        fn = _new_step(spec, name, scan_chunks, dev, shard)
+    _count("step_builds")
     fn.busy = True
     with _STEP_CACHE_LOCK:
         if key not in _STEP_CACHE:

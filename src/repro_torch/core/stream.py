@@ -81,6 +81,8 @@ from . import arrays as A
 from . import backend as B
 from . import pareto as P
 from . import sweep as SW
+from .spans import span as _span
+from .spans import sweep as _sweep
 from .constants import (CAMERA_FPS, DETNET_FPS, KEYNET_FPS, NUM_CAMERAS,
                         TechNode)
 from .workloads import NNWorkload
@@ -927,362 +929,368 @@ def stream_grid(cuts: Optional[Iterable[int]] = None,
     n_steps = math.ceil(span / per_step)
     prefetch = max(0, int(prefetch))
 
-    t0 = time.perf_counter()
-    policy = retry_policy if retry_policy is not None else RetryPolicy()
-    counters = {
-        "retries": 0.0, "restarts": 0.0, "resumed_from_step": 0.0,
-        "checkpoint_write_s": 0.0, "checkpoints_written": 0.0,
-        "chunks_reissued": 0.0, "elastic_replans": 0.0,
-        "stragglers": 0.0, "step_timeouts": 0.0,
-    }
-    axvals = SW.axes_to_device(plan.axis_vals, dev)
-    # Probe, fallback and chunk step share one backend (and so, on the
-    # card, one compiled eval_config).  The dense evaluator runs every
-    # field, as the dense engine does.
-    dense_eval = B.cached_dense_eval(plan.backend, plan.S, plan.shape,
-                                     SW.kernel_fields(plan.S), dev)
-    seed_signed, hist_edges, axis_valid = _probe(
-        dense_eval, axvals, plan.shape, n_total, objectives, sign, cons,
-        plan.hist_bins, plan.hist_ranges, dev)
+    spent = dict.fromkeys(("total_s", "probe_s", "step_build_s",
+                           "step_builds", "dispatch_s", "device_wait_s",
+                           "host_merge_s", "fallback_s", "survivors"),
+                          0.0)
+    with _sweep("stream_grid", "total_s", spent) as whole:
+        t0 = whole.start
+        policy = retry_policy if retry_policy is not None else RetryPolicy()
+        counters = {
+            "retries": 0.0, "restarts": 0.0, "resumed_from_step": 0.0,
+            "checkpoint_write_s": 0.0, "checkpoints_written": 0.0,
+            "chunks_reissued": 0.0, "elastic_replans": 0.0,
+            "stragglers": 0.0, "step_timeouts": 0.0,
+        }
+        axvals = SW.axes_to_device(plan.axis_vals, dev)
+        # Probe, fallback and chunk step share one backend (and so, on the
+        # card, one compiled eval_config).  The dense evaluator runs every
+        # field, as the dense engine does.
+        dense_eval = B.cached_dense_eval(plan.backend, plan.S, plan.shape,
+                                         SW.kernel_fields(plan.S), dev)
+        with _span("stream.probe", "probe_s"):
+            seed_signed, hist_edges, axis_valid = _probe(
+                dense_eval, axvals, plan.shape, n_total, objectives, sign,
+                cons, plan.hist_bins, plan.hist_ranges, dev)
 
-    # The consistent snapshot every recovery pivots on: the host carry,
-    # the exact running front and the next flat-index cursor — every
-    # chunk below ``base`` is folded in, nothing above it is.
-    state = {"carry": B.init_carry(spec),
-             "front_vals": np.empty((0, d)),
-             "front_idx": np.empty((0,), np.int64),
-             "base": start0}
-    mgr = None
-    signature = ""
-    if checkpoint_dir is not None:
-        mgr = CheckpointManager(checkpoint_dir,
-                                keep=max(1, int(checkpoint_keep)))
-        # Ranged runs suffix the signature, so a range's checkpoint never
-        # restores into another range of the same job.
-        signature = (plan.signature if flat_range is None else
-                     f"{plan.signature}:r{start0}-{stop0}")
-        _resume_into(mgr, signature, state, counters, chunk)
+        # The consistent snapshot every recovery pivots on: the host carry,
+        # the exact running front and the next flat-index cursor — every
+        # chunk below ``base`` is folded in, nothing above it is.
+        state = {"carry": B.init_carry(spec),
+                 "front_vals": np.empty((0, d)),
+                 "front_idx": np.empty((0,), np.int64),
+                 "base": start0}
+        mgr = None
+        signature = ""
+        if checkpoint_dir is not None:
+            mgr = CheckpointManager(checkpoint_dir,
+                                    keep=max(1, int(checkpoint_keep)))
+            # Ranged runs suffix the signature, so a range's checkpoint never
+            # restores into another range of the same job.
+            signature = (plan.signature if flat_range is None else
+                         f"{plan.signature}:r{start0}-{stop0}")
+            _resume_into(mgr, signature, state, counters, chunk)
 
-    def write_checkpoint():
-        tw = time.perf_counter()
-        mgr.save(int(state["base"]),
-                 {"carry": state["carry"],
-                  "front_values": state["front_vals"],
-                  "front_indices": state["front_idx"]},
-                 metadata={"signature": signature,
-                           "next_flat": int(state["base"]),
-                           "counters": dict(counters),
-                           "format": B.CARRY_VERSION})
-        counters["checkpoint_write_s"] += time.perf_counter() - tw
-        counters["checkpoints_written"] += 1.0
+        def write_checkpoint():
+            # Into the counters a checkpoint keeps, so a resumed run goes
+            # on adding to them.
+            with _span("stream.checkpoint", "checkpoint_write_s", counters):
+                mgr.save(int(state["base"]),
+                         {"carry": state["carry"],
+                          "front_values": state["front_vals"],
+                          "front_indices": state["front_idx"]},
+                         metadata={"signature": signature,
+                                   "next_flat": int(state["base"]),
+                                   "counters": dict(counters),
+                                   "format": B.CARRY_VERSION})
+            counters["checkpoints_written"] += 1.0
 
-    # Pre-cull the probe seed toward its near-front subset: the filter
-    # build draws quantile bins and spread rows from the rows it is
-    # given, and a mostly-dominated cloud drags both toward the data
-    # mass instead of the front envelope.  Culling here is exact.
-    if seed_signed.shape[0] > 4 * _FILTER_ROWS:
-        f0 = P.build_dominance_filter(seed_signed, d, _FILTER_ROWS,
-                                      _FILTER_BINS)
-        seed_signed = seed_signed[P.dominance_filter_mask(
-            f0, np.ascontiguousarray(seed_signed.T), xp=np)]
-    cons_np = np.asarray([v for _, _, v in cons], np.float64)
-    t_host = t_wait = t_dispatch = t_fallback = 0.0
-    t_first = None
-    n_fallback = 0
-    n_replays = 0
-    detector = StragglerDetector(policy.straggler_factor,
-                                 policy.straggler_window)
-    dispatched_flat = state["base"]     # dispatch high-water mark
-    # Cooperative halt: set when should_stop fires before a dispatch;
-    # the incarnation then folds exactly the dispatches already issued.
-    ctl = {"halted": False}
-    snap_t = {"last": time.perf_counter()}
+        # Pre-cull the probe seed toward its near-front subset: the filter
+        # build draws quantile bins and spread rows from the rows it is
+        # given, and a mostly-dominated cloud drags both toward the data
+        # mass instead of the front envelope.  Culling here is exact.
+        if seed_signed.shape[0] > 4 * _FILTER_ROWS:
+            f0 = P.build_dominance_filter(seed_signed, d, _FILTER_ROWS,
+                                          _FILTER_BINS)
+            seed_signed = seed_signed[P.dominance_filter_mask(
+                f0, np.ascontiguousarray(seed_signed.T), xp=np)]
+        cons_np = np.asarray([v for _, _, v in cons], np.float64)
+        t_first = None
+        n_fallback = 0
+        n_replays = 0
+        detector = StragglerDetector(policy.straggler_factor,
+                                     policy.straggler_window)
+        dispatched_flat = state["base"]     # dispatch high-water mark
+        # Cooperative halt: set when should_stop fires before a dispatch;
+        # the incarnation then folds exactly the dispatches already issued.
+        ctl = {"halted": False}
+        snap_t = {"last": time.perf_counter()}
 
-    def drive():
-        # One incarnation of the pipeline: load the snapshot into the
-        # step of the current shard list (the merged carry on shard 0),
-        # run every remaining dispatch, then advance the snapshot to
-        # completion (or to the halt).  Raises on device loss or spent
-        # retries; the loop below decides whether to replan or restart.
-        nonlocal t_first, t_wait, t_host, t_dispatch, t_fallback
-        nonlocal n_fallback, dispatched_flat, n_replays
-        base = state["base"]
-        if base >= stop0:           # resumed from a finished run
-            return
-        n_shards = len(dev_list)
-        per_step = chunk * scan * n_shards
-        n_sub = n_shards * scan     # chunks folded a dispatch
-        n_run = -(-(stop0 - base) // per_step)
-        step = B.cached_step(spec, plan.backend, scan, dev_list[0],
-                             dev_list if n_shards > 1 else None)
-        replays0 = step.replays
-        fetch = _Fetch(max(1, prefetch), dev)
-        try:
-            step.load(carry=state["carry"], axvals=plan.axis_vals,
-                      cons=cons_np if cons else None,
-                      hist_edges=hist_edges if plan.hist_bins else None)
-            front_vals = state["front_vals"].copy()
-            front_idx = state["front_idx"].copy()
-            buf_vals: list = []             # pending front candidates
-            buf_idx: list = []
-            buf_n = 0
-            filt_np: dict = {}              # host mirror of the filter
-            last_ckpt = time.perf_counter()
+        def drive():
+            # One incarnation of the pipeline: load the snapshot into the
+            # step of the current shard list (the merged carry on shard 0),
+            # run every remaining dispatch, then advance the snapshot to
+            # completion (or to the halt).  Raises on device loss or spent
+            # retries; the loop below decides whether to replan or restart.
+            nonlocal t_first, n_fallback, dispatched_flat, n_replays
+            base = state["base"]
+            if base >= stop0:           # resumed from a finished run
+                return
+            n_shards = len(dev_list)
+            per_step = chunk * scan * n_shards
+            n_sub = n_shards * scan     # chunks folded a dispatch
+            n_run = -(-(stop0 - base) // per_step)
+            step = B.cached_step(spec, plan.backend, scan, dev_list[0],
+                                 dev_list if n_shards > 1 else None)
+            replays0 = step.replays
+            fetch = _Fetch(max(1, prefetch), dev)
+            try:
+                step.load(carry=state["carry"], axvals=plan.axis_vals,
+                          cons=cons_np if cons else None,
+                          hist_edges=hist_edges if plan.hist_bins else None)
+                front_vals = state["front_vals"].copy()
+                front_idx = state["front_idx"].copy()
+                buf_vals: list = []             # pending front candidates
+                buf_idx: list = []
+                buf_n = 0
+                filt_np: dict = {}              # host mirror of the filter
+                last_ckpt = time.perf_counter()
 
-            def rebuild_filter():
-                nonlocal filt_np
-                base_sg = (np.concatenate([front_vals * sign, seed_signed])
-                           if seed_signed.size else front_vals * sign)
-                filt_np = P.build_dominance_filter(base_sg, d, _FILTER_ROWS,
-                                                   _FILTER_BINS)
-                step.load(filt=filt_np)
+                def rebuild_filter():
+                    nonlocal filt_np
+                    base_sg = (np.concatenate([front_vals * sign,
+                                               seed_signed])
+                               if seed_signed.size else front_vals * sign)
+                    filt_np = P.build_dominance_filter(
+                        base_sg, d, _FILTER_ROWS, _FILTER_BINS)
+                    step.load(filt=filt_np)
 
-            def merge(final=False):
-                # Fold the candidate buffer into the running exact front;
-                # on the card this overlaps the dispatches in flight.
-                nonlocal front_vals, front_idx, buf_vals, buf_idx, buf_n
-                if buf_n:
-                    cat_v = np.concatenate(buf_vals)
-                    cat_i = np.concatenate(buf_idx)
-                    cat_sg = cat_v * sign
-                    base_sg = np.concatenate([front_vals * sign, cat_sg,
-                                              seed_signed])
-                    f = P.build_dominance_filter(base_sg, d, _FILTER_ROWS,
-                                                 _FILTER_BINS)
-                    keep = P.dominance_filter_mask(
-                        f, np.ascontiguousarray(cat_sg.T), xp=np)
-                    front_vals, front_idx = _merge_into_front(
-                        front_vals, front_idx, cat_v[keep], cat_i[keep],
-                        sign)
-                    buf_vals, buf_idx, buf_n = [], [], 0
-                if not final:
-                    rebuild_filter()
+                def merge(final=False):
+                    # Fold the candidate buffer into the running exact front;
+                    # on the card this overlaps the dispatches in flight.
+                    nonlocal front_vals, front_idx, buf_vals, buf_idx, buf_n
+                    with _span("stream.merge"):
+                        if buf_n:
+                            cat_v = np.concatenate(buf_vals)
+                            cat_i = np.concatenate(buf_idx)
+                            cat_sg = cat_v * sign
+                            base_sg = np.concatenate(
+                                [front_vals * sign, cat_sg, seed_signed])
+                            f = P.build_dominance_filter(
+                                base_sg, d, _FILTER_ROWS, _FILTER_BINS)
+                            keep = P.dominance_filter_mask(
+                                f, np.ascontiguousarray(cat_sg.T), xp=np)
+                            front_vals, front_idx = _merge_into_front(
+                                front_vals, front_idx, cat_v[keep],
+                                cat_i[keep], sign)
+                            buf_vals, buf_idx, buf_n = [], [], 0
+                        if not final:
+                            rebuild_filter()
 
-            def host_chunk_survivors(dstart, vlen):
-                # Survivor-capacity overflow: re-derive this chunk's
-                # survivors exactly through the dense evaluator (the
-                # chunk step's backend), with the same constraint mask
-                # and (host-mirror) pre-filter.
-                flat = np.arange(dstart, dstart + vlen, dtype=np.int64)
-                out = dense_eval(axvals, torch.as_tensor(flat, device=dev))
-                out = {f: v.cpu().numpy() for f, v in out.items()}
-                O = np.stack([out[f] for f in objectives])
-                feas = np.ones(vlen, bool)
-                with np.errstate(invalid="ignore"):
-                    for f, op, v in cons:
-                        feas &= SW.CONSTRAINT_OPS[op](out[f], v)
-                Osg = np.where(feas[None, :], O * sign[:, None], np.inf)
-                keep = P.dominance_filter_mask(filt_np, Osg, xp=np)
-                loc = np.flatnonzero(keep)
-                return flat[loc], O[:, loc].T
+                def host_chunk_survivors(dstart, vlen):
+                    # Survivor-capacity overflow: re-derive this chunk's
+                    # survivors exactly through the dense evaluator (the
+                    # chunk step's backend), with the same constraint mask
+                    # and (host-mirror) pre-filter.
+                    flat = np.arange(dstart, dstart + vlen, dtype=np.int64)
+                    out = dense_eval(axvals, torch.as_tensor(flat, device=dev))
+                    out = {f: v.cpu().numpy() for f, v in out.items()}
+                    O = np.stack([out[f] for f in objectives])
+                    feas = np.ones(vlen, bool)
+                    with np.errstate(invalid="ignore"):
+                        for f, op, v in cons:
+                            feas &= SW.CONSTRAINT_OPS[op](out[f], v)
+                    Osg = np.where(feas[None, :], O * sign[:, None], np.inf)
+                    keep = P.dominance_filter_mask(filt_np, Osg, xp=np)
+                    loc = np.flatnonzero(keep)
+                    return flat[loc], O[:, loc].T
 
-            def maybe_snapshot(covered):
-                # A consistent progress snapshot over the folded prefix
-                # [start0, covered), if the cadence allows one.
-                if (on_snapshot is not None
-                        and time.perf_counter() - snap_t["last"]
-                        >= snapshot_every_s):
-                    merge()
-                    snap_t["last"] = time.perf_counter()
-                    on_snapshot(_progress_snapshot(
-                        covered - start0, span, front_vals, front_idx,
-                        objectives, sign))
-
-            def process(start, surv, defer_snap):
-                # One dispatch's survivors, chunk by chunk in ascending
-                # order (shard-major, scan-minor: shard d holds the scan
-                # chunks from start + d * scan * chunk).  ``defer_snap``:
-                # a checkpoint is due at this step, and its snapshot
-                # waits until it is on disk.
-                nonlocal buf_n, t_host, t_first, n_fallback, t_fallback
-                th = time.perf_counter()
-                flat_s, val_s, cnt_s = surv
-                for j in range(n_sub):
-                    dstart = start + chunk * j
-                    vlen = min(chunk, n_total - dstart)
-                    if vlen <= 0:
-                        break
-                    cnt = int(cnt_s[j])
-                    if cnt > cap:
-                        n_fallback += 1
-                        tf = time.perf_counter()
-                        fl, vv = host_chunk_survivors(dstart, vlen)
-                        t_fallback += time.perf_counter() - tf
-                    else:
-                        # copies: the fetch's buffers are reused
-                        fl = np.array(flat_s[j, :cnt], np.int64)
-                        vv = np.array(val_s[j, :cnt], np.float64)
-                    if len(fl):
-                        buf_idx.append(fl)
-                        buf_vals.append(vv)
-                        buf_n += len(fl)
-                if buf_n >= _MERGE_EVERY:
-                    merge()
-                if not defer_snap:
-                    maybe_snapshot(min(start + per_step, stop0))
-                if t_first is None:
-                    t_first = time.perf_counter() - t0
-                t_host += time.perf_counter() - th
-
-            def dispatch(si):
-                # Injector hook + bounded in-place retry + the dispatch;
-                # returns the step's survivors.  A TransientDeviceError
-                # fires before the step touched the carry, so running it
-                # again in place is safe.
-                nonlocal t_dispatch, dispatched_flat
-                start = base + si * per_step
-                dispatched_flat = max(dispatched_flat,
-                                      min(start + per_step, stop0))
-                tstep = time.perf_counter()
-                if fault_injector is not None:
-                    backoff = policy.backoff_s
-                    for attempt in range(policy.max_retries + 1):
-                        try:
-                            fault_injector(start // chunk, start)
-                            break
-                        except TransientDeviceError:
-                            counters["retries"] += 1.0
-                            if attempt >= policy.max_retries:
-                                raise
-                            time.sleep(backoff)
-                            backoff = min(backoff * 2.0,
-                                          policy.backoff_max_s)
-                td = time.perf_counter()
-                out = step(start)
-                t_dispatch += time.perf_counter() - td
-                dur = time.perf_counter() - tstep
-                if detector.record(dur):
-                    counters["stragglers"] += 1.0
-                if (policy.step_timeout_s is not None
-                        and dur > policy.step_timeout_s):
-                    counters["step_timeouts"] += 1.0
-                return out if isinstance(out, list) else [out]
-
-            def ckpt_due(si):
-                # Snapshot cadence, decided at dispatch; the last step
-                # never snapshots here (completion writes the terminal
-                # checkpoint).
-                nonlocal last_ckpt
-                if mgr is None or si + 1 >= n_run:
-                    return False
-                if checkpoint_every_steps is not None:
-                    due = ((si + 1) % max(1, int(checkpoint_every_steps))
-                           == 0)
-                else:
-                    due = (time.perf_counter() - last_ckpt
-                           >= checkpoint_every_s)
-                if due:
-                    last_ckpt = time.perf_counter()
-                return due
-
-            merged_first = False
-
-            def consume():
-                # Wait for the oldest dispatch's survivors and fold them;
-                # chunk 0's reach the filter before chunk 1 is issued.
-                nonlocal t_wait, merged_first
-                tw = time.perf_counter()
-                (start, due), surv = fetch.get()
-                t_wait += time.perf_counter() - tw
-                process(start, surv, due)
-                if not merged_first:
-                    merged_first = True
-                    if n_run > 1:
+                def maybe_snapshot(covered):
+                    # A consistent progress snapshot over the folded prefix
+                    # [start0, covered), if the cadence allows one.
+                    if (on_snapshot is not None
+                            and time.perf_counter() - snap_t["last"]
+                            >= snapshot_every_s):
                         merge()
+                        snap_t["last"] = time.perf_counter()
+                        on_snapshot(_progress_snapshot(
+                            covered - start0, span, front_vals, front_idx,
+                            objectives, sign))
 
-            def issue(si):
-                nonlocal t_dispatch
-                surv = dispatch(si)
-                due = ckpt_due(si)
-                td = time.perf_counter()
-                fetch.put((base + si * per_step, due), surv)
-                t_dispatch += time.perf_counter() - td
-                if due:
-                    # Durability barrier: snapshot the carry right after
-                    # step si, fold every survivor up to si, write the
-                    # checkpoint, and only then dispatch further.
-                    carry_si = step.carry_to_host()
-                    while len(fetch):
-                        consume()
-                    merge()
-                    state["carry"] = carry_si
-                    state["front_vals"] = front_vals.copy()
-                    state["front_idx"] = front_idx.copy()
-                    state["base"] = min(base + (si + 1) * per_step, stop0)
-                    write_checkpoint()
-                    maybe_snapshot(state["base"])
-                if on_progress is not None:
-                    on_progress(min(1.0, (dispatched_flat - start0) / span))
+                def process(start, surv, defer_snap):
+                    # One dispatch's survivors, chunk by chunk in ascending
+                    # order (shard-major, scan-minor: shard d holds the scan
+                    # chunks from start + d * scan * chunk).  ``defer_snap``:
+                    # a checkpoint is due at this step, and its snapshot
+                    # waits until it is on disk.
+                    nonlocal buf_n, t_first, n_fallback
+                    with _span("stream.host", "host_merge_s"):
+                        flat_s, val_s, cnt_s = surv
+                        for j in range(n_sub):
+                            dstart = start + chunk * j
+                            vlen = min(chunk, n_total - dstart)
+                            if vlen <= 0:
+                                break
+                            cnt = int(cnt_s[j])
+                            if cnt > cap:
+                                n_fallback += 1
+                                with _span("stream.fallback", "fallback_s"):
+                                    fl, vv = host_chunk_survivors(dstart,
+                                                                  vlen)
+                            else:
+                                # copies: the fetch's buffers are reused
+                                fl = np.array(flat_s[j, :cnt], np.int64)
+                                vv = np.array(val_s[j, :cnt], np.float64)
+                            if len(fl):
+                                buf_idx.append(fl)
+                                buf_vals.append(vv)
+                                buf_n += len(fl)
+                                spent["survivors"] += len(fl)
+                        if buf_n >= _MERGE_EVERY:
+                            merge()
+                        if not defer_snap:
+                            maybe_snapshot(min(start + per_step, stop0))
+                        if t_first is None:
+                            t_first = time.perf_counter() - t0
 
-            rebuild_filter()                # front/seed filter
-            depth = max(1, prefetch)
-            si = 0
-            while True:
-                while (si < n_run and not ctl["halted"]
-                       and len(fetch) < depth
-                       and (si == 0 or merged_first)):
-                    if should_stop is not None and should_stop():
-                        ctl["halted"] = True
+                def dispatch(si):
+                    # Injector hook + bounded in-place retry + the dispatch;
+                    # returns the step's survivors.  A TransientDeviceError
+                    # fires before the step touched the carry, so running it
+                    # again in place is safe.
+                    nonlocal dispatched_flat
+                    start = base + si * per_step
+                    dispatched_flat = max(dispatched_flat,
+                                          min(start + per_step, stop0))
+                    tstep = time.perf_counter()
+                    if fault_injector is not None:
+                        backoff = policy.backoff_s
+                        for attempt in range(policy.max_retries + 1):
+                            try:
+                                fault_injector(start // chunk, start)
+                                break
+                            except TransientDeviceError:
+                                counters["retries"] += 1.0
+                                if attempt >= policy.max_retries:
+                                    raise
+                                time.sleep(backoff)
+                                backoff = min(backoff * 2.0,
+                                              policy.backoff_max_s)
+                    with _span("stream.dispatch", "dispatch_s"):
+                        out = step(start)
+                    dur = time.perf_counter() - tstep
+                    if detector.record(dur):
+                        counters["stragglers"] += 1.0
+                    if (policy.step_timeout_s is not None
+                            and dur > policy.step_timeout_s):
+                        counters["step_timeouts"] += 1.0
+                    return out if isinstance(out, list) else [out]
+
+                def ckpt_due(si):
+                    # Snapshot cadence, decided at dispatch; the last step
+                    # never snapshots here (completion writes the terminal
+                    # checkpoint).
+                    nonlocal last_ckpt
+                    if mgr is None or si + 1 >= n_run:
+                        return False
+                    if checkpoint_every_steps is not None:
+                        due = ((si + 1) % max(1, int(checkpoint_every_steps))
+                               == 0)
+                    else:
+                        due = (time.perf_counter() - last_ckpt
+                               >= checkpoint_every_s)
+                    if due:
+                        last_ckpt = time.perf_counter()
+                    return due
+
+                merged_first = False
+
+                def consume():
+                    # Wait for the oldest dispatch's survivors and fold them;
+                    # chunk 0's reach the filter before chunk 1 is issued.
+                    nonlocal merged_first
+                    with _span("stream.wait", "device_wait_s"):
+                        (start, due), surv = fetch.get()
+                    process(start, surv, due)
+                    if not merged_first:
+                        merged_first = True
+                        if n_run > 1:
+                            merge()
+
+                def issue(si):
+                    surv = dispatch(si)
+                    due = ckpt_due(si)
+                    with _span("stream.dispatch", "dispatch_s"):
+                        fetch.put((base + si * per_step, due), surv)
+                    if due:
+                        # Durability barrier: snapshot the carry right after
+                        # step si, fold every survivor up to si, write the
+                        # checkpoint, and only then dispatch further.
+                        carry_si = step.carry_to_host()
+                        while len(fetch):
+                            consume()
+                        merge()
+                        state["carry"] = carry_si
+                        state["front_vals"] = front_vals.copy()
+                        state["front_idx"] = front_idx.copy()
+                        state["base"] = min(base + (si + 1) * per_step,
+                                            stop0)
+                        write_checkpoint()
+                        maybe_snapshot(state["base"])
+                    if on_progress is not None:
+                        on_progress(min(1.0,
+                                        (dispatched_flat - start0) / span))
+
+                rebuild_filter()                # front/seed filter
+                depth = max(1, prefetch)
+                si = 0
+                while True:
+                    while (si < n_run and not ctl["halted"]
+                           and len(fetch) < depth
+                           and (si == 0 or merged_first)):
+                        if should_stop is not None and should_stop():
+                            ctl["halted"] = True
+                            break
+                        issue(si)
+                        si += 1
+                    if not len(fetch):
                         break
-                    issue(si)
-                    si += 1
-                if not len(fetch):
-                    break
-                consume()
-            merge(final=True)
-            state["carry"] = step.carry_to_host()
-            state["front_vals"] = front_vals
-            state["front_idx"] = front_idx
-            # A halt finalizes at the dispatch high-water mark: every
-            # chunk below it was issued and folded, so the snapshot is
-            # the exact contiguous prefix.
-            state["base"] = (min(dispatched_flat, stop0)
-                             if ctl["halted"] else stop0)
-        finally:
-            fetch.close()
-            n_replays += step.replays - replays0
-            step.busy = False
+                    consume()
+                merge(final=True)
+                state["carry"] = step.carry_to_host()
+                state["front_vals"] = front_vals
+                state["front_idx"] = front_idx
+                # A halt finalizes at the dispatch high-water mark: every
+                # chunk below it was issued and folded, so the snapshot is
+                # the exact contiguous prefix.
+                state["base"] = (min(dispatched_flat, stop0)
+                                 if ctl["halted"] else stop0)
+            finally:
+                fetch.close()
+                n_replays += step.replays - replays0
+                step.busy = False
 
-    def reissue_count():
-        # Chunks dispatched past the snapshot when an incarnation died:
-        # the ranges the next one issues again.
-        nonlocal dispatched_flat
-        n = max(0, -(-(dispatched_flat - state["base"]) // chunk))
-        dispatched_flat = state["base"]
-        return float(n)
+        def reissue_count():
+            # Chunks dispatched past the snapshot when an incarnation died:
+            # the ranges the next one issues again.
+            nonlocal dispatched_flat
+            n = max(0, -(-(dispatched_flat - state["base"]) // chunk))
+            dispatched_flat = state["base"]
+            return float(n)
 
-    restarts_left = policy.max_restarts
-    while True:
-        try:
-            drive()
-            break
-        except DeviceLostError as e:
-            counters["chunks_reissued"] += reissue_count()
-            if len(dev_list) > 1:
-                # Elastic replan: drop the lost shard and re-issue the
-                # chunks past the snapshot on the survivors.
-                counters["elastic_replans"] += 1.0
-                dev_list = list(drop_worker(dev_list, e.device_index))
-            elif restarts_left > 0:
-                # The last shard "died": restart it from the snapshot.
+        restarts_left = policy.max_restarts
+        while True:
+            try:
+                drive()
+                break
+            except DeviceLostError as e:
+                counters["chunks_reissued"] += reissue_count()
+                if len(dev_list) > 1:
+                    # Elastic replan: drop the lost shard and re-issue the
+                    # chunks past the snapshot on the survivors.
+                    counters["elastic_replans"] += 1.0
+                    dev_list = list(drop_worker(dev_list, e.device_index))
+                elif restarts_left > 0:
+                    # The last shard "died": restart it from the snapshot.
+                    restarts_left -= 1
+                    counters["restarts"] += 1.0
+                else:
+                    raise
+            except _RESTARTABLE:
+                # In-place retries spent: restart from the last snapshot.
+                counters["chunks_reissued"] += reissue_count()
+                if restarts_left <= 0:
+                    raise
                 restarts_left -= 1
                 counters["restarts"] += 1.0
-            else:
-                raise
-        except _RESTARTABLE:
-            # In-place retries spent: restart from the last snapshot.
-            counters["chunks_reissued"] += reissue_count()
-            if restarts_left <= 0:
-                raise
-            restarts_left -= 1
-            counters["restarts"] += 1.0
-            time.sleep(min(policy.backoff_s * (2.0 ** counters["restarts"]),
-                           policy.backoff_max_s))
-    # Terminal snapshot: resume == done (or, after a halt, resume ==
-    # continue from the stop).
-    if mgr is not None and mgr.latest_step() != state["base"]:
-        write_checkpoint()
-    total_s = time.perf_counter() - t0
+                time.sleep(min(policy.backoff_s
+                               * (2.0 ** counters["restarts"]),
+                               policy.backoff_max_s))
+        # Terminal snapshot: resume == done (or, after a halt, resume ==
+        # continue from the stop).
+        if mgr is not None and mgr.latest_step() != state["base"]:
+            write_checkpoint()
+    total_s = spent["total_s"]
 
     # Deliverables come straight off the committed snapshot — the arrays
     # a checkpoint persists — so a resumed run and an uninterrupted one
@@ -1304,22 +1312,29 @@ def stream_grid(cuts: Optional[Iterable[int]] = None,
             (span - min(per_step, span))
             / max(total_s - (t_first or 0.0), 1e-9)
             if n_steps > 1 else span / max(total_s, 1e-9)),
-        # host_merge_s: exact front merges, buffering and overflow
-        # fallbacks on the host (fallback_s of it: re-deriving the
-        # survivors of chunks that overflowed); device_wait_s: blocked
-        # on a dispatch's
-        # survivors (device work not hidden behind the host, plus the
-        # copy); dispatch_s: issuing the steps (on the card host time:
-        # writing the start, replaying the graph, queueing the copies).
-        "host_merge_s": t_host,
-        "device_wait_s": t_wait,
-        "dispatch_s": t_dispatch,
         "steps_per_s": n_steps / total_s if total_s else float("inf"),
         "scan_chunks": float(scan),
         "prefetch": float(prefetch),
         "graph_replays": float(n_replays),
         "fallback_chunks": float(n_fallback),
-        "fallback_s": t_fallback,
+        # This call's spans (each also a host range, under this call's
+        # ``stream_grid`` range in a profiler's trace) and counters.
+        # host_merge_s: handling a dispatch's survivors on the host
+        # (``process``): buffering them, the overflow fallbacks
+        # (fallback_s of it: re-deriving the survivors of chunks that
+        # overflowed), and the merges and progress snapshots that
+        # handling triggers; not the first filter build, the first-chunk
+        # merge, a checkpoint barrier's merges nor the final merge (each
+        # merge is a ``stream.merge`` range).  device_wait_s: blocked on
+        # a dispatch's survivors (device work not hidden behind the
+        # host, plus the copy).  dispatch_s: issuing the steps (on the
+        # card host time: writing the start, replaying the graph,
+        # queueing the copies).  probe_s: the strided probe.
+        # step_build_s, step_builds: chunk steps built (on the card with
+        # their warm-up and graph capture), not found in the step cache.
+        # survivors: candidate rows that reached the host buffer (the
+        # steps' compacted survivors and the rows fallbacks re-derived).
+        **spent,
         **counters,
     }
     # Entries past the feasible count keep the +inf sentinel value —
@@ -1448,7 +1463,8 @@ def merge_results(parts: Sequence[StreamResult]) -> StreamResult:
               "checkpoint_write_s", "chunks_reissued", "elastic_replans",
               "stragglers", "step_timeouts", "fallback_chunks",
               "n_chunks", "host_merge_s", "device_wait_s", "dispatch_s",
-              "fallback_s")
+              "fallback_s", "probe_s", "step_build_s", "step_builds",
+              "survivors")
     total_s = max(float(r.stats.get("total_s", 0.0)) for r in parts)
     stats = {
         "n_configs": float(n_total),
