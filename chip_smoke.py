@@ -799,9 +799,164 @@ def sample_front(T, shape, axvals, objectives, sign, dev) -> np.ndarray:
     return V[P.non_dominated_mask(V)]
 
 
+def carry_bits_equal(got: dict, want: dict) -> list:
+    """The carry keys where ``got`` and ``want`` differ in a bit."""
+    return [k for k in want if not bitwise_equal(got[k].cpu().numpy(),
+                                                 want[k].cpu().numpy())]
+
+
+def check_fold(spec, aux, chunks, dev, what: str, carry=None) -> int:
+    """Kernel F against ``fold_chunk`` (its plain version) on the card,
+    bit for bit: the chunks ``(start, partials)`` folded in turn from
+    ``carry`` (a host carry; default a fresh one), the carry after each
+    and each chunk's survivors (count, and the first min(count, cap)
+    rows); once from a host start, once from a device base and an offset
+    into the second of two rows.  Returns the chunks checked."""
+    import torch
+
+    from repro_torch.core import backend as B
+    from repro_torch.kernels import sweep_grid as K
+
+    want = B.carry_to_device(B.init_carry(spec) if carry is None else carry,
+                             dev)
+    host, based = ({k: v.clone() for k, v in want.items()}
+                   for _ in range(2))
+    for start, partials in chunks:
+        want, (w_flat, w_vals, w_count) = K.fold_chunk_ref(
+            spec, want, partials, aux, start)
+        out = K.sweep_grid_fold(spec, host, partials, aux, start)
+        base = torch.tensor(start - spec.chunk, dtype=torch.int64,
+                            device=dev)
+        out_b = K.sweep_grid_fold(spec, based, partials, aux, spec.chunk,
+                                  base, K.kernel.survivor_rows(spec, 2, dev),
+                                  1)
+        sync(dev)
+        n = min(int(w_count), spec.survivor_cap)
+        for label, carry, (flat, vals, count), row in (
+                ("host start", host, out, 0), ("device base", based, out_b,
+                                               1)):
+            bad = carry_bits_equal(carry, want)
+            check(not bad, f"kernel F {what} at {start} ({label}): carry "
+                  f"{bad} differ from fold_chunk's")
+            check(int(count[row]) == int(w_count)
+                  and torch.equal(flat[row, :n], w_flat[:n])
+                  and bitwise_equal(vals[row, :n].cpu().numpy(),
+                                    w_vals[:n].cpu().numpy()),
+                  f"kernel F {what} at {start} ({label}): survivors differ "
+                  f"from fold_chunk's (count {int(count[row])} vs "
+                  f"{int(w_count)})")
+    return len(chunks)
+
+
+def fold_cases(dev, grid_big) -> int:
+    """Kernel F bit for bit against ``fold_chunk`` (:func:`check_fold`)
+    on partials built to break it, kernel A's unless said: the 10M
+    anchor grid's chunks that hold ANCHOR_10M's top-k (tied consecutive
+    indices: mipi_bytes_per_s's top four tie, so do many of its block
+    minima), at k = 1, 4 and the bound; the stream's argmin at the same
+    k, through chunks in the grid, past its end in part and whole; an
+    all-invalid chunk (a constraint nothing meets); a chunk whose
+    survivors overflow a cap of 16 (an empty front keeps every valid
+    lane); d = 1, 2, 3 with histograms (maximize and constraints at 3);
+    partials rounded to 1e-2 so that block minima and lanes tie across
+    blocks; and a carry whose top-k is out of order (a loaded one),
+    folded with a chunk past the grid's end (no lane enters) and one in
+    it.  Returns the chunks checked."""
+    import torch
+
+    from repro_torch.core import backend as B
+    from repro_torch.core import stream as ST
+    from repro_torch.core import sweep as SW
+    from repro_torch.core.grids import ANCHOR_10M, stream_grid_axes
+    from repro_torch.kernels import sweep_grid as K
+
+    def rounded(p):
+        q = dict(p)
+        fin = torch.isfinite(p["Fsg"])
+        q["Fsg"] = torch.where(fin, torch.round(p["Fsg"] * 1e2) / 1e2,
+                               p["Fsg"])
+        q["sgmin"] = q["Fsg"].reshape(*p["sgmin"].shape, -1).amin(dim=2)
+        return q
+
+    chunk = 131072
+    g10 = stream_grid_axes(10_000_000)
+    n10 = ANCHOR_10M["n_configs"]
+    tied = sorted({i // chunk * chunk for row in ANCHOR_10M["topk_idx"]
+                   for i in row})
+    n = ST.plan_stream(**grid_big, device=dev).n_total
+    argmin = dict(objectives=("avg_power",),
+                  track=("latency", "mipi_bytes_per_s"))
+    edge_starts = [0, chunk * 300, n - chunk + 5000, n + 1000]
+    hist = lambda objs: dict(hist_bins=16, hist_ranges={  # noqa: E731
+        o: (0.0, 0.05) for o in objs})
+    cases = []
+    for k in (1, 4, K.kernel.FOLD_MAX_K):
+        cases += [(f"anchor ties k={k}", g10, dict(top_k=k), tied, None),
+                  (f"argmin k={k}", grid_big, dict(argmin, top_k=k),
+                   edge_starts, None)]
+    cases += [
+        ("all invalid", grid_big, dict(argmin, constraints={
+            "avg_power": 0.0}), [chunk * 100], None),
+        ("overflow", grid_big, argmin, [chunk * 50, chunk * 51], "empty"),
+        ("d=1 hist", grid_big, dict(argmin, **hist(("avg_power",))),
+         edge_starts, None),
+        ("d=2 hist", g10, dict(objectives=("avg_power", "latency"),
+                               **hist(("avg_power", "latency"))),
+         tied, None),
+        ("d=3 hist max cons", grid_big, dict(
+            objectives=("avg_power", "latency", "sensor_macs_per_s"),
+            maximize=("sensor_macs_per_s",),
+            constraints={"mipi_bytes_per_s": 3.0e5},
+            hist_bins=16, hist_ranges={"avg_power": (0.0, 0.05),
+                                       "latency": (0.0, 0.06),
+                                       "sensor_macs_per_s": (-1e9, 0.0)}),
+         edge_starts, None),
+        ("rounded ties k=4", grid_big, dict(argmin, top_k=4),
+         edge_starts[:3], "rounded"),
+        ("rounded ties d=3 k=64", g10, dict(top_k=K.kernel.FOLD_MAX_K),
+         tied, "rounded"),
+        ("unsorted carry", grid_big, dict(argmin, top_k=4), [n + 1000, 0],
+         "unsorted"),
+    ]
+    checked = 0
+    for what, grid, kw, starts, alter in cases:
+        plan = ST.plan_stream(**grid, **kw, chunk_size=chunk, device=dev)
+        spec, cons = plan.spec, plan.cons
+        if alter == "empty":
+            spec = dataclasses.replace(spec, survivor_cap=16)
+        T = B.device_tables(spec.S, dev)
+        axvals = SW.axes_to_device(plan.axis_vals, dev)
+        front = (np.empty((0, spec.d)) if alter == "empty" else sample_front(
+            T, plan.shape, axvals, spec.fields[:spec.d],
+            np.asarray(spec.sign), dev))
+        aux = make_aux(spec, cons, front, dev)
+        if spec.hist_bins:
+            aux["hist_edges"] = torch.tensor(np.stack([
+                np.linspace(*map(float, kw["hist_ranges"][o]),
+                            spec.hist_bins + 1)
+                for o in plan.objectives]), dtype=torch.float64,
+                device=dev)
+        chunks = []
+        for start in starts:
+            p = K.sweep_grid_chunk(spec, T, axvals, aux, start)
+            chunks.append((start, rounded(p) if alter == "rounded" else p))
+        carry = None
+        if alter == "unsorted":
+            carry = B.init_carry(spec)
+            carry["topk_val"][0] = [0.05, 0.04, 0.03, 0.02]
+            carry["topk_idx"][0] = [7, 5, 3, 1]
+        checked += check_fold(spec, aux, chunks, dev, what, carry)
+        counts = [int(p["keep"].sum()) for _, p in chunks]
+        print(f"kernel F {what} (d={spec.d} k={spec.k} cap="
+              f"{spec.survivor_cap} bins={spec.hist_bins}): "
+              f"{len(chunks)} chunks bitwise, kept {counts}")
+    return checked
+
+
 def phase_kernels(dev, grid_big, grid_ref) -> dict:
-    """Kernels A and B against their plain versions; returns the largest
-    absolute difference seen per kernel."""
+    """Kernels A, B and F against their plain versions; returns the
+    largest absolute difference seen per kernel (F's is 0.0: it is held
+    bit for bit)."""
     import torch
 
     from repro_torch.core import backend as B
@@ -851,6 +1006,10 @@ def phase_kernels(dev, grid_big, grid_ref) -> dict:
         err["A"] = max(err["A"], e)
         print(f"kernel A chunk={spec.chunk} d={spec.d} "
               f"cons={len(cons)} sign={spec.sign}: max_abs_err={e!r}")
+
+    err["F"] = 0.0
+    print(f"kernel F: {fold_cases(dev, grid_big)} chunks bitwise equal to "
+          f"fold_chunk")
 
     # Kernel B: all of the reference grid, 10^6 strided indices of the
     # big one, and on a grid past 2^31 configurations (its 64-bit decode)
@@ -1097,14 +1256,18 @@ def phase_stream(grid_big, grid_10m, anchor, dev) -> tuple:
     check(plan.scan == 8, f"auto scan fusion gave K = {plan.scan}, not 8")
     reset_counts()
     res = ST.stream_grid(plan=plan)
-    launches = read_counts()
+    launches = dict(read_counts(), F=fold_launches())
     replays = int(res.stats["graph_replays"])
     check(replays == res.stats["n_chunks"] > 0,
           f"stream: {replays} graph replays for {res.stats['n_chunks']} "
           f"dispatches")
-    check(launches["A"] == plan.scan * replays and launches["B"] > 0,
-          f"main path: launches {launches}, expected A = {plan.scan} x "
+    check(launches["A"] == launches["F"] == plan.scan * replays
+          and launches["B"] > 0,
+          f"main path: launches {launches}, expected A = F = {plan.scan} x "
           f"{replays} replays")
+    check(res.stats["fold_kernel_chunks"] == plan.scan * replays,
+          f"stream: fold_kernel_chunks {res.stats['fold_kernel_chunks']}, "
+          f"expected {plan.scan} x {replays} replays")
     print(f"stream {res.n_configs} configs via kernels (K {plan.scan}, "
           f"prefetch {res.stats['prefetch']:.0f}): "
           f"{res.stats['total_s']:.3f} s, {replays} replays, launches "
@@ -2205,6 +2368,8 @@ def kernel_report(res, launches, err, grid_big, dense, dev) -> list:
                      "library_ms": None,
                      "ms_method": times[key + "_method"],
                      "plain_ms_method": times[key + "_plain_method"]})
+    rows.append(fold_row(grid_big, launches, err, bound, usage, dev,
+                         times, host))
     rows[0].update(plan=dataclasses.asdict(plan_a), ptxas=usage_a,
                    filter_rows_scanned=scanned, filter_table_lanes=to_table,
                    graph_replays=int(res.stats["graph_replays"]),
@@ -2223,6 +2388,57 @@ def kernel_report(res, launches, err, grid_big, dense, dev) -> list:
         check(not u["stack_frame"], f"kernel B {name}: ptxas reports a "
               f"{u['stack_frame']}-byte stack frame")
     return rows, host
+
+
+def fold_row(grid_big, launches, err, bound, usage, dev, times: dict,
+             host: dict) -> dict:
+    """Kernel F's row: its time and its plain version's (``fold_chunk``
+    on the card) at the argmin cell's chunk (the 100M grid's first
+    131,072-lane chunk, kernel A's partials under an argmin sweep's final
+    front, k = 4) and its bound: the bytes it must read (the keep mask,
+    the blocks' partials, the k best blocks' lanes of each objective) at
+    the card's bandwidth.  ptxas must report no spills for it."""
+    from repro_torch.core import backend as B
+    from repro_torch.core import stream as ST
+    from repro_torch.core import sweep as SW
+    from repro_torch.kernels import sweep_grid as K
+
+    plan = ST.plan_stream(**grid_big, objectives=("avg_power",),
+                          track=("latency", "mipi_bytes_per_s"), device=dev)
+    spec = plan.spec
+    res = ST.stream_grid(plan=plan)
+    aux = make_aux(spec, (), res.front_values * np.asarray(plan.sign), dev)
+    T = B.device_tables(plan.S, dev)
+    axvals = SW.axes_to_device(plan.axis_vals, dev)
+    partials = K.sweep_grid_chunk(spec, T, axvals, aux, 0)
+    carry = B.carry_to_device(B.init_carry(spec), dev)
+    out = K.kernel.survivor_rows(spec, 1, dev)
+    run_f = lambda: K.sweep_grid_fold(spec, carry, partials, aux, 0,  # noqa
+                                      None, out, 0)
+    plain_f = lambda: K.fold_chunk_ref(spec, carry, partials, aux, 0)  # noqa
+    timed(times, "F", run_f, 50, "kernel F")
+    timed(times, "F_plain", plain_f, 20, "kernel F, plain")
+    host.update(F=host_ms(run_f, 50), F_plain=host_ms(plain_f, 20))
+    nf, d, Bn = len(spec.fields), spec.d, spec.n_blocks
+    nbytes = (spec.padded + Bn * nf * (8 + 8 + 4 + 8) + Bn * d * 8
+              + d * spec.nb * spec.block * 8)
+    f_ms, f_by = bound(nbytes, 0)
+    usage_f = next((u for name, u in usage.items() if "fold_kernel" in name),
+                   dict.fromkeys(PTXAS_KEYS))
+    if usage_f["registers"] is not None:
+        no_spills("kernel F", usage_f)
+    return {"name": "sweep_grid_fold", "route": "cuda",
+            "source": "src/repro_torch/kernels/sweep_grid/csrc/fold.cuh",
+            "replaces": "none: the reference's jnp fold "
+                        "(src/repro/core/backend.py), no Pallas kernel",
+            "launches": launches["F"], "max_abs_err": err["F"],
+            "ms": times["F"], "plain_ms": times["F_plain"],
+            "bound_ms": f_ms, "bound_by": f_by, "library_ms": None,
+            "ms_method": times["F_method"],
+            "plain_ms_method": times["F_plain_method"],
+            "plan": dataclasses.asdict(K.kernel.fold_plan(spec)),
+            "ptxas": usage_f, "fold_bytes": nbytes,
+            "survivors_kept": int(partials["keep"].sum())}
 
 
 def eval_kernel_usage(usage: dict) -> dict:
@@ -2289,6 +2505,7 @@ def reset_counts() -> None:
 
     K.sweep_grid_chunk.launches = 0
     K.sweep_grid_eval.launches = 0
+    K.sweep_grid_fold.launches = 0
     R.rbe_matmul_raw.launches = 0
     D.rmsnorm_fused.launches = 0
     E.flash_attention_fwd.launches = 0
@@ -2306,6 +2523,14 @@ def read_counts() -> dict:
             "C": R.rbe_matmul_raw.launches,
             "D": D.rmsnorm_fused.launches,
             "E": E.flash_attention_fwd.launches}
+
+
+def fold_launches() -> int:
+    """Kernel F's launches since ``reset_counts`` (graph replays
+    included)."""
+    from repro_torch.kernels import sweep_grid as K
+
+    return K.sweep_grid_fold.launches
 
 
 def p_bf16_launches() -> int:

@@ -18,10 +18,12 @@ engine runs through the same **chunk-evaluation contract**::
   registers itself on first request).  ``backend=None`` resolves to
   ``"cuda"`` on a CUDA device and ``"torch"`` on the CPU, and to
   ``"torch"`` on either for a scenario sweep (:func:`default_backend`).
-* :func:`fold_chunk` — backend-independent torch ops: folds one chunk's
-  block partials into the running carry (argmin with first-minimum
-  tie-breaking, counts, bounds, the exact per-objective top-k merge,
-  optional histograms) and compacts the dominance survivors.
+* :func:`fold_chunk` — torch ops: folds one chunk's block partials into
+  the running carry (argmin with first-minimum tie-breaking, counts,
+  bounds, the exact per-objective top-k merge, optional histograms) and
+  compacts the dominance survivors.  ``build_chunk_fold`` gives a
+  backend's fold of a dispatch's chunks: :func:`fold_chunks` (these ops)
+  by default, kernel F on the ``"cuda"`` backend, bit for bit the same.
 * :class:`ChunkStep` (:func:`build_step` / :func:`cached_step`) — ``K``
   consecutive chunk folds as one dispatch (the reference's ``lax.scan``
   scan fusion), over state kept on the device at fixed addresses.  On a
@@ -101,10 +103,22 @@ class EvalBackend:
         start)."""
         raise NotImplementedError
 
-    def graph_replayed(self, chunks: int) -> None:
-        """Account ``chunks`` chunk evaluations that a CUDA-graph replay
-        of :class:`ChunkStep` just launched (the kernel wrappers count
-        their eager launches themselves)."""
+    def build_chunk_fold(self, spec: "ChunkSpec", device) -> Callable:
+        """``fold(carry, aux, base, partials_at, scan) -> survivors``:
+        fold chunks ``0 .. scan - 1`` of a dispatch, in order, into the
+        device carry ``carry`` (updated in place).  Chunk ``j`` starts at
+        ``base + j * spec.chunk`` (``base`` a 0-d int64 tensor) and its
+        partials are ``partials_at(j * spec.chunk)``, the chunk
+        evaluation, run when the fold asks for them.  Returns the
+        survivors ``(flat, values, count)`` with a leading ``scan`` axis.
+        The default is :func:`fold_chunks`: :func:`fold_chunk`'s torch
+        ops."""
+        return functools.partial(fold_chunks, spec)
+
+    def graph_replayed(self, spec: "ChunkSpec", chunks: int) -> None:
+        """Account ``chunks`` chunk steps of ``spec`` that a CUDA-graph
+        replay of :class:`ChunkStep` just launched (the kernel wrappers
+        count their eager launches themselves)."""
 
 
 def register_backend(backend: EvalBackend) -> EvalBackend:
@@ -430,6 +444,22 @@ def fold_chunk(spec: ChunkSpec, carry, partials, aux, start):
     return new_carry, surv
 
 
+def fold_chunks(spec: ChunkSpec, carry, aux, base, partials_at, scan):
+    """The torch fold of a dispatch (:meth:`EvalBackend.build_chunk_fold`
+    's contract): :func:`fold_chunk` (this module's, looked up at each
+    call) over each chunk's partials in turn, the carry written back in
+    place once, and the survivors stacked along a leading ``scan``
+    axis."""
+    new, survs = carry, []
+    for j in range(scan):
+        off = j * spec.chunk
+        new, surv = fold_chunk(spec, new, partials_at(off), aux, base + off)
+        survs.append(surv)
+    for key, v in new.items():
+        carry[key].copy_(v)
+    return tuple(torch.stack(parts) for parts in zip(*survs))
+
+
 def carry_to_device(carry: dict, device) -> dict:
     """A host carry (:func:`init_carry` layout) as device tensors."""
     return {k: torch.as_tensor(np.array(v), device=device)
@@ -530,8 +560,11 @@ class ChunkStep:
     ``scan``, so the results are bitwise the same.
 
     On a CUDA device the ``scan`` folds (the backend's chunk evaluation
-    and :func:`fold_chunk`'s ops) are captured once, at construction,
-    as one ``torch.cuda.CUDAGraph`` after a warm-up run on a side stream
+    and its fold, :meth:`EvalBackend.build_chunk_fold`: kernels A and F
+    on the ``"cuda"`` backend, A and :func:`fold_chunk`'s ops where F
+    does not serve the spec, the torch ops on ``"torch"``) are captured
+    once, at construction, as one ``torch.cuda.CUDAGraph`` after a
+    warm-up run on a side stream
     (which makes the launchers' one-time attribute calls and the
     libraries' workspaces happen outside the capture); each dispatch
     writes :attr:`base` and replays it.  A capture that fails raises:
@@ -559,6 +592,7 @@ class ChunkStep:
         self.stream = (torch.cuda.Stream(dev)
                        if own_stream and dev.type == "cuda" else None)
         self._eval = be.build_chunk_eval(spec, dev)
+        self._fold_chunks = be.build_chunk_fold(spec, dev)
         self.axvals = SW.axes_to_device(
             [np.zeros(n) for n in spec.shape], dev)
         d = spec.d
@@ -584,16 +618,10 @@ class ChunkStep:
                 self._capture()
 
     def _fold(self):
-        spec, carry, survs = self.spec, self.carry, []
-        for j in range(self.scan):
-            off = j * spec.chunk
-            partials = self._eval(self.axvals, self.aux, off, self.base)
-            carry, surv = fold_chunk(spec, carry, partials, self.aux,
-                                     self.base + off)
-            survs.append(surv)
-        for key, v in carry.items():
-            self.carry[key].copy_(v)
-        return tuple(torch.stack(parts) for parts in zip(*survs))
+        return self._fold_chunks(
+            self.carry, self.aux, self.base,
+            lambda off: self._eval(self.axvals, self.aux, off, self.base),
+            self.scan)
 
     def _capture(self) -> None:
         # Warm up on a side stream (first launches set kernel attributes
@@ -640,7 +668,7 @@ class ChunkStep:
                 return self._fold()
             self.graph.replay()
         self.replays += 1
-        self.backend.graph_replayed(self.scan)
+        self.backend.graph_replayed(self.spec, self.scan)
         return self._out
 
     def carry_to_host(self) -> dict:

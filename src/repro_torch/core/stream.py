@@ -931,7 +931,8 @@ def stream_grid(cuts: Optional[Iterable[int]] = None,
 
     spent = dict.fromkeys(("total_s", "probe_s", "step_build_s",
                            "step_builds", "dispatch_s", "device_wait_s",
-                           "host_merge_s", "fallback_s", "survivors"),
+                           "host_merge_s", "fallback_s", "survivors",
+                           "fold_kernel_chunks"),
                           0.0)
     with _sweep("stream_grid", "total_s", spent) as whole:
         t0 = whole.start
@@ -1334,6 +1335,9 @@ def stream_grid(cuts: Optional[Iterable[int]] = None,
         # their warm-up and graph capture), not found in the step cache.
         # survivors: candidate rows that reached the host buffer (the
         # steps' compacted survivors and the rows fallbacks re-derived).
+        # fold_kernel_chunks: chunks the steps' graph replays folded with
+        # the "cuda" backend's fold kernel (0 where fold_chunk's torch
+        # ops fold them).
         **spent,
         **counters,
     }
@@ -1464,7 +1468,7 @@ def merge_results(parts: Sequence[StreamResult]) -> StreamResult:
               "stragglers", "step_timeouts", "fallback_chunks",
               "n_chunks", "host_merge_s", "device_wait_s", "dispatch_s",
               "fallback_s", "probe_s", "step_build_s", "step_builds",
-              "survivors")
+              "survivors", "fold_kernel_chunks")
     total_s = max(float(r.stats.get("total_s", 0.0)) for r in parts)
     stats = {
         "n_configs": float(n_total),

@@ -14,6 +14,11 @@
 // kernel.py::_flat_call / sweep_grid_eval: Eq. 1-11 at explicit flat
 // indices, writing the requested channels as an (n_fields, n) matrix.
 //
+// Kernel F (fold_kernel, fold.cuh, with its note) folds kernel A's
+// partials into the chunk step's carry and compacts the survivors: one
+// launch a chunk (a block for each independent part), right after A in
+// the step's graph.
+//
 // What bounds them on an H100: per configuration ~270 float64
 // instructions of Eq. 1-11, ten IEEE divide sequences included (kernel A
 // adds ~180 for the dominance filter and the reductions at d = 3),
@@ -106,6 +111,7 @@
 
 #include <climits>
 
+#include "fold.cuh"
 #include "sweep_grid.cuh"
 
 // Lanes a thread and resident blocks an SM of kernel A: set by the build
@@ -782,6 +788,83 @@ int sweep_grid_eval_launch(const long long* iargs, int n_i,
           ? launch_eval<uint32_t>(a, blocks, t, c, smem, stream)
           : launch_eval<uint64_t>(a, blocks, t, c, smem, stream);
   return static_cast<int>(e);
+}
+
+int sweep_grid_fold_launch(const long long* iargs, int n_i,
+                           const double* dargs, int n_d, int device,
+                           void* stream) {
+  Reader<long long> r{iargs, n_i, 0, false};
+  Reader<double> dr{dargs, n_d, 0, false};
+  FoldArgs a;
+  a.off = r.next();
+  a.base = as_ptr<const long long>(r.next());
+  a.chunk = r.next();
+  a.padded = r.next();
+  a.cap = r.next();
+  a.n_blocks = static_cast<int>(r.next());
+  a.W = static_cast<int>(r.next());
+  a.nf = static_cast<int>(r.next());
+  a.d = static_cast<int>(r.next());
+  a.k = static_cast<int>(r.next());
+  a.nb = static_cast<int>(r.next());
+  a.bins = static_cast<int>(r.next());
+  a.bmin = as_ptr<const double>(r.next());
+  a.bidx = as_ptr<const long long>(r.next());
+  a.cnt = as_ptr<const int>(r.next());
+  a.bmax = as_ptr<const double>(r.next());
+  a.sgmin = as_ptr<const double>(r.next());
+  a.Fsg = as_ptr<const double>(r.next());
+  a.Fd = as_ptr<const double>(r.next());
+  a.valid = as_ptr<const bool>(r.next());
+  a.keep = as_ptr<const unsigned char>(r.next());
+  a.edges = as_ptr<const double>(r.next());
+  a.min_val = as_ptr<double>(r.next());
+  a.min_idx = as_ptr<long long>(r.next());
+  a.finite = as_ptr<long long>(r.next());
+  a.fmin = as_ptr<double>(r.next());
+  a.fmax = as_ptr<double>(r.next());
+  a.topk_val = as_ptr<double>(r.next());
+  a.topk_idx = as_ptr<long long>(r.next());
+  a.hist = as_ptr<long long>(r.next());
+  a.flat = as_ptr<long long>(r.next());
+  a.vals = as_ptr<double>(r.next());
+  a.count = as_ptr<long long>(r.next());
+  const long long threads = r.next();           // the plan
+  const long long blocks = r.next();
+  const long long lists = r.next();
+  const long long smem = r.next();
+  if (!r.done() || !dr.done()) return ERR_ARGS;
+  if (a.n_blocks < 1 || a.W < 1 || a.W > MAX_W ||
+      a.padded != static_cast<long long>(a.n_blocks) * a.W ||
+      a.chunk < 1 || a.chunk > a.padded || a.nf < 1 || a.nf > N_FIELDS ||
+      a.d < 1 || a.d > a.nf || a.k < 1 || a.k > FOLD_MAX_K ||
+      a.nb != (a.k < a.n_blocks ? a.k : a.n_blocks) || a.bins < 0 ||
+      a.bins > FOLD_MAX_BINS ||
+      (a.bins > 0 && (a.edges == nullptr || a.hist == nullptr)) ||
+      a.cap < 1 || (reinterpret_cast<uintptr_t>(a.keep) & 15) != 0)
+    return ERR_RANGE;
+  // The plan: a block of FOLD_THREADS threads for each part of the fold,
+  // fold_lists(k) pairs a lane in the selections, and the shared memory
+  // the warps' lists (or the histogram's counters) take.
+  if (threads != FOLD_THREADS || blocks != fold_blocks(a.d, a.bins) ||
+      lists != fold_lists(a.k) || smem != fold_smem_bytes(a.k, a.bins))
+    return ERR_PLAN;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  auto kernel = lists == 1 ? fold_kernel<1> : fold_kernel<2>;
+  // Raised once per larger size, so a launch recorded into a CUDA graph
+  // after a warm-up launch sets no attribute.
+  static long long smem_set[2] = {48 * 1024, 48 * 1024};
+  if (smem > smem_set[lists - 1]) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_set[lists - 1] = smem;
+  }
+  kernel<<<fold_blocks(a.d, a.bins), FOLD_THREADS, static_cast<size_t>(smem),
+           static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* sweep_grid_error_string(int code) {

@@ -35,6 +35,15 @@ agree to the bit, and both are compiled with ``--fmad=false`` and IEEE
 division so they compute what the plain PyTorch version
 (:mod:`.ref`) computes, operation for operation.
 
+A third kernel, F (:func:`sweep_grid_fold`, ``csrc/fold.cuh``), folds
+kernel A's partials into the chunk step's carry in place and compacts
+the chunk's survivors: what :func:`repro_torch.core.backend.fold_chunk`
+computes with torch ops, bit for bit, in one launch a chunk (a block
+for each of its independent parts).  It replaces no Pallas kernel (the
+reference folds with jnp ops).  :func:`fold_plan` gives its launch;
+:data:`FOLD_MAX_K` and :data:`FOLD_MAX_BINS` bound the specs it serves
+(:func:`fold_runs`).
+
 The library is built with ``nvcc`` for ``sm_90a`` from the sources in
 the checkout at first use (never at import), into ``build/`` at the
 root of the checkout, and loaded with ``ctypes``.  A wrapper given CPU
@@ -85,16 +94,29 @@ SM_REGISTERS, SM_THREADS = 65536, 2048
 SMEM_PER_BLOCK, SMEM_PER_SM, SMEM_RESERVED = 232_448, 233_472, 1024
 MAX_REGISTERS = 255
 
+#: Kernel F: threads of each of its blocks.  The build takes it from
+#: here.
+FOLD_THREADS = 512
+#: The largest top-k table and histogram kernel F serves (``FOLD_MAX_K``
+#: and ``FOLD_MAX_BINS`` in ``csrc/fold.cuh``): a spec above either keeps
+#: ``fold_chunk``'s torch ops.
+FOLD_MAX_K = 64
+FOLD_MAX_BINS = 16384
+#: Kernel F's static shared memory: the selected blocks, and the warps'
+#: survivor counts and block-min partials.
+FOLD_STATIC_SMEM = 4 * FOLD_MAX_K + (4 + 8) * (FOLD_THREADS // 32)
+
 #: The kernels' library.  ``--fmad=false`` keeps every float64 add and
 #: multiply a separate IEEE operation, as in the plain version.
 LIBRARY = Library("sweep_grid", CSRC, "sweep_grid.cu",
-                  ("sweep_grid.cu", "sweep_grid.cuh"),
+                  ("sweep_grid.cu", "sweep_grid.cuh", "fold.cuh"),
                   BASE_FLAGS + ("--fmad=false",
                                 f"-DCHUNK_LANES={CHUNK_LANES}",
                                 f"-DCHUNK_MIN_BLOCKS={CHUNK_MIN_BLOCKS}",
                                 f"-DEVAL_THREADS={EVAL_THREADS}",
                                 f"-DEVAL_CONFIGS={EVAL_CONFIGS}",
-                                f"-DEVAL_MIN_BLOCKS={EVAL_MIN_BLOCKS}"))
+                                f"-DEVAL_MIN_BLOCKS={EVAL_MIN_BLOCKS}",
+                                f"-DFOLD_THREADS={FOLD_THREADS}"))
 
 #: Tables the kernels read, in the order of ``enum Table`` in
 #: ``csrc/sweep_grid.cuh``.
@@ -175,6 +197,59 @@ def _chunk_plan(W: int, d: int, nf: int, rows: int, bins: int,
                         SMEM_PER_SM // (smem + SMEM_RESERVED))
     return ChunkPlan(threads, CHUNK_LANES, blocks, smem, registers,
                      blocks_per_sm)
+
+
+@dataclasses.dataclass(frozen=True)
+class FoldPlan:
+    """How kernel F folds one chunk: ``blocks`` blocks of ``threads``
+    threads, a part of the fold each (the top-k of each objective, the
+    argmin, the survivors, and each objective's histogram where there are
+    bins); in a top-k selection each warp keeps a sorted list of ``32 *
+    lists`` (value, index) pairs in registers (``lists`` a lane: 1 for k
+    <= 32, else 2); ``smem_bytes`` of dynamic shared memory (a list a
+    warp, or a histogram's counters where they take more)."""
+
+    threads: int
+    blocks: int
+    lists: int
+    smem_bytes: int
+
+
+def fold_lists(k: int) -> int:
+    """Pairs a lane holds in kernel F's selections (``fold_lists`` in
+    ``csrc/fold.cuh``): 1 for k <= 32, else 2."""
+    return 1 if k <= 32 else 2
+
+
+def fold_smem_bytes(k: int, bins: int) -> int:
+    """Kernel F's dynamic shared memory (``fold_smem_bytes`` in
+    ``csrc/fold.cuh``): a list of ``32 * fold_lists(k)`` (value, index)
+    pairs for each of its warps, or 4 bytes a histogram bin where that
+    is more."""
+    return max(16 * (FOLD_THREADS // 32) * 32 * fold_lists(k), 4 * bins)
+
+
+def fold_runs(spec) -> bool:
+    """Whether kernel F folds ``spec``'s chunks: a top-k of at most
+    :data:`FOLD_MAX_K` and at most :data:`FOLD_MAX_BINS` histogram bins."""
+    return spec.k <= FOLD_MAX_K and spec.hist_bins <= FOLD_MAX_BINS
+
+
+def fold_plan(spec) -> FoldPlan:
+    """Kernel F's launch for ``spec``: a block of :data:`FOLD_THREADS`
+    threads for each part of the fold, the pairs a lane its selections
+    need for ``spec.k``, and their shared memory."""
+    return _fold_plan(spec.d, spec.k, spec.hist_bins)
+
+
+@functools.lru_cache(maxsize=256)
+def _fold_plan(d: int, k: int, bins: int) -> FoldPlan:
+    if not (1 <= k <= FOLD_MAX_K and 0 <= bins <= FOLD_MAX_BINS):
+        raise ValueError(f"kernel F folds a top-k of 1 to {FOLD_MAX_K} and "
+                         f"at most {FOLD_MAX_BINS} histogram bins, not k = "
+                         f"{k} and {bins} bins")
+    return FoldPlan(FOLD_THREADS, d + 2 + (d if bins else 0),
+                    fold_lists(k), fold_smem_bytes(k, bins))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -259,7 +334,8 @@ def div_magic(d: int, bits: int) -> tuple[int, int]:
 @functools.lru_cache(maxsize=1)
 def _lib():
     lib = LIBRARY.load()
-    for fn in (lib.sweep_grid_chunk_launch, lib.sweep_grid_eval_launch):
+    for fn in (lib.sweep_grid_chunk_launch, lib.sweep_grid_eval_launch,
+               lib.sweep_grid_fold_launch):
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -457,3 +533,99 @@ def sweep_grid_eval(T: A.DeviceTables, shape, fields, axvals, flat,
 
 
 sweep_grid_eval.launches = 0
+
+
+def survivor_rows(spec, rows: int, device) -> tuple:
+    """Empty survivor outputs of ``rows`` chunks, the layout of a chunk
+    step's: ``(flat (rows, cap) int64, values (rows, cap, d) float64,
+    count (rows,) int64)``, ``cap`` the spec's ``survivor_cap``."""
+    cap = spec.survivor_cap
+    return (torch.empty((rows, cap), dtype=torch.int64, device=device),
+            torch.empty((rows, cap, spec.d), dtype=torch.float64,
+                        device=device),
+            torch.empty((rows,), dtype=torch.int64, device=device))
+
+
+def sweep_grid_fold(spec, carry: dict, partials: dict, aux: dict,
+                    start: int, base=None, out=None, row: int = 0) -> tuple:
+    """Kernel F: fold the partials of chunk ``[base + start, base + start
+    + spec.chunk)`` (kernel A's) into the device carry ``carry``
+    (:func:`repro_torch.core.backend.init_carry`'s keys), in place, and
+    write the chunk's survivors into row ``row`` of ``out``
+    (:func:`survivor_rows`; one row made when ``None``), which it
+    returns.  ``base`` is an optional 0-d int64 tensor on the device,
+    read by the kernel.  Row ``row`` then holds what ``fold_chunk``
+    returns in its first ``min(count, cap)`` entries; the kernel leaves
+    the rest unwritten.  CPU tensors run the plain version
+    (``fold_chunk``), which writes the whole row.  A launch recorded
+    into a CUDA graph is not counted: the graph's replays count theirs
+    (:meth:`CudaGridBackend.graph_replayed`)."""
+    dev = partials["bmin"].device
+    if out is None:
+        out = survivor_rows(spec, 1, dev)
+    if dev.type == "cpu":
+        new, surv = ref.fold_chunk_ref(
+            spec, carry, partials, aux, start if base is None
+            else base + start)
+        for key, v in new.items():
+            carry[key].copy_(v)
+        for o, s in zip(out, surv):
+            o[row].copy_(s)
+        return out
+    if dev.type != "cuda":
+        raise ValueError(f"sweep_grid_fold runs on cuda or cpu, not {dev}")
+    plan = fold_plan(spec)
+    nf, d, k, bins = len(spec.fields), spec.d, spec.k, spec.hist_bins
+    Bn, CP, cap = spec.n_blocks, spec.padded, spec.survivor_cap
+    f64, i64 = torch.float64, torch.int64
+    for key, dtype, shape in (
+            ("bmin", f64, (nf, Bn)), ("bidx", i64, (nf, Bn)),
+            ("cnt", torch.int32, (nf, Bn)), ("bmax", f64, (nf, Bn)),
+            ("sgmin", f64, (d, Bn)), ("Fsg", f64, (d, CP)),
+            ("Fd", f64, (d, CP)), ("valid", torch.bool, (d, CP)),
+            ("keep", torch.bool, (CP,))):
+        _check(partials[key], key, dtype, dev, shape)
+    carry_keys = [("min_val", f64, (nf,)), ("min_idx", i64, (nf,)),
+                  ("finite", i64, (nf,)), ("fmin", f64, (nf,)),
+                  ("fmax", f64, (nf,)), ("topk_val", f64, (d, k)),
+                  ("topk_idx", i64, (d, k))]
+    edges = hist = 0
+    if bins:
+        carry_keys.append(("hist", i64, (d, bins)))
+        _check(aux["hist_edges"], "hist_edges", f64, dev, (d, bins + 1))
+        edges, hist = aux["hist_edges"].data_ptr(), carry["hist"].data_ptr()
+    for key, dtype, shape in carry_keys:
+        _check(carry[key], f"carry {key}", dtype, dev, shape)
+    if partials["keep"].data_ptr() % 16:
+        raise ValueError("kernel F reads the keep mask in 16-byte words: "
+                         "it must start 16-byte aligned")
+    flat, vals, count = out
+    rows = flat.shape[0]
+    _check(flat, "survivor flat", i64, dev, (rows, cap))
+    _check(vals, "survivor values", f64, dev, (rows, cap, d))
+    _check(count, "survivor count", i64, dev, (rows,))
+    if not 0 <= row < rows:
+        raise ValueError(f"row {row} outside the {rows} survivor rows")
+    base_ptr = 0
+    if base is not None:
+        _check(base, "base", i64, dev, ())
+        base_ptr = base.data_ptr()
+    iargs = [int(start), base_ptr, spec.chunk, CP, cap, Bn,
+             spec.block, nf, d, k, spec.nb, bins,
+             *(partials[key].data_ptr() for key in (
+                 "bmin", "bidx", "cnt", "bmax", "sgmin", "Fsg", "Fd",
+                 "valid", "keep")),
+             edges,
+             *(carry[key].data_ptr() for key in (
+                 "min_val", "min_idx", "finite", "fmin", "fmax",
+                 "topk_val", "topk_idx")),
+             hist, flat[row].data_ptr(), vals[row].data_ptr(),
+             count[row].data_ptr(), plan.threads, plan.blocks, plan.lists,
+             plan.smem_bytes]
+    _launch(_lib().sweep_grid_fold_launch, iargs, [], dev)
+    if not torch.cuda.is_current_stream_capturing():
+        sweep_grid_fold.launches += 1
+    return out
+
+
+sweep_grid_fold.launches = 0

@@ -137,6 +137,37 @@ def test_fold_chunk_matches_reference(grid, ref, case):
     assert_close(vals[:n], rvals[:n], what="survivor values")
 
 
+def _same_bits(a, b):
+    if a.dtype == torch.float64:
+        a, b = a.view(torch.int64), b.view(torch.int64)
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_cpu_fold_wrapper_is_fold_chunk(grid, ref, case):
+    """Kernel F's wrapper on CPU tensors: ``fold_chunk`` into the carry in
+    place and the survivors into the asked row, no launch counted; with
+    the start split into a device base and an offset too."""
+    spec, T, axvals, aux = _port_inputs(grid, ref[case])
+    start = CASES[case]["start"]
+    partials = sweep_grid.chunk_partials_ref(spec, T, axvals, aux, start)
+    fresh = lambda: B.carry_to_device(B.init_carry(spec), "cpu")  # noqa
+    want_carry, want_surv = B.fold_chunk(spec, fresh(), partials, aux, start)
+    n = sweep_grid.sweep_grid_fold.launches
+    for base, off, row in ((None, start, 0),
+                           (torch.tensor(start - spec.chunk), spec.chunk, 1)):
+        carry = fresh()
+        out = sweep_grid.kernel.survivor_rows(spec, 2, "cpu")
+        assert sweep_grid.sweep_grid_fold(spec, carry, partials, aux, off,
+                                          base, out, row) is out
+        for k, v in want_carry.items():
+            assert _same_bits(carry[k], v), k
+        for got, want in zip(out, want_surv):
+            assert _same_bits(got[row], want)
+    _compare(carry, ref[case]["carry"])
+    assert sweep_grid.sweep_grid_fold.launches == n
+
+
 def test_init_carry_matches_reference_layout(grid, ref):
     spec, *_ = _port_inputs(grid, ref["c4096_d2_cons_hist"])
     carry = B.init_carry(spec)
