@@ -1,12 +1,20 @@
-"""The control of ``correct``: the plain reference computed in float32,
-put in the program's place and held to the float64 reference.
+"""The control of ``correct``: the plain reference computed one
+precision lower than the configuration states, put in the program's
+place and held to the reference.
 
     python3 -m portbench.control --workload <cell> --seeds 1,2,3
+    python3 -m portbench.control --pair <config>,<traffic> --seeds 1,2,3 \
+        [--seconds 20]
 
-prints, for each seed, the numbers of :mod:`portbench.check` for the
-cell's first window sweep at the cell's own size (on the card when there
-is one).  The limits of a configuration lie between these readings and
-the largest that sound runs of the program give.
+prints, for each seed, the numbers of the configuration's check at the
+cell's own size (on the card when there is one).  A sweep: the float32
+reference against the float64 one on the cell's first window sweep
+(:mod:`portbench.check`).  A configuration of kind ``lm``: a short
+window of the program's requests (``--seconds``), then the reference at
+float8 against the float32 one on the requests a run checks, at the
+same prompts and served tokens, each row's token the float8 one's first
+(:mod:`portbench.lm_check`).  The limits of a configuration lie between
+these readings and the largest that sound runs of the program give.
 """
 
 from __future__ import annotations
@@ -18,7 +26,7 @@ import time
 
 import torch
 
-from . import cells, check, traffic
+from . import cells, check, lm_check, traffic
 from .reference import reduce
 
 
@@ -37,22 +45,39 @@ def control_numbers(cell: cells.Cell, seed: int, device,
     return check.numbers(low, ref, g64)
 
 
+def lm_control_numbers(cell: cells.Cell, seed: int, device,
+                       seconds: float, root=cells.ROOT) -> dict:
+    """The numbers of the float8 reference against the float32 one on
+    the requests that a window of ``seconds`` under ``seed`` checks."""
+    from . import lm
+    out = lm.run(cell, seed, seconds, False, device, root,
+                 time.perf_counter(), control=True)
+    return {k: v["value"] for k, v in out["checks"].items()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--workload", required=True)
+    which = ap.add_mutually_exclusive_group(required=True)
+    which.add_argument("--workload")
+    which.add_argument("--pair", help="<config>,<traffic>: not a cell")
     ap.add_argument("--seeds", required=True,
                     help="comma-separated seeds")
+    ap.add_argument("--seconds", type=float, default=0.0,
+                    help="an lm configuration's window")
     args = ap.parse_args(argv)
-    cell = cells.resolve(args.workload)
+    cell = (cells.resolve(args.workload) if args.workload
+            else cells.assemble(*args.pair.split(",")))
+    lm_kind = cell.config.get("kind") == "lm"
+    verdict = lm_check.verdict if lm_kind else check.verdict
     device = "cuda" if torch.cuda.is_available() else "cpu"
     for seed in (int(s) for s in args.seeds.split(",")):
         t0 = time.perf_counter()
-        found = control_numbers(cell, seed, device)
-        print(json.dumps({"workload": args.workload, "seed": seed,
+        found = (lm_control_numbers(cell, seed, device, args.seconds)
+                 if lm_kind else control_numbers(cell, seed, device))
+        print(json.dumps({"workload": cell.name, "seed": seed,
                           "device": device, "numbers": found,
                           "limits": cell.config["limits"],
-                          "fails": not check.verdict(
-                              found, cell.config["limits"]),
+                          "fails": not verdict(found, cell.config["limits"]),
                           "seconds": time.perf_counter() - t0}),
               flush=True)
     return 0

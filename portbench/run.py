@@ -13,9 +13,10 @@ passed; the rate is over every sweep and the whole window.  With
 ``--trace 1`` the window is the cell's first ``trace_sweeps`` sweeps
 under the profiler, and the line carries the per-layer metrics.  After
 the window a sample of the sweeps, drawn from the seed, is held to the
-plain reference (:mod:`portbench.check`).  The last line of standard
-output is the result; the numbers compared, with their limits, end both
-it and standard error.
+plain reference (:mod:`portbench.check`).  A configuration of kind
+``lm`` runs a language model's requests instead (:mod:`portbench.lm`).
+The last line of standard output is the result; the numbers compared,
+with their limits, end both it and standard error.
 """
 
 from __future__ import annotations
@@ -83,7 +84,11 @@ def work_per_sweep(config: dict, trf: dict) -> float:
 def run(cell: cells.Cell, seed: int, seconds: float, trace: bool,
         device="cuda", root=cells.ROOT) -> dict:
     """One run of ``cell``; returns the result line's fields (without the
-    device) and the context its metrics read."""
+    device) and the context its metrics read.  A configuration of kind
+    ``lm`` is run by :func:`portbench.lm.run`."""
+    if cell.config.get("kind") == "lm":
+        from . import lm
+        return lm.run(cell, seed, seconds, trace, device, root, T0)
     import torch
 
     from . import program, tracing
@@ -170,6 +175,26 @@ def run(cell: cells.Cell, seed: int, seconds: float, trace: bool,
             "sweeps": sweeps}
 
 
+def sweep_log(out: dict) -> list:
+    """Standard error's lines on a sweep run: each sweep's stats, the
+    trace's counts and the sweeps checked."""
+    lines = []
+    for i, s in enumerate(out["sweeps"]):
+        st = s["stats"]
+        lines.append(
+            f"portbench: sweep {i}: plan {s['plan_s']:.4f} s, stream "
+            f"{st['total_s']:.4f} s (merge {st['host_merge_s']:.4f}, "
+            f"wait {st['device_wait_s']:.4f}, dispatch "
+            f"{st['dispatch_s']:.4f}), replays "
+            f"{st['graph_replays']:.0f} of K {s['scan']}, fallbacks "
+            f"{st['fallback_chunks']:.0f}, front {s['front_idx'].size}")
+    if out["trace"] is not None:
+        lines.append(f"portbench: trace counts {out['trace']['counts']}")
+    lines.append(f"portbench: checked sweeps {out['checked']} in "
+                 f"{out['check_s']:.3f} s; readings {out['readings']}")
+    return lines
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--workload", required=True)
@@ -197,22 +222,13 @@ def main(argv=None) -> int:
         print(f"portbench: the run loaded {bad}", file=sys.stderr)
         return 1
     if out["error"]:
-        print(f"portbench: a sweep failed: {out['error']}", file=sys.stderr)
-    for i, s in enumerate(out["sweeps"]):
-        st = s["stats"]
-        print(f"portbench: sweep {i}: plan {s['plan_s']:.4f} s, stream "
-              f"{st['total_s']:.4f} s (merge {st['host_merge_s']:.4f}, "
-              f"wait {st['device_wait_s']:.4f}, dispatch "
-              f"{st['dispatch_s']:.4f}), replays "
-              f"{st['graph_replays']:.0f} of K {s['scan']}, fallbacks "
-              f"{st['fallback_chunks']:.0f}, front {s['front_idx'].size}",
-              file=sys.stderr)
-    if out["trace"] is not None:
-        print(f"portbench: trace counts {out['trace']['counts']}",
-              file=sys.stderr)
-    print(f"portbench: checked sweeps {out['checked']} in "
-          f"{out['check_s']:.3f} s; readings {out['readings']}",
-          file=sys.stderr)
+        print(f"portbench: a run failed: {out['error']}", file=sys.stderr)
+    if cell.config.get("kind") == "lm":
+        from .lm import log
+    else:
+        log = sweep_log
+    for line in log(out):
+        print(line, file=sys.stderr)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": cell.chips,
               "memory_peak_bytes": out["memory_peak_bytes"]}

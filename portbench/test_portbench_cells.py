@@ -46,6 +46,8 @@ def test_benchmark_json_keeps_the_contract():
         assert m["source"] in ("host_clock", "device_trace")
     for m in BENCH["per_layer"]:
         assert m["moves"] in e2e and set(m["workloads"]) <= set(CELLS)
+    for m in BENCH["end_to_end"] + BENCH["per_layer"]:
+        assert m.get("workloads", CELLS), m["name"]
         assert re.match(r"^[A-Za-z0-9_/%.-]{1,16}$", m["unit"])
     for c in BENCH["configs"]:
         assert (ROOT / c["file"]).is_file() and c["reduced"] == []

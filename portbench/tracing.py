@@ -6,8 +6,9 @@ sleep kernel that the host waits out, since the records nearest a
 trace's start were lost on some machines.  The harness marks the window
 and each sweep's calls with ``record_function`` ranges (``portbench.*``);
 their device mirrors are no device work.  :func:`read` checks the trace
-against the program's own counts (graph replays, kernel A and B
-launches) and refuses a trace that lost records.
+against the program's own counts (graph replays, and the launches of
+the kernels that the configuration's kind runs: A and B for a sweep, D
+and E for an LM) and refuses a trace that lost records.
 """
 
 from __future__ import annotations
@@ -19,6 +20,10 @@ WINDOW = "portbench.window"
 _MIRRORS = ("portbench.", "ProfilerStep")
 KERNEL_A = "chunk_kernel"
 KERNEL_B = "eval_kernel"
+#: The kernels whose device records :func:`read` counts, by the label
+#: the caller's ``expect`` gives them: a substring of the record's name.
+KERNELS = {"A": KERNEL_A, "B": KERNEL_B, "D": "rmsnorm_kernel",
+           "E": "flash_fwd_kernel"}
 GRAPH_LAUNCH = "cudaGraphLaunch"
 
 
@@ -92,11 +97,12 @@ def read(records: list, expect: dict) -> dict:
     """Device busy time, kernel times and idle gaps inside the window.
 
     ``expect`` holds the program's own counts over the window: ``graph
-    replays``, and for a kernel sweep ``A`` and ``B`` launches.  The
-    trace's cudaGraphLaunch calls must equal the replays, and every
-    replay must show the same number of kernels (a replay of one graph
-    runs the same kernels); kernel A's and B's records must equal their
-    launches."""
+    replays``, and the launches of each kernel of :data:`KERNELS` that
+    the run counts (``A`` and ``B`` on a kernel sweep, ``D`` and ``E`` on
+    an LM).  The trace's cudaGraphLaunch calls must equal the replays,
+    and every replay must show the same number of kernels (a replay of
+    one graph runs the same kernels); each kernel's records must equal
+    its launches."""
     win = [r for r in records if not r[1] and r[0] == WINDOW]
     if len(win) != 1:
         raise TraceIncomplete(f"{len(win)} window ranges in the trace")
@@ -120,15 +126,14 @@ def read(records: list, expect: dict) -> dict:
         if corr in per_launch:
             per_launch[corr] += 1
             graph_s += (e - s) / 1e9
-    n_a = sum(1 for d in device if KERNEL_A in d[0])
-    n_b = sum(1 for d in device if KERNEL_B in d[0])
     found = {"graph replays": len(launches),
              "kernels a replay": sorted(set(per_launch.values()))}
     want = {"graph replays": expect["graph replays"],
             "kernels a replay": found["kernels a replay"][:1]}
-    if "A" in expect:
-        found.update(A=n_a, B=n_b)
-        want.update(A=expect["A"], B=expect["B"])
+    for label, n in expect.items():
+        if label in KERNELS:
+            found[label] = sum(1 for d in device if KERNELS[label] in d[0])
+            want[label] = n
     if found != want or 0 in found["kernels a replay"]:
         raise TraceIncomplete(f"trace {found} != program {want}")
     busy = _union((s, e) for _, _, s, e in device)
